@@ -1,0 +1,437 @@
+"""RRT: regional re-embedding transformer, PyTorch port (c16_r50 subset).
+
+Counterpart of `rrtmil_tpu/models/rrt.py` for what `config.c16_r50()` uses:
+InnerAttention with 1-D 'attn' EPEG or none, RegionAttention,
+CrossRegionAttention with phi, the fused CR-MSA attention, TransLayer,
+RRTEncoder and RRTMIL.  Parameters keep the flax tree's names (state_dict
+keys are the flax paths joined by '.', see convert.py); tensors keep torch's
+layouts (Linear weight (out, in)); the EPEG taps are stored as `pe_weight`
+(H, k), the layout the kernels take.
+
+Two structures, as in the JAX package:
+
+* fused (backend 'auto' or 'pallas'): the R-MSA layer is one call of K1
+  (`region_layer_fused`), the CR-MSA layer is K3 -> the cross-region
+  InnerAttention (K5) -> K8 with the encoder-final LayerNorm and the global
+  shortcut.  On a CUDA tensor these launch the hand-written kernels, on a
+  CPU tensor they run the kernels' plain versions.
+* unfused (backend 'xla'): the module-by-module formulation of the JAX
+  package's XLA path.  On a CUDA tensor every InnerAttention still runs K5
+  (as the JAX package's unfused path does on a TPU); the cross-region
+  compress/redistribute of this structure (K12/K13) is not ported, so
+  CrossRegionAttention refuses CUDA tensors.
+
+The JAX package's TPU gates (layer_fusable_geometry, crmsa_fusable_geometry,
+legal_cb) have no counterpart: the kernels take every c16_r50 geometry and
+raise on a geometry they cannot take.  Variants outside the slice raise
+NotImplementedError pointing at ROADMAP.md.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import (CRMSAConfig, InnerAttentionConfig, RMSAConfig,
+                      RRTEncoderConfig, RRTMILConfig, TransLayerConfig)
+from ..ops.kernels.common import ln_fast
+from ..ops.kernels.crmsa_kernels import (crmsa_compress_grid,
+                                         crmsa_redistribute_grid_ln)
+from ..ops.kernels.region_block import region_block_fused
+from ..ops.kernels.region_layer import region_layer_fused
+from ..ops.regions import grid_geometry, region_partition, region_reverse
+from ..utils.device import resolve_device
+from ..utils.inits import crmsa_phi_init_, xavier_normal_
+from .pool import DAttention, MeanPool
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _todo(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md "
+                               f"queue 1 item 8 and queue 2")
+
+
+def _fit_length(x: torch.Tensor, target: int) -> torch.Tensor:
+    """Slice or zero-pad the token axis of (B, N, C) to `target`."""
+    n = x.shape[1]
+    if n == target:
+        return x
+    if n > target:
+        return x[:, :target]
+    return F.pad(x, (0, 0, 0, target - n))
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm(dtype=float32): fast variance, eps 1e-6, fp32 out."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        return ln_fast(x.float(), self.weight, self.bias)
+
+
+def _epeg_logit_conv(attn, w, bias):
+    """(k, 1) depthwise conv along the query axis of (R, H, P, P) logits,
+    zero padding k//2 (a cross-correlation, rmsa.py:83,106-108)."""
+    kk = w.shape[1]
+    pad = kk // 2
+    n = attn.shape[2]
+    padded = F.pad(attn, (0, 0, pad, pad))
+    pe = torch.zeros_like(attn)
+    for t in range(kk):
+        pe = pe + w[None, :, t, None, None] * padded[:, :, t:t + n]
+    if bias is not None:
+        pe = pe + bias[None, :, None, None]
+    return pe
+
+
+class InnerAttention(nn.Module):
+    """Scaled-dot-product MHSA over one region's tokens with 1-D 'attn' EPEG
+    (reference modules/rmsa.py:56-134).  Input (B_, N, C)."""
+
+    def __init__(self, cfg: InnerAttentionConfig):
+        super().__init__()
+        ep = cfg.epeg
+        if ep.enabled and ep.kind != "attn":
+            raise _todo(f"value EPEG ('{ep.kind}')")
+        if ep.enabled and ep.two_d:
+            raise _todo("2-D EPEG")
+        self.cfg = cfg
+        h, hd = cfg.num_heads, cfg.resolved_head_dim
+        self.qkv = nn.Linear(cfg.dim, 3 * h * hd, bias=cfg.qkv_bias)
+        self.proj = nn.Linear(h * hd, cfg.dim)
+        if ep.enabled:
+            self.pe_weight = nn.Parameter(torch.zeros(h, ep.k))
+            self.pe_bias = nn.Parameter(torch.zeros(h)) if ep.bias else None
+        else:
+            self.pe_weight, self.pe_bias = None, None
+
+    def kernel_weights(self):
+        """The kernels' weight layout (region_block.py:168-180): wq/wk/wv
+        (H, C, hd) with the q scale folded into wq/bq, biases (H, hd), the
+        EPEG taps (H, k) and bias (H,), wp (H, hd, C) and bp (C,)."""
+        cfg = self.cfg
+        h, hd = cfg.num_heads, cfg.resolved_head_dim
+        c = self.qkv.in_features
+        w3 = self.qkv.weight.reshape(3, h, hd, c).transpose(-1, -2)
+        b = self.qkv.bias if self.qkv.bias is not None else \
+            torch.zeros(3 * h * hd, device=w3.device)
+        b3 = b.reshape(3, h, hd)
+        wp = self.proj.weight.t().reshape(h, hd, cfg.dim)
+        return (w3[0] * cfg.scale, w3[1], w3[2], b3[0] * cfg.scale, b3[1],
+                b3[2], self.pe_weight, self.pe_bias, wp, self.proj.bias)
+
+    def forward(self, x):
+        cfg = self.cfg
+        cdt = _dtype(cfg.compute_dtype)
+        if x.is_cuda or cfg.backend != "xla":
+            return region_block_fused(x.to(cdt), *self.kernel_weights(),
+                                      mm_dtype=_dtype(cfg.mm_dtype))
+        return self._forward_xla(x, cdt)
+
+    def _forward_xla(self, x, cdt):
+        """The JAX package's XLA formulation (rrt.py:185-250), on the CPU."""
+        cfg = self.cfg
+        b_, n, _ = x.shape
+        h, hd = cfg.num_heads, cfg.resolved_head_dim
+        bias = None if self.qkv.bias is None else self.qkv.bias.to(cdt)
+        qkv = F.linear(x.to(cdt), self.qkv.weight.to(cdt), bias)
+        qkv = qkv.reshape(b_, n, 3, h, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0] * cfg.scale, qkv[1], qkv[2]
+        attn = torch.einsum("bhid,bhjd->bhij", q.float(), k.float())
+        if self.pe_weight is not None:
+            attn = attn + _epeg_logit_conv(attn, self.pe_weight, self.pe_bias)
+        attn = torch.softmax(attn, dim=-1)
+        out = torch.einsum("bhij,bhjd->bhid", attn.to(v.dtype).float(),
+                           v.float())
+        out = out.transpose(1, 2).reshape(b_, n, h * hd).to(cdt)
+        return F.linear(out, self.proj.weight.to(cdt), self.proj.bias.to(cdt))
+
+
+class RegionAttention(nn.Module):
+    """R-MSA: square-grid partition -> per-region MHSA -> merge
+    (reference modules/rmsa.py:152-230).  `length` is the true bag length;
+    the output has the input's length."""
+
+    def __init__(self, cfg: RMSAConfig):
+        super().__init__()
+        if cfg.region_attn != "native":
+            raise _todo(f"region_attn='{cfg.region_attn}'")
+        if cfg.region.sp_shards > 1:
+            raise _todo("sequence sharding (sp_shards > 1)")
+        self.cfg = cfg
+        self.attn = InnerAttention(cfg.attn)
+
+    def forward(self, x, length: Optional[int] = None):
+        b, n_in, c = x.shape
+        length = n_in if length is None else length
+        geom = grid_geometry(length, self.cfg.region)
+        rs = geom.region_size
+        x = _fit_length(x, geom.padded_length).reshape(b, geom.grid, geom.grid, c)
+        regions = self.attn(region_partition(x, rs))
+        out = region_reverse(regions, rs, geom.grid, geom.grid)
+        return _fit_length(out, n_in)
+
+
+class CrossRegionAttention(nn.Module):
+    """CR-MSA: compress each region to crmsa_k representative tokens, one
+    MHSA across regions, redistribute (reference modules/rmsa.py:232-337).
+    `forward` is the unfused formulation; `fused` is the JAX package's
+    `_CRMSAFusedAttn` (rrt.py:531-572) on the same parameters."""
+
+    def __init__(self, cfg: CRMSAConfig):
+        super().__init__()
+        if cfg.crmsa_mlp:
+            raise _todo("crmsa_mlp")
+        if cfg.region.sp_shards > 1:
+            raise _todo("sequence sharding (sp_shards > 1)")
+        self.cfg = cfg
+        self.phi = nn.Parameter(torch.zeros(cfg.attn.dim, cfg.crmsa_k))
+        self.attn = InnerAttention(cfg.attn)
+
+    def forward(self, x, length: Optional[int] = None):
+        if x.is_cuda:
+            raise _todo("the unfused CR-MSA compress/redistribute (K12/K13)")
+        cfg = self.cfg
+        b, n_in, c = x.shape
+        length = n_in if length is None else length
+        geom = grid_geometry(length, cfg.region)
+        rs, nr, p, kk = (geom.region_size, geom.num_regions,
+                         geom.tokens_per_region, cfg.crmsa_k)
+        x = _fit_length(x, geom.padded_length).reshape(b, geom.grid, geom.grid, c)
+        regions = region_partition(x, rs).reshape(b, nr, p, c)
+        logits = torch.einsum("brpc,ck->brkp", regions.float(), self.phi)
+        combine = torch.softmax(logits, dim=-1)
+        dispatch = torch.softmax(logits, dim=-2)
+        lmin = logits.amin(-1, keepdim=True)
+        lmax = logits.amax(-1, keepdim=True)
+        dispatch_mm = (logits - lmin) / (lmax - lmin + 1e-8)
+        reps = torch.einsum("brpc,brkp->bkrc", regions.float(), combine)
+        reps = self.attn(reps.reshape(b * kk, nr, c)).reshape(b, kk, nr, c)
+        out = torch.einsum("bkrc,brkp->brpc", reps.float(),
+                           dispatch_mm * dispatch)
+        out = region_reverse(out.reshape(b * nr, p, c), rs, geom.grid, geom.grid)
+        return _fit_length(out, n_in)
+
+    def fused(self, x, mask, ln_s, ln_b, length: int, final_ln,
+              final_shortcut=None):
+        """K3 -> cross-region InnerAttention (K5) -> K8: the CR-MSA layer
+        with the layer residual, the global shortcut and the encoder-final
+        LayerNorm + mask; returns the fp32 encoder output."""
+        cfg = self.cfg
+        b, _, c = x.shape
+        geom = grid_geometry(length, cfg.region)
+        kk, nr = cfg.crmsa_k, geom.num_regions
+        mmd = _dtype(cfg.attn.mm_dtype)
+        reps, w = crmsa_compress_grid(x, mask, ln_s, ln_b, self.phi, geom.grid,
+                                      geom.region_size, mmd)
+        reps = reps.transpose(1, 2).reshape(b * kk, nr, c)
+        reps = self.attn(reps)
+        reps = reps.reshape(b, kk, nr, c).transpose(1, 2).float().contiguous()
+        return crmsa_redistribute_grid_ln(x, mask, w, reps, final_ln[0],
+                                          final_ln[1], final_shortcut,
+                                          geom.grid, geom.region_size, mmd)
+
+
+def _fused_backend(attn_cfg: InnerAttentionConfig) -> bool:
+    return attn_cfg.backend in ("auto", "pallas")
+
+
+def fused_layer_ok(cfg: TransLayerConfig, x, mask, length: int) -> bool:
+    """Counterpart of TransLayer._fused_layer_ok (rrt.py:603-628): True when
+    the R-MSA layer runs as one K1 call."""
+    if cfg.attn_mode != "rmsa" or mask is None:
+        return False
+    a = cfg.rmsa.attn
+    if a.attn_dropout != 0.0 or not _fused_backend(a):
+        return False
+    return x.shape[1] == grid_geometry(length, cfg.rmsa.region).padded_length
+
+
+def fused_crmsa_ok(cfg: TransLayerConfig, x, mask, length: int) -> bool:
+    """Counterpart of fused_crmsa_ok (rrt.py:491-513): True when the CR-MSA
+    layer runs as K3 -> K5 -> K8."""
+    if cfg.attn_mode != "crmsa" or mask is None:
+        return False
+    if not _fused_backend(cfg.crmsa.attn):
+        return False
+    return x.shape[1] == grid_geometry(length, cfg.crmsa.region).padded_length
+
+
+def _apply_final_ln(x, mask, scale, bias):
+    """Encoder-final LayerNorm + mask on explicit params (rrt.py:516-528)."""
+    z = ln_fast(x.float(), scale, bias)
+    return z if mask is None else z * mask[..., None].float()
+
+
+class TransLayer(nn.Module):
+    """Pre-LN block x + attn(LN(x)), the mask applied after the LayerNorm and
+    after the branch so pad rows enter attention as zeros and the stream
+    stays zero on them (reference modules/rrt.py:43-131)."""
+
+    def __init__(self, cfg: TransLayerConfig):
+        super().__init__()
+        if cfg.ffn:
+            raise _todo("the TransLayer FFN")
+        self.cfg = cfg
+        self.norm = LayerNorm(cfg.dim)
+        if cfg.attn_mode == "rmsa":
+            self.attn = RegionAttention(cfg.rmsa)
+        elif cfg.attn_mode == "crmsa":
+            self.attn = CrossRegionAttention(cfg.crmsa)
+        else:
+            raise _todo(f"attn_mode='{cfg.attn_mode}'")
+
+    def _compute_dtype(self) -> torch.dtype:
+        cfg = self.cfg
+        a = cfg.rmsa.attn if cfg.attn_mode == "rmsa" else cfg.crmsa.attn
+        return _dtype(a.compute_dtype)
+
+    def forward(self, x, mask=None, length: Optional[int] = None,
+                final_ln=None, final_shortcut=None):
+        cfg = self.cfg
+        length_r = x.shape[1] if length is None else length
+        if fused_layer_ok(cfg, x, mask, length_r):
+            a = cfg.rmsa.attn
+            geom = grid_geometry(length_r, cfg.rmsa.region)
+            x = region_layer_fused(
+                x, mask, self.norm.weight, self.norm.bias,
+                *self.attn.attn.kernel_weights(), geom.grid, geom.region_size,
+                True, _dtype(a.mm_dtype))
+        elif final_ln is not None and fused_crmsa_ok(cfg, x, mask, length_r):
+            return self.attn.fused(x, mask, self.norm.weight, self.norm.bias,
+                                   length_r, final_ln, final_shortcut)
+        else:
+            m = None if mask is None else mask[..., None].to(x.dtype)
+            z = self.norm(x).to(self._compute_dtype())
+            if m is not None:
+                z = z * m
+            z = self.attn(z, length=length)
+            if m is not None:
+                z = z * m
+            x = x + z
+        if final_ln is not None:
+            if final_shortcut is not None:
+                x = x + final_shortcut
+            x = _apply_final_ln(x, mask, *final_ln)
+        return x
+
+
+class RRTEncoder(nn.Module):
+    """(n_layers-1) R-MSA TransLayers -> 1 CR-MSA TransLayer -> optional
+    global shortcut -> LayerNorm (reference modules/rrt.py:133-202)."""
+
+    def __init__(self, cfg: RRTEncoderConfig):
+        super().__init__()
+        if cfg.pos.kind != "none":
+            raise _todo(f"position embedding '{cfg.pos.kind}'")
+        if cfg.attn_mode != "rmsa":
+            raise _todo(f"attn_mode='{cfg.attn_mode}'")
+        self.cfg = cfg
+        self.n_rmsa = cfg.n_layers - 1
+        for i in range(self.n_rmsa):
+            self.add_module(f"layer{i}", TransLayer(cfg.rmsa_layer()))
+        self.cr_msa = TransLayer(cfg.crmsa_layer()) if cfg.cr_msa else None
+        self.norm = LayerNorm(cfg.dim)
+
+    def forward(self, x, mask=None, length: Optional[int] = None):
+        cfg = self.cfg
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[None]
+        length = x.shape[1] if length is None else length
+        x_shortcut = x
+        for i in range(self.n_rmsa):
+            x = getattr(self, f"layer{i}")(x, mask=mask, length=length)
+        if self.cr_msa is not None:
+            final_ln = (self.norm.weight, self.norm.bias)
+            if fused_crmsa_ok(self.cr_msa.cfg, x, mask, length):
+                # the final LayerNorm rides K8's stream write (rrt.py:797-809)
+                x = self.cr_msa(x, mask=mask, length=length, final_ln=final_ln,
+                                final_shortcut=(x_shortcut if cfg.all_shortcut
+                                                else None))
+                return x[0] if squeeze else x
+            x = self.cr_msa(x, mask=mask, length=length)
+        if cfg.all_shortcut:
+            x = x + x_shortcut
+        x = _apply_final_ln(x, mask, self.norm.weight, self.norm.bias)
+        return x[0] if squeeze else x
+
+
+class RRTMIL(nn.Module):
+    """Linear(input_dim -> 512) + act -> RRTEncoder -> attention pooling ->
+    classifier (reference modules/rrt.py:204-246)."""
+
+    def __init__(self, cfg: RRTMILConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.patch_to_emb = nn.Linear(cfg.input_dim, 512)
+        self.online_encoder = RRTEncoder(cfg.encoder)
+        p = cfg.pool
+        if p.kind not in ("attn", "avg"):
+            raise _todo(f"pool '{p.kind}'")
+        self.pool_fn = (DAttention(cfg.encoder.dim, p.act, p.gated, p.bias)
+                        if p.kind == "attn" else MeanPool())
+        self.predictor = nn.Linear(cfg.encoder.dim, cfg.n_classes)
+
+    def forward(self, x, mask=None, length: Optional[int] = None):
+        cfg = self.cfg
+        if x.dim() == 2:
+            x = x[None]
+        length = x.shape[1] if length is None else length
+        cdt = _dtype(cfg.encoder.compute_dtype)
+        w = self.patch_to_emb
+        x = F.linear(x.to(cdt), w.weight.to(cdt), w.bias.to(cdt))
+        if cfg.act == "relu":
+            x = F.relu(x)
+        elif cfg.act == "gelu":
+            x = F.gelu(x, approximate="none")
+        if mask is not None:
+            # bucket-pad rows enter the encoder as exact zeros (rrt.py:857-861)
+            x = x * mask[..., None].to(x.dtype)
+        x = self.online_encoder(x, mask=mask, length=length).float()
+        feat = self.pool_fn(x, mask=mask)
+        return self.predictor(feat)
+
+
+def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Fresh init with the JAX package's distributions (utils/inits.py):
+    xavier_normal kernels with flax's fans, zero biases, LayerNorm ones and
+    zeros, EPEG taps with the fans of flax's (k, 1, 1, H) kernel, and
+    U(+-1/sqrt(k)) for phi."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Linear):
+                xavier_normal_(mod.weight, mod.in_features, mod.out_features,
+                               generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+            elif isinstance(mod, InnerAttention) and mod.pe_weight is not None:
+                h, k = mod.pe_weight.shape
+                xavier_normal_(mod.pe_weight, k, h * k, generator)
+                if mod.pe_bias is not None:
+                    mod.pe_bias.zero_()
+            elif isinstance(mod, CrossRegionAttention):
+                crmsa_phi_init_(mod.phi, mod.cfg.crmsa_k, generator)
+
+
+def build_model(cfg: RRTMILConfig, device="cuda", seed: int = 0) -> RRTMIL:
+    """An RRTMIL in eval mode with seeded weights, on `device` (the card by
+    default; raises when there is none unless device='cpu')."""
+    dev = resolve_device(device)
+    model = RRTMIL(cfg)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()

@@ -1,0 +1,152 @@
+"""The port's CUDA kernels on a card, against their plain PyTorch versions.
+
+This file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+
+(`--noconftest` skips tests/conftest.py, which configures JAX).  Without a
+CUDA card the `gpu` tests skip.  Tolerances on max|kernel - plain| over
+max(1, max|plain|): 1e-4 for float32 products (another summation order),
+2e-2 for bfloat16 products (a sum near a bf16 rounding boundary rounds the
+other way).
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from rrtmil_tpu_torch.config import c16_r50
+from rrtmil_tpu_torch.data.datasets import ArrayDataset
+from rrtmil_tpu_torch.models.rrt import build_model
+from rrtmil_tpu_torch.ops.kernels import build
+from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
+from rrtmil_tpu_torch.ops.kernels import region_block as rb
+from rrtmil_tpu_torch.ops.kernels import region_layer as rl
+from rrtmil_tpu_torch.train.engine import Engine, EngineConfig
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the chip machine)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, mm, what):
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.isfinite(got).all(), what
+    err = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+    assert err <= TOL[mm], f"{what}: scaled error {err:.3e}"
+
+
+def _case(dev, sdt, g=24, rs=12, c=128, h=2, hd=64, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=gen) * sc).to(dev)
+    n = g * g
+    mask = torch.zeros((2, n), dtype=torch.bool)
+    mask[0, :500], mask[1, :300] = True, True
+    mask = mask.to(dev)
+    x = (r(2, n, c) * mask[..., None]).to(sdt)
+    s = (2.0 / (c + h * hd)) ** 0.5
+
+    def weights(kk):
+        return (r(h, c, hd, sc=s / 8), r(h, c, hd, sc=s), r(h, c, hd, sc=s),
+                r(h, hd, sc=0.05), r(h, hd, sc=0.05), r(h, hd, sc=0.05),
+                r(h, kk, sc=0.3) if kk else None, r(h, sc=0.1) if kk else None,
+                r(h, hd, c, sc=s), r(c, sc=0.05))
+    ln = (1 + r(c, sc=0.1), r(c, sc=0.1))
+    return x, mask, ln, weights, r(c, 1), r(4, 64, c).to(sdt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", [(torch.float32, torch.bfloat16),
+                                    (torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+def test_cuda_kernels_match_plain(sdt, mm):
+    dev = _cuda()
+    g, rs = 24, 12
+    x, mask, (ls, lb), weights, phi, regions = _case(dev, sdt)
+    reps, wgt = ck.compress_grid_plain(x, mask, ls, lb, phi, g, rs, mm)
+    cases = [
+        ("K1", rl.region_layer_fused, rl.region_layer_plain,
+         (x, mask, ls, lb, *weights(15), g, rs, True)),
+        ("K1 branch", rl.region_layer_fused, rl.region_layer_plain,
+         (x, mask, ls, lb, *weights(0), g, rs, False)),
+        ("K3", ck.crmsa_compress_grid, ck.compress_grid_plain,
+         (x, mask, ls, lb, phi, g, rs)),
+        ("K5", rb.region_block_fused, rb.region_block_plain,
+         (regions, *weights(0))),
+        ("K5 k=15", rb.region_block_fused, rb.region_block_plain,
+         (regions, *weights(15))),
+        ("K8", ck.crmsa_redistribute_grid_ln, ck.redistribute_grid_ln_plain,
+         (x, mask, wgt, reps, ls, lb, x, g, rs)),
+    ]
+    for what, fn, plain, args in cases:
+        got, want = fn(*args, mm_dtype=mm), plain(*args, mm_dtype=mm)
+        torch.cuda.synchronize()
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert a.is_cuda
+            _close(a, b, mm, what)
+
+
+@pytest.mark.gpu
+def test_cuda_wrappers_raise_on_geometry_they_cannot_take():
+    dev = _cuda()
+    x, mask, (ls, lb), weights, phi, regions = _case(dev, torch.float32,
+                                                     hd=32, h=4)
+    with pytest.raises(ValueError, match="head_dim"):
+        rl.region_layer_fused(x, mask, ls, lb, *weights(15), 24, 12, True)
+    x, mask, (ls, lb), weights, phi, regions = _case(dev, torch.float32)
+    with pytest.raises(ValueError, match="grid"):
+        rl.region_layer_fused(x, mask, ls, lb, *weights(15), 24, 7, True)
+    with pytest.raises(ValueError, match="representatives"):
+        ck.crmsa_compress_grid(x, mask, ls, lb, phi.repeat(1, 9), 24, 12)
+
+
+@pytest.mark.gpu
+def test_engine_on_card_goes_through_every_kernel():
+    """Every batch of a c16_r50 evaluation on the card launches K1, K3, K5
+    and K8, and the probabilities match the CPU run of the same weights."""
+    _cuda()
+    cfg = c16_r50()
+    rng = np.random.default_rng(8)
+    bags = [rng.standard_normal((n, 1024)).astype(np.float32)
+            for n in (37, 937, 2213, 2000)]
+    ds = ArrayDataset(bags, [0, 1, 0, 1])
+    model = build_model(cfg, seed=0)
+    eng = Engine(model, EngineConfig(batch_size=2), cfg.encoder)
+    fns = (rl.region_layer_fused, ck.crmsa_compress_grid,
+           rb.region_block_fused, ck.crmsa_redistribute_grid_ln)
+    for f in fns:
+        f.launches = 0
+    probs, _, loss = eng.evaluate(ds)
+    n_batches = len(eng._batched_order(ds, range(len(ds))))
+    assert [f.launches for f in fns] == [n_batches] * 4
+    cpu = build_model(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    probs_c, _, loss_c = Engine(cpu, EngineConfig(batch_size=2), cfg.encoder,
+                                device="cpu").evaluate(ds)
+    # random weights keep the probabilities near 0.5: hold them far tighter
+    # than that spread (the card measures ~4e-5 on the c16_r50 bags)
+    np.testing.assert_allclose(probs, probs_c, rtol=0, atol=1e-3)
+    assert abs(loss - loss_c) < 1e-3
+
+
+def test_kernel_libraries_build_into_an_ignored_directory():
+    """The nvcc outputs land in rrtmil_tpu_torch/build/, which git ignores,
+    under names that change with the sources and flags."""
+    path = build.library_path("region_layer")
+    assert path.parent == build.BUILD_DIR
+    rel = os.path.relpath(build.BUILD_DIR, REPO)
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        assert rel + "/" in f.read().split()
+    assert path.name.startswith("libregion_layer-")
+    assert build.library_path("crmsa") != build.library_path("region_layer")
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
