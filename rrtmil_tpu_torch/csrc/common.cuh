@@ -137,25 +137,33 @@ ln_mask_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
 }
 
 // ---------------------------------------------------------------------------
-// Tiled product  out[M, N] = round_TM(A)[M, K] @ B[K, N] (+ bias[N])
+// Tiled product  out[M, N] = round_TM(A)[M, K] @ round_TM(B)[K, N] (+ bias[N])
 //                            (* mask[row]) (+ resid[row, N]),  stored as TO.
 // 128 x 128 tile per block of 256 threads, 8 x 8 outputs per thread, fp32
 // FMA on the CUDA cores (so float inputs stay exact float products; no
-// TF32).  A is row-major (lda), B row-major (ldb).
+// TF32).  A is row-major (M, K) with row stride lda, or, with AT, stored
+// transposed as (K, M); B is row-major (K, N) (ldb), or, with BT, stored as
+// (N, K).  blockIdx.z splits K into chunks of kchunk, each chunk writing its
+// own partial product at out + z * zstride (a later pass sums them in a
+// fixed order, so no atomics and no order-dependent sums).
 // ---------------------------------------------------------------------------
 constexpr int GBM = 128, GBN = 128, GBK = 8;
 
-template <typename TA, typename TM, typename TO>
+template <typename TA, typename TB, typename TM, typename TO, bool AT, bool BT>
 __global__ void __launch_bounds__(256)
-gemm_kernel(const TA* __restrict__ A, int lda, const TM* __restrict__ B, int ldb,
-            TO* __restrict__ out, int ldc, int M, int N, int K,
-            const float* __restrict__ bias, const uint8_t* __restrict__ rowmask,
-            const TO* __restrict__ resid, int ldr) {
+gemm_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B, int ldb,
+            TO* __restrict__ out, int ldc, int M, int N, int K, int kchunk,
+            long long zstride, const float* __restrict__ bias,
+            const uint8_t* __restrict__ rowmask, const TO* __restrict__ resid,
+            int ldr) {
   __shared__ __align__(16) float As[GBK][GBM];
   __shared__ __align__(16) float Bs[GBK][GBN];
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+  const int kb = blockIdx.z * kchunk;
+  const int ke = min(K, kb + kchunk);
+  out += (long long)blockIdx.z * zstride;
 
   float acc[8][8];
 #pragma unroll
@@ -163,27 +171,26 @@ gemm_kernel(const TA* __restrict__ A, int lda, const TM* __restrict__ B, int ldb
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  const int a_row = tid >> 1, a_k = (tid & 1) * 4;
-  const int b_k = tid >> 5, b_n = (tid & 31) * 4;
+  // each thread loads 4 consecutive elements along the operand's rows
+  const int a_m = AT ? (tid & 31) * 4 : tid >> 1, a_k = AT ? tid >> 5 : (tid & 1) * 4;
+  const int b_n = BT ? tid >> 1 : (tid & 31) * 4, b_k = BT ? (tid & 1) * 4 : tid >> 5;
 
-  for (int k0 = 0; k0 < K; k0 += GBK) {
-    {
-      const int gm = m0 + a_row;
+  for (int k0 = kb; k0 < ke; k0 += GBK) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int gk = k0 + a_k + i;
-        float v = 0.f;
-        if (gm < M && gk < K) v = round_to<TM>(to_f(A[(long long)gm * lda + gk]));
-        As[a_k + i][a_row] = v;
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int gm = m0 + a_m + (AT ? i : 0), gk = k0 + a_k + (AT ? 0 : i);
+      float v = 0.f;
+      if (gm < M && gk < ke)
+        v = round_to<TM>(to_f(AT ? A[(long long)gk * lda + gm] : A[(long long)gm * lda + gk]));
+      As[a_k + (AT ? 0 : i)][a_m + (AT ? i : 0)] = v;
     }
-    {
-      const int gk = k0 + b_k;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int gn = n0 + b_n + i;
-        Bs[b_k][b_n + i] = (gk < K && gn < N) ? to_f(B[(long long)gk * ldb + gn]) : 0.f;
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int gn = n0 + b_n + (BT ? 0 : i), gk = k0 + b_k + (BT ? i : 0);
+      float v = 0.f;
+      if (gn < N && gk < ke)
+        v = round_to<TM>(to_f(BT ? B[(long long)gn * ldb + gk] : B[(long long)gk * ldb + gn]));
+      Bs[b_k + (BT ? i : 0)][b_n + (BT ? 0 : i)] = v;
     }
     __syncthreads();
 #pragma unroll
@@ -220,15 +227,48 @@ gemm_kernel(const TA* __restrict__ A, int lda, const TM* __restrict__ B, int ldb
   }
 }
 
+template <typename TA, typename TB, typename TM, typename TO, bool AT, bool BT>
+cudaError_t launch_gemm_ex(const void* A, int lda, const void* B, int ldb, void* out,
+                           int ldc, int M, int N, int K, int kchunk,
+                           long long zstride, const void* bias, const void* rowmask,
+                           const void* resid, int ldr, cudaStream_t stream) {
+  if (kchunk <= 0 || kchunk % GBK != 0) return cudaErrorInvalidValue;
+  dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, (K + kchunk - 1) / kchunk);
+  gemm_kernel<TA, TB, TM, TO, AT, BT><<<grid, 256, 0, stream>>>(
+      (const TA*)A, lda, (const TB*)B, ldb, (TO*)out, ldc, M, N, K, kchunk, zstride,
+      (const float*)bias, (const uint8_t*)rowmask, (const TO*)resid, ldr);
+  return cudaGetLastError();
+}
+
+// the forward's product: B already in TM, K in one chunk
 template <typename TA, typename TM, typename TO>
 cudaError_t launch_gemm(const void* A, int lda, const void* B, int ldb, void* out,
                         int ldc, int M, int N, int K, const void* bias,
                         const void* rowmask, const void* resid, int ldr,
                         cudaStream_t stream) {
-  dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM);
-  gemm_kernel<TA, TM, TO><<<grid, 256, 0, stream>>>(
-      (const TA*)A, lda, (const TM*)B, ldb, (TO*)out, ldc, M, N, K,
-      (const float*)bias, (const uint8_t*)rowmask, (const TO*)resid, ldr);
+  const int kchunk = ((K + GBK - 1) / GBK) * GBK;
+  return launch_gemm_ex<TA, TM, TM, TO, false, false>(
+      A, lda, B, ldb, out, ldc, M, N, K, kchunk > 0 ? kchunk : GBK, 0, bias,
+      rowmask, resid, ldr, stream);
+}
+
+// out[n] = sum over s = 0..S-1 of part[s * N + n], in that order: the second
+// pass of every cross-block sum (weight and bias gradients), deterministic.
+__global__ void __launch_bounds__(256)
+reduce_rows_kernel(const float* __restrict__ part, int S, long long N,
+                   float* __restrict__ out) {
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float acc = 0.f;
+  for (int s = 0; s < S; ++s) acc += part[(long long)s * N + n];
+  out[n] = acc;
+}
+
+inline cudaError_t launch_reduce_rows(const void* part, int S, long long N, void* out,
+                                      cudaStream_t stream) {
+  if (S <= 0 || N <= 0) return cudaErrorInvalidValue;
+  reduce_rows_kernel<<<(unsigned)((N + 255) / 256), 256, 0, stream>>>(
+      (const float*)part, S, N, (float*)out);
   return cudaGetLastError();
 }
 
@@ -239,7 +279,7 @@ cudaError_t launch_gemm(const void* A, int lda, const void* B, int ldb, void* ou
 //   q'  = round_TM(M_h q),  M_h = round_TM(I + T_h)   (k-tap pass, kk > 0)
 //   L   = q' k^T (+ pb_h when kk > 0 and pb is given)
 //   A   = round_TM(exp(L - max) / sum)                (row softmax)
-//   o   = round_TM(A v)
+//   o   = A v, stored as TO (the TM rounding when TO = TM)
 //
 // Pass 1 walks the key tiles for the row max and sum (online), pass 2
 // recomputes each logit tile and accumulates A v, so no P x P tile is ever
@@ -257,10 +297,10 @@ constexpr int attn_smem_bytes() {
   return (AQT * (HD + 4) + HD * AKT + AKT * HD + AQT * (AKT + 4)) * 4;
 }
 
-template <typename TM, int HD>
+template <typename TM, typename TO, int HD>
 __global__ void __launch_bounds__(256)
 attn_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
-            TM* __restrict__ O, int ldo, int H, TokenMap tm,
+            TO* __restrict__ O, int ldo, int H, TokenMap tm,
             const float* __restrict__ pw, int kk, const float* __restrict__ pb) {
   static_assert(HD == 64, "thread layout assumes 64-wide heads");
   constexpr int QS = HD + 4, PS = AKT + 4;
@@ -397,23 +437,23 @@ attn_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
   for (int i = 0; i < 4; ++i) {
     const int p = q0 + ty * 4 + i;
     if (p >= P) continue;
-    TM* orow = O + token_of(tm, r, p) * ldo + qcol + tx * 4;
+    TO* orow = O + token_of(tm, r, p) * ldo + qcol + tx * 4;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) orow[c] = from_f<TM>(o[i][c]);
+    for (int c = 0; c < 4; ++c) orow[c] = from_f<TO>(o[i][c]);
   }
 }
 
-template <typename TM>
+template <typename TM, typename TO>
 cudaError_t launch_attention(const void* Y, int ldy, int kcol0, int vcol0, void* O,
                              int ldo, int R, int H, TokenMap tm, const void* pw,
                              int kk, const void* pb, cudaStream_t stream) {
   constexpr int smem = attn_smem_bytes<64>();
   cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<TM, 64>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attn_kernel<TM, TO, 64>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(R * H, (tm.P + AQT - 1) / AQT);
-  attn_kernel<TM, 64><<<grid, 256, smem, stream>>>(
-      (const TM*)Y, ldy, kcol0, vcol0, (TM*)O, ldo, H, tm, (const float*)pw, kk,
+  attn_kernel<TM, TO, 64><<<grid, 256, smem, stream>>>(
+      (const TM*)Y, ldy, kcol0, vcol0, (TO*)O, ldo, H, tm, (const float*)pw, kk,
       (const float*)pb);
   return cudaGetLastError();
 }

@@ -1,0 +1,411 @@
+// K4 and K9: the backwards of the CR-MSA layer's stream-touching halves.
+//
+// K4 replaces rrtmil_tpu/ops/pallas/crmsa_kernels.py::_cgrid_bwd_pallas
+// (kernel body _cgrid_bwd_kernel), the backward of K3: given d(reps) and
+// d(w), it recomputes the region's LayerNorm, the phi logits, combine (the
+// softmax over P), dispatch (the softmax over k) and the min-max weights,
+// and emits dx, d(LN scale, bias) and dphi:
+//   d_comb = round(dreps) z^T,  dz = round(combine)^T round(dreps) + round(dl)^T phi,
+//   dl = softmax_P bwd(d_comb) + softmax_k bwd(dw * mm) + min-max bwd(dw * dispatch)
+// with the min and max gradients split equally among tied tokens (the
+// bucket's zero pad rows all tie at logit 0, so this is the real-bag case).
+// K9 replaces crmsa_kernels.py::_rgrid_ln_bwd_pallas (kernel body
+// _rgrid_ln_bwd_kernel), the backward of K8: it recomputes the post-layer
+// stream x + mask * round(w)^T round(reps) (+ shortcut), runs the final
+// LayerNorm's backward and emits dx (which is also the shortcut's gradient),
+// dw = round(reps) gm^T, dreps = round(w) gm and d(LN scale, bias), with
+// gm = round(mask * dx).
+//
+// What bounds both on an H100: bytes.  A c16_r50 slide moves ~38 MB (K4:
+// x read, dx written) and ~75 MB (K9: x, shortcut and g read, dx written)
+// against a few tens of MFLOP.  Design, for both: one block per region, as
+// K3's forward.  A first pass gives each token row to a warp (LayerNorm
+// statistics, the logits or the per-token products, the row sums the
+// LayerNorm backward needs), the per-region reductions over P run in
+// shared memory, and a last pass gives each thread a channel and walks the
+// region's rows, so every read and write is coalesced, the region's
+// ~290 KB stay in the 50 MB L2 between the passes, and each per-channel sum
+// (dls, dlb, dphi, dreps) stays in one thread's registers.  The sums across
+// regions are per-region partials that cb_reduce adds in a fixed order: no
+// atomics, so every run gives the same bits.
+#include "common.cuh"
+
+using namespace rrt;
+
+namespace {
+
+constexpr int KMAX = 8;  // CR-MSA representatives per region (crmsa_k)
+
+size_t cgrid_smem_bytes(int C, int k, int P) {
+  return (size_t)(2 * C * k + 4 * k * P + 5 * P) * 4 + (size_t)P * 4;
+}
+
+template <typename TS, typename TM>
+__global__ void __launch_bounds__(256)
+compress_grid_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
+                         const float* __restrict__ ls, const float* __restrict__ lb,
+                         const float* __restrict__ phi, const float* __restrict__ dreps,
+                         const float* __restrict__ dw, TS* __restrict__ dx,
+                         float* __restrict__ part, int G, int rs, int C, int k, float eps) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float lmax[KMAX], lmin[KMAX], lsum[KMAX];
+  __shared__ float s1[KMAX], s2[KMAX], s3[KMAX], nmin[KMAX], nmax[KMAX];
+  const int P = rs * rs, nrs = G / rs;
+  const int region = blockIdx.x;
+  float* phis = sm;                // [C][k] round(phi)
+  float* drm = phis + C * k;       // [k][C] round(dreps)
+  float* logit = drm + k * C;      // [k][P]
+  float* comb = logit + k * P;     // [k][P]
+  float* disp = comb + k * P;      // [k][P]
+  float* dl = disp + k * P;        // [k][P] d(combine) of each logit, then round(dlogit)
+  float* mu = dl + k * P;          // [P]
+  float* rstd = mu + P;            // [P]
+  float* msk = rstd + P;           // [P]
+  float* m1 = msk + P;             // [P]
+  float* m2 = m1 + P;              // [P]
+  int* tok = (int*)(m2 + P);       // [P]
+  const TokenMap map{G, rs, nrs, P};
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const float* dr = dreps + (long long)region * k * C;
+  const float* dwr = dw + (long long)region * k * P;
+
+  for (int i = tid; i < C * k; i += blockDim.x) phis[i] = round_to<TM>(phi[i]);
+  for (int i = tid; i < k * C; i += blockDim.x) drm[i] = round_to<TM>(dr[i]);
+  for (int p = tid; p < P; p += blockDim.x) tok[p] = (int)token_of(map, region, p);
+  __syncthreads();
+
+  // phase 1: LayerNorm statistics, the logits (K3's code) and d_comb per row
+  for (int p = warp; p < P; p += nwarps) {
+    const TS* xr = x + (long long)tok[p] * C;
+    const float m = mask[tok[p]] ? 1.f : 0.f;
+    float vals[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane + 32 * i;
+      vals[i] = c < C ? to_f(xr[c]) : 0.f;
+    }
+    float mu_p, rstd_p;
+    warp_ln_stats(vals, C, lane, eps, mu_p, rstd_p);
+    float acc[KMAX], dac[KMAX];
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) { acc[j] = 0.f; dac[j] = 0.f; }
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c < C) {
+        const float z = round_to<TM>(ln_apply(vals[i], mu_p, rstd_p, ls[c], lb[c], m));
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j)
+          if (j < k) {
+            acc[j] = fmaf(phis[c * k + j], z, acc[j]);
+            dac[j] = fmaf(drm[j * C + c], z, dac[j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < k) {
+        const float s = warp_sum(acc[j]), d = warp_sum(dac[j]);
+        if (lane == 0) { logit[j * P + p] = s; dl[j * P + p] = d; }
+      }
+    }
+    if (lane == 0) { mu[p] = mu_p; rstd[p] = rstd_p; msk[p] = m; }
+  }
+  __syncthreads();
+
+  // phase 2: max, min and softmax denominator over P (K3's code)
+  if (warp < k) {
+    float mx = -INFINITY, mn = INFINITY;
+    for (int p = lane; p < P; p += 32) {
+      mx = fmaxf(mx, logit[warp * P + p]);
+      mn = fminf(mn, logit[warp * P + p]);
+    }
+    mx = warp_max(mx);
+    mn = warp_min(mn);
+    float s = 0.f;
+    for (int p = lane; p < P; p += 32) s += expf(logit[warp * P + p] - mx);
+    s = warp_sum(s);
+    if (lane == 0) { lmax[warp] = mx; lmin[warp] = mn; lsum[warp] = s; }
+  }
+  __syncthreads();
+
+  // phase 3: combine and dispatch
+  for (int p = tid; p < P; p += blockDim.x) {
+    float dmax = -INFINITY;
+    for (int j = 0; j < k; ++j) dmax = fmaxf(dmax, logit[j * P + p]);
+    float dsum = 0.f;
+    for (int j = 0; j < k; ++j) dsum += expf(logit[j * P + p] - dmax);
+    for (int j = 0; j < k; ++j) {
+      const float l = logit[j * P + p];
+      comb[j * P + p] = expf(l - lmax[j]) / lsum[j];
+      disp[j * P + p] = expf(l - dmax) / dsum;
+    }
+  }
+  __syncthreads();
+
+  // phase 4: the sums over P of each row j (one warp per row)
+  if (warp < k) {
+    const int j = warp;
+    const float rng = lmax[j] - lmin[j] + 1e-8f;
+    float a = 0.f, b = 0.f, c = 0.f, nlo = 0.f, nhi = 0.f;
+    for (int p = lane; p < P; p += 32) {
+      const float l = logit[j * P + p], lz = l - lmin[j];
+      const float dmm = dwr[j * P + p] * disp[j * P + p];
+      a += dl[j * P + p] * comb[j * P + p];
+      b += dmm * (lz - rng);
+      c += dmm * lz;
+      nlo += l == lmin[j] ? 1.f : 0.f;
+      nhi += l == lmax[j] ? 1.f : 0.f;
+    }
+    a = warp_sum(a); b = warp_sum(b); c = warp_sum(c);
+    nlo = warp_sum(nlo); nhi = warp_sum(nhi);
+    if (lane == 0) { s1[j] = a; s2[j] = b; s3[j] = c; nmin[j] = nlo; nmax[j] = nhi; }
+  }
+  __syncthreads();
+
+  // phase 5: the logit gradient, rounded to TM
+  for (int p = tid; p < P; p += blockDim.x) {
+    float tdisp = 0.f;
+    for (int j = 0; j < k; ++j) {
+      const float rng = lmax[j] - lmin[j] + 1e-8f;
+      const float mmv = (logit[j * P + p] - lmin[j]) / rng;
+      tdisp += dwr[j * P + p] * mmv * disp[j * P + p];
+    }
+    for (int j = 0; j < k; ++j) {
+      const float l = logit[j * P + p];
+      const float rng = lmax[j] - lmin[j] + 1e-8f;
+      const float mmv = (l - lmin[j]) / rng;
+      const float dmm = dwr[j * P + p] * disp[j * P + p];
+      const float ddisp = dwr[j * P + p] * mmv;
+      float g = comb[j * P + p] * (dl[j * P + p] - s1[j]);
+      g += disp[j * P + p] * (ddisp - tdisp);
+      g += dmm / rng;
+      const float dlmin = s2[j] / (rng * rng), dlmax = -s3[j] / (rng * rng);
+      if (l == lmin[j]) g += dlmin / nmin[j];
+      if (l == lmax[j]) g += dlmax / nmax[j];
+      dl[j * P + p] = round_to<TM>(g);
+    }
+  }
+  __syncthreads();
+
+  // phase 6: the LayerNorm backward's row means, one warp per row
+  for (int p = warp; p < P; p += nwarps) {
+    const TS* xr = x + (long long)tok[p] * C;
+    float a = 0.f, b = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      float dz = 0.f;
+      for (int j = 0; j < k; ++j)
+        dz = fmaf(round_to<TM>(comb[j * P + p]), drm[j * C + c], dz);
+      for (int j = 0; j < k; ++j) dz = fmaf(dl[j * P + p], phi[c * k + j], dz);
+      const float zhat = (to_f(xr[c]) - mu[p]) * rstd[p];
+      const float dzh = dz * msk[p] * ls[c];
+      a += dzh;
+      b += dzh * zhat;
+    }
+    a = warp_sum(a);
+    b = warp_sum(b);
+    if (lane == 0) { m1[p] = a / C; m2[p] = b / C; }
+  }
+  __syncthreads();
+
+  // phase 7: dx and the per-channel sums, one thread per channel
+  for (int c = tid; c < C; c += blockDim.x) {
+    const float s = ls[c], bb = lb[c];
+    float dls = 0.f, dlb = 0.f, dph[KMAX];
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) dph[j] = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const long long at = (long long)tok[p] * C + c;
+      const float xv = to_f(x[at]);
+      const float zhat = (xv - mu[p]) * rstd[p];
+      const float z = round_to<TM>(ln_apply(xv, mu[p], rstd[p], s, bb, msk[p]));
+      float dz = 0.f;
+      for (int j = 0; j < k; ++j)
+        dz = fmaf(round_to<TM>(comb[j * P + p]), drm[j * C + c], dz);
+      for (int j = 0; j < k; ++j) dz = fmaf(dl[j * P + p], phi[c * k + j], dz);
+      const float dzs = dz * msk[p];
+      dls += dzs * zhat;
+      dlb += dzs;
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j)
+        if (j < k) dph[j] = fmaf(dl[j * P + p], z, dph[j]);
+      dx[at] = from_f<TS>(rstd[p] * (dzs * s - m1[p] - zhat * m2[p]));
+    }
+    float* out = part + (long long)region * (2 + k) * C;
+    out[c] = dls;
+    out[C + c] = dlb;
+    for (int j = 0; j < k; ++j) out[(2 + j) * C + c] = dph[j];
+  }
+}
+
+size_t rgrid_smem_bytes(int C, int k, int P) {
+  return (size_t)(k * P + k * C + 5 * P) * 4 + (size_t)P * 4;
+}
+
+// x + mask * round(w)^T round(reps) (+ shortcut): K8's stream, K8's order
+template <typename TS>
+__device__ __forceinline__ float stream_value(const TS* __restrict__ x,
+                                              const TS* __restrict__ sc, long long at,
+                                              const float* wm, const float* repm, int k,
+                                              int P, int C, int p, int c, float m) {
+  float y = 0.f;
+  for (int j = 0; j < k; ++j) y = fmaf(wm[j * P + p], repm[j * C + c], y);
+  float v = to_f(x[at]) + y * m;
+  if (sc) v += to_f(sc[at]);
+  return v;
+}
+
+template <typename TS, typename TM>
+__global__ void __launch_bounds__(256)
+redistribute_ln_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
+                           const float* __restrict__ w, const float* __restrict__ reps,
+                           const float* __restrict__ ls, const TS* __restrict__ sc,
+                           const float* __restrict__ g, TS* __restrict__ dx,
+                           float* __restrict__ dw, float* __restrict__ dreps,
+                           float* __restrict__ part, int G, int rs, int C, int k,
+                           float eps) {
+  extern __shared__ __align__(16) float sm[];
+  const int P = rs * rs, nrs = G / rs;
+  const int region = blockIdx.x;
+  float* wm = sm;                  // [k][P] round(w)
+  float* repm = wm + k * P;        // [k][C] round(reps)
+  float* mu = repm + k * C;        // [P]
+  float* rstd = mu + P;            // [P]
+  float* msk = rstd + P;           // [P]
+  float* m1 = msk + P;             // [P]
+  float* m2 = m1 + P;              // [P]
+  int* tok = (int*)(m2 + P);       // [P]
+  const TokenMap map{G, rs, nrs, P};
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  for (int i = tid; i < k * P; i += blockDim.x)
+    wm[i] = round_to<TM>(w[(long long)region * k * P + i]);
+  for (int i = tid; i < k * C; i += blockDim.x)
+    repm[i] = round_to<TM>(reps[(long long)region * k * C + i]);
+  for (int p = tid; p < P; p += blockDim.x) tok[p] = (int)token_of(map, region, p);
+  __syncthreads();
+
+  // phase 1, one warp per row: the LayerNorm backward, dx, dw
+  for (int p = warp; p < P; p += nwarps) {
+    const long long t = tok[p];
+    const float m = mask[t] ? 1.f : 0.f;
+    float vals[CPL], dzh[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane + 32 * i;
+      vals[i] = c < C ? stream_value(x, sc, t * C + c, wm, repm, k, P, C, p, c, m) : 0.f;
+    }
+    float mu_p, rstd_p;
+    warp_ln_stats(vals, C, lane, eps, mu_p, rstd_p);
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c < C) {
+        vals[i] = (vals[i] - mu_p) * rstd_p;
+        dzh[i] = g[t * C + c] * m * ls[c];
+        a += dzh[i];
+        b += dzh[i] * vals[i];
+      }
+    }
+    const float m1p = warp_sum(a) / C, m2p = warp_sum(b) / C;
+    float acc[KMAX];
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c < C) {
+        const float gout = rstd_p * (dzh[i] - m1p - vals[i] * m2p);
+        dx[t * C + c] = from_f<TS>(gout);
+        const float gm = round_to<TM>(gout * m);
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j)
+          if (j < k) acc[j] = fmaf(repm[j * C + c], gm, acc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < k) {
+        const float s = warp_sum(acc[j]);
+        if (lane == 0) dw[((long long)region * k + j) * P + p] = s;
+      }
+    }
+    if (lane == 0) { mu[p] = mu_p; rstd[p] = rstd_p; msk[p] = m; m1[p] = m1p; m2[p] = m2p; }
+  }
+  __syncthreads();
+
+  // phase 2, one thread per channel: dreps and the dls / dlb partials
+  for (int c = tid; c < C; c += blockDim.x) {
+    const float s = ls[c];
+    float dls = 0.f, dlb = 0.f, dr[KMAX];
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) dr[j] = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const long long at = (long long)tok[p] * C + c;
+      const float m = msk[p];
+      const float zhat =
+          (stream_value(x, sc, at, wm, repm, k, P, C, p, c, m) - mu[p]) * rstd[p];
+      const float gym = g[at] * m;
+      dls += gym * zhat;
+      dlb += gym;
+      const float gout = rstd[p] * (gym * s - m1[p] - zhat * m2[p]);
+      const float gm = round_to<TM>(gout * m);
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j)
+        if (j < k) dr[j] = fmaf(wm[j * P + p], gm, dr[j]);
+    }
+    for (int j = 0; j < k; ++j) dreps[((long long)region * k + j) * C + c] = dr[j];
+    part[(long long)region * 2 * C + c] = dls;
+    part[(long long)region * 2 * C + C + c] = dlb;
+  }
+}
+
+}  // namespace
+
+extern "C" int cb_compress_grid_bwd(int ts, int tm, const void* x, const void* mask,
+                                    const void* ls, const void* lb, const void* phi,
+                                    const void* dreps, const void* dw, void* dx, void* part,
+                                    int B, int G, int rs, int C, int k, float eps,
+                                    void* stream) {
+  if (C > 32 * CPL || k < 1 || k > KMAX || G % rs != 0) return (int)cudaErrorInvalidValue;
+  const int nrs = G / rs;
+  const size_t smem = cgrid_smem_bytes(C, k, rs * rs);
+  cudaError_t err = cudaSuccess;
+  RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
+      err = cudaFuncSetAttribute(compress_grid_bwd_kernel<TS, TM>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      compress_grid_bwd_kernel<TS, TM><<<B * nrs * nrs, 256, smem, (cudaStream_t)stream>>>(
+          (const TS*)x, (const uint8_t*)mask, (const float*)ls, (const float*)lb,
+          (const float*)phi, (const float*)dreps, (const float*)dw, (TS*)dx,
+          (float*)part, G, rs, C, k, eps)));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cb_redistribute_ln_bwd(int ts, int tm, const void* x, const void* mask,
+                                      const void* w, const void* reps, const void* ls,
+                                      const void* sc, const void* g, void* dx, void* dw,
+                                      void* dreps, void* part, int B, int G, int rs, int C,
+                                      int k, float eps, void* stream) {
+  if (C > 32 * CPL || k < 1 || k > KMAX || G % rs != 0) return (int)cudaErrorInvalidValue;
+  const int nrs = G / rs;
+  const size_t smem = rgrid_smem_bytes(C, k, rs * rs);
+  cudaError_t err = cudaSuccess;
+  RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
+      err = cudaFuncSetAttribute(redistribute_ln_bwd_kernel<TS, TM>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      redistribute_ln_bwd_kernel<TS, TM><<<B * nrs * nrs, 256, smem,
+                                           (cudaStream_t)stream>>>(
+          (const TS*)x, (const uint8_t*)mask, (const float*)w, (const float*)reps,
+          (const float*)ls, (const TS*)sc, (const float*)g, (TS*)dx, (float*)dw,
+          (float*)dreps, (float*)part, G, rs, C, k, eps)));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cb_reduce(const void* part, int S, long long N, void* out, void* stream) {
+  return (int)launch_reduce_rows(part, S, N, out, (cudaStream_t)stream);
+}

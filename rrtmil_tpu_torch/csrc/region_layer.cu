@@ -32,6 +32,13 @@
 // (B*k, 64, 512), ~0.14 GFLOP a slide: bound by reading its ~2.4 MB of
 // weights and by launch latency, not by FLOPs.  In the unfused R-MSA
 // structure (kk = 15, P = 144) it is bound by its products, like K1.
+//
+// K6 (rrtmil_tpu/ops/pallas/region_attn.py::_fused_fwd_pallas, the
+// attention core alone on (R, H, P, hd)) is rl_attention itself: the wrapper
+// packs round(q * scale), k and v as the columns of one (R * P, 3 * H * hd)
+// matrix, and the core writes the head outputs in q's dtype (`to`).  On the
+// c16_r50 train path it runs inside K5's backward at (B, 8, 64, 64), where
+// launch latency, not bytes or FLOPs, bounds it.
 #include "common.cuh"
 
 using namespace rrt;
@@ -60,15 +67,15 @@ extern "C" int rl_gemm(int ta, int tm, int to, const void* A, int lda,
   return (int)err;
 }
 
-extern "C" int rl_attention(int tm, const void* Y, int ldy, int kcol0, int vcol0,
-                            void* O, int ldo, int R, int H, int hd, int P,
-                            int grid, int rs, const void* pw, int kk,
+extern "C" int rl_attention(int tm, int to, const void* Y, int ldy, int kcol0,
+                            int vcol0, void* O, int ldo, int R, int H, int hd,
+                            int P, int grid, int rs, const void* pw, int kk,
                             const void* pb, void* stream) {
   if (hd != 64 || kk < 0 || kk > MAX_KK) return (int)cudaErrorInvalidValue;
   TokenMap map{grid, rs, grid > 0 ? grid / rs : 0, P};
   cudaError_t err = cudaErrorInvalidValue;
-  RRT_DISPATCH(tm, TM,
-      err = launch_attention<TM>(Y, ldy, kcol0, vcol0, O, ldo, R, H, map, pw,
-                                 kk, pb, (cudaStream_t)stream));
+  RRT_DISPATCH(tm, TM, RRT_DISPATCH(to, TO,
+      err = launch_attention<TM, TO>(Y, ldy, kcol0, vcol0, O, ldo, R, H, map, pw,
+                                     kk, pb, (cudaStream_t)stream)));
   return (int)err;
 }

@@ -43,19 +43,24 @@ class Attention(nn.Module):
 
 class DAttention(nn.Module):
     """Dispatch wrapper (datten.py:85-101): returns pooled (B, C).  The
-    scorer's dropout (PoolConfig.dropout) is inactive in eval, the only mode
-    of this slice."""
+    scorer's dropout (PoolConfig.dropout, off in every canonical config) is
+    not ported: train mode with it on raises."""
 
     def __init__(self, input_dim: int = 512, act: str = "relu",
-                 gated: bool = False, bias: bool = False):
+                 gated: bool = False, bias: bool = False,
+                 dropout: bool = False):
         super().__init__()
         if gated:
             raise NotImplementedError(
                 "gated attention pooling is not ported yet (ROADMAP.md "
                 "queue 1)")
+        self.dropout = dropout
         self.attention = Attention(input_dim, act, bias)
 
     def forward(self, x, mask=None):
+        if self.training and self.dropout:
+            raise NotImplementedError("the pooling scorer's dropout is not "
+                                      "ported yet (ROADMAP.md queue 1)")
         return self.attention(x, mask).squeeze(1)
 
 

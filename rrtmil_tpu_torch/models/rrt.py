@@ -25,6 +25,15 @@ The JAX package's TPU gates (layer_fusable_geometry, crmsa_fusable_geometry,
 legal_cb) have no counterpart: the kernels take every c16_r50 geometry and
 raise on a geometry they cannot take.  Variants outside the slice raise
 NotImplementedError pointing at ROADMAP.md.
+
+`model.train()` plays the role of the JAX package's `deterministic=False`:
+dropout goes where the JAX model puts it (after `patch_to_emb` and its
+activation, on the R-MSA branch outside K1, which then runs with
+add_residual=False, after K5's output, and after the projection in the
+unfused InnerAttention).  Its masks come from the `torch.Generator` the caller
+passes as `generator=`; there is no global RNG.  Stochastic depth
+(drop_path > 0) in train mode needs the redistribution without the final
+LayerNorm (K10/K11) and raises.
 """
 from __future__ import annotations
 
@@ -56,6 +65,19 @@ def _dtype(name: str) -> torch.dtype:
 def _todo(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md "
                                f"queue 1 item 8 and queue 2")
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
+            training: bool) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - p and scale by 1 / (1 - p);
+    the mask is drawn from `generator` (on x's device)."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode draws its masks from a "
+                         "torch.Generator: pass generator=")
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
 
 
 def _fit_length(x: torch.Tensor, target: int) -> torch.Tensor:
@@ -131,13 +153,17 @@ class InnerAttention(nn.Module):
         return (w3[0] * cfg.scale, w3[1], w3[2], b3[0] * cfg.scale, b3[1],
                 b3[2], self.pe_weight, self.pe_bias, wp, self.proj.bias)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         cdt = _dtype(cfg.compute_dtype)
+        if self.training and cfg.attn_dropout > 0:
+            raise _todo("attention-probability dropout (attn_dropout > 0)")
         if x.is_cuda or cfg.backend != "xla":
-            return region_block_fused(x.to(cdt), *self.kernel_weights(),
-                                      mm_dtype=_dtype(cfg.mm_dtype))
-        return self._forward_xla(x, cdt)
+            out = region_block_fused(x.to(cdt), *self.kernel_weights(),
+                                     mm_dtype=_dtype(cfg.mm_dtype))
+        else:
+            out = self._forward_xla(x, cdt)
+        return dropout(out, cfg.proj_dropout, generator, self.training)
 
     def _forward_xla(self, x, cdt):
         """The JAX package's XLA formulation (rrt.py:185-250), on the CPU."""
@@ -172,13 +198,14 @@ class RegionAttention(nn.Module):
         self.cfg = cfg
         self.attn = InnerAttention(cfg.attn)
 
-    def forward(self, x, length: Optional[int] = None):
+    def forward(self, x, length: Optional[int] = None,
+                generator: Optional[torch.Generator] = None):
         b, n_in, c = x.shape
         length = n_in if length is None else length
         geom = grid_geometry(length, self.cfg.region)
         rs = geom.region_size
         x = _fit_length(x, geom.padded_length).reshape(b, geom.grid, geom.grid, c)
-        regions = self.attn(region_partition(x, rs))
+        regions = self.attn(region_partition(x, rs), generator)
         out = region_reverse(regions, rs, geom.grid, geom.grid)
         return _fit_length(out, n_in)
 
@@ -199,7 +226,8 @@ class CrossRegionAttention(nn.Module):
         self.phi = nn.Parameter(torch.zeros(cfg.attn.dim, cfg.crmsa_k))
         self.attn = InnerAttention(cfg.attn)
 
-    def forward(self, x, length: Optional[int] = None):
+    def forward(self, x, length: Optional[int] = None,
+                generator: Optional[torch.Generator] = None):
         if x.is_cuda:
             raise _todo("the unfused CR-MSA compress/redistribute (K12/K13)")
         cfg = self.cfg
@@ -217,14 +245,15 @@ class CrossRegionAttention(nn.Module):
         lmax = logits.amax(-1, keepdim=True)
         dispatch_mm = (logits - lmin) / (lmax - lmin + 1e-8)
         reps = torch.einsum("brpc,brkp->bkrc", regions.float(), combine)
-        reps = self.attn(reps.reshape(b * kk, nr, c)).reshape(b, kk, nr, c)
+        reps = self.attn(reps.reshape(b * kk, nr, c), generator)
+        reps = reps.reshape(b, kk, nr, c)
         out = torch.einsum("bkrc,brkp->brpc", reps.float(),
                            dispatch_mm * dispatch)
         out = region_reverse(out.reshape(b * nr, p, c), rs, geom.grid, geom.grid)
         return _fit_length(out, n_in)
 
     def fused(self, x, mask, ln_s, ln_b, length: int, final_ln,
-              final_shortcut=None):
+              final_shortcut=None, generator=None):
         """K3 -> cross-region InnerAttention (K5) -> K8: the CR-MSA layer
         with the layer residual, the global shortcut and the encoder-final
         LayerNorm + mask; returns the fp32 encoder output."""
@@ -236,7 +265,7 @@ class CrossRegionAttention(nn.Module):
         reps, w = crmsa_compress_grid(x, mask, ln_s, ln_b, self.phi, geom.grid,
                                       geom.region_size, mmd)
         reps = reps.transpose(1, 2).reshape(b * kk, nr, c)
-        reps = self.attn(reps)
+        reps = self.attn(reps, generator)
         reps = reps.reshape(b, kk, nr, c).transpose(1, 2).float().contiguous()
         return crmsa_redistribute_grid_ln(x, mask, w, reps, final_ln[0],
                                           final_ln[1], final_shortcut,
@@ -256,6 +285,14 @@ def fused_layer_ok(cfg: TransLayerConfig, x, mask, length: int) -> bool:
     if a.attn_dropout != 0.0 or not _fused_backend(a):
         return False
     return x.shape[1] == grid_geometry(length, cfg.rmsa.region).padded_length
+
+
+def branch_outside(cfg: TransLayerConfig, training: bool) -> bool:
+    """The `outside` rule of rrt.py:644-645: in train mode with projection
+    dropout the fused R-MSA kernel returns the masked branch without the
+    residual (add_residual=False), and dropout and the residual run
+    outside it."""
+    return training and cfg.rmsa.attn.proj_dropout > 0
 
 
 def fused_crmsa_ok(cfg: TransLayerConfig, x, mask, length: int) -> bool:
@@ -298,25 +335,36 @@ class TransLayer(nn.Module):
         return _dtype(a.compute_dtype)
 
     def forward(self, x, mask=None, length: Optional[int] = None,
-                final_ln=None, final_shortcut=None):
+                final_ln=None, final_shortcut=None,
+                generator: Optional[torch.Generator] = None):
         cfg = self.cfg
+        if self.training and cfg.drop_path > 0:
+            raise NotImplementedError(
+                "drop_path > 0 in train mode needs the CR-MSA redistribution "
+                "without the final LayerNorm and its backward (K10/K11, "
+                "crmsa_kernels.py::_redistribute_grid_pallas/_rgrid_bwd_pallas"
+                "), not ported yet: see ROADMAP.md queue 2")
         length_r = x.shape[1] if length is None else length
         if fused_layer_ok(cfg, x, mask, length_r):
             a = cfg.rmsa.attn
             geom = grid_geometry(length_r, cfg.rmsa.region)
-            x = region_layer_fused(
+            outside = branch_outside(cfg, self.training)
+            out = region_layer_fused(
                 x, mask, self.norm.weight, self.norm.bias,
                 *self.attn.attn.kernel_weights(), geom.grid, geom.region_size,
-                True, _dtype(a.mm_dtype))
+                not outside, _dtype(a.mm_dtype))
+            x = x + dropout(out, a.proj_dropout, generator, True) \
+                if outside else out
         elif final_ln is not None and fused_crmsa_ok(cfg, x, mask, length_r):
             return self.attn.fused(x, mask, self.norm.weight, self.norm.bias,
-                                   length_r, final_ln, final_shortcut)
+                                   length_r, final_ln, final_shortcut,
+                                   generator)
         else:
             m = None if mask is None else mask[..., None].to(x.dtype)
             z = self.norm(x).to(self._compute_dtype())
             if m is not None:
                 z = z * m
-            z = self.attn(z, length=length)
+            z = self.attn(z, length=length, generator=generator)
             if m is not None:
                 z = z * m
             x = x + z
@@ -344,7 +392,8 @@ class RRTEncoder(nn.Module):
         self.cr_msa = TransLayer(cfg.crmsa_layer()) if cfg.cr_msa else None
         self.norm = LayerNorm(cfg.dim)
 
-    def forward(self, x, mask=None, length: Optional[int] = None):
+    def forward(self, x, mask=None, length: Optional[int] = None,
+                generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         squeeze = x.dim() == 2
         if squeeze:
@@ -352,16 +401,18 @@ class RRTEncoder(nn.Module):
         length = x.shape[1] if length is None else length
         x_shortcut = x
         for i in range(self.n_rmsa):
-            x = getattr(self, f"layer{i}")(x, mask=mask, length=length)
+            x = getattr(self, f"layer{i}")(x, mask=mask, length=length,
+                                           generator=generator)
         if self.cr_msa is not None:
             final_ln = (self.norm.weight, self.norm.bias)
             if fused_crmsa_ok(self.cr_msa.cfg, x, mask, length):
                 # the final LayerNorm rides K8's stream write (rrt.py:797-809)
                 x = self.cr_msa(x, mask=mask, length=length, final_ln=final_ln,
                                 final_shortcut=(x_shortcut if cfg.all_shortcut
-                                                else None))
+                                                else None),
+                                generator=generator)
                 return x[0] if squeeze else x
-            x = self.cr_msa(x, mask=mask, length=length)
+            x = self.cr_msa(x, mask=mask, length=length, generator=generator)
         if cfg.all_shortcut:
             x = x + x_shortcut
         x = _apply_final_ln(x, mask, self.norm.weight, self.norm.bias)
@@ -380,11 +431,14 @@ class RRTMIL(nn.Module):
         p = cfg.pool
         if p.kind not in ("attn", "avg"):
             raise _todo(f"pool '{p.kind}'")
-        self.pool_fn = (DAttention(cfg.encoder.dim, p.act, p.gated, p.bias)
+        self.pool_fn = (DAttention(cfg.encoder.dim, p.act, p.gated, p.bias,
+                                   p.dropout)
                         if p.kind == "attn" else MeanPool())
         self.predictor = nn.Linear(cfg.encoder.dim, cfg.n_classes)
 
-    def forward(self, x, mask=None, length: Optional[int] = None):
+    def forward(self, x, mask=None, length: Optional[int] = None,
+                generator: Optional[torch.Generator] = None):
+        """`generator` draws the dropout masks in train mode."""
         cfg = self.cfg
         if x.dim() == 2:
             x = x[None]
@@ -396,10 +450,12 @@ class RRTMIL(nn.Module):
             x = F.relu(x)
         elif cfg.act == "gelu":
             x = F.gelu(x, approximate="none")
+        x = dropout(x, cfg.dropout, generator, self.training)
         if mask is not None:
             # bucket-pad rows enter the encoder as exact zeros (rrt.py:857-861)
             x = x * mask[..., None].to(x.dtype)
-        x = self.online_encoder(x, mask=mask, length=length).float()
+        x = self.online_encoder(x, mask=mask, length=length,
+                                generator=generator).float()
         feat = self.pool_fn(x, mask=mask)
         return self.predictor(feat)
 
@@ -430,7 +486,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(cfg: RRTMILConfig, device="cuda", seed: int = 0) -> RRTMIL:
     """An RRTMIL in eval mode with seeded weights, on `device` (the card by
-    default; raises when there is none unless device='cpu')."""
+    default; raises when there is none unless device='cpu'); `.train()`
+    switches dropout on."""
     dev = resolve_device(device)
     model = RRTMIL(cfg)
     init_parameters(model, torch.Generator().manual_seed(seed))

@@ -30,7 +30,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("region_layer", "crmsa")
+SOURCES = ("region_layer", "region_layer_bwd", "crmsa", "crmsa_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -41,14 +41,31 @@ SIGNATURES = {
         "rl_ln_mask": [_I, _I, _P, _P, _P, _P, _P, _LL, _I, _F, _P],
         "rl_gemm": [_I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,
                     _I, _P],
-        "rl_attention": [_I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                         _I, _P, _P],
+        "rl_attention": [_I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _P, _I, _P, _P],
+    },
+    "region_layer_bwd": {
+        "rb_gemm": [_I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
+                    _I, _I, _LL, _P],
+        "rb_colsum": [_I, _I, _P, _I, _LL, _I, _P, _P, _I, _I, _P, _P],
+        "rb_reduce": [_P, _I, _LL, _P, _P],
+        "rb_ln_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _P],
+        "rb_attention_bwd": [_I, _I, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _P, _I, _P, _F, _P, _P, _P, _P,
+                             _P, _P],
     },
     "crmsa": {
         "cr_compress_grid": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _F, _P],
         "cr_redistribute_ln": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _F, _P],
+    },
+    "crmsa_bwd": {
+        "cb_compress_grid_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _F, _P],
+        "cb_redistribute_ln_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "cb_reduce": [_P, _I, _LL, _P, _P],
     },
 }
 

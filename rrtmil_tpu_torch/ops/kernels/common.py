@@ -1,8 +1,6 @@
 """Helpers shared by the kernels' plain PyTorch versions and wrappers."""
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 LN_EPS = 1e-6
@@ -48,11 +46,25 @@ def epeg_toeplitz(pw: torch.Tensor, p: int) -> torch.Tensor:
     return m
 
 
-def forward_only(name: str, *tensors: Optional[torch.Tensor]) -> None:
-    """The kernels have no backward yet: refuse to run under autograd."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name}: the backward kernel is not ported yet (training is "
-            f"the next slice, see ROADMAP.md queue 2); run under "
-            f"torch.no_grad()")
+def ln_stats(xf: torch.Tensor, eps: float = LN_EPS):
+    """(zhat, rstd) of the fast-variance LayerNorm over the last axis."""
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    return (xf - mu) * rstd, rstd
+
+
+def ln_bwd_plain(dzs: torch.Tensor, zhat: torch.Tensor, rstd: torch.Tensor,
+                 ls: torch.Tensor):
+    """Backward of y = zhat * ls + lb (fast-variance LayerNorm) given dzs =
+    dL/dy (..., C) in float32: returns (dx, dls, dlb), the parameter grads
+    summed over every leading axis (region_layer.py:406-415,
+    crmsa_kernels.py:470-476,:899-906)."""
+    dzh = dzs * ls.float()
+    m1 = dzh.mean(-1, keepdim=True)
+    m2 = (dzh * zhat).mean(-1, keepdim=True)
+    dx = rstd * (dzh - m1 - zhat * m2)
+    c = dzs.shape[-1]
+    return (dx, (dzs * zhat).reshape(-1, c).sum(0),
+            dzs.reshape(-1, c).sum(0))
+

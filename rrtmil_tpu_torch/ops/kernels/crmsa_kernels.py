@@ -14,8 +14,19 @@ w^T reps per region -> reverse -> mask -> + x -> + shortcut -> the
 encoder-final LayerNorm -> mask, as the f32 encoder output.
 
 The CUDA source is `csrc/crmsa.cu`; its note says what bounds each kernel on
-an H100 and what the design does about it.  Each wrapper launches its kernel
-for a CUDA tensor and runs the plain version for a CPU tensor.
+an H100 and what the design does about it.
+
+Their backwards: K4 `crmsa_compress_grid_bwd` replaces
+`crmsa_kernels.py::_cgrid_bwd_pallas` (kernel body `_cgrid_bwd_kernel`,
+pallas_call at crmsa_kernels.py:514) and K9 `crmsa_redistribute_grid_ln_bwd`
+replaces `crmsa_kernels.py::_rgrid_ln_bwd_pallas` (kernel body
+`_rgrid_ln_bwd_kernel`, pallas_call at crmsa_kernels.py:964); their CUDA
+source is `csrc/crmsa_bwd.cu`.  The shortcut's gradient is K9's dx, the same
+tensor (crmsa_kernels.py:1021).
+
+The two forward wrappers are `torch.autograd.Function`s (K3 with K4, K8 with
+K9).  Every wrapper launches its kernel for a CUDA tensor and runs the plain
+version for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -25,7 +36,8 @@ import torch
 
 from ..regions import region_partition, region_reverse
 from . import build
-from .common import LN_EPS, forward_only, ln_fast, ln_mask_plain, mm_round
+from .common import (LN_EPS, ln_bwd_plain, ln_fast, ln_mask_plain, ln_stats,
+                     mm_round)
 from .region_layer import check_grid
 
 MAX_K = 8   # representatives per region the kernels take
@@ -68,6 +80,74 @@ def redistribute_grid_ln_plain(x, mask, w, reps, ln_s, ln_b, shortcut,
     return ln_fast(out, ln_s, ln_b) * mf
 
 
+def compress_grid_bwd_plain(x, mask, ln_s, ln_b, phi, dreps, dw,
+                            grid_side: int, region_size: int,
+                            mm_dtype=torch.bfloat16):
+    """Plain PyTorch version of K4: (dx, dls, dlb, dphi) given d(reps) and
+    d(w); the min and max gradients are split equally among ties."""
+    mmd = mm_dtype
+    b, n, c = x.shape
+    g, rs = grid_side, region_size
+    nr = (g // rs) ** 2
+    mf = mask.float()[..., None]
+    zhat, rstd = ln_stats(x.float())
+    z = mm_round((zhat * ln_s.float() + ln_b.float()) * mf, mmd)
+    zr = region_partition(z.reshape(b, g, g, c), rs).reshape(b, nr, -1, c)
+    logits = torch.einsum("brpc,ck->brkp", zr, mm_round(phi, mmd))
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    combine = e / e.sum(-1, keepdim=True)
+    ed = torch.exp(logits - logits.amax(-2, keepdim=True))
+    dispatch = ed / ed.sum(-2, keepdim=True)
+    lmin = logits.amin(-1, keepdim=True)
+    lmax = logits.amax(-1, keepdim=True)
+    rng = lmax - lmin + 1e-8
+    lz = logits - lmin
+    drm = mm_round(dreps, mmd)
+    dwf = dw.float()
+    d_comb = torch.einsum("brkc,brpc->brkp", drm, zr)
+    d_mm, d_disp = dwf * dispatch, dwf * (lz / rng)
+    dl = combine * (d_comb - (d_comb * combine).sum(-1, keepdim=True))
+    dl = dl + dispatch * (d_disp - (d_disp * dispatch).sum(-2, keepdim=True))
+    dl = dl + d_mm / rng
+    dlmin = (d_mm * (lz - rng)).sum(-1, keepdim=True) / (rng * rng)
+    dlmax = -(d_mm * lz).sum(-1, keepdim=True) / (rng * rng)
+    eqmin = (logits == lmin).float()
+    eqmax = (logits == lmax).float()
+    dl = dl + dlmin * eqmin / eqmin.sum(-1, keepdim=True)
+    dl = dl + dlmax * eqmax / eqmax.sum(-1, keepdim=True)
+    dlm = mm_round(dl, mmd)
+    dzr = (torch.einsum("brkp,brkc->brpc", mm_round(combine, mmd), drm)
+           + torch.einsum("brkp,ck->brpc", dlm, phi.float()))
+    dphi = torch.einsum("brkp,brpc->ck", dlm, zr)
+    dz = region_reverse(dzr.reshape(b * nr, -1, c), rs, g, g)
+    dx, dls, dlb = ln_bwd_plain(dz * mf, zhat, rstd, ln_s)
+    return dx.to(x.dtype), dls, dlb, dphi
+
+
+def redistribute_grid_ln_bwd_plain(x, mask, w, reps, ln_s, ln_b, shortcut, g,
+                                   grid_side: int, region_size: int,
+                                   mm_dtype=torch.bfloat16):
+    """Plain PyTorch version of K9: (dx, dw, dreps, dls, dlb, dshortcut)
+    given g = d(out); dshortcut is dx itself (None without a shortcut)."""
+    mmd = mm_dtype
+    b, n, c = x.shape
+    gs, rs = grid_side, region_size
+    nr = w.shape[1]
+    mf = mask.float()[..., None]
+    y = torch.einsum("brkp,brkc->brpc", mm_round(w, mmd), mm_round(reps, mmd))
+    out = x.float() + region_reverse(y.reshape(b * nr, -1, c), rs, gs, gs) * mf
+    if shortcut is not None:
+        out = out + shortcut.float()
+    zhat, rstd = ln_stats(out)
+    g_out, dls, dlb = ln_bwd_plain(g.float() * mf, zhat, rstd, ln_s)
+    gr = region_partition(mm_round(g_out * mf, mmd).reshape(b, gs, gs, c),
+                          rs).reshape(b, nr, -1, c)
+    dw = torch.einsum("brkc,brpc->brkp", mm_round(reps, mmd), gr)
+    dreps = torch.einsum("brkp,brpc->brkc", mm_round(w, mmd), gr)
+    dx = g_out.to(x.dtype)
+    return dx, dw, dreps, dls, dlb, (None if shortcut is None else dx)
+
+
 def _check_k(k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"the CR-MSA kernels take 1..{MAX_K} "
@@ -96,9 +176,9 @@ def _launch_compress(x, mask, ln_s, ln_b, phi, g, rs, mmd):
     return reps, w
 
 
-def _launch_redistribute(x, mask, w, reps, ln_s, ln_b, shortcut, g, rs, mmd):
+def _check_redistribute(x, mask, w, reps, shortcut, g, rs):
     b, n, c = x.shape
-    nr, k, p = w.shape[1], w.shape[2], w.shape[3]
+    nr, k = w.shape[1], w.shape[2]
     check_grid(x, mask, g, rs)
     _check_k(k)
     if (w.shape != (b, (g // rs) ** 2, k, rs * rs)
@@ -110,6 +190,12 @@ def _launch_redistribute(x, mask, w, reps, ln_s, ln_b, shortcut, g, rs, mmd):
         raise ValueError("shortcut must match x in shape and dtype")
     if w.dtype != torch.float32 or reps.dtype != torch.float32:
         raise TypeError("w and reps must be float32")
+
+
+def _launch_redistribute(x, mask, w, reps, ln_s, ln_b, shortcut, g, rs, mmd):
+    b, n, c = x.shape
+    k = w.shape[2]
+    _check_redistribute(x, mask, w, reps, shortcut, g, rs)
     build.require_cuda({"x": x, "mask": mask, "w": w, "reps": reps,
                         "shortcut": shortcut}, dict(ln_s=ln_s, ln_b=ln_b))
     lib = build.load("crmsa")
@@ -124,18 +210,157 @@ def _launch_redistribute(x, mask, w, reps, ln_s, ln_b, shortcut, g, rs, mmd):
     return out
 
 
+def _launch_compress_bwd(x, mask, ln_s, ln_b, phi, dreps, dw, g, rs, mmd):
+    b, n, c = x.shape
+    k = phi.shape[1]
+    check_grid(x, mask, g, rs)
+    _check_k(k)
+    nr, p = (g // rs) ** 2, rs * rs
+    if dreps.shape != (b, nr, k, c) or dw.shape != (b, nr, k, p):
+        raise ValueError(f"dreps {tuple(dreps.shape)} / dw {tuple(dw.shape)} "
+                         f"do not match the {g}^2 grid of {rs}-wide regions")
+    dreps, dw = dreps.float().contiguous(), dw.float().contiguous()
+    build.require_cuda({"x": x, "mask": mask, "dreps": dreps, "dw": dw},
+                       dict(ln_s=ln_s, ln_b=ln_b, phi=phi))
+    lib = build.load("crmsa_bwd")
+    s = build.stream_of(x)
+    ls, lb = ln_s.float().contiguous(), ln_b.float().contiguous()
+    phi_f = phi.float().contiguous()
+    dx = torch.empty_like(x)
+    part = torch.empty((b * nr, (2 + k) * c), dtype=torch.float32,
+                       device=x.device)
+    build.check(lib.cb_compress_grid_bwd(
+        build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
+        mask.data_ptr(), ls.data_ptr(), lb.data_ptr(), phi_f.data_ptr(),
+        dreps.data_ptr(), dw.data_ptr(), dx.data_ptr(), part.data_ptr(), b, g,
+        rs, c, k, LN_EPS, s), "K4 compress backward")
+    out = torch.empty(((2 + k) * c,), dtype=torch.float32, device=x.device)
+    build.check(lib.cb_reduce(part.data_ptr(), b * nr, (2 + k) * c,
+                              out.data_ptr(), s), "K4 reduce")
+    crmsa_compress_grid_bwd.launches += 1
+    return dx, out[:c], out[c:2 * c], out[2 * c:].reshape(k, c).t()
+
+
+def _launch_redistribute_bwd(x, mask, w, reps, ln_s, ln_b, shortcut, gout,
+                             g, rs, mmd):
+    b, n, c = x.shape
+    nr, k, p = w.shape[1], w.shape[2], w.shape[3]
+    _check_redistribute(x, mask, w, reps, shortcut, g, rs)
+    if gout.shape != x.shape:
+        raise ValueError(f"g {tuple(gout.shape)} does not match x")
+    gout = gout.float().contiguous()
+    build.require_cuda({"x": x, "mask": mask, "w": w, "reps": reps,
+                        "shortcut": shortcut, "g": gout},
+                       dict(ln_s=ln_s, ln_b=ln_b))
+    lib = build.load("crmsa_bwd")
+    s = build.stream_of(x)
+    ls = ln_s.float().contiguous()
+    dx = torch.empty_like(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dw = torch.empty((b, nr, k, p), **f32)
+    dreps = torch.empty((b, nr, k, c), **f32)
+    part = torch.empty((b * nr, 2 * c), **f32)
+    build.check(lib.cb_redistribute_ln_bwd(
+        build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
+        mask.data_ptr(), w.data_ptr(), reps.data_ptr(), ls.data_ptr(),
+        build.ptr(shortcut), gout.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+        dreps.data_ptr(), part.data_ptr(), b, g, rs, c, k, LN_EPS, s),
+        "K9 redistribute backward")
+    out = torch.empty((2 * c,), **f32)
+    build.check(lib.cb_reduce(part.data_ptr(), b * nr, 2 * c, out.data_ptr(),
+                              s), "K9 reduce")
+    crmsa_redistribute_grid_ln_bwd.launches += 1
+    return (dx, dw, dreps, out[:c], out[c:],
+            None if shortcut is None else dx)
+
+
+def _device(x, what: str) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for {x.device}")
+    return x.device.type
+
+
+def crmsa_compress_grid_bwd(x, mask, ln_s, ln_b, phi, dreps, dw,
+                            grid_side: int, region_size: int,
+                            mm_dtype=torch.bfloat16):
+    """K4 for CUDA tensors, its plain version for CPU tensors: (dx, dls,
+    dlb, dphi) of `crmsa_compress_grid`."""
+    args = (x, mask, ln_s, ln_b, phi, dreps, dw, grid_side, region_size,
+            mm_dtype)
+    if _device(x, "crmsa_compress_grid_bwd") == "cpu":
+        return compress_grid_bwd_plain(*args)
+    return _launch_compress_bwd(*args)
+
+
+def crmsa_redistribute_grid_ln_bwd(x, mask, w, reps, ln_s, ln_b, shortcut, g,
+                                   grid_side: int, region_size: int,
+                                   mm_dtype=torch.bfloat16):
+    """K9 for CUDA tensors, its plain version for CPU tensors: (dx, dw,
+    dreps, dls, dlb, dshortcut) of `crmsa_redistribute_grid_ln`."""
+    args = (x, mask, w, reps, ln_s, ln_b, shortcut, g, grid_side,
+            region_size, mm_dtype)
+    if _device(x, "crmsa_redistribute_grid_ln_bwd") == "cpu":
+        return redistribute_grid_ln_bwd_plain(*args)
+    return _launch_redistribute_bwd(*args)
+
+
+class _CompressGrid(torch.autograd.Function):
+    """K3 forward, K4 backward (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, mask, ln_s, ln_b, phi, grid_side, region_size,
+                mm_dtype):
+        ctx.save_for_backward(x, mask, ln_s, ln_b, phi)
+        ctx.geom = (grid_side, region_size, mm_dtype)
+        args = (x, mask, ln_s, ln_b, phi, grid_side, region_size, mm_dtype)
+        if x.device.type == "cpu":
+            return compress_grid_plain(*args)
+        return _launch_compress(*args)
+
+    @staticmethod
+    def backward(ctx, dreps, dw):
+        x, mask, ln_s, ln_b, phi = ctx.saved_tensors
+        g, rs, mmd = ctx.geom
+        # autograd hands None for an output nobody used
+        b, nr, k = x.shape[0], (g // rs) ** 2, phi.shape[1]
+        if dreps is None:
+            dreps = x.new_zeros((b, nr, k, x.shape[2]), dtype=torch.float32)
+        if dw is None:
+            dw = x.new_zeros((b, nr, k, rs * rs), dtype=torch.float32)
+        dx, dls, dlb, dphi = crmsa_compress_grid_bwd(
+            x, mask, ln_s, ln_b, phi, dreps, dw, g, rs, mmd)
+        return dx, None, dls, dlb, dphi, None, None, None
+
+
+class _RedistributeGridLN(torch.autograd.Function):
+    """K8 forward, K9 backward (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, mask, w, reps, ln_s, ln_b, shortcut, grid_side,
+                region_size, mm_dtype):
+        ctx.save_for_backward(x, mask, w, reps, ln_s, ln_b, shortcut)
+        ctx.geom = (grid_side, region_size, mm_dtype)
+        args = (x, mask, w, reps, ln_s, ln_b, shortcut, grid_side,
+                region_size, mm_dtype)
+        if x.device.type == "cpu":
+            return redistribute_grid_ln_plain(*args)
+        return _launch_redistribute(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mask, w, reps, ln_s, ln_b, shortcut = ctx.saved_tensors
+        dx, dw, dreps, dls, dlb, dsc = crmsa_redistribute_grid_ln_bwd(
+            x, mask, w, reps, ln_s, ln_b, shortcut, g, *ctx.geom)
+        return dx, None, dw, dreps, dls, dlb, dsc, None, None, None
+
+
 def crmsa_compress_grid(x, mask, ln_s, ln_b, phi, grid_side: int,
                         region_size: int, mm_dtype=torch.bfloat16):
     """Raw stream (B, G*G, C) + mask -> (reps (B, nR, k, C), w (B, nR, k, P)),
     both float32; LayerNorm/mask/partition fused in.  phi: (C, k)."""
-    if x.device.type == "cpu":
-        return compress_grid_plain(x, mask, ln_s, ln_b, phi, grid_side,
-                                   region_size, mm_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"crmsa_compress_grid: no kernel for {x.device}")
-    forward_only("crmsa_compress_grid", x, ln_s, ln_b, phi)
-    return _launch_compress(x, mask, ln_s, ln_b, phi, grid_side, region_size,
-                            mm_dtype)
+    _device(x, "crmsa_compress_grid")
+    return _CompressGrid.apply(x, mask, ln_s, ln_b, phi, grid_side,
+                               region_size, mm_dtype)
 
 
 def crmsa_redistribute_grid_ln(x, mask, w, reps, ln_s, ln_b,
@@ -145,18 +370,12 @@ def crmsa_redistribute_grid_ln(x, mask, w, reps, ln_s, ln_b,
     """Redistribution + residual (+ optional global shortcut) + the
     encoder-final LayerNorm + mask; returns the float32 encoder output
     (B, G*G, C).  w (B, nR, k, P) and reps (B, nR, k, C) are float32."""
-    if x.device.type == "cpu":
-        return redistribute_grid_ln_plain(x, mask, w, reps, ln_s, ln_b,
-                                          shortcut, grid_side, region_size,
-                                          mm_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"crmsa_redistribute_grid_ln: no kernel for "
-                         f"{x.device}")
-    forward_only("crmsa_redistribute_grid_ln", x, w, reps, ln_s, ln_b,
-                 shortcut)
-    return _launch_redistribute(x, mask, w, reps, ln_s, ln_b, shortcut,
-                                grid_side, region_size, mm_dtype)
+    _device(x, "crmsa_redistribute_grid_ln")
+    return _RedistributeGridLN.apply(x, mask, w, reps, ln_s, ln_b, shortcut,
+                                     grid_side, region_size, mm_dtype)
 
 
 crmsa_compress_grid.launches = 0
 crmsa_redistribute_grid_ln.launches = 0
+crmsa_compress_grid_bwd.launches = 0
+crmsa_redistribute_grid_ln_bwd.launches = 0

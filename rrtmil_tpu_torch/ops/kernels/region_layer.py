@@ -1,6 +1,7 @@
-"""K1: the whole R-MSA TransLayer forward, as CUDA kernels.
+"""K1 and K2: the whole R-MSA TransLayer, forward and backward, as CUDA
+kernels.
 
-Replaces `rrtmil_tpu/ops/pallas/region_layer.py::_layer_fwd_pallas`
+K1 replaces `rrtmil_tpu/ops/pallas/region_layer.py::_layer_fwd_pallas`
 (kernel body `_layer_kernel`, pallas_call at region_layer.py:231):
 
     LN (eps 1e-6, fast variance) -> mask -> region partition -> per-head
@@ -9,12 +10,21 @@ Replaces `rrtmil_tpu/ops/pallas/region_layer.py::_layer_fwd_pallas`
 
 on the (B, G*G, C) stream, in x's dtype.  The CUDA source is
 `csrc/region_layer.cu` (a three-step pipeline: LN + qkv product, attention
-core, projection + residual); its note says what bounds it on an H100 and
-what the design does about it.
+core, projection + residual).
 
-`region_layer_fused` launches the kernels for a CUDA tensor (through the
-`torch.autograd.Function` shell, whose backward -- K2 -- is the next
-slice) and runs `region_layer_plain` for a CPU tensor.
+K2 replaces `region_layer.py::_layer_bwd_pallas` (kernel body
+`_layer_bwd_kernel`, pallas_call at region_layer.py:554): from x, the
+weights and g = d(out) it recomputes the layer and returns the gradients of
+(x, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp), rounding where the
+TPU kernel rounds (z, the qkv, the Toeplitz matrix, o, g * mask, d(o),
+d(logits), d(qkv)).  Its CUDA source is `csrc/region_layer_bwd.cu`, with
+K1's entries for the recompute.  The notes in both sources say what bounds
+the kernels on an H100 and what the design does about it.
+
+`region_layer_fused` is a `torch.autograd.Function` whose forward is K1 and
+backward K2; on a CPU tensor both directions run the plain versions.  The
+gradients of wq and bq are those of the pre-scaled tensors the caller
+passed; autograd carries them through the caller's scaling.
 """
 from __future__ import annotations
 
@@ -22,8 +32,14 @@ import torch
 
 from ..regions import region_partition, region_reverse
 from . import build
-from .common import LN_EPS, ln_mask_plain, mm_round
-from .region_block import block_core_plain, check_heads, qkv_weights
+from .common import LN_EPS, ln_bwd_plain, ln_mask_plain, ln_stats, mm_round
+from .region_attn import attention_core_plain, check_heads, epeg_args
+from .region_attn_bwd import attention_bwd_core_plain, attention_bwd_launch
+from .region_block import block_core_plain, qkv_weights
+
+COLSUM_ROWS = 256    # rows of one partial column sum
+LN_ROWS_PER_WARP = 32
+SMS = 132            # streaming multiprocessors of an H100 SXM
 
 
 def region_layer_plain(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb,
@@ -44,6 +60,46 @@ def region_layer_plain(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb,
     return out.to(x.dtype)
 
 
+def region_layer_bwd_plain(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw,
+                           pb, wp, bp, g, grid_side: int, region_size: int,
+                           add_residual: bool, mm_dtype=torch.bfloat16):
+    """Plain PyTorch version of K2: the gradients of (x, ln_s, ln_b, wq, wk,
+    wv, bq, bk, bv, pw, pb, wp, bp) given g = d(out); pw's and pb's are None
+    when they are."""
+    mmd = mm_dtype
+    b, n, c = x.shape
+    gs, rs = grid_side, region_size
+    mf = mask.float()[..., None]
+    zhat, rstd = ln_stats(x.float())
+    z = mm_round((zhat * ln_s.float() + ln_b.float()) * mf, mmd)
+    zr = region_partition(z.reshape(b, gs, gs, c), rs)          # (R, P, C)
+
+    def heads(w, bb):
+        y = torch.einsum("rpc,hcd->rhpd", zr, mm_round(w, mmd))
+        return mm_round(y + bb.float()[None, :, None, :], mmd)
+
+    q, k, v = heads(wq, bq), heads(wk, bk), heads(wv, bv)
+    o = mm_round(attention_core_plain(q, k, v, pw, pb, mmd), mmd)
+    gf = g.float()
+    gm = gf * mf
+    gr = region_partition(mm_round(gm, mmd).reshape(b, gs, gs, c), rs)
+    dwp = torch.einsum("rhpd,rpc->hdc", o, gr)
+    dbp = gm.reshape(-1, c).sum(0)
+    g_o = mm_round(torch.einsum("rpc,hdc->rhpd", gr, mm_round(wp, mmd)), mmd)
+    dq, dk, dv, dpw, dpb = attention_bwd_core_plain(q, k, v, g_o, pw, pb, mmd)
+    grads, dzr = [], 0.0
+    for d, w in ((dq, wq), (dk, wk), (dv, wv)):
+        dm = mm_round(d, mmd)
+        grads.append(torch.einsum("rpc,rhpd->hcd", zr, dm))
+        dzr = dzr + torch.einsum("rhpd,hcd->rpc", dm, mm_round(w, mmd))
+    dz = region_reverse(dzr, rs, gs, gs)
+    dx, dls, dlb = ln_bwd_plain(dz * mf, zhat, rstd, ln_s)
+    if add_residual:
+        dx = dx + gf
+    return (dx.to(x.dtype), dls, dlb, *grads, dq.sum((0, 2)), dk.sum((0, 2)),
+            dv.sum((0, 2)), dpw, dpb, dwp, dbp)
+
+
 def check_grid(x: torch.Tensor, mask: torch.Tensor, grid_side: int,
                region_size: int) -> None:
     b, n, c = x.shape
@@ -56,17 +112,18 @@ def check_grid(x: torch.Tensor, mask: torch.Tensor, grid_side: int,
         raise ValueError(f"the row kernels take C <= 1024, not {c}")
 
 
-def _launch(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
-            g, rs, add_residual, mmd):
+def _params(ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp):
+    return dict(ln_s=ln_s, ln_b=ln_b, wq=wq, wk=wk, wv=wv, bq=bq, bk=bk,
+                bv=bv, pw=pw, pb=pb, wp=wp, bp=bp)
+
+
+def _recompute(lib, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, gs,
+               rs, mmd, s):
+    """K1's first two steps: z = round(mask * LN(x)), the qkv matrix y and
+    the head outputs o, all in the mm dtype and token order."""
     b, n, c = x.shape
     h, _, hd = wq.shape
-    check_grid(x, mask, g, rs)
     kk = check_heads(wq, pw)
-    build.require_cuda({"x": x, "mask": mask},
-                       dict(ln_s=ln_s, ln_b=ln_b, wq=wq, wk=wk, wv=wv, bq=bq,
-                            bk=bk, bv=bv, pw=pw, pb=pb, wp=wp, bp=bp))
-    lib = build.load("region_layer")
-    s = build.stream_of(x)
     ts, tm = build.dtype_code(x.dtype), build.dtype_code(mmd)
     m, nq, hh = b * n, 3 * h * hd, h * hd
     ls, lb = ln_s.float().contiguous(), ln_b.float().contiguous()
@@ -79,14 +136,29 @@ def _launch(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
     build.check(lib.rl_gemm(tm, tm, tm, z.data_ptr(), c, wqkv.data_ptr(), nq,
                             y.data_ptr(), nq, m, nq, c, bqkv.data_ptr(), None,
                             None, 0, s), "K1 qkv")
-    pw_f = pw.float().contiguous() if pw is not None else None
-    pb_f = pb.float().contiguous() if (pw is not None and pb is not None) \
-        else None
+    pw_f, pb_f = epeg_args(pw, pb, kk)
     o = torch.empty((m, hh), dtype=mmd, device=x.device)
-    build.check(lib.rl_attention(tm, y.data_ptr(), nq, hh, 2 * hh,
-                                 o.data_ptr(), hh, b * (g // rs) ** 2, h, hd,
-                                 rs * rs, g, rs, build.ptr(pw_f), kk,
+    build.check(lib.rl_attention(tm, tm, y.data_ptr(), nq, hh, 2 * hh,
+                                 o.data_ptr(), hh, b * (gs // rs) ** 2, h, hd,
+                                 rs * rs, gs, rs, build.ptr(pw_f), kk,
                                  build.ptr(pb_f), s), "K1 attention")
+    return ls, lb, z, wqkv, y, o
+
+
+def _launch(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
+            g, rs, add_residual, mmd):
+    b, n, c = x.shape
+    h, _, hd = wq.shape
+    check_grid(x, mask, g, rs)
+    build.require_cuda({"x": x, "mask": mask},
+                       _params(ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp,
+                               bp))
+    lib = build.load("region_layer")
+    s = build.stream_of(x)
+    ts, tm = build.dtype_code(x.dtype), build.dtype_code(mmd)
+    m, hh = b * n, h * hd
+    _, _, _, _, _, o = _recompute(lib, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk,
+                                  bv, pw, pb, g, rs, mmd, s)
     wp2 = wp.reshape(hh, c).to(mmd).contiguous()
     bp_f = bp.float().contiguous()
     out = torch.empty_like(x)
@@ -99,20 +171,148 @@ def _launch(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
     return out
 
 
+def _split(m: int, tiles: int) -> int:
+    """Rows of the token axis per partial product: enough partials to give
+    the card ~2 blocks an SM, none shorter than 256 rows; a multiple of 8."""
+    chunks = max(1, min(-(-2 * SMS // tiles), -(-m // 256)))
+    rows = -(-m // chunks)
+    return -(-rows // 8) * 8
+
+
+def _gemm(lib, tm, a, lda, b, ldb, out, ldc, m, n, k, *, at=False, bt=False,
+          s=None):
+    """out = round(A) round(B) (A^T with at, B^T with bt); with at the token
+    axis k is split into partials that are summed in order into `out`."""
+    a32 = int(a.dtype == torch.float32)
+    b32 = int(b.dtype == torch.float32)
+    o32 = int(out.dtype == torch.float32)
+    if not at:
+        kchunk = -(-k // 8) * 8
+        build.check(lib.rb_gemm(tm, a32, b32, o32, 0, int(bt), a.data_ptr(),
+                                lda, b.data_ptr(), ldb, out.data_ptr(), ldc,
+                                m, n, k, kchunk, 0, s), "K2 product")
+        return
+    kchunk = _split(k, -(-m // 128) * -(-n // 128))
+    parts = -(-k // kchunk)
+    part = torch.empty((parts, m, n), dtype=torch.float32, device=a.device)
+    build.check(lib.rb_gemm(tm, a32, b32, 1, 1, int(bt), a.data_ptr(), lda,
+                            b.data_ptr(), ldb, part.data_ptr(), n, m, n, k,
+                            kchunk, m * n, s), "K2 weight product")
+    build.check(lib.rb_reduce(part.data_ptr(), parts, m * n, out.data_ptr(),
+                              s), "K2 reduce")
+
+
+def _colsum(lib, tm, a, m, n, mask, rounded, s):
+    """sum over rows of a * mask (float32), and round(a * mask) into
+    `rounded` when given."""
+    parts = -(-m // COLSUM_ROWS)
+    part = torch.empty((parts, n), dtype=torch.float32, device=a.device)
+    build.check(lib.rb_colsum(build.dtype_code(a.dtype), tm, a.data_ptr(), n,
+                              m, n, build.ptr(mask), build.ptr(rounded), n,
+                              COLSUM_ROWS, part.data_ptr(), s), "K2 colsum")
+    out = torch.empty((n,), dtype=torch.float32, device=a.device)
+    build.check(lib.rb_reduce(part.data_ptr(), parts, n, out.data_ptr(), s),
+                "K2 reduce")
+    return out
+
+
+def _launch_bwd(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
+                g, gs, rs, add_residual, mmd):
+    b, n, c = x.shape
+    h, _, hd = wq.shape
+    check_grid(x, mask, gs, rs)
+    if g.shape != x.shape:
+        raise ValueError(f"g {tuple(g.shape)} does not match x")
+    g = g.to(x.dtype).contiguous()
+    build.require_cuda({"x": x, "mask": mask, "g": g},
+                       _params(ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp,
+                               bp))
+    rl = build.load("region_layer")
+    rb = build.load("region_layer_bwd")
+    s = build.stream_of(x)
+    tm = build.dtype_code(mmd)
+    m, nq, hh = b * n, 3 * h * hd, h * hd
+    kk = check_heads(wq, pw)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ls, _, z, wqkv, y, o = _recompute(rl, x, mask, ln_s, ln_b, wq, wk, wv, bq,
+                                      bk, bv, pw, pb, gs, rs, mmd, s)
+    # gm = round(g * mask), dbp = sum g * mask
+    gmm = torch.empty((m, c), dtype=mmd, device=x.device)
+    dbp = _colsum(rb, tm, g, m, c, mask, gmm, s)
+    # dWp = o^T gm, d(o) = round(gm Wp^T)
+    dwp = torch.empty((hh, c), **f32)
+    _gemm(rb, tm, o, hh, gmm, c, dwp, c, hh, c, m, at=True, s=s)
+    wp2 = wp.reshape(hh, c).to(mmd).contiguous()
+    go = torch.empty((m, hh), dtype=mmd, device=x.device)
+    _gemm(rb, tm, gmm, c, wp2, c, go, hh, m, hh, c, bt=True, s=s)
+    # the attention core's backward, on the token map
+    dqkv = torch.empty((m, nq), **f32)
+    dpw, dpb = attention_bwd_launch(rb, tm, 0, y, nq, hh, 2 * hh, go, hh,
+                                    dqkv, nq, b * (gs // rs) ** 2, h, rs * rs,
+                                    gs, rs, pw, pb, kk, 1.0, s)
+    dbqkv = _colsum(rb, tm, dqkv, m, nq, None, None, s)
+    # dWqkv = z^T round(dqkv), dz = round(dqkv) Wqkv^T
+    dwqkv = torch.empty((c, nq), **f32)
+    _gemm(rb, tm, z, c, dqkv, nq, dwqkv, nq, c, nq, m, at=True, s=s)
+    dz = torch.empty((m, c), **f32)
+    _gemm(rb, tm, dqkv, nq, wqkv, nq, dz, c, m, c, nq, bt=True, s=s)
+    # the LayerNorm backward (+ g through the residual)
+    parts = -(-m // LN_ROWS_PER_WARP)
+    part = torch.empty((2, parts, c), **f32)
+    dx = torch.empty_like(x)
+    build.check(rb.rb_ln_bwd(build.dtype_code(x.dtype), x.data_ptr(),
+                             mask.data_ptr(), ls.data_ptr(), dz.data_ptr(),
+                             g.data_ptr() if add_residual else None,
+                             dx.data_ptr(), part.data_ptr(), m, c, LN_EPS,
+                             LN_ROWS_PER_WARP, s), "K2 layernorm backward")
+    dln = torch.empty((2, c), **f32)
+    for i in range(2):
+        build.check(rb.rb_reduce(part[i].data_ptr(), parts, c,
+                                 dln[i].data_ptr(), s), "K2 reduce")
+    region_layer_bwd.launches += 1
+    w3 = dwqkv.reshape(c, 3, h, hd).permute(1, 2, 0, 3)
+    b3 = dbqkv.reshape(3, h, hd)
+    return (dx, dln[0], dln[1], w3[0].contiguous(), w3[1].contiguous(),
+            w3[2].contiguous(), b3[0], b3[1], b3[2],
+            dpw if pw is not None else None,
+            dpb if (pw is not None and pb is not None) else None,
+            dwp.reshape(h, hd, c), dbp)
+
+
+def region_layer_bwd(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp,
+                     bp, g, grid_side: int, region_size: int,
+                     add_residual: bool, mm_dtype=torch.bfloat16):
+    """K2 for CUDA tensors, its plain version for CPU tensors: the
+    gradients of (x, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp)."""
+    args = (x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp, g,
+            grid_side, region_size, add_residual, mm_dtype)
+    if x.device.type == "cpu":
+        return region_layer_bwd_plain(*args)
+    if x.device.type != "cuda":
+        raise ValueError(f"region_layer_bwd: no kernel for {x.device}")
+    return _launch_bwd(*args)
+
+
 class _RegionLayer(torch.autograd.Function):
-    """Autograd shell of K1 on the card; its backward is K2."""
+    """K1 forward, K2 backward (plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp,
                 bp, grid_side, region_size, add_residual, mm_dtype):
-        return _launch(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb,
-                       wp, bp, grid_side, region_size, add_residual, mm_dtype)
+        ctx.save_for_backward(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw,
+                              pb, wp, bp)
+        ctx.geom = (grid_side, region_size, add_residual, mm_dtype)
+        args = (x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
+                grid_side, region_size, add_residual, mm_dtype)
+        if x.device.type == "cpu":
+            return region_layer_plain(*args)
+        return _launch(*args)
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(
-            "region_layer_fused backward (K2, region_layer.py::"
-            "_layer_bwd_pallas) is the next slice: ROADMAP.md queue 2")
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        grads = region_layer_bwd(*saved, g, *ctx.geom)
+        return (grads[0], None, *grads[1:], None, None, None, None)
 
 
 def region_layer_fused(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb,
@@ -123,11 +323,7 @@ def region_layer_fused(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb,
     (H, C, hd) with wq/bq pre-scaled; bq/bk/bv (H, hd); pw (H, k) or None;
     pb (H,) or None; wp (H, hd, C); bp (C,).  Returns the post-layer stream
     (add_residual) or the masked attention branch, in x's dtype."""
-    if x.device.type == "cpu":
-        return region_layer_plain(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv,
-                                  pw, pb, wp, bp, grid_side, region_size,
-                                  add_residual, mm_dtype)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"region_layer_fused: no kernel for {x.device}")
     return _RegionLayer.apply(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw,
                               pb, wp, bp, grid_side, region_size,
@@ -135,3 +331,4 @@ def region_layer_fused(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb,
 
 
 region_layer_fused.launches = 0
+region_layer_bwd.launches = 0

@@ -58,3 +58,9 @@ def rrtmil_flops(length: int, cfg: RRTMILConfig) -> Dict[str, int]:
     head = 512 * cfg.n_classes
     return {"patch_to_emb": proj, "encoder": enc, "pool": pool, "head": head,
             "total": proj + enc + pool + head}
+
+
+def train_flops(length: int, cfg: RRTMILConfig) -> int:
+    """FLOPs of one bag's train step: forward + backward = 3 x the forward's
+    2 x MACs (bench.py:229-230's convention)."""
+    return 3 * 2 * rrtmil_flops(length, cfg)["total"]
