@@ -8,32 +8,48 @@ Phases (each passes or the script exits non-zero; nothing is caught):
 0. device: `nvidia-smi` name and power limit, TF32 off for matmul and cuDNN;
 1. build: nvcc of every `rrtmil_tpu_torch/csrc/*.cu` (one process each, in
    parallel), with -Xptxas -v;
-2. kernels: the nine kernels K1-K9 at the c16_r50 main-path shapes (K2 in
-   both residual modes; K6 and K7 also at P = 144 with EPEG k = 15), in the
-   three stream/mm dtype pairs, against their plain PyTorch versions on the
-   card, K1-K5 and K8-K9 also at the largest bucket (L = 60000); then each
-   autograd Function's gradients against autograd through its plain forward
-   (f32/f32);
-3. main paths: a seeded c16_r50 model through `Engine(device="cuda")
-   .evaluate` on bags of {37, 937, 2213, 9000, 9000, 30000} patches and
-   through `Engine.train_epoch` (dropout on) on bags of {937, 2213, 9000,
-   9000, 30000, 30000} patches, batch size 2, with every kernel's launch
-   counter set to 0 just before each path and read just after (every batch
-   and step must launch all of its kernels); evaluate's probabilities and
-   two dropout-off train steps against the same weights on the CPU (f32 and
-   bf16 products);
-4. times: each kernel (CUDA events) at the B = 1 and B = 8 main-path shapes
-   beside its bound, its plain version's time and, where one PyTorch call
-   computes the same function, that call's time (K5:
-   `F.multi_head_attention_forward`; K6 and K7: `scaled_dot_product_attention`
-   forward, and its backward through autograd); forward slides/s at L = 9000
-   for B in {1, 4, 8} and train slides/s for B in {1, 8}, with peak memory;
-5. profile: torch.profiler over three B = 8 forwards and one B = 8 train
-   step, device time by kernel and the device's busy share.
+2. kernels: the thirteen kernels against their plain PyTorch versions on the
+   card in the three stream/mm dtype pairs: K1-K9 at the c16_r50 main-path
+   shapes (K2 in both residual modes; K6 and K7 also at P = 144 with EPEG
+   k = 15; K1-K5, K8, K9 also at L = 60000), K10 (both residual modes) and
+   K11 at the c16_r50 + FFN shape (B = 8, G = 96) and at G = 24 (P = 9), K12
+   and K13 at a 45000-patch survival bag (R = 64, P = 729, pad rows: tied
+   logits) and at P = 9; then each autograd Function's gradients against
+   autograd through its plain forward (f32/f32, 8 seeded cotangents; the
+   gradients that are zero in exact arithmetic held to NOISE_ABS);
+3. c16_r50: a seeded model through `Engine(device="cuda").evaluate` on bags
+   of {37, 937, 2213, 9000, 9000, 30000} patches and `Engine.train_epoch`
+   (dropout on) on {937, 2213, 9000, 9000, 30000, 30000}, batch size 2,
+   every batch and step required to launch all of its kernels (K1-K9);
+   evaluate's probabilities and two dropout-off train steps against the
+   same weights on the CPU (f32 and bf16 products);
+6. survival: `SurvivalEngine.train_epoch` (dropout on) and `validate` on
+   survival_default() at full width, bags of {937, 1500, 10000, 30000,
+   45000, 50000} patches: each bag whose R-MSA grid exceeds its CR-MSA grid
+   must launch K12 and K13, the others K1-K9; validate and two dropout-off
+   train steps against the CPU on the {1500, 10000} bags;
+7. FFN and unmasked: c16_r50 with ffn=True, drop_path=0.1 through
+   `Engine.evaluate` (every batch through K10, never K8; against the CPU)
+   and `Engine.train_epoch` (every step through K10 and K11); c16_r50
+   called without a mask at L = 9000 (K5, K12, K13) against the CPU;
+4. times: each kernel (CUDA events) beside its bound, its plain version's
+   time and, where one PyTorch call computes the same function, that call's
+   time (K5: `F.multi_head_attention_forward`; K6 and K7:
+   `scaled_dot_product_attention` forward and backward; K13: `torch.bmm`);
+   c16_r50 forward slides/s at L = 9000 for B in {1, 4, 8} and train
+   slides/s for B in {1, 8}; survival train bags/s at L = 45000 and 50000;
+   the FFN config's forward and train slides/s at L = 9000, B = 8; peak
+   memory;
+5. profile: torch.profiler over three B = 8 forwards, one B = 8 train step
+   and one survival train step at L = 45000: device time by kernel and the
+   device's busy share.
 
-Prints the `{"kernels": [...]}` line, the card's name and power limit, and
-as its last line `{"ok": true, "device": {...}}`.  Writes the full report
-to chiprun_out/chip_smoke.json.
+Every counter is set to 0 just before each path and read just after.
+Prints the `{"kernels": [...]}` line (each kernel's launches from its own
+path: K1-K9 the c16_r50 train epoch, K10 / K11 the FFN one, K12 / K13 the
+survival one), the card's name and power limit, and as its last line
+`{"ok": true, "device": {...}}`.  Writes the full report to
+chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
@@ -57,6 +73,18 @@ DTYPE_PAIRS = [(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
 # sums in another order; in bf16 a sum that lands near a rounding boundary
 # rounds the other way (q, softmax, head outputs), ~2^-8 relative
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# autograd checks, run for each of AUTOGRAD_SEEDS cotangent draws: the
+# gradients that are zero in exact arithmetic (a key-constant logit shift
+# cancels in the softmax), by argument position: the key bias and the EPEG
+# bias.  Both sides return rounding noise there (|plain| <= 5.4e-5 on an
+# H100), so they are held to an absolute limit: over 8 seeds on an H100 the
+# K1 -> K2 pair differed there by 5.7e-5 to 1.15e-4, K6 -> K7 by 1.9e-5 to
+# 5.2e-5, K5 by ~1e-6; a wrong term would be of the size of the real
+# gradients (>= 1e-2)
+NOISE_LEAVES = {"K1->K2": (8, 11), "K1->K2 add_residual=False": (8, 11),
+                "K5->K6,K7": (5,), "K6->K7 (P=144, k=15)": (4,)}
+NOISE_ABS = 3e-4
+AUTOGRAD_SEEDS = range(8)
 # c16_r50 probabilities and mean loss, card kernels vs CPU plain versions:
 # random weights put the probabilities within ~0.1 of 0.5, so the limit sits
 # far below that spread (measured gap ~4e-5)
@@ -99,9 +127,33 @@ TPU_KERNELS = {
     "K9 crmsa_redistribute_grid_ln_bwd": (
         "rrtmil_tpu/ops/pallas/crmsa_kernels.py:859", "_rgrid_ln_bwd_pallas",
         "rrtmil_tpu_torch/csrc/crmsa_bwd.cu"),
+    "K10 crmsa_redistribute_grid": (
+        "rrtmil_tpu/ops/pallas/crmsa_kernels.py:251",
+        "_redistribute_grid_pallas", "rrtmil_tpu_torch/csrc/crmsa.cu"),
+    "K11 crmsa_redistribute_grid_bwd": (
+        "rrtmil_tpu/ops/pallas/crmsa_kernels.py:649", "_rgrid_bwd_pallas",
+        "rrtmil_tpu_torch/csrc/crmsa_bwd.cu"),
+    "K12 crmsa_compress": ("rrtmil_tpu/ops/pallas/crmsa_kernels.py:52",
+                           "_compress_pallas",
+                           "rrtmil_tpu_torch/csrc/crmsa.cu"),
+    "K13 crmsa_redistribute": ("rrtmil_tpu/ops/pallas/crmsa_kernels.py:138",
+                               "_redistribute_pallas",
+                               "rrtmil_tpu_torch/csrc/crmsa.cu"),
 }
-FORWARD = ("K1 region_layer_fused", "K3 crmsa_compress_grid",
-           "K5 region_block_fused", "K8 crmsa_redistribute_grid_ln")
+K = list(TPU_KERNELS)
+C16_TRAIN = K[:9]                       # c16_r50 train step: K1-K9
+C16_EVAL = [K[0], K[2], K[4], K[7]]     # its forward: K1, K3, K5, K8
+# survival_default (R-MSA region_num 16, CR-MSA 8): a bucket whose grids
+# differ runs CR-MSA unfused (K12 -> K5 -> K13), a matched one fused
+SURV_MISMATCHED = [K[0], K[1], K[4], K[5], K[6], K[11], K[12]]
+SURV_MATCHED = C16_TRAIN
+# c16_r50 + FFN + drop_path: the CR-MSA stream goes through K10 (and K11),
+# never K8 / K9
+FFN_EVAL = [K[0], K[2], K[4], K[9]]
+FFN_TRAIN = K[:7] + [K[9], K[10]]
+SURV_BAGS = (937, 1500, 10000, 30000, 45000, 50000)
+SURV_CPU_BAGS = (1500, 10000)
+FFN_BAGS = (937, 2213, 9000, 9000)
 
 
 def log(msg: str) -> None:
@@ -243,6 +295,93 @@ def extra_cases(dev, stream_dtype):
             rab.region_attention_bwd, rab.region_attention_bwd_plain,
             (q, k, v, pw, pb, ga, 0.125)),
     }
+
+
+def grid_redistribute_inputs(b, G, rs, kk, dev, sdt, seed):
+    """K10 / K11 inputs on a (b, G*G, 512) stream with pad rows: x, mask,
+    w (b, nR, kk, P) in [0, 1), reps, and an upstream gradient g."""
+    x, mask, g = stream_inputs(b, G, 512, min(9000, G * G - 40), seed, dev)
+    nr, p = (G // rs) ** 2, rs * rs
+    w = torch.rand((b, nr, kk, p), generator=g).to(dev)
+    reps = _randn((b, nr, kk, 512), g).to(dev)
+    gout = _randn((b, G * G, 512), g, 0.1).to(dev).to(sdt)
+    return x.to(sdt), mask, w, reps, gout
+
+
+def surv_region_inputs(length, G, rs, dev, sdt, seed, kk=3):
+    """K12 / K13 inputs as one survival bag of `length` patches gives them
+    at the CR-MSA layer: its stream fit to the G x G grid (rows past the bag
+    are zeros, so logits tie at 0) cut into (G / rs)^2 regions of rs^2
+    tokens; phi (512, kk) with the init's U(+-1/sqrt(kk)); w, reps."""
+    from rrtmil_tpu_torch.ops.regions import region_partition
+    g = _gen(seed)
+    x = _randn((1, G * G, 512), g)
+    x[:, length:] = 0.0
+    regions = region_partition(x.reshape(1, G, G, 512), rs)
+    r, p = regions.shape[:2]
+    phi = (torch.rand((512, kk), generator=g) * 2 - 1) / kk ** 0.5
+    w = torch.rand((r, kk, p), generator=g)
+    reps = _randn((r, kk, 512), g)
+    return (regions.to(dev).to(sdt), phi.to(dev), w.to(dev), reps.to(dev))
+
+
+def slice3_cases(dev, sdt):
+    """K10 (both residual modes) and K11 at the c16_r50 + FFN shape of a
+    9000-patch bag (B = 8, G = 96, P = 144, k = 1) and at G = 24 (P = 9,
+    k = 3); K12 and K13 at a 45000-patch survival bag (CR-MSA grid 216:
+    R = 64, P = 729, k = 3) and at a 500-patch bag (grid 24: P = 9)."""
+    from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
+    cases = {}
+    for b, G, rs, kk in ((8, 96, 12, 1), (2, 24, 3, 3)):
+        x, mask, w, reps, gout = grid_redistribute_inputs(b, G, rs, kk, dev,
+                                                          sdt, 300 + G)
+        tag = f"B={b} G={G} P={rs * rs} k={kk}"
+        for res in (True, False):
+            cases[f"K10 crmsa_redistribute_grid ({tag}"
+                  f"{'' if res else ' add_residual=False'})"] = (
+                ck.crmsa_redistribute_grid, ck.redistribute_grid_plain,
+                (x, mask, w, reps, G, rs, res))
+        cases[f"K11 crmsa_redistribute_grid_bwd ({tag})"] = (
+            ck.crmsa_redistribute_grid_bwd, ck.redistribute_grid_bwd_plain,
+            (mask, w, reps, gout, G, rs))
+    for length, G, rs in ((45000, 216, 27), (500, 24, 3)):
+        regions, phi, w, reps = surv_region_inputs(length, G, rs, dev, sdt,
+                                                   400 + G)
+        tag = f"L={length} R={regions.shape[0]} P={rs * rs}"
+        cases[f"K12 crmsa_compress ({tag})"] = (
+            ck.crmsa_compress, ck.compress_plain, (regions, phi))
+        cases[f"K13 crmsa_redistribute ({tag})"] = (
+            ck.crmsa_redistribute, ck.redistribute_plain, (w, reps))
+    return cases
+
+
+def work_from_args(name, args):
+    """(flops, bytes) of K10-K13 on these inputs: each input read once, each
+    output written once."""
+    if name.startswith("K10"):
+        x, mask, w, reps, _, _, res = args
+        b, n, c = x.shape
+        r, k, p = b * w.shape[1], w.shape[2], w.shape[3]
+        return (2 * r * k * p * c, (2 if res else 1) * b * n * c
+                * x.element_size() + b * n + r * k * (p + c) * 4)
+    if name.startswith("K11"):
+        mask, w, reps, g, _, _ = args
+        b, n, c = g.shape
+        r, k, p = b * w.shape[1], w.shape[2], w.shape[3]
+        return (4 * r * k * p * c, b * n * c * g.element_size() + b * n
+                + 2 * r * k * (p + c) * 4)
+    if name.startswith("K12"):
+        x, phi = args
+        r, p, c = x.shape
+        k = phi.shape[1]
+        return (4 * r * k * p * c, r * p * c * x.element_size() + c * k * 4
+                + r * k * (c + p) * 4)
+    if name.startswith("K13"):
+        w, reps = args
+        r, k, p = w.shape
+        c = reps.shape[2]
+        return 2 * r * k * p * c, r * k * (p + c) * 4 + r * p * c * 4
+    raise ValueError(f"no work count for {name}")
 
 
 def work_of(name, b, stream_dtype, mm_dtype):
@@ -393,6 +532,7 @@ def phase_kernels(dev):
         pair = f"{dname(sdt)}/{dname(mdt)}"
         cases = kernel_cases(2, dev, sdt)
         cases.update(extra_cases(dev, sdt))
+        cases.update(slice3_cases(dev, sdt))
         for name, (fn, plain, args) in cases.items():
             err, rel = compare(fn, plain, args, mdt)
             ok = rel <= TOL[mdt]
@@ -404,6 +544,8 @@ def phase_kernels(dev):
             key = name.split(" (")[0]
             errors.setdefault(key, {})[pair + ("" if key == name else " "
                                                + name[len(key) + 2:-1])] = err
+        del cases
+        torch.cuda.empty_cache()
     # the largest c16_r50 bucket: L = 60000 -> G = 248, P = 31 x 31 = 961
     sdt, mdt = DTYPE_PAIRS[0]
     for name, (fn, plain, args) in kernel_cases(1, dev, sdt, G=248,
@@ -423,11 +565,17 @@ def phase_kernels(dev):
     return errors
 
 
-def autograd_checks(dev):
+def autograd_checks(dev, seeds=AUTOGRAD_SEEDS):
     """Each autograd Function's gradients on the card (its backward kernel)
     against autograd through its plain forward, f32 stream and products:
     K1 -> K2 (both residual modes), K3 -> K4, K5 -> block_ref (K6, K7),
-    K6 -> K7 (with EPEG), K8 -> K9."""
+    K6 -> K7 (with EPEG), K8 -> K9, K10 -> K11 (both residual modes), and
+    K12 and K13, whose backwards are autograd through the plain forward (on
+    the card, PyTorch ops).  The cotangents are drawn from each of `seeds`.
+    Each gradient's max |card - plain| is scaled by max(1, max|plain|) and
+    held to TOL; the NOISE_LEAVES, zero in exact arithmetic, are reported
+    apart and held to NOISE_ABS.  Every check runs before any failure is
+    raised."""
     from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
     from rrtmil_tpu_torch.ops.kernels import region_attn as ra
     from rrtmil_tpu_torch.ops.kernels import region_block as rb
@@ -435,6 +583,8 @@ def autograd_checks(dev):
     mmd = torch.float32
     cases = kernel_cases(2, dev, torch.float32)
     ex = extra_cases(dev, torch.float32)
+    s3 = slice3_cases(dev, torch.float32)
+    tag = "B=8 G=96 P=144 k=1"
     checks = {
         "K1->K2": (rl.region_layer_fused, rl.region_layer_plain,
                    cases["K1 region_layer_fused"][2]),
@@ -451,52 +601,68 @@ def autograd_checks(dev):
         "K8->K9": (ck.crmsa_redistribute_grid_ln,
                    ck.redistribute_grid_ln_plain,
                    cases["K8 crmsa_redistribute_grid_ln"][2]),
+        "K10->K11": s3[f"K10 crmsa_redistribute_grid ({tag})"],
+        "K10->K11 add_residual=False": s3[
+            f"K10 crmsa_redistribute_grid ({tag} add_residual=False)"],
+        "K12 (L=45000)": s3["K12 crmsa_compress (L=45000 R=64 P=729)"],
+        "K13 (L=45000)": s3["K13 crmsa_redistribute (L=45000 R=64 P=729)"],
     }
-    out = {}
+    out, failed = {}, []
     for name, (fn, plain, args) in checks.items():
         leaves = [a.detach().clone().requires_grad_(True)
                   if isinstance(a, torch.Tensor) and a.is_floating_point()
                   else a for a in args]
-        live = [a for a in leaves if isinstance(a, torch.Tensor)
-                and a.requires_grad]
+        live = [(i, a) for i, a in enumerate(leaves)
+                if isinstance(a, torch.Tensor) and a.requires_grad]
         y = _as_tuple(fn(*leaves, mm_dtype=mmd))
-        gs = [torch.randn_like(t) for t in y]
-        got = torch.autograd.grad(y, live, gs, allow_unused=True)
-        want = torch.autograd.grad(_as_tuple(plain(*leaves, mm_dtype=mmd)),
-                                   live, gs, allow_unused=True)
-        torch.cuda.synchronize()
-        rel = 0.0
-        for a, b in zip(got, want):
-            if a is None or b is None:
-                if (a is None) != (b is None):
-                    raise AssertionError(f"{name}: a gradient is missing")
-                continue
-            rel = max(rel, (a - b).abs().max().item()
-                      / max(1.0, b.abs().max().item()))
-        ok = rel <= TOL[mmd]
-        log(f"[2] autograd {name:28s} float32/float32 grads vs autograd of "
-            f"the plain forward: scaled {rel:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{name}: gradients disagree: {rel:.3e}")
-        out[name] = rel
+        y_plain = _as_tuple(plain(*leaves, mm_dtype=mmd))
+        rec = {"scaled": 0.0, "noise_abs": None, "noise_limit": None,
+               "by_seed": []}
+        for seed in seeds:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            gs = [torch.randn(t.shape, generator=gen, device=t.device,
+                              dtype=t.dtype) for t in y]
+            got = torch.autograd.grad(y, [a for _, a in live], gs,
+                                      allow_unused=True, retain_graph=True)
+            want = torch.autograd.grad(y_plain, [a for _, a in live], gs,
+                                       allow_unused=True, retain_graph=True)
+            torch.cuda.synchronize()
+            if any((a is None) != (b is None) for a, b in zip(got, want)):
+                raise AssertionError(f"{name}: a gradient is missing")
+            rel, noise, noise_mag = 0.0, None, 0.0
+            for (i, _), a, b in zip(live, got, want):
+                if a is None:
+                    continue
+                d = (a - b).abs().max().item()
+                if i in NOISE_LEAVES.get(name, ()):
+                    noise = max(noise or 0.0, d)
+                    noise_mag = max(noise_mag, b.abs().max().item())
+                else:
+                    rel = max(rel, d / max(1.0, b.abs().max().item()))
+            ok = rel <= TOL[mmd] and (noise is None or noise <= NOISE_ABS)
+            noise_txt = "" if noise is None else \
+                (f", noise leaves abs diff {noise:.3e} (limit "
+                 f"{NOISE_ABS:.0e}; max|plain| there {noise_mag:.3e})")
+            log(f"[2] autograd {name:28s} seed {seed} f32/f32 grads vs "
+                f"autograd of the plain forward: scaled {rel:.3e} (tol "
+                f"{TOL[mmd]:.0e}){noise_txt} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{name} seed {seed}")
+            rec["by_seed"].append({"seed": seed, "scaled": rel,
+                                   "noise_abs": noise,
+                                   "noise_plain_max": noise_mag})
+            rec["scaled"] = max(rec["scaled"], rel)
+            if noise is not None:
+                rec["noise_abs"] = max(rec["noise_abs"] or 0.0, noise)
+                rec["noise_limit"] = NOISE_ABS
+        out[name] = rec
+    if failed:
+        raise AssertionError(f"gradients disagree: {failed}")
     return out
 
 
-def reset_counters():
-    from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
-    from rrtmil_tpu_torch.ops.kernels import region_block as rb
-    from rrtmil_tpu_torch.ops.kernels import region_layer as rl
-    fns = {"K1 region_layer_fused": rl.region_layer_fused,
-           "K3 crmsa_compress_grid": ck.crmsa_compress_grid,
-           "K5 region_block_fused": rb.region_block_fused,
-           "K8 crmsa_redistribute_grid_ln": ck.crmsa_redistribute_grid_ln}
-    for f in fns.values():
-        f.launches = 0
-    return fns
-
-
 def all_counters():
-    """The nine kernels' wrappers, keyed as in TPU_KERNELS."""
+    """The thirteen kernels' wrappers, keyed as in TPU_KERNELS."""
     from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
     from rrtmil_tpu_torch.ops.kernels import region_attn as ra
     from rrtmil_tpu_torch.ops.kernels import region_attn_bwd as rab
@@ -505,8 +671,66 @@ def all_counters():
     fns = (rl.region_layer_fused, rl.region_layer_bwd, ck.crmsa_compress_grid,
            ck.crmsa_compress_grid_bwd, rb.region_block_fused,
            ra.region_attention_fused, rab.region_attention_bwd,
-           ck.crmsa_redistribute_grid_ln, ck.crmsa_redistribute_grid_ln_bwd)
+           ck.crmsa_redistribute_grid_ln, ck.crmsa_redistribute_grid_ln_bwd,
+           ck.crmsa_redistribute_grid, ck.crmsa_redistribute_grid_bwd,
+           ck.crmsa_compress, ck.crmsa_redistribute)
     return dict(zip(TPU_KERNELS, fns))
+
+
+def reset_counters():
+    """Set every kernel's counter to 0."""
+    for f in all_counters().values():
+        f.launches = 0
+
+
+def counting(engine_cls, describe=None):
+    """`engine_cls` with `_train_step` and `_eval_step` recording each call
+    in `engine.records["train"]` / `["eval"]`: every kernel's launches
+    during it, the step's output (`out`) and the fields `describe(engine,
+    *step_args)` returns."""
+    fns = all_counters()
+
+    class Counting(engine_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.records = {"train": [], "eval": []}
+
+        def _record(self, key, step, *a, **k):
+            before = {n: f.launches for n, f in fns.items()}
+            out = step(*a, **k)
+            rec = {"launches": {n: f.launches - before[n]
+                                for n, f in fns.items()}, "out": out}
+            rec.update(describe(self, *a) if describe else {})
+            self.records[key].append(rec)
+            return out
+
+        def _train_step(self, *a, **k):
+            return self._record("train", super()._train_step, *a, **k)
+
+        def _eval_step(self, *a, **k):
+            return self._record("eval", super()._eval_step, *a, **k)
+    return Counting
+
+
+def launches_now():
+    return {n: f.launches for n, f in all_counters().items()}
+
+
+def check_launches(per_step, expected, what, n=None):
+    """`n` steps (when given) were recorded, and every one launched each
+    kernel of `expected` (a list, or a function of the step's record), and
+    no other."""
+    if n is not None and len(per_step) != n:
+        raise AssertionError(f"{what}: {len(per_step)} steps recorded, not "
+                             f"{n}")
+    for rec in per_step:
+        want = expected(rec) if callable(expected) else expected
+        counts = rec["launches"]
+        missed = [n for n in want if counts[n] < 1]
+        extra = [n for n, v in counts.items() if v and n not in want]
+        if missed or extra:
+            raise AssertionError(f"{what}: a step missed {missed} or ran "
+                                 f"{extra}: {rec}")
 
 
 def phase_main_path(dev):
@@ -523,32 +747,18 @@ def phase_main_path(dev):
     ds = ArrayDataset(bags, labels)
     model = build_model(cfg, device=dev, seed=0)
     ecfg = EngineConfig(batch_size=2)
-    fns = reset_counters()
-    per_batch = []
-
-    class CountingEngine(Engine):
-        """Records each kernel's launches in every batch."""
-
-        def _eval_step(self, *a, **k):
-            before = {n: f.launches for n, f in fns.items()}
-            out = super()._eval_step(*a, **k)
-            per_batch.append({n: f.launches - before[n]
-                              for n, f in fns.items()})
-            return out
-
-    engine = CountingEngine(model, ecfg, cfg.encoder, device=dev)
+    engine = counting(Engine)(model, ecfg, cfg.encoder, device=dev)
     n_batches = len(engine._batched_order(ds, range(len(ds))))
     reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     probs, labs, loss = engine.evaluate(ds)
     secs = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in fns.items()}
+    launches = launches_now()
     log(f"[3] Engine.evaluate on {len(ds)} bags in {n_batches} batches: "
         f"{secs:.2f} s, mean loss {loss:.6f}, launches {launches}")
-    if len(per_batch) != n_batches or any(
-            v < 1 for counts in per_batch for v in counts.values()):
-        raise AssertionError(f"a batch missed a kernel: {per_batch}")
+    check_launches(engine.records["eval"], C16_EVAL, "c16_r50 evaluate",
+                   n_batches)
     if not (np.isfinite(probs).all() and probs.shape == (len(ds),)):
         raise AssertionError(f"bad probabilities {probs}")
 
@@ -586,46 +796,31 @@ def phase_train(dev):
             for n in TRAIN_BAGS]
     ds = ArrayDataset(bags, [i % 2 for i in range(len(bags))])
     model = build_model(cfg, device=dev, seed=0)
-    fns = all_counters()
-    per_step, losses = [], []
-
-    class CountingEngine(Engine):
-        """Records each kernel's launches and the loss of every step."""
-
-        def _train_step(self, *a, **k):
-            before = {n: f.launches for n, f in fns.items()}
-            out = super()._train_step(*a, **k)
-            per_step.append({n: f.launches - before[n]
-                             for n, f in fns.items()})
-            losses.append(out)
-            return out
-
-    engine = CountingEngine(model, EngineConfig(batch_size=2), cfg.encoder,
-                            device=dev)
+    engine = counting(Engine)(model, EngineConfig(batch_size=2), cfg.encoder,
+                              device=dev)
     order = list(range(len(ds)))
     n_steps = len(engine._batched_order(ds, order))
-    for f in fns.values():
-        f.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss = engine.train_epoch(ds, 0, order=order)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {n: f.launches for n, f in fns.items()}
-    step_losses = [float(x) for x in losses]
+    launches = launches_now()
+    per_step = engine.records["train"]
+    step_losses = [float(r["out"]) for r in per_step]
     log(f"[3] Engine.train_epoch on bags {TRAIN_BAGS} in {n_steps} steps "
         f"(dropout on): {secs:.2f} s, mean loss {loss:.6f}, step losses "
         f"{np.round(step_losses, 6).tolist()}")
     log(f"[3] train launches {launches}")
-    if len(per_step) != n_steps or any(
-            v < 1 for counts in per_step for v in counts.values()):
-        raise AssertionError(f"a train step missed a kernel: {per_step}")
+    check_launches(per_step, C16_TRAIN, "c16_r50 train", n_steps)
     if not (np.isfinite(loss) and np.isfinite(step_losses).all()):
         raise AssertionError(f"the train loss is not finite: {step_losses}")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         raise AssertionError("a parameter is not finite after training")
     return {"steps": n_steps, "seconds": secs, "launches": launches,
-            "per_step": per_step, "loss": loss, "step_losses": step_losses}
+            "per_step": [r["launches"] for r in per_step], "loss": loss,
+            "step_losses": step_losses}
 
 
 def _adam_params_close(got, want, lr, steps, frac):
@@ -860,15 +1055,16 @@ def phase_throughput(dev):
     return out
 
 
-def train_setup(dev, b):
-    """A seeded c16_r50 train engine on the card (dropout on) and one batch
-    of b 9000-patch bags, device-resident; returns (engine, step, spec)."""
+def train_setup(dev, b, cfg=None):
+    """A seeded train engine of `cfg` (c16_r50 by default) on the card
+    (dropout on) and one batch of b 9000-patch bags, device-resident;
+    returns (engine, step, cfg)."""
     from rrtmil_tpu_torch.config import c16_r50
     from rrtmil_tpu_torch.data.bucketing import bucket_for
     from rrtmil_tpu_torch.models.rrt import build_model
     from rrtmil_tpu_torch.train.engine import Engine, EngineConfig
 
-    cfg = c16_r50()
+    cfg = cfg or c16_r50()
     spec = bucket_for(9000, cfg.encoder)
     eng = Engine(build_model(cfg, device=dev, seed=0),
                  EngineConfig(batch_size=b), cfg.encoder, device=dev)
@@ -910,9 +1106,10 @@ def phase_train_throughput(dev):
     return out
 
 
-def phase_profile(dev, b=8, iters=3, train=False):
+def phase_profile(dev, b=8, iters=3, train=False, fn=None, what=None):
     """torch.profiler over `iters` forwards (or train steps) at L = 9000,
-    batch b: device time by kernel name and the device's busy share of the
+    batch b, or over `iters` calls of `fn` (a train step called `what`):
+    device time by kernel name and the device's busy share of the
     window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -920,7 +1117,9 @@ def phase_profile(dev, b=8, iters=3, train=False):
     from rrtmil_tpu_torch.data.bucketing import bucket_for
     from rrtmil_tpu_torch.models.rrt import build_model
 
-    if train:
+    if fn is not None:
+        grad = torch.enable_grad
+    elif train:
         _, fn, _ = train_setup(dev, b)
         grad = torch.enable_grad
     else:
@@ -935,7 +1134,7 @@ def phase_profile(dev, b=8, iters=3, train=False):
         def fn():
             model(x, mask=mask, length=spec.repr_length)
         grad = torch.no_grad
-    what = "train step" if train else "forward"
+    what = what or ("train step" if train else "forward")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with grad():
         with profile(activities=acts):          # starts the tracer up
@@ -954,7 +1153,7 @@ def phase_profile(dev, b=8, iters=3, train=False):
             and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) * iters
-    top = 16 if train else 12
+    top = 12 if what == "forward" else 16
     for name, ms in rows[:top]:
         log(f"[5] {ms:9.4f} ms/{what}  {name[:90]}")
     log(f"[5] B={b}: kernels {busy / iters:.3f} ms per {what}; the "
@@ -965,6 +1164,377 @@ def phase_profile(dev, b=8, iters=3, train=False):
             "kernel_ms_per_iter": busy / iters,
             "busy_share": busy / wall_ms if rows else None,
             "top": [{"kernel": n, "ms_per_iter": ms} for n, ms in rows[:top]]}
+
+
+# ---------------------------------------------------------------------------
+# slice 3: survival (K12, K13), the FFN / drop-path TransLayer (K10, K11)
+# ---------------------------------------------------------------------------
+
+def _surv_dataset(lengths, seed):
+    from rrtmil_tpu_torch.data.survival import ArraySurvivalDataset
+    rng = np.random.default_rng(seed)
+    bags = [rng.standard_normal((n, 1024), dtype=np.float32) for n in lengths]
+    events = rng.uniform(100.0, 3000.0, len(bags))
+    status = [1, 0, 1, 1, 0, 1][:len(bags)]
+    return ArraySurvivalDataset(bags, events, status)
+
+
+def _surv_model(cfg, dev, seed=0):
+    from rrtmil_tpu_torch.models.rrt import build_model
+    from rrtmil_tpu_torch.models.survival import SurvivalHead
+    return SurvivalHead(build_model(cfg, device=dev, seed=seed))
+
+
+def counting_survival_engine():
+    """A counting SurvivalEngine whose records also hold each bag's bucket
+    grids (R-MSA, CR-MSA) and token count, and its loss and risk."""
+    from rrtmil_tpu_torch.data.bucketing import bucket_for
+    from rrtmil_tpu_torch.train.surv_engine import SurvivalEngine
+
+    def describe(eng, x, mask, label, cens, length):
+        return {"grids": bucket_for(length, eng.encoder_cfg).key,
+                "tokens": int(x.shape[1])}
+    return counting(SurvivalEngine, describe)
+
+
+def _loss_risk(rec):
+    return float(rec["out"][0]), float(rec["out"][1][0])
+
+
+def _surv_expected(rec):
+    g = rec["grids"]
+    return SURV_MISMATCHED if g[0] != g[1] else SURV_MATCHED
+
+
+def phase_survival(dev):
+    """SurvivalEngine.train_epoch (dropout on) and validate at full width,
+    survival_default() with seeded random weights, on bags of SURV_BAGS
+    patches: every kernel's counter set to 0 just before each and read just
+    after; each bag must launch K12 and K13 when its R-MSA and CR-MSA grids
+    differ, K1-K9 when they match."""
+    from rrtmil_tpu_torch.config import survival_default
+    from rrtmil_tpu_torch.train.surv_engine import (SurvivalEngine,
+                                                    SurvivalEngineConfig)
+    cfg = survival_default()
+    ds = _surv_dataset(SURV_BAGS, 3)
+    eng = counting_survival_engine()(_surv_model(cfg, dev),
+                                     SurvivalEngineConfig(), cfg.encoder,
+                                     device=dev)
+    idx = list(range(len(ds)))
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, ci = eng.train_epoch(ds, idx, 0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launches_now()
+    per_step = eng.records["train"]
+    log(f"[6] SurvivalEngine.train_epoch on bags {SURV_BAGS} (dropout on): "
+        f"{secs:.2f} s, mean loss {loss:.6f}, c-index {ci:.4f}")
+    for rec in per_step:
+        log(f"[6]   bag of {rec['tokens']} tokens, grids {rec['grids']}: "
+            f"loss {_loss_risk(rec)[0]:.6f}, launches "
+            f"{ {n.split()[0]: v for n, v in rec['launches'].items() if v} }")
+    log(f"[6] survival train launches {launches}")
+    check_launches(per_step, _surv_expected, "survival train", len(idx))
+    if not (np.isfinite(loss) and all(torch.isfinite(p).all()
+                                      for p in eng.model.parameters())):
+        raise AssertionError("survival training gave a non-finite loss or "
+                             "parameter")
+    reset_counters()
+    t0 = time.perf_counter()
+    vloss, vci = eng.validate(ds, idx)
+    vsecs = time.perf_counter() - t0
+    val_launches = launches_now()
+    per_val = eng.records["eval"]
+    log(f"[6] SurvivalEngine.validate: {vsecs:.2f} s, mean loss {vloss:.6f}, "
+        f"c-index {vci:.4f}, launches {val_launches}")
+    fwd = lambda rec: [n for n in _surv_expected(rec)
+                       if n in (K[0], K[2], K[4], K[7], K[11], K[12])]
+    check_launches(per_val, fwd, "survival validate", len(idx))
+    risks = [_loss_risk(r)[1] for r in per_val]
+    if not np.isfinite(vloss) or not np.isfinite(risks).all():
+        raise AssertionError(f"validate gave non-finite values: {risks}")
+    return {"seconds": secs, "launches": launches, "loss": loss,
+            "c_index": ci, "val_seconds": vsecs, "val_loss": vloss,
+            "val_c_index": vci, "val_launches": val_launches,
+            "per_step": [{k: v for k, v in r.items() if k in
+                          ("grids", "tokens", "launches")} for r in per_step]}
+
+
+def phase_survival_vs_cpu(dev):
+    """The same weights on the card and the CPU on bags of SURV_CPU_BAGS
+    patches (both mismatched buckets: K12 / K13): validate's loss and
+    risks (default bf16 products) within PROB_TOL; two dropout-off train
+    steps (f32 products, TF32 off) with losses within 1e-4."""
+    import dataclasses
+    from rrtmil_tpu_torch.config import survival_default
+    from rrtmil_tpu_torch.train.surv_engine import SurvivalEngineConfig
+    base = survival_default()
+    ds = _surv_dataset(SURV_CPU_BAGS, 4)
+    engine_cls = counting_survival_engine()
+    out = {}
+    runs = {}
+    for key, d in (("card", dev), ("cpu", "cpu")):
+        eng = engine_cls(_surv_model(base, d), SurvivalEngineConfig(),
+                         base.encoder, device=d)
+        t0 = time.perf_counter()
+        loss, _ = eng.validate(ds, [0, 1])
+        runs[key] = (loss, [_loss_risk(r)[1] for r in eng.records["eval"]],
+                     time.perf_counter() - t0)
+    dl = abs(runs["card"][0] - runs["cpu"][0])
+    dr = max(abs(a - b) for a, b in zip(runs["card"][1], runs["cpu"][1]))
+    ok = dl <= PROB_TOL and dr <= PROB_TOL
+    log(f"[6] survival validate card vs CPU (bf16 products): loss "
+        f"{runs['card'][0]:.6f} vs {runs['cpu'][0]:.6f}, risks "
+        f"{np.round(runs['card'][1], 6).tolist()} vs "
+        f"{np.round(runs['cpu'][1], 6).tolist()}: max diff {dl:.3e} / "
+        f"{dr:.3e} (tol {PROB_TOL}); CPU {runs['cpu'][2]:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("survival validate: card and CPU disagree")
+    out["validate"] = {"loss_diff": dl, "risk_diff": dr}
+    cfg = dataclasses.replace(base, dropout=0.0, encoder=dataclasses.replace(
+        base.encoder, dropout=0.0, mm_dtype="float32"))
+    steps = {}
+    for key, d in (("card", dev), ("cpu", "cpu")):
+        eng = engine_cls(_surv_model(cfg, d), SurvivalEngineConfig(),
+                         cfg.encoder, device=d)
+        eng.train_epoch(ds, [0, 1], 0)
+        steps[key] = [_loss_risk(r)[0] for r in eng.records["train"]]
+    dstep = max(abs(a - b) for a, b in zip(steps["card"], steps["cpu"]))
+    tol = 1e-4 * max(1.0, max(map(abs, steps["cpu"])))
+    log(f"[6] survival train card vs CPU, dropout off, f32 products: step "
+        f"losses {np.round(steps['card'], 7).tolist()} vs "
+        f"{np.round(steps['cpu'], 7).tolist()} (max diff {dstep:.3e}, tol "
+        f"{tol:.1e}) {'ok' if dstep <= tol else 'FAIL'}")
+    if dstep > tol:
+        raise AssertionError("survival train steps: card and CPU disagree")
+    out["train"] = {"loss_diff": dstep, "card": steps["card"],
+                    "cpu": steps["cpu"]}
+    return out
+
+
+def ffn_config():
+    import dataclasses
+    from rrtmil_tpu_torch.config import c16_r50
+    base = c16_r50()
+    return dataclasses.replace(base, encoder=dataclasses.replace(
+        base.encoder, ffn=True, drop_path=0.1))
+
+
+def phase_ffn(dev):
+    """c16_r50 with ffn=True, drop_path=0.1 at full width: Engine.evaluate
+    (every batch through K10, never K8) against the CPU run of the same
+    weights, and Engine.train_epoch with dropout and stochastic depth on
+    (every step through K10 and K11), batch size 2; counters set to 0 just
+    before each path and read just after."""
+    from rrtmil_tpu_torch.data.datasets import ArrayDataset
+    from rrtmil_tpu_torch.models.rrt import build_model
+    from rrtmil_tpu_torch.train.engine import Engine, EngineConfig
+    cfg = ffn_config()
+    rng = np.random.default_rng(5)
+    bags = [rng.standard_normal((n, cfg.input_dim), dtype=np.float32)
+            for n in FFN_BAGS]
+    ds = ArrayDataset(bags, [i % 2 for i in range(len(bags))])
+    ecfg = EngineConfig(batch_size=2)
+    model = build_model(cfg, device=dev, seed=0)
+    eng = counting(Engine)(model, ecfg, cfg.encoder, device=dev)
+    order = list(range(len(ds)))
+    n_batches = len(eng._batched_order(ds, order))
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs, labs, loss = eng.evaluate(ds)
+    secs = time.perf_counter() - t0
+    eval_launches = launches_now()
+    check_launches(eng.records["eval"], FFN_EVAL, "FFN evaluate", n_batches)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    probs_c, _, loss_c = Engine(cpu, ecfg, cfg.encoder,
+                                device="cpu").evaluate(ds)
+    diff = float(np.abs(probs - probs_c).max())
+    ok = diff <= PROB_TOL and abs(loss - loss_c) <= PROB_TOL
+    log(f"[7] FFN Engine.evaluate on bags {FFN_BAGS}: {secs:.2f} s, mean "
+        f"loss {loss:.6f} (CPU {loss_c:.6f}), max |probs card - cpu| "
+        f"{diff:.3e} (tol {PROB_TOL}), launches {eval_launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("FFN evaluate: card and CPU disagree")
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.train_epoch(ds, 0, order=order)
+    torch.cuda.synchronize()
+    tsecs = time.perf_counter() - t0
+    train_launches = launches_now()
+    per_step = eng.records["train"]
+    step_losses = [float(r["out"]) for r in per_step]
+    log(f"[7] FFN Engine.train_epoch (dropout and drop_path on): "
+        f"{tsecs:.2f} s, step losses {np.round(step_losses, 6).tolist()}, "
+        f"launches {train_launches}")
+    check_launches(per_step, FFN_TRAIN, "FFN train", n_batches)
+    if not (np.isfinite(step_losses).all() and all(
+            torch.isfinite(p).all() for p in model.parameters())):
+        raise AssertionError("FFN training gave a non-finite value")
+    return {"eval_seconds": secs, "eval_launches": eval_launches,
+            "max_prob_diff": diff, "loss": loss, "loss_cpu": loss_c,
+            "train_seconds": tsecs, "launches": train_launches,
+            "step_losses": step_losses}
+
+
+def phase_unmasked(dev):
+    """c16_r50 called without a mask on a 9000-patch bag (the unfused
+    structure: K5 with EPEG per R-MSA region, then K12 -> K5 -> K13), card
+    vs CPU on the same weights: probabilities within PROB_TOL."""
+    from rrtmil_tpu_torch.config import c16_r50
+    from rrtmil_tpu_torch.models.rrt import build_model
+    cfg = c16_r50()
+    x = _randn((1, 9000, cfg.input_dim), _gen(9))
+    model = build_model(cfg, device=dev, seed=0)
+    reset_counters()
+    with torch.no_grad():
+        logits = model(x.to(dev)).float().cpu()
+    launches = launches_now()
+    cpu = build_model(cfg, device="cpu", seed=0)
+    with torch.no_grad():
+        logits_c = cpu(x)
+    dp = (torch.softmax(logits, -1) - torch.softmax(logits_c, -1)).abs().max()
+    want = [K[4], K[11], K[12]]
+    ok = dp.item() <= PROB_TOL and all(launches[n] >= 1 for n in want) \
+        and launches[K[0]] == 0
+    log(f"[7] unmasked c16_r50 forward, L=9000: logits "
+        f"{logits.numpy().round(5).tolist()} vs CPU "
+        f"{logits_c.numpy().round(5).tolist()}, max prob diff {dp.item():.3e} "
+        f"(tol {PROB_TOL}), launches {launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the unmasked forward disagrees with the CPU or "
+                             "missed a kernel")
+    return {"max_prob_diff": dp.item(), "launches": launches}
+
+
+def k13_library_call(args, mmd):
+    """K13 as one PyTorch call: torch.bmm(w^T, reps) on w and reps cast to
+    the mm dtype beforehand.  Timed only: the port never calls it."""
+    w, reps = args
+    wt, rm = w.transpose(1, 2).to(mmd), reps.to(mmd)
+    return lambda: torch.bmm(wt, rm)
+
+
+def phase_times_slice3(dev, rows):
+    """K10 and K11 at the c16_r50 + FFN shape of a 9000-patch bag for B in
+    {1, 8}, K12 and K13 at a 45000-patch survival bag (B = 1): f32 stream,
+    bf16 products, CUDA events, beside the bound from these inputs, the
+    plain version and (K13) torch.bmm."""
+    from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
+    mmd = torch.bfloat16
+    cases = {}
+    for b in (1, 8):
+        x, mask, w, reps, gout = grid_redistribute_inputs(
+            b, 96, 12, 1, dev, torch.float32, 500 + b)
+        cases[("K10 crmsa_redistribute_grid", b)] = (
+            ck.crmsa_redistribute_grid, ck.redistribute_grid_plain,
+            (x, mask, w, reps, 96, 12, True))
+        cases[("K11 crmsa_redistribute_grid_bwd", b)] = (
+            ck.crmsa_redistribute_grid_bwd, ck.redistribute_grid_bwd_plain,
+            (mask, w, reps, gout, 96, 12))
+    regions, phi, w, reps = surv_region_inputs(45000, 216, 27, dev,
+                                               torch.float32, 600)
+    cases[("K12 crmsa_compress", 1)] = (ck.crmsa_compress, ck.compress_plain,
+                                        (regions, phi))
+    cases[("K13 crmsa_redistribute", 1)] = (
+        ck.crmsa_redistribute, ck.redistribute_plain, (w, reps))
+    for (name, b), (fn, plain, args) in cases.items():
+        ms = time_ms(lambda: fn(*args, mm_dtype=mmd))
+        plain_ms = time_ms(lambda: plain(*args, mm_dtype=mmd), iters=5,
+                           warmup=1)
+        lib_ms = None
+        if name.startswith("K13"):
+            lib = k13_library_call(args, mmd)
+            _library_check(name, (lib(),), (plain(*args, mm_dtype=mmd),))
+            lib_ms = time_ms(lib)
+        flops, byts = work_from_args(name, args)
+        bms, by = bound_ms(flops, byts, mmd)
+        rows.setdefault(name, {})[str(b)] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "flops": flops, "bytes": byts}
+        log(f"[4] {name:32s} B={b}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"bound {bms:.4f} by {by}, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f}'})")
+    del cases
+    torch.cuda.empty_cache()
+    return rows
+
+
+def surv_train_setup(dev, length):
+    """A survival_default engine on the card (dropout on) and one bag of
+    `length` patches, device-resident; returns a train-step closure."""
+    from rrtmil_tpu_torch.config import survival_default
+    from rrtmil_tpu_torch.train.surv_engine import (SurvivalEngine,
+                                                    SurvivalEngineConfig)
+    cfg = survival_default()
+    eng = SurvivalEngine(_surv_model(cfg, dev), SurvivalEngineConfig(),
+                         cfg.encoder, device=dev)
+    eng.model.train()
+    bag = _randn((length, cfg.input_dim), _gen(length)).numpy()
+    x, mask, spec = eng._prep(bag)
+    label, cens = eng._targets(1, 0)
+
+    def step():
+        eng._train_step(x, mask, label, cens, spec.repr_length)
+    return step
+
+
+def phase_survival_throughput(dev):
+    """Survival train bags/s (forward, backward and the Adam update, dropout
+    on, B = 1) at L = 45000 (grids 224 / 216: K12 / K13) and L = 50000
+    (224 / 224: K3 / K8), with peak memory."""
+    out = {}
+    for length in (45000, 50000):
+        step = surv_train_setup(dev, length)
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(step, iters=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[str(length)] = {"ms_per_step": ms, "bags_per_s": 1e3 / ms,
+                            "peak_mem_gib": peak}
+        log(f"[4] survival train L={length} B=1: {ms:.3f} ms/step, "
+            f"{1e3 / ms:.3f} bags/s, peak {peak:.2f} GiB")
+        del step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_ffn_throughput(dev):
+    """The FFN / drop-path config at L = 9000, B = 8: forward slides/s (eval)
+    and train slides/s (dropout and drop_path on), with peak memory."""
+    from rrtmil_tpu_torch.data.bucketing import bucket_for
+    cfg = ffn_config()
+    eng, step, _ = train_setup(dev, 8, cfg)
+    spec = bucket_for(9000, cfg.encoder)
+    x = torch.zeros((8, spec.data_length, cfg.input_dim))
+    x[:, :9000] = _randn((8, 9000, cfg.input_dim), _gen(8))
+    x = x.to(dev)
+    mask = (torch.arange(spec.data_length) < 9000)[None].expand(8, -1) \
+        .contiguous().to(dev)
+    out = {}
+    eng.model.eval()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ms = time_ms(lambda: eng.model(x, mask=mask, length=spec.repr_length),
+                     iters=10, warmup=2)
+    out["forward"] = {"ms_per_batch": ms, "slides_per_s": 8e3 / ms,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    eng.model.train()
+    torch.cuda.reset_peak_memory_stats()
+    ms_t = time_ms(step, iters=5, warmup=2)
+    out["train"] = {"ms_per_step": ms_t, "slides_per_s": 8e3 / ms_t,
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[4] FFN + drop_path L=9000 B=8: forward {ms:.3f} ms/batch "
+        f"({8e3 / ms:.2f} slides/s), train {ms_t:.3f} ms/step "
+        f"({8e3 / ms_t:.2f} slides/s)")
+    del eng, step, x
+    torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -986,28 +1556,54 @@ def main():
         report["main_path"] = phase_main_path(dev)
         report["train"] = phase_train(dev)
         report["train_vs_cpu"] = phase_train_vs_cpu(dev)
-        report["times"] = phase_times(dev)
+        report["survival"] = phase_survival(dev)
+        report["survival_vs_cpu"] = phase_survival_vs_cpu(dev)
+        report["ffn"] = phase_ffn(dev)
+        report["unmasked"] = phase_unmasked(dev)
+        report["times"] = phase_times_slice3(dev, phase_times(dev))
         report["throughput"] = phase_throughput(dev)
         report["train_throughput"] = phase_train_throughput(dev)
+        report["survival_throughput"] = phase_survival_throughput(dev)
+        report["ffn_throughput"] = phase_ffn_throughput(dev)
         report["profile"] = phase_profile(dev)
         report["train_profile"] = phase_profile(dev, iters=1, train=True)
+        report["survival_profile"] = phase_profile(
+            dev, b=1, iters=1, fn=surv_train_setup(dev, 45000),
+            what="survival train step (L=45000)")
     report["seconds"] = time.perf_counter() - t_start
 
+    # launches: each kernel's count on its own path's train run (K1-K9 the
+    # c16_r50 train epoch, K10 / K11 the FFN + drop_path one, K12 / K13 the
+    # survival one), each path's counters set to 0 just before it
+    paths = {"train_epoch": report.get("train", {}),
+             "evaluate": report.get("main_path", {}),
+             "survival_train_epoch": report.get("survival", {}),
+             "survival_validate": {"launches": report.get("survival", {})
+                                   .get("val_launches", {})},
+             "ffn_train_epoch": report.get("ffn", {}),
+             "ffn_evaluate": {"launches": report.get("ffn", {})
+                              .get("eval_launches", {})},
+             "unmasked_forward": report.get("unmasked", {})}
+    own = {n: "train_epoch" for n in C16_TRAIN}
+    own.update({K[9]: "ffn_train_epoch", K[10]: "ffn_train_epoch",
+                K[11]: "survival_train_epoch", K[12]: "survival_train_epoch"})
     kernels = []
     for name, (replaces, jax_fn, source) in TPU_KERNELS.items():
         errs = report["errors"][name]
-        eval_n = report.get("main_path", {}).get("launches", {}).get(name)
-        train_n = report.get("train", {}).get("launches", {}).get(name, 0)
+        by_path = {p: rec.get("launches", {}).get(name)
+                   for p, rec in paths.items()}
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "jax_function": jax_fn,
-               "launches": train_n,
-               "launches_by_path": {"train_epoch": train_n,
-                                    "evaluate": eval_n},
+               "launches": by_path[own[name]] or 0,
+               "launches_path": own[name], "launches_by_path": by_path,
                "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs}
         t = report.get("times", {}).get(name)
         if t:
-            row.update({k: t["8"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms")})
+            main_b = "8" if "8" in t else "1"
+            row.update({k: t[main_b][k] for k in ("ms", "plain_ms",
+                                                  "bound_ms", "bound_by",
+                                                  "library_ms")})
+            row["timed_batch"] = int(main_b)
             row["by_batch"] = {b: {k: v for k, v in rec.items()
                                    if k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}

@@ -1,4 +1,4 @@
-// K4 and K9: the backwards of the CR-MSA layer's stream-touching halves.
+// K4, K9 and K11: the backwards of the CR-MSA layer's stream-touching halves.
 //
 // K4 replaces rrtmil_tpu/ops/pallas/crmsa_kernels.py::_cgrid_bwd_pallas
 // (kernel body _cgrid_bwd_kernel), the backward of K3: given d(reps) and
@@ -28,6 +28,19 @@
 // (dls, dlb, dphi, dreps) stays in one thread's registers.  The sums across
 // regions are per-region partials that cb_reduce adds in a fixed order: no
 // atomics, so every run gives the same bits.
+//
+// K11 replaces crmsa_kernels.py::_rgrid_bwd_pallas (kernel body
+// _rgrid_bwd_kernel), the backward of K10: with gm = round(g * mask) in
+// region order, dw = round(reps) gm^T (k, P) and dreps = round(w) gm (k, C)
+// per region; dx (g itself, or zeros) stays in the wrapper.  Bound: bytes
+// (c16_r50 + FFN at L = 9000, B = 8: the f32 g, ~151 MB, ~0.045 ms).
+// Design: one block per region, so dreps (a sum over the region's P rows)
+// never crosses blocks: no partials, deterministic by construction.  The
+// block walks its region in chunks of 16 token rows: the chunk's gm rows are
+// staged once in shared memory (coalesced row reads), then each warp takes
+// a row for its k dot products over C (dw), and each thread keeps the k
+// dreps sums of its channels in registers across all chunks.  g crosses
+// device memory once.  At B = 1 a 64-region bag keeps only 64 SMs busy.
 #include "common.cuh"
 
 using namespace rrt;
@@ -363,6 +376,93 @@ redistribute_ln_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__
   }
 }
 
+constexpr int BT = 16;   // token rows per chunk (K11)
+constexpr int CPT = 4;   // channels per thread (K11): C <= 4 * 256
+
+size_t rgrid_bwd_smem_bytes(int C, int k) {
+  return (size_t)(k * C + BT * C + k * BT) * 4;
+}
+
+template <typename TS, typename TM>
+__global__ void __launch_bounds__(256)
+redistribute_grid_bwd_kernel(const TS* __restrict__ g, const uint8_t* __restrict__ mask,
+                             const float* __restrict__ w, const float* __restrict__ reps,
+                             float* __restrict__ dw, float* __restrict__ dreps,
+                             TokenMap map, int C, int k) {
+  extern __shared__ __align__(16) float sm[];
+  float* rs_ = sm;             // [k][C] round(reps_r)
+  float* gs = rs_ + k * C;     // [BT][C] round(g * mask) of the chunk's rows
+  float* ws = gs + BT * C;     // [k][BT] round(w_r) of the chunk's rows
+  const int P = map.P;
+  const int r = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const float* rr = reps + (long long)r * k * C;
+  for (int i = tid; i < k * C; i += blockDim.x) rs_[i] = round_to<TM>(rr[i]);
+  float acc[CPT][KMAX];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i)
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) acc[i][j] = 0.f;
+
+  for (int p0 = 0; p0 < P; p0 += BT) {
+    const int nb = min(BT, P - p0);
+    for (int i = tid; i < nb * C; i += blockDim.x) {
+      const int row = i / C, c = i - row * C;
+      const long long t = token_of(map, r, p0 + row);
+      const float m = mask[t] ? 1.f : 0.f;
+      gs[i] = round_to<TM>(to_f(g[t * C + c]) * m);
+    }
+    for (int i = tid; i < k * BT; i += blockDim.x) {
+      const int j = i / BT, row = i % BT;
+      ws[i] = row < nb ? round_to<TM>(w[((long long)r * k + j) * P + p0 + row]) : 0.f;
+    }
+    __syncthreads();
+    // dw: one warp per row, k dot products over C
+    for (int row = warp; row < nb; row += nwarps) {
+      float a[KMAX];
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) a[j] = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float gv = gs[row * C + c];
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j)
+          if (j < k) a[j] = fmaf(rs_[j * C + c], gv, a[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        if (j < k) {
+          const float s = warp_sum(a[j]);
+          if (lane == 0) dw[((long long)r * k + j) * P + p0 + row] = s;
+        }
+      }
+    }
+    // dreps: each thread its channels, the chunk's rows in order
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int c = tid + i * blockDim.x;
+      if (c < C) {
+        for (int row = 0; row < nb; ++row) {
+          const float gv = gs[row * C + c];
+#pragma unroll
+          for (int j = 0; j < KMAX; ++j)
+            if (j < k) acc[i][j] = fmaf(ws[j * BT + row], gv, acc[i][j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    const int c = tid + i * blockDim.x;
+    if (c < C) {
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j)
+        if (j < k) dreps[((long long)r * k + j) * C + c] = acc[i][j];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int cb_compress_grid_bwd(int ts, int tm, const void* x, const void* mask,
@@ -403,6 +503,28 @@ extern "C" int cb_redistribute_ln_bwd(int ts, int tm, const void* x, const void*
           (const TS*)x, (const uint8_t*)mask, (const float*)w, (const float*)reps,
           (const float*)ls, (const TS*)sc, (const float*)g, (TS*)dx, (float*)dw,
           (float*)dreps, (float*)part, G, rs, C, k, eps)));
+  return (int)cudaGetLastError();
+}
+
+// K11: g (B, G*G, C) -> dw (B, nR, k, P), dreps (B, nR, k, C)
+extern "C" int cb_redistribute_grid_bwd(int ts, int tm, const void* g, const void* mask,
+                                        const void* w, const void* reps, void* dw,
+                                        void* dreps, int B, int G, int rs, int C, int k,
+                                        void* stream) {
+  if (C > CPT * 256 || k < 1 || k > KMAX || rs < 1 || G % rs != 0)
+    return (int)cudaErrorInvalidValue;
+  const int nrs = G / rs;
+  const TokenMap map{G, rs, nrs, rs * rs};
+  const size_t smem = rgrid_bwd_smem_bytes(C, k);
+  cudaError_t err = cudaSuccess;
+  RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
+      err = cudaFuncSetAttribute(redistribute_grid_bwd_kernel<TS, TM>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+      redistribute_grid_bwd_kernel<TS, TM><<<B * nrs * nrs, 256, smem,
+                                             (cudaStream_t)stream>>>(
+          (const TS*)g, (const uint8_t*)mask, (const float*)w, (const float*)reps,
+          (float*)dw, (float*)dreps, map, C, k)));
   return (int)cudaGetLastError();
 }
 

@@ -1,39 +1,51 @@
-"""RRT: regional re-embedding transformer, PyTorch port (c16_r50 subset).
+"""RRT: regional re-embedding transformer, PyTorch port.
 
-Counterpart of `rrtmil_tpu/models/rrt.py` for what `config.c16_r50()` uses:
-InnerAttention with 1-D 'attn' EPEG or none, RegionAttention,
-CrossRegionAttention with phi, the fused CR-MSA attention, TransLayer,
-RRTEncoder and RRTMIL.  Parameters keep the flax tree's names (state_dict
-keys are the flax paths joined by '.', see convert.py); tensors keep torch's
-layouts (Linear weight (out, in)); the EPEG taps are stored as `pe_weight`
-(H, k), the layout the kernels take.
+Counterpart of `rrtmil_tpu/models/rrt.py` for what the canonical and
+survival configs use: InnerAttention with 1-D 'attn' EPEG or none,
+RegionAttention, CrossRegionAttention with phi, the fused CR-MSA attention,
+DropPath, Mlp, TransLayer (with the optional FFN), RRTEncoder and RRTMIL.
+Parameters keep the flax tree's names (state_dict keys are the flax paths
+joined by '.', see convert.py); tensors keep torch's layouts (Linear weight
+(out, in)); the EPEG taps are stored as `pe_weight` (H, k), the layout the
+kernels take.
 
 Two structures, as in the JAX package:
 
-* fused (backend 'auto' or 'pallas'): the R-MSA layer is one call of K1
-  (`region_layer_fused`), the CR-MSA layer is K3 -> the cross-region
-  InnerAttention (K5) -> K8 with the encoder-final LayerNorm and the global
-  shortcut.  On a CUDA tensor these launch the hand-written kernels, on a
-  CPU tensor they run the kernels' plain versions.
-* unfused (backend 'xla'): the module-by-module formulation of the JAX
-  package's XLA path.  On a CUDA tensor every InnerAttention still runs K5
-  (as the JAX package's unfused path does on a TPU); the cross-region
-  compress/redistribute of this structure (K12/K13) is not ported, so
-  CrossRegionAttention refuses CUDA tensors.
+* fused (backend 'auto' or 'pallas', a mask, and a stream at the layer's
+  padded length): the R-MSA layer is one call of K1 (`region_layer_fused`);
+  the CR-MSA layer is K3 -> the cross-region InnerAttention (K5) -> K8 with
+  the encoder-final LayerNorm and the global shortcut, or -> K10 (the
+  redistribution without the LayerNorm) when an FFN follows the layer or
+  stochastic depth is on in train mode.
+* unfused (backend 'xla', no mask, or a stream longer than the layer's
+  grid, as every survival bucket whose R-MSA grid exceeds the CR-MSA grid):
+  the module-by-module formulation.  Its InnerAttention is K5, and its
+  CrossRegionAttention takes the structure of the JAX package's fused
+  non-grid CR-MSA (rrt.py:366-390): partition -> K12 -> the cross-region
+  InnerAttention -> K13 -> reverse.
+
+On a CUDA tensor every route launches the hand-written kernels, whatever
+the backend: the JAX package's 'xla' backend never reaches a Pallas kernel
+(rrt.py:150-151), but the port runs no eager code on the card, so there
+'xla' selects only the unfused structure.  On a CPU tensor the kernels'
+plain versions run, and backend 'xla' keeps the JAX package's XLA
+formulation of InnerAttention; its CrossRegionAttention is K12/K13's plain
+versions with float32 products, which round nothing, as the XLA einsums.
 
 The JAX package's TPU gates (layer_fusable_geometry, crmsa_fusable_geometry,
-legal_cb) have no counterpart: the kernels take every c16_r50 geometry and
-raise on a geometry they cannot take.  Variants outside the slice raise
+legal_cb) have no counterpart: the kernels take every geometry of these
+configs and raise on one they cannot take.  Variants outside the port raise
 NotImplementedError pointing at ROADMAP.md.
 
 `model.train()` plays the role of the JAX package's `deterministic=False`:
-dropout goes where the JAX model puts it (after `patch_to_emb` and its
-activation, on the R-MSA branch outside K1, which then runs with
-add_residual=False, after K5's output, and after the projection in the
-unfused InnerAttention).  Its masks come from the `torch.Generator` the caller
-passes as `generator=`; there is no global RNG.  Stochastic depth
-(drop_path > 0) in train mode needs the redistribution without the final
-LayerNorm (K10/K11) and raises.
+dropout and stochastic depth go where the JAX model puts them (after
+`patch_to_emb` and its activation; on the R-MSA branch outside K1, which
+then runs with add_residual=False, whenever projection dropout or drop_path
+is on; after K5's output; after the projection in the unfused
+InnerAttention; inside the Mlp; per sample on each residual branch, where a
+fused CR-MSA layer then runs K10 with add_residual=False and adds the
+branch outside).  Masks come from the `torch.Generator` the caller passes
+as `generator=`; there is no global RNG.
 """
 from __future__ import annotations
 
@@ -46,7 +58,9 @@ from torch import nn
 from ..config import (CRMSAConfig, InnerAttentionConfig, RMSAConfig,
                       RRTEncoderConfig, RRTMILConfig, TransLayerConfig)
 from ..ops.kernels.common import ln_fast
-from ..ops.kernels.crmsa_kernels import (crmsa_compress_grid,
+from ..ops.kernels.crmsa_kernels import (crmsa_compress, crmsa_compress_grid,
+                                         crmsa_redistribute,
+                                         crmsa_redistribute_grid,
                                          crmsa_redistribute_grid_ln)
 from ..ops.kernels.region_block import region_block_fused
 from ..ops.kernels.region_layer import region_layer_fused
@@ -64,7 +78,7 @@ def _dtype(name: str) -> torch.dtype:
 
 def _todo(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md "
-                               f"queue 1 item 8 and queue 2")
+                               f"queue 1 item 8")
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
@@ -78,6 +92,24 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
                          "torch.Generator: pass generator=")
     keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
     return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator],
+              training: bool) -> torch.Tensor:
+    """Per-sample stochastic depth (timm DropPath, rrt.py:71-84): each
+    sample's branch is kept with probability 1 - rate and scaled by
+    1 / (1 - rate); the (B, 1, ..., 1) mask is drawn from `generator`."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("drop_path in train mode draws its masks from a "
+                         "torch.Generator: pass generator=")
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    m = torch.empty(shape, device=x.device).bernoulli_(keep,
+                                                       generator=generator)
+    return torch.where(m.bool(), x / keep, torch.zeros_like(x))
 
 
 def _fit_length(x: torch.Tensor, target: int) -> torch.Tensor:
@@ -100,6 +132,25 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         return ln_fast(x.float(), self.weight, self.bias)
+
+
+class Mlp(nn.Module):
+    """FFN block fc1 -> act -> dropout -> fc2 -> dropout (rrt.py:87-106),
+    exact (erf) GELU."""
+
+    def __init__(self, dim: int, hidden: int, act: str = "gelu",
+                 p: float = 0.0):
+        super().__init__()
+        self.act, self.p = act, p
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        x = self.fc1(x)
+        # any act but 'gelu' is ReLU, as in the JAX Mlp
+        x = F.gelu(x, approximate="none") if self.act == "gelu" else F.relu(x)
+        x = dropout(x, self.p, generator, self.training)
+        return dropout(self.fc2(x), self.p, generator, self.training)
 
 
 def _epeg_logit_conv(attn, w, bias):
@@ -213,8 +264,11 @@ class RegionAttention(nn.Module):
 class CrossRegionAttention(nn.Module):
     """CR-MSA: compress each region to crmsa_k representative tokens, one
     MHSA across regions, redistribute (reference modules/rmsa.py:232-337).
-    `forward` is the unfused formulation; `fused` is the JAX package's
-    `_CRMSAFusedAttn` (rrt.py:531-572) on the same parameters."""
+    `forward` is the module formulation, K12 -> InnerAttention -> K13
+    (rrt.py:366-390), for every backend; backend 'xla' on the CPU runs it
+    with float32 products, which is the XLA einsums of rrt.py:392-440.
+    `fused` is the JAX package's `_CRMSAFusedAttn` (rrt.py:531-572) on the
+    same parameters."""
 
     def __init__(self, cfg: CRMSAConfig):
         super().__init__()
@@ -228,35 +282,33 @@ class CrossRegionAttention(nn.Module):
 
     def forward(self, x, length: Optional[int] = None,
                 generator: Optional[torch.Generator] = None):
-        if x.is_cuda:
-            raise _todo("the unfused CR-MSA compress/redistribute (K12/K13)")
         cfg = self.cfg
         b, n_in, c = x.shape
         length = n_in if length is None else length
         geom = grid_geometry(length, cfg.region)
-        rs, nr, p, kk = (geom.region_size, geom.num_regions,
-                         geom.tokens_per_region, cfg.crmsa_k)
+        rs, nr, kk = geom.region_size, geom.num_regions, cfg.crmsa_k
         x = _fit_length(x, geom.padded_length).reshape(b, geom.grid, geom.grid, c)
-        regions = region_partition(x, rs).reshape(b, nr, p, c)
-        logits = torch.einsum("brpc,ck->brkp", regions.float(), self.phi)
-        combine = torch.softmax(logits, dim=-1)
-        dispatch = torch.softmax(logits, dim=-2)
-        lmin = logits.amin(-1, keepdim=True)
-        lmax = logits.amax(-1, keepdim=True)
-        dispatch_mm = (logits - lmin) / (lmax - lmin + 1e-8)
-        reps = torch.einsum("brpc,brkp->bkrc", regions.float(), combine)
-        reps = self.attn(reps.reshape(b * kk, nr, c), generator)
-        reps = reps.reshape(b, kk, nr, c)
-        out = torch.einsum("bkrc,brkp->brpc", reps.float(),
-                           dispatch_mm * dispatch)
-        out = region_reverse(out.reshape(b * nr, p, c), rs, geom.grid, geom.grid)
+        # the XLA einsums (rrt.py:392-440) round nothing: K12/K13's plain
+        # versions at float32 products are that formulation
+        mmd = (torch.float32 if cfg.attn.backend == "xla" and not x.is_cuda
+               else _dtype(cfg.attn.mm_dtype))
+        reps, w = crmsa_compress(region_partition(x, rs), self.phi, mmd)
+        # (B*nR, k, C) -> (B*k, nR, C); a view when B = 1, and K5 reads its
+        # input in place
+        reps = reps.reshape(b, nr, kk, c).transpose(1, 2)
+        reps = self.attn(reps.reshape(b * kk, nr, c).contiguous(), generator)
+        reps = reps.reshape(b, kk, nr, c).transpose(1, 2)
+        out = crmsa_redistribute(w, reps.reshape(b * nr, kk, c).float()
+                                 .contiguous(), mmd)
+        out = region_reverse(out, rs, geom.grid, geom.grid)
         return _fit_length(out, n_in)
 
-    def fused(self, x, mask, ln_s, ln_b, length: int, final_ln,
-              final_shortcut=None, generator=None):
-        """K3 -> cross-region InnerAttention (K5) -> K8: the CR-MSA layer
-        with the layer residual, the global shortcut and the encoder-final
-        LayerNorm + mask; returns the fp32 encoder output."""
+    def fused(self, x, mask, ln_s, ln_b, length: int, add_residual: bool,
+              final_ln=None, final_shortcut=None, generator=None):
+        """K3 -> cross-region InnerAttention (K5) -> K8 with the layer
+        residual, the global shortcut and the encoder-final LayerNorm + mask
+        (the fp32 encoder output), or, without final_ln, -> K10: the
+        post-layer stream in x's dtype, with or without the residual."""
         cfg = self.cfg
         b, _, c = x.shape
         geom = grid_geometry(length, cfg.region)
@@ -264,12 +316,15 @@ class CrossRegionAttention(nn.Module):
         mmd = _dtype(cfg.attn.mm_dtype)
         reps, w = crmsa_compress_grid(x, mask, ln_s, ln_b, self.phi, geom.grid,
                                       geom.region_size, mmd)
-        reps = reps.transpose(1, 2).reshape(b * kk, nr, c)
+        reps = reps.transpose(1, 2).reshape(b * kk, nr, c).contiguous()
         reps = self.attn(reps, generator)
         reps = reps.reshape(b, kk, nr, c).transpose(1, 2).float().contiguous()
-        return crmsa_redistribute_grid_ln(x, mask, w, reps, final_ln[0],
-                                          final_ln[1], final_shortcut,
-                                          geom.grid, geom.region_size, mmd)
+        if final_ln is not None:
+            return crmsa_redistribute_grid_ln(x, mask, w, reps, final_ln[0],
+                                              final_ln[1], final_shortcut,
+                                              geom.grid, geom.region_size, mmd)
+        return crmsa_redistribute_grid(x, mask, w, reps, geom.grid,
+                                       geom.region_size, add_residual, mmd)
 
 
 def _fused_backend(attn_cfg: InnerAttentionConfig) -> bool:
@@ -288,11 +343,19 @@ def fused_layer_ok(cfg: TransLayerConfig, x, mask, length: int) -> bool:
 
 
 def branch_outside(cfg: TransLayerConfig, training: bool) -> bool:
-    """The `outside` rule of rrt.py:644-645: in train mode with projection
-    dropout the fused R-MSA kernel returns the masked branch without the
-    residual (add_residual=False), and dropout and the residual run
-    outside it."""
-    return training and cfg.rmsa.attn.proj_dropout > 0
+    """The `outside` rule of the fused R-MSA branch (rrt.py:644-645): in
+    train mode with projection dropout or stochastic depth, K1 returns the
+    masked branch without the residual (add_residual=False), and dropout,
+    drop_path and the residual run outside it."""
+    return training and (cfg.rmsa.attn.proj_dropout > 0 or cfg.drop_path > 0)
+
+
+def crmsa_branch_outside(cfg: TransLayerConfig, training: bool) -> bool:
+    """The `outside` rule of the fused CR-MSA branch (rrt.py:668): with
+    stochastic depth in train mode, K10 returns the branch without the
+    residual, and drop_path, the residual and any final LayerNorm run
+    outside."""
+    return training and cfg.drop_path > 0
 
 
 def fused_crmsa_ok(cfg: TransLayerConfig, x, mask, length: int) -> bool:
@@ -312,14 +375,14 @@ def _apply_final_ln(x, mask, scale, bias):
 
 
 class TransLayer(nn.Module):
-    """Pre-LN block x + attn(LN(x)), the mask applied after the LayerNorm and
-    after the branch so pad rows enter attention as zeros and the stream
-    stays zero on them (reference modules/rrt.py:43-131)."""
+    """Pre-LN block x + DropPath(attn(LN(x))), then the optional FFN
+    x + DropPath(mask * Mlp(LN2(x))); the mask is applied after the
+    LayerNorm and after the branch so pad rows enter attention as zeros and
+    the stream stays zero on them (reference modules/rrt.py:43-131, JAX
+    rrt.py:682-754)."""
 
     def __init__(self, cfg: TransLayerConfig):
         super().__init__()
-        if cfg.ffn:
-            raise _todo("the TransLayer FFN")
         self.cfg = cfg
         self.norm = LayerNorm(cfg.dim)
         if cfg.attn_mode == "rmsa":
@@ -328,46 +391,87 @@ class TransLayer(nn.Module):
             self.attn = CrossRegionAttention(cfg.crmsa)
         else:
             raise _todo(f"attn_mode='{cfg.attn_mode}'")
+        if cfg.ffn:
+            self.norm2 = LayerNorm(cfg.dim)
+            self.mlp = Mlp(cfg.dim, int(cfg.dim * cfg.mlp_ratio), cfg.ffn_act,
+                           cfg.dropout)
 
     def _compute_dtype(self) -> torch.dtype:
         cfg = self.cfg
         a = cfg.rmsa.attn if cfg.attn_mode == "rmsa" else cfg.crmsa.attn
         return _dtype(a.compute_dtype)
 
+    def _fused_rmsa_branch(self, x, mask, length: int, generator):
+        cfg = self.cfg
+        a = cfg.rmsa.attn
+        geom = grid_geometry(length, cfg.rmsa.region)
+        outside = branch_outside(cfg, self.training)
+        out = region_layer_fused(
+            x, mask, self.norm.weight, self.norm.bias,
+            *self.attn.attn.kernel_weights(), geom.grid, geom.region_size,
+            not outside, _dtype(a.mm_dtype))
+        if not outside:
+            return out
+        z = dropout(out, a.proj_dropout, generator, True)
+        return x + drop_path(z, cfg.drop_path, generator, True)
+
+    def _fused_crmsa_branch(self, x, mask, length: int, final_ln,
+                            final_shortcut, generator):
+        cfg = self.cfg
+        outside = crmsa_branch_outside(cfg, self.training)
+        out = self.attn.fused(x, mask, self.norm.weight, self.norm.bias,
+                              length, not outside,
+                              None if outside else final_ln,
+                              None if outside else final_shortcut, generator)
+        if not outside:
+            return out
+        out = x + drop_path(out, cfg.drop_path, generator, True)
+        if final_ln is not None:
+            if final_shortcut is not None:
+                out = out + final_shortcut
+            out = _apply_final_ln(out, mask, *final_ln)
+        return out
+
+    def _ffn(self, x, m, generator):
+        z = self.mlp(self.norm2(x), generator)
+        if m is not None:
+            z = z * m
+        return x + drop_path(z, self.cfg.drop_path, generator, self.training)
+
     def forward(self, x, mask=None, length: Optional[int] = None,
                 final_ln=None, final_shortcut=None,
                 generator: Optional[torch.Generator] = None):
         cfg = self.cfg
-        if self.training and cfg.drop_path > 0:
-            raise NotImplementedError(
-                "drop_path > 0 in train mode needs the CR-MSA redistribution "
-                "without the final LayerNorm and its backward (K10/K11, "
-                "crmsa_kernels.py::_redistribute_grid_pallas/_rgrid_bwd_pallas"
-                "), not ported yet: see ROADMAP.md queue 2")
+        m = None if mask is None else mask[..., None].to(x.dtype)
         length_r = x.shape[1] if length is None else length
-        if fused_layer_ok(cfg, x, mask, length_r):
-            a = cfg.rmsa.attn
-            geom = grid_geometry(length_r, cfg.rmsa.region)
-            outside = branch_outside(cfg, self.training)
-            out = region_layer_fused(
-                x, mask, self.norm.weight, self.norm.bias,
-                *self.attn.attn.kernel_weights(), geom.grid, geom.region_size,
-                not outside, _dtype(a.mm_dtype))
-            x = x + dropout(out, a.proj_dropout, generator, True) \
-                if outside else out
-        elif final_ln is not None and fused_crmsa_ok(cfg, x, mask, length_r):
-            return self.attn.fused(x, mask, self.norm.weight, self.norm.bias,
-                                   length_r, final_ln, final_shortcut,
-                                   generator)
-        else:
-            m = None if mask is None else mask[..., None].to(x.dtype)
-            z = self.norm(x).to(self._compute_dtype())
-            if m is not None:
-                z = z * m
-            z = self.attn(z, length=length, generator=generator)
-            if m is not None:
-                z = z * m
-            x = x + z
+        fused_rmsa = fused_layer_ok(cfg, x, mask, length_r)
+        fused_crmsa = (not fused_rmsa
+                       and fused_crmsa_ok(cfg, x, mask, length_r))
+        if fused_rmsa or fused_crmsa:
+            # final_ln rides K8 only when no FFN follows the layer
+            ln_inside = fused_crmsa and not cfg.ffn and final_ln is not None
+            if fused_rmsa:
+                x = self._fused_rmsa_branch(x, mask, length_r, generator)
+            else:
+                x = self._fused_crmsa_branch(
+                    x, mask, length_r, final_ln if ln_inside else None,
+                    final_shortcut if ln_inside else None, generator)
+            if cfg.ffn:
+                x = self._ffn(x, m, generator)
+            if final_ln is not None and not ln_inside:
+                if final_shortcut is not None:
+                    x = x + final_shortcut
+                x = _apply_final_ln(x, mask, *final_ln)
+            return x
+        z = self.norm(x).to(self._compute_dtype())
+        if m is not None:
+            z = z * m
+        z = self.attn(z, length=length, generator=generator)
+        if m is not None:
+            z = z * m
+        x = x + drop_path(z, cfg.drop_path, generator, self.training)
+        if cfg.ffn:
+            x = self._ffn(x, m, generator)
         if final_ln is not None:
             if final_shortcut is not None:
                 x = x + final_shortcut
@@ -405,8 +509,11 @@ class RRTEncoder(nn.Module):
                                            generator=generator)
         if self.cr_msa is not None:
             final_ln = (self.norm.weight, self.norm.bias)
-            if fused_crmsa_ok(self.cr_msa.cfg, x, mask, length):
-                # the final LayerNorm rides K8's stream write (rrt.py:797-809)
+            cl = self.cr_msa.cfg
+            # the final LayerNorm rides K8's stream write when nothing (FFN,
+            # train-mode drop_path) separates it from the layer (rrt.py:797-809)
+            if (not cl.ffn and not (self.training and cl.drop_path > 0)
+                    and fused_crmsa_ok(cl, x, mask, length)):
                 x = self.cr_msa(x, mask=mask, length=length, final_ln=final_ln,
                                 final_shortcut=(x_shortcut if cfg.all_shortcut
                                                 else None),

@@ -1,4 +1,5 @@
-"""K3 and K8: the CR-MSA layer's compress and redistribute, as CUDA kernels.
+"""K3, K8, K10, K12 and K13: the CR-MSA layer's compress and redistribute,
+as CUDA kernels, with the backwards K4, K9 and K11.
 
 K3 `crmsa_compress_grid` replaces
 `rrtmil_tpu/ops/pallas/crmsa_kernels.py::_compress_grid_pallas` (kernel body
@@ -24,9 +25,29 @@ replaces `crmsa_kernels.py::_rgrid_ln_bwd_pallas` (kernel body
 source is `csrc/crmsa_bwd.cu`.  The shortcut's gradient is K9's dx, the same
 tensor (crmsa_kernels.py:1021).
 
-The two forward wrappers are `torch.autograd.Function`s (K3 with K4, K8 with
-K9).  Every wrapper launches its kernel for a CUDA tensor and runs the plain
-version for a CPU tensor.
+K10 `crmsa_redistribute_grid` replaces `crmsa_kernels.py::
+_redistribute_grid_pallas` (kernel body `_redistribute_grid_kernel`,
+pallas_call at crmsa_kernels.py:594): K8 without the final LayerNorm,
+x + mask * reverse(w^T reps) in x's dtype, or without x when add_residual is
+False.  K11 `crmsa_redistribute_grid_bwd` replaces `_rgrid_bwd_pallas`
+(kernel body `_rgrid_bwd_kernel`, pallas_call at crmsa_kernels.py:696): dw
+and dreps of K10; K10's dx is g itself, or nothing, in its Function
+(crmsa_kernels.py:725).  K10's source is `csrc/crmsa.cu`, K11's
+`csrc/crmsa_bwd.cu`.
+
+K12 `crmsa_compress` replaces `_compress_pallas` (kernel body
+`_compress_kernel`, pallas_call at crmsa_kernels.py:103): K3's math on
+regions that are already partitioned, (R, P, C), with no LayerNorm or mask.
+K13 `crmsa_redistribute` replaces `_redistribute_pallas` (kernel body
+`_redistribute_kernel`, pallas_call at crmsa_kernels.py:165): w_r^T reps_r
+as fp32 (R, P, C).  Both live in `csrc/crmsa.cu`.  As in the JAX package,
+neither has a backward kernel: their Functions' backwards are autograd
+through the plain forwards (`_compress_ref`, `_redistribute_ref`), which on
+the card are PyTorch ops.
+
+The forward wrappers are `torch.autograd.Function`s (K3 with K4, K8 with K9,
+K10 with K11, K12 and K13 with the plain vjp).  Every wrapper launches its
+kernel for a CUDA tensor and runs the plain version for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -375,7 +396,269 @@ def crmsa_redistribute_grid_ln(x, mask, w, reps, ln_s, ln_b,
                                      grid_side, region_size, mm_dtype)
 
 
+# ---------------------------------------------------------------------------
+# K12 / K13: compress and redistribute of already-partitioned regions
+# ---------------------------------------------------------------------------
+
+def compress_plain(x, phi, mm_dtype=torch.bfloat16):
+    """Plain PyTorch version of K12 (`_compress_ref`): x (R, P, C), phi
+    (C, k) -> (reps (R, k, C), w (R, k, P)), both float32.  Autograd through
+    it is K12's backward: amin/amax split a tie's gradient equally, as
+    jnp.min/max do (the bucket's zero rows tie at logit 0)."""
+    xm = mm_round(x, mm_dtype)
+    logits = torch.einsum("rpc,ck->rkp", xm, mm_round(phi, mm_dtype))
+    combine = torch.softmax(logits, dim=-1)
+    dispatch = torch.softmax(logits, dim=-2)
+    lmin = logits.amin(-1, keepdim=True)
+    lmax = logits.amax(-1, keepdim=True)
+    mm = (logits - lmin) / (lmax - lmin + 1e-8)
+    reps = torch.einsum("rkp,rpc->rkc", mm_round(combine, mm_dtype), xm)
+    return reps, mm * dispatch
+
+
+def redistribute_plain(w, reps, mm_dtype=torch.bfloat16):
+    """Plain PyTorch version of K13 (`_redistribute_ref`, fp32 out):
+    out_r = round(w_r)^T round(reps_r), (R, P, C)."""
+    return torch.einsum("rkp,rkc->rpc", mm_round(w, mm_dtype),
+                        mm_round(reps, mm_dtype))
+
+
+def redistribute_grid_plain(x, mask, w, reps, grid_side: int,
+                            region_size: int, add_residual: bool,
+                            mm_dtype=torch.bfloat16):
+    """Plain PyTorch version of K10 (`_redistribute_grid_ref`)."""
+    b, n, c = x.shape
+    nr = w.shape[1]
+    y = torch.einsum("brkp,brkc->brpc", mm_round(w, mm_dtype),
+                     mm_round(reps, mm_dtype))
+    y = region_reverse(y.reshape(b * nr, -1, c), region_size, grid_side,
+                       grid_side) * mask.float()[..., None]
+    if add_residual:
+        y = x.float() + y
+    return y.to(x.dtype)
+
+
+def redistribute_grid_bwd_plain(mask, w, reps, g, grid_side: int,
+                                region_size: int, mm_dtype=torch.bfloat16):
+    """Plain PyTorch version of K11 (`_rgrid_bwd_kernel`'s rounding): (dw,
+    dreps) given g = d(out), with gm = round(g * mask)."""
+    b, n, c = g.shape
+    nr = w.shape[1]
+    gm = mm_round(g.float() * mask.float()[..., None], mm_dtype)
+    gr = region_partition(gm.reshape(b, grid_side, grid_side, c),
+                          region_size).reshape(b, nr, -1, c)
+    dw = torch.einsum("brkc,brpc->brkp", mm_round(reps, mm_dtype), gr)
+    dreps = torch.einsum("brkp,brpc->brkc", mm_round(w, mm_dtype), gr)
+    return dw, dreps
+
+
+MAX_C = 1024   # channels the K10-K13 kernels take (32 x CPL in common.cuh)
+
+
+def _check_vector_rows(c: int, *tensors) -> None:
+    """K10 and K13 move four channels per lane: C % 4 == 0 and 16-byte
+    aligned rows."""
+    if c % 4 or c > MAX_C:
+        raise ValueError(f"the redistribute kernels take C % 4 == 0 and "
+                         f"C <= {MAX_C} channels, not {c}")
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("the redistribute kernels need 16-byte aligned "
+                             "streams")
+
+
+def _check_regions(w, reps):
+    if w.dim() != 3 or reps.dim() != 3 or w.shape[:2] != reps.shape[:2]:
+        raise ValueError(f"w {tuple(w.shape)} / reps {tuple(reps.shape)} are "
+                         f"not (R, k, P) / (R, k, C)")
+    if w.dtype != torch.float32 or reps.dtype != torch.float32:
+        raise TypeError("w and reps must be float32")
+    _check_k(w.shape[1])
+
+
+def _launch_compress_regions(x, phi, mmd):
+    r, p, c = x.shape
+    k = phi.shape[1]
+    _check_k(k)
+    if c > MAX_C or phi.shape[0] != c:
+        raise ValueError(f"K12 takes phi (C, k) with C <= {MAX_C}, not "
+                         f"{tuple(phi.shape)} for x {tuple(x.shape)}")
+    build.require_cuda({"x": x}, dict(phi=phi))
+    lib = build.load("crmsa")
+    phi_f = phi.float().contiguous()
+    reps = torch.empty((r, k, c), dtype=torch.float32, device=x.device)
+    w = torch.empty((r, k, p), dtype=torch.float32, device=x.device)
+    build.check(lib.cr_compress(
+        build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
+        phi_f.data_ptr(), reps.data_ptr(), w.data_ptr(), r, p, c, k,
+        build.stream_of(x)), "K12 compress")
+    crmsa_compress.launches += 1
+    return reps, w
+
+
+def _launch_redistribute_regions(w, reps, mmd):
+    _check_regions(w, reps)
+    r, k, p = w.shape
+    c = reps.shape[2]
+    build.require_cuda({"w": w, "reps": reps}, {})
+    _check_vector_rows(c)
+    lib = build.load("crmsa")
+    out = torch.empty((r, p, c), dtype=torch.float32, device=w.device)
+    build.check(lib.cr_redistribute(
+        build.dtype_code(torch.float32), build.dtype_code(mmd), None, None,
+        w.data_ptr(), reps.data_ptr(), out.data_ptr(), r, 0, 1, p, c, k,
+        build.stream_of(w)), "K13 redistribute")
+    crmsa_redistribute.launches += 1
+    return out
+
+
+def _launch_redistribute_grid(x, mask, w, reps, g, rs, add_residual, mmd):
+    b, n, c = x.shape
+    k = w.shape[2]
+    _check_redistribute(x, mask, w, reps, None, g, rs)
+    build.require_cuda({"x": x, "mask": mask, "w": w, "reps": reps}, {})
+    _check_vector_rows(c, x)
+    lib = build.load("crmsa")
+    out = torch.empty_like(x)
+    build.check(lib.cr_redistribute(
+        build.dtype_code(x.dtype), build.dtype_code(mmd),
+        x.data_ptr() if add_residual else None, mask.data_ptr(), w.data_ptr(),
+        reps.data_ptr(), out.data_ptr(), b * (g // rs) ** 2, g, rs, rs * rs, c,
+        k, build.stream_of(x)), "K10 redistribute")
+    crmsa_redistribute_grid.launches += 1
+    return out
+
+
+def _launch_redistribute_grid_bwd(mask, w, reps, gout, g, rs, mmd):
+    b, n, c = gout.shape
+    nr, k, p = w.shape[1], w.shape[2], w.shape[3]
+    gout = gout.contiguous()
+    _check_redistribute(gout, mask, w, reps, None, g, rs)
+    build.require_cuda({"g": gout, "mask": mask, "w": w, "reps": reps}, {})
+    lib = build.load("crmsa_bwd")
+    f32 = dict(dtype=torch.float32, device=gout.device)
+    dw = torch.empty((b, nr, k, p), **f32)
+    dreps = torch.empty((b, nr, k, c), **f32)
+    build.check(lib.cb_redistribute_grid_bwd(
+        build.dtype_code(gout.dtype), build.dtype_code(mmd), gout.data_ptr(),
+        mask.data_ptr(), w.data_ptr(), reps.data_ptr(), dw.data_ptr(),
+        dreps.data_ptr(), b, g, rs, c, k, build.stream_of(gout)),
+        "K11 redistribute backward")
+    crmsa_redistribute_grid_bwd.launches += 1
+    return dw, dreps
+
+
+def _plain_vjp(plain, ctx, grads):
+    """The backward of a Function whose gradient is autograd through its
+    plain forward: the saved inputs, the plain forward recomputed."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    live = [t for t in inputs if t.requires_grad]
+    if not live:
+        return tuple(None for _ in inputs)
+    with torch.enable_grad():
+        out = plain(*inputs, mm_dtype=ctx.mmd)
+    got = iter(torch.autograd.grad(out, live, grads, allow_unused=True))
+    return tuple(next(got) if t.requires_grad else None for t in inputs)
+
+
+class _Compress(torch.autograd.Function):
+    """K12 forward; backward the vjp of `compress_plain`."""
+
+    @staticmethod
+    def forward(ctx, x, phi, mm_dtype):
+        ctx.save_for_backward(x, phi)
+        ctx.mmd = mm_dtype
+        if x.device.type == "cpu":
+            return compress_plain(x, phi, mm_dtype)
+        return _launch_compress_regions(x, phi, mm_dtype)
+
+    @staticmethod
+    def backward(ctx, dreps, dw):
+        return _plain_vjp(compress_plain, ctx, (dreps, dw)) + (None,)
+
+
+class _Redistribute(torch.autograd.Function):
+    """K13 forward; backward the vjp of `redistribute_plain`."""
+
+    @staticmethod
+    def forward(ctx, w, reps, mm_dtype):
+        ctx.save_for_backward(w, reps)
+        ctx.mmd = mm_dtype
+        if w.device.type == "cpu":
+            return redistribute_plain(w, reps, mm_dtype)
+        return _launch_redistribute_regions(w, reps, mm_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _plain_vjp(redistribute_plain, ctx, (g,)) + (None,)
+
+
+def crmsa_redistribute_grid_bwd(mask, w, reps, g, grid_side: int,
+                                region_size: int, mm_dtype=torch.bfloat16):
+    """K11 for CUDA tensors, its plain version for CPU tensors: (dw, dreps)
+    of `crmsa_redistribute_grid` given g = d(out)."""
+    args = (mask, w, reps, g, grid_side, region_size, mm_dtype)
+    if _device(g, "crmsa_redistribute_grid_bwd") == "cpu":
+        return redistribute_grid_bwd_plain(*args)
+    return _launch_redistribute_grid_bwd(*args)
+
+
+class _RedistributeGrid(torch.autograd.Function):
+    """K10 forward, K11 backward (plain versions on the CPU).  dx is g
+    itself with the residual; without it x gets no gradient (None, autograd's
+    zero), as the JAX backward's zeros_like (crmsa_kernels.py:725)."""
+
+    @staticmethod
+    def forward(ctx, x, mask, w, reps, grid_side, region_size, add_residual,
+                mm_dtype):
+        ctx.save_for_backward(mask, w, reps)
+        ctx.geom = (grid_side, region_size, mm_dtype)
+        ctx.add_residual, ctx.x_dtype = add_residual, x.dtype
+        args = (x, mask, w, reps, grid_side, region_size, add_residual,
+                mm_dtype)
+        if x.device.type == "cpu":
+            return redistribute_grid_plain(*args)
+        return _launch_redistribute_grid(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        mask, w, reps = ctx.saved_tensors
+        gs, rs, mmd = ctx.geom
+        dw, dreps = crmsa_redistribute_grid_bwd(mask, w, reps, g, gs, rs, mmd)
+        dx = g.to(ctx.x_dtype) if ctx.add_residual else None
+        return dx, None, dw, dreps, None, None, None, None
+
+
+def crmsa_compress(x, phi, mm_dtype=torch.bfloat16):
+    """Partitioned regions x (R, P, C) and phi (C, k) -> (reps (R, k, C),
+    w (R, k, P)), both float32."""
+    _device(x, "crmsa_compress")
+    return _Compress.apply(x, phi, mm_dtype)
+
+
+def crmsa_redistribute(w, reps, mm_dtype=torch.bfloat16):
+    """w (R, k, P) and reps (R, k, C), float32 -> out (R, P, C) float32."""
+    _device(w, "crmsa_redistribute")
+    return _Redistribute.apply(w, reps, mm_dtype)
+
+
+def crmsa_redistribute_grid(x, mask, w, reps, grid_side: int,
+                            region_size: int, add_residual: bool,
+                            mm_dtype=torch.bfloat16):
+    """Redistribution + mask (+ the layer residual) into the post-layer
+    stream (B, G*G, C) in x's dtype; w (B, nR, k, P) and reps (B, nR, k, C)
+    are float32."""
+    _device(x, "crmsa_redistribute_grid")
+    return _RedistributeGrid.apply(x, mask, w, reps, grid_side, region_size,
+                                   add_residual, mm_dtype)
+
+
 crmsa_compress_grid.launches = 0
 crmsa_redistribute_grid_ln.launches = 0
 crmsa_compress_grid_bwd.launches = 0
 crmsa_redistribute_grid_ln_bwd.launches = 0
+crmsa_compress.launches = 0
+crmsa_redistribute.launches = 0
+crmsa_redistribute_grid.launches = 0
+crmsa_redistribute_grid_bwd.launches = 0

@@ -1,5 +1,6 @@
-"""Optimizers and LR schedules of the classification path (counterpart of
-`rrtmil_tpu/train/optim.py:22-59,191-218`; reference main.py:229-243).
+"""Optimizers and LR schedules (counterpart of
+`rrtmil_tpu/train/optim.py:22-59,191-243`; reference main.py:229-243 and the
+survival scheduler zoo, Survival/utils/scheduler.py:4-17).
 
 The JAX package rebuilds torch's Adam by hand (`scale_by_torch_adam`); here
 torch's own optimizers are the same semantics: 'adam' is `torch.optim.Adam`
@@ -50,3 +51,29 @@ def lr_at(schedule: str, base_lr: float, t: int, t_max: int,
     if schedule in ("const", "None", "none"):
         return base_lr
     raise ValueError(f"unknown schedule {schedule!r}")
+
+
+class PlateauLR:
+    """torch ReduceLROnPlateau(mode='min', factor=0.2, threshold=0.01,
+    patience=5) as the survival scheduler zoo uses it (scheduler.py:10):
+    `step(metric)` after each epoch's validation returns the next lr."""
+
+    def __init__(self, base_lr: float, factor: float = 0.2,
+                 patience: int = 5, threshold: float = 0.01):
+        self.lr = base_lr
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.best = math.inf
+        self.bad_epochs = 0
+
+    def step(self, metric: float) -> float:
+        if metric < self.best * (1 - self.threshold):
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.lr *= self.factor
+                self.bad_epochs = 0
+        return self.lr

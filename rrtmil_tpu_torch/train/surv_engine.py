@@ -1,0 +1,184 @@
+"""Survival training engine: discrete-hazard models, censored c-index.
+
+Counterpart of `rrtmil_tpu/train/surv_engine.py:29-241` (reference
+Survival/models/RRTMIL/engine.py:10-135): per-epoch train and validate,
+best-c-index tracking, the survival scheduler zoo stepped per epoch (step
+gamma 0.1, ReduceLROnPlateau on the validation loss), batch-1 bags of up to
+50k+ patches padded to their bucket (`bucket_for` / `pad_bag`), one update
+per bag in the order `np.random.default_rng(seed).shuffle` gives (the JAX
+engine's order), losses and risks kept on the device with one host sync per
+epoch.  Dropout masks come from the engine's `torch.Generator` (seeded with
+`cfg.seed`, on the engine's device).  The device bag cache and the
+sequence-sharded engine are later slices (ROADMAP.md queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from functools import partial
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..config import RRTEncoderConfig
+from ..data.bucketing import bucket_for, pad_bag
+from ..models.survival import risk_score
+from ..utils.device import resolve_device
+from .losses import ce_surv_loss, nll_surv_loss
+from .metrics import concordance_index_censored
+from .optim import PlateauLR, lr_at, make_optimizer
+
+
+@dataclasses.dataclass
+class SurvivalEngineConfig:
+    loss: str = "nll_surv"           # 'nll_surv' | 'ce_surv'
+    loss_alpha: float = 0.0          # define_loss uses alpha=0 (loss.py:8-11)
+    opt: str = "adam"
+    lr: float = 2e-4
+    weight_decay: float = 1e-5
+    lr_schedule: str = "cosine"
+    num_epochs: int = 30
+    n_bins: int = 4
+    seed: int = 1
+    transfer_dtype: str = "float32"  # 'bfloat16' with the --amp configs
+
+
+class SurvivalEngine:
+    """Trains and validates a `SurvivalHead` on `device` (the card by
+    default; raises when there is none unless device='cpu')."""
+
+    def __init__(self, model: torch.nn.Module, cfg: SurvivalEngineConfig,
+                 encoder_cfg: Optional[RRTEncoderConfig] = None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.cfg = cfg
+        self.encoder_cfg = encoder_cfg or RRTEncoderConfig(region_num=16)
+        self.optimizer = make_optimizer(cfg.opt, self.model.parameters(),
+                                        cfg.lr, cfg.weight_decay)
+        loss_fn = nll_surv_loss if cfg.loss == "nll_surv" else ce_surv_loss
+        self._loss = partial(loss_fn, alpha=cfg.loss_alpha)
+        self._rng = np.random.default_rng(cfg.seed)
+        # ReduceLROnPlateau on the validation loss (scheduler.py:10); the
+        # reference calls scheduler.step() without the metric (engine.py:57),
+        # a TypeError in torch, so this is its intended behaviour
+        self._plateau = (PlateauLR(cfg.lr)
+                         if cfg.lr_schedule == "plateau" else None)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(cfg.seed)
+
+    def epoch_lr(self, epoch: int) -> float:
+        """This epoch's lr: the survival zoo's schedules (step gamma 0.1,
+        scheduler.py:8; plateau from the validation losses so far)."""
+        if self._plateau is not None:
+            return self._plateau.lr
+        return lr_at(self.cfg.lr_schedule, self.cfg.lr, epoch,
+                     self.cfg.num_epochs, step_gamma=0.1)
+
+    def _prep(self, bag: np.ndarray):
+        """One bag padded to its bucket: (x (1, N, D), mask (1, N), spec) on
+        the engine's device."""
+        spec = bucket_for(bag.shape[0], self.encoder_cfg)
+        x, mask = pad_bag(bag.astype(np.float32), spec.data_length)
+        x = torch.from_numpy(x[None])
+        if self.cfg.transfer_dtype != "float32":
+            x = x.to(getattr(torch, self.cfg.transfer_dtype))
+        return (x.to(self.device), torch.from_numpy(mask[None]).to(self.device),
+                spec)
+
+    def _prep_indexed(self, dataset, idx: int):
+        """(x, mask, spec, event, censorship, label) of bag `idx`; the
+        metadata comes from the dataset's column arrays."""
+        x, mask, spec = self._prep(np.asarray(dataset[idx][1]))
+        return (x, mask, spec, float(dataset.events[idx]),
+                int(dataset.censorship[idx]), int(dataset.labels[idx]))
+
+    def _targets(self, label: int, censorship: int):
+        return (torch.tensor([label], dtype=torch.long, device=self.device),
+                torch.tensor([censorship], dtype=torch.float32,
+                             device=self.device))
+
+    def _train_step(self, x, mask, label, censorship, length: int):
+        """Forward, backward and one optimizer update; (loss, risk (1,)) on
+        the device."""
+        hazards, survival = self.model(x, mask=mask, length=length,
+                                       generator=self.generator)
+        loss = self._loss(hazards, survival, label, censorship)
+        loss.backward()
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        return loss.detach(), risk_score(survival).detach()
+
+    @torch.no_grad()
+    def _eval_step(self, x, mask, label, censorship, length: int):
+        hazards, survival = self.model(x, mask=mask, length=length)
+        return (self._loss(hazards, survival, label, censorship),
+                risk_score(survival))
+
+    @staticmethod
+    def _sync_meters(losses: List[torch.Tensor], risks: List[torch.Tensor]):
+        """The epoch's one host sync: (summed loss, risks (n,))."""
+        if not losses:
+            return 0.0, np.zeros((0,), np.float32)
+        return (float(torch.stack(losses).sum()),
+                torch.cat(risks).float().cpu().numpy())
+
+    def _run(self, step, dataset, order: Sequence[int]):
+        losses, risks, censors, times = [], [], [], []
+        for idx in order:
+            x, mask, spec, event, censorship, label = self._prep_indexed(
+                dataset, idx)
+            loss, risk = step(x, mask, *self._targets(label, censorship),
+                              spec.repr_length)
+            losses.append(loss)
+            risks.append(risk)
+            censors.append(censorship)
+            times.append(event)
+        total, risk_np = self._sync_meters(losses, risks)
+        c_index = concordance_index_censored(
+            1 - np.asarray(censors), np.asarray(times), risk_np)
+        return total / max(len(order), 1), c_index
+
+    def train_epoch(self, dataset, indices: Sequence[int], epoch: int):
+        """One update per bag of `indices`, in the engine's shuffled order;
+        returns (mean loss, c-index)."""
+        order = list(indices)
+        self._rng.shuffle(order)
+        lr = self.epoch_lr(epoch)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        return self._run(self._train_step, dataset, order)
+
+    def validate(self, dataset, indices: Sequence[int]):
+        """(mean loss, c-index) over `indices`, dropout off."""
+        self.model.eval()
+        return self._run(self._eval_step, dataset, list(indices))
+
+    def learning(self, dataset, train_idx, val_idx, logger=None,
+                 checkpoint_fn: Optional[Callable] = None):
+        """A whole fold (reference engine.py:24-60): returns (best c-index,
+        its epoch, the state_dict at that epoch, on the CPU)."""
+        best_score, best_epoch = 0.0, 0
+        best_state = {k: v.detach().cpu().clone()
+                      for k, v in self.model.state_dict().items()}
+        for epoch in range(self.cfg.num_epochs):
+            tr_loss, tr_ci = self.train_epoch(dataset, train_idx, epoch)
+            val_loss, val_ci = self.validate(dataset, val_idx)
+            if self._plateau is not None:
+                self._plateau.step(val_loss)
+            if logger:
+                logger.print(f"epoch {epoch}: train loss {tr_loss:.4f} "
+                             f"ci {tr_ci:.4f} | val loss {val_loss:.4f} "
+                             f"ci {val_ci:.4f}")
+                logger.log({"train/loss": tr_loss, "train/c_index": tr_ci,
+                            "val/loss": val_loss, "val/c_index": val_ci},
+                           step=epoch)
+            if val_ci > best_score:
+                best_score, best_epoch = val_ci, epoch
+                best_state = {k: v.detach().cpu().clone()
+                              for k, v in self.model.state_dict().items()}
+                if checkpoint_fn:
+                    checkpoint_fn(epoch, val_ci, best_state)
+        return best_score, best_epoch, best_state

@@ -17,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from rrtmil_tpu_torch.config import c16_r50
+from rrtmil_tpu_torch.config import c16_r50, survival_default
 from rrtmil_tpu_torch.data.datasets import ArrayDataset
+from rrtmil_tpu_torch.data.survival import ArraySurvivalDataset
 from rrtmil_tpu_torch.models.rrt import build_model
+from rrtmil_tpu_torch.models.survival import SurvivalHead
 from rrtmil_tpu_torch.ops.kernels import build
 from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
 from rrtmil_tpu_torch.ops.kernels import region_attn as ra
@@ -27,6 +29,8 @@ from rrtmil_tpu_torch.ops.kernels import region_attn_bwd as rab
 from rrtmil_tpu_torch.ops.kernels import region_block as rb
 from rrtmil_tpu_torch.ops.kernels import region_layer as rl
 from rrtmil_tpu_torch.train.engine import Engine, EngineConfig
+from rrtmil_tpu_torch.train.surv_engine import (SurvivalEngine,
+                                                SurvivalEngineConfig)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -121,6 +125,47 @@ def test_cuda_kernels_match_plain(sdt, mm):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", [(torch.float32, torch.bfloat16),
+                                    (torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("rs", [12, 3])
+def test_cuda_k10_to_k13_match_plain(sdt, mm, rs):
+    """K10 (both residual modes), K11, K12 (zero rows: tied logits) and K13
+    against their plain versions, at P = 144 and P = 9."""
+    dev = _cuda()
+    g, k, c = 24, 3, 128
+    x, mask, _, _, _, _ = _case(dev, sdt)
+    gen = torch.Generator().manual_seed(5)
+    nr, p = (g // rs) ** 2, rs * rs
+    w = torch.rand((2, nr, k, p), generator=gen).to(dev)
+    reps = torch.randn((2, nr, k, c), generator=gen).to(dev)
+    gx = torch.randn((2, g * g, c), generator=gen).to(dev).to(sdt)
+    regions = torch.randn((2 * nr, p, c), generator=gen)
+    regions[1, p // 2:] = 0.0
+    regions[3] = 0.0
+    regions = regions.to(dev).to(sdt)
+    phi = (torch.rand((c, k), generator=gen) - 0.5).to(dev)
+    cases = [
+        ("K10", ck.crmsa_redistribute_grid, ck.redistribute_grid_plain,
+         (x, mask, w, reps, g, rs, True)),
+        ("K10 branch", ck.crmsa_redistribute_grid, ck.redistribute_grid_plain,
+         (x, mask, w, reps, g, rs, False)),
+        ("K11", ck.crmsa_redistribute_grid_bwd,
+         ck.redistribute_grid_bwd_plain, (mask, w, reps, gx, g, rs)),
+        ("K12", ck.crmsa_compress, ck.compress_plain, (regions, phi)),
+        ("K13", ck.crmsa_redistribute, ck.redistribute_plain,
+         (w.reshape(2 * nr, k, p), reps.reshape(2 * nr, k, c))),
+    ]
+    for what, fn, plain, args in cases:
+        got, want = fn(*args, mm_dtype=mm), plain(*args, mm_dtype=mm)
+        torch.cuda.synchronize()
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert a.is_cuda
+            _close(a, b, mm, what)
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_raise_on_geometry_they_cannot_take():
     dev = _cuda()
     x, mask, (ls, lb), weights, phi, regions = _case(dev, torch.float32,
@@ -205,6 +250,37 @@ def test_train_step_on_card_goes_through_every_kernel():
         d = (a - b).abs()
         assert d.max().item() <= 2 * lr * 1.01, name
         assert (d > 1e-5 + 1e-4 * b.abs()).float().mean().item() <= 1e-3, name
+
+
+@pytest.mark.gpu
+def test_survival_epoch_on_card_goes_through_k12_k13():
+    """One SurvivalEngine epoch of survival_default (dropout off, fp32
+    products, TF32 off) on the card: the 1500-patch bag (R-MSA grid 48,
+    CR-MSA grid 40) runs K12 and K13, the 1000-patch bag (grids 32 and 32)
+    K3 and K8; the epoch's loss matches the CPU run of the same weights."""
+    _cuda()
+    base = survival_default()
+    cfg = dataclasses.replace(base, dropout=0.0, encoder=dataclasses.replace(
+        base.encoder, dropout=0.0, mm_dtype="float32"))
+    rng = np.random.default_rng(10)
+    ds = ArraySurvivalDataset(
+        [rng.standard_normal((n, 1024)).astype(np.float32)
+         for n in (1500, 1000)], [300.0, 700.0], [1, 0])
+    fns = (ck.crmsa_compress, ck.crmsa_redistribute, ck.crmsa_compress_grid,
+           ck.crmsa_redistribute_grid_ln, rl.region_layer_fused,
+           rl.region_layer_bwd, rb.region_block_fused)
+    for f in fns:
+        f.launches = 0
+    model = SurvivalHead(build_model(cfg, seed=0))
+    eng = SurvivalEngine(model, SurvivalEngineConfig(num_epochs=1),
+                         cfg.encoder)
+    loss, _ = eng.train_epoch(ds, [0, 1], 0)
+    assert [f.launches for f in fns] == [1, 1, 1, 1, 2, 2, 2]
+    cpu = SurvivalHead(build_model(cfg, device="cpu", seed=0))
+    loss_c, _ = SurvivalEngine(cpu, SurvivalEngineConfig(num_epochs=1),
+                               cfg.encoder, device="cpu").train_epoch(
+                                   ds, [0, 1], 0)
+    assert abs(loss - loss_c) <= 1e-4 * max(1.0, abs(loss_c))
 
 
 def test_kernel_libraries_build_into_an_ignored_directory():
