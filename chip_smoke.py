@@ -14,15 +14,22 @@ Phases (each passes or the script exits non-zero; nothing is caught):
    k = 15; K1-K5, K8, K9 also at L = 60000), K10 (both residual modes) and
    K11 at the c16_r50 + FFN shape (B = 8, G = 96) and at G = 24 (P = 9), K12
    and K13 at a 45000-patch survival bag (R = 64, P = 729, pad rows: tied
-   logits) and at P = 9; then each autograd Function's gradients against
-   autograd through its plain forward (f32/f32, 8 seeded cotangents; the
-   gradients that are zero in exact arithmetic held to NOISE_ABS);
+   logits) and at P = 9; K5, K6 and K7 also at ragged region sizes
+   P in {1, 9, 63, 64, 65, 144, 961} (EPEG k = 15), at brca_r50's CR-MSA
+   shape (one 512-wide head, P = 64, R = 6) and on strided inputs as the
+   model passes them (the `kernel_weights()` views, the B = 1 cross-region
+   view, q / k / v as views of one packed tensor); then each autograd
+   Function's gradients against autograd through its plain forward
+   (f32/f32, 8 seeded cotangents; the gradients that are zero in exact
+   arithmetic held to NOISE_ABS), K5 -> K6 / K7 also at hd = 512;
 3. c16_r50: a seeded model through `Engine(device="cuda").evaluate` on bags
    of {37, 937, 2213, 9000, 9000, 30000} patches and `Engine.train_epoch`
    (dropout on) on {937, 2213, 9000, 9000, 30000, 30000}, batch size 2,
    every batch and step required to launch all of its kernels (K1-K9);
    evaluate's probabilities and two dropout-off train steps against the
    same weights on the CPU (f32 and bf16 products);
+8. brca_r50 (its CR-MSA runs one 512-wide head): the same three checks as
+   phase 3 on bags of {937, 9000, 9000, 30000} patches, batch size 2;
 6. survival: `SurvivalEngine.train_epoch` (dropout on) and `validate` on
    survival_default() at full width, bags of {937, 1500, 10000, 30000,
    45000, 50000} patches: each bag whose R-MSA grid exceeds its CR-MSA grid
@@ -32,14 +39,18 @@ Phases (each passes or the script exits non-zero; nothing is caught):
    `Engine.evaluate` (every batch through K10, never K8; against the CPU)
    and `Engine.train_epoch` (every step through K10 and K11); c16_r50
    called without a mask at L = 9000 (K5, K12, K13) against the CPU;
-4. times: each kernel (CUDA events) beside its bound, its plain version's
-   time and, where one PyTorch call computes the same function, that call's
-   time (K5: `F.multi_head_attention_forward`; K6 and K7:
-   `scaled_dot_product_attention` forward and backward; K13: `torch.bmm`);
-   c16_r50 forward slides/s at L = 9000 for B in {1, 4, 8} and train
-   slides/s for B in {1, 8}; survival train bags/s at L = 45000 and 50000;
-   the FFN config's forward and train slides/s at L = 9000, B = 8; peak
-   memory;
+4. times: each kernel (CUDA events) beside its bound and its plain
+   version's time; K5, K6 and K7 (B in {1, 8} at c16_r50's shapes, K6 / K7
+   on bf16 operands as K5's backward passes them and on f32 ones, and with
+   brca_r50's 512-wide head) and K13 each timed in one interleaved run
+   against the one PyTorch call that computes the same function (K5:
+   `F.multi_head_attention_forward`; K6 and K7:
+   `scaled_dot_product_attention` forward and backward; K13: `torch.bmm`;
+   median of PAIR_ROUNDS alternating rounds), beside its device time per
+   call from the profiler and its host time per call; c16_r50 forward
+   slides/s at L = 9000 for B in {1, 4, 8} and train slides/s for B in
+   {1, 8}; survival train bags/s at L = 45000 and 50000; the FFN config's
+   forward and train slides/s at L = 9000, B = 8; peak memory;
 5. profile: torch.profiler over three B = 8 forwards, one B = 8 train step
    and one survival train step at L = 45000: device time by kernel and the
    device's busy share.
@@ -82,7 +93,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # 5.2e-5, K5 by ~1e-6; a wrong term would be of the size of the real
 # gradients (>= 1e-2)
 NOISE_LEAVES = {"K1->K2": (8, 11), "K1->K2 add_residual=False": (8, 11),
-                "K5->K6,K7": (5,), "K6->K7 (P=144, k=15)": (4,)}
+                "K5->K6,K7": (5,), "K5->K6,K7 (hd=512)": (5,),
+                "K6->K7 (P=144, k=15)": (4,)}
 NOISE_ABS = 3e-4
 AUTOGRAD_SEEDS = range(8)
 # c16_r50 probabilities and mean loss, card kernels vs CPU plain versions:
@@ -96,7 +108,11 @@ LIBRARY_TOL = 5e-2
 # first steps (at most 1 in the first), so two runs whose gradients differ
 # in sign can drift apart by at most 2 * ADAM_STEP * lr a step
 ADAM_STEP = 1.01
+# interleaved kernel-vs-library rounds (the median is reported)
+PAIR_ROUNDS = 7
 BAG_LENGTHS = (37, 937, 2213, 9000, 9000, 30000)
+BRCA_BAGS = (937, 9000, 9000, 30000)
+RAGGED_P = (1, 9, 63, 64, 65, 144, 961)
 TRAIN_BAGS = (937, 2213, 9000, 9000, 30000, 30000)
 TPU_KERNELS = {
     "K1 region_layer_fused": ("rrtmil_tpu/ops/pallas/region_layer.py:44",
@@ -355,6 +371,72 @@ def slice3_cases(dev, sdt):
     return cases
 
 
+def inner_attention(h, hd, g, dev):
+    """An InnerAttention of C = 512 with h heads of hd and seeded weights:
+    its `kernel_weights()` are what the model hands K5 (views of the qkv and
+    proj Linear weights, wq and bq scaled)."""
+    from rrtmil_tpu_torch.config import InnerAttentionConfig
+    from rrtmil_tpu_torch.models.rrt import InnerAttention
+    mod = InnerAttention(InnerAttentionConfig(dim=512, num_heads=h,
+                                              head_dim=hd))
+    with torch.no_grad():
+        for t in mod.parameters():
+            t.copy_(_randn(t.shape, g, (1.0 / 512) ** 0.5))
+    return mod.to(dev)
+
+
+def slice4_cases(dev, sdt):
+    """K5, K6 and K7 at ragged region sizes (R = 2, 8 heads of 64, EPEG
+    k = 15 with pe_bias), at brca_r50's CR-MSA shape (B = 2: R = 6 rows of
+    the 64 regions, one 512-wide head, no EPEG), and on strided inputs as
+    the model passes them: K5 on the B = 1 cross-region view (k = 3 rows of
+    64 regions, strides (C, 3C, 1)) with an InnerAttention's
+    `kernel_weights()` (8 x 64 and 1 x 512 heads), K6 and K7 on q, k, v
+    that are views of one packed (R, P, 3, H, hd) tensor."""
+    from rrtmil_tpu_torch.ops.kernels import region_attn as ra
+    from rrtmil_tpu_torch.ops.kernels import region_attn_bwd as rab
+    from rrtmil_tpu_torch.ops.kernels import region_block as rb
+    g = _gen(11)
+    cases = {}
+
+    def attn(tag, q, k, v, ga, pw, pb, scale):
+        cases[f"K6 region_attention_fused ({tag})"] = (
+            ra.region_attention_fused, ra.region_attention_plain,
+            (q, k, v, pw, pb, scale))
+        cases[f"K7 region_attention_bwd ({tag})"] = (
+            rab.region_attention_bwd, rab.region_attention_bwd_plain,
+            (q, k, v, pw, pb, ga, scale))
+
+    for p in RAGGED_P:
+        x = _randn((2, p, 512), g).to(dev).to(sdt)
+        cases[f"K5 region_block_fused (P={p}, k=15)"] = (
+            rb.region_block_fused, rb.region_block_plain,
+            (x, *layer_weights(512, 8, 64, 15, g, dev)))
+        q, k, v, ga = (_randn((2, 8, p, 64), g).to(dev).to(sdt)
+                       for _ in range(4))
+        attn(f"P={p}, k=15", q, k, v, ga, _randn((8, 15), g, 0.3).to(dev),
+             _randn((8,), g, 0.1).to(dev), 0.125)
+    x = _randn((6, 64, 512), g).to(dev).to(sdt)
+    cases["K5 region_block_fused (hd=512, P=64)"] = (
+        rb.region_block_fused, rb.region_block_plain,
+        (x, *layer_weights(512, 1, 512, 0, g, dev)))
+    q, k, v, ga = (_randn((6, 1, 64, 512), g).to(dev).to(sdt)
+                   for _ in range(4))
+    attn("hd=512, P=64", q, k, v, ga, None, None, 512 ** -0.5)
+    for h, hd in ((8, 64), (1, 512)):
+        view = _randn((1, 64, 3, 512), g).to(dev).to(sdt) \
+            .transpose(1, 2).reshape(3, 64, 512)
+        assert not view.is_contiguous()
+        cases[f"K5 region_block_fused (strided, {h}x{hd})"] = (
+            rb.region_block_fused, rb.region_block_plain,
+            (view, *inner_attention(h, hd, g, dev).kernel_weights()))
+        packed = _randn((4, 64, 3, h, hd), g).to(dev).to(sdt)
+        q, k, v = (packed[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+        ga = _randn((4, 64, h, hd), g).to(dev).to(sdt).permute(0, 2, 1, 3)
+        attn(f"strided, {h}x{hd}", q, k, v, ga, None, None, hd ** -0.5)
+    return cases
+
+
 def work_from_args(name, args):
     """(flops, bytes) of K10-K13 on these inputs: each input read once, each
     output written once."""
@@ -381,6 +463,18 @@ def work_from_args(name, args):
         r, k, p = w.shape
         c = reps.shape[2]
         return 2 * r * k * p * c, r * k * (p + c) * 4 + r * p * c * 4
+    if name.startswith("K5"):
+        x, wq, _, _, _, _, _, _, _, _, _ = args
+        r, p, c = x.shape
+        hh = wq.shape[0] * wq.shape[2]
+        return (r * (3 * 2 * p * c * hh + 2 * 2 * p * p * hh + 2 * p * hh * c),
+                2 * r * p * c * x.element_size() + 4 * c * hh
+                * wq.element_size() + 4 * (3 * hh + c))
+    if name.startswith(("K6", "K7")):
+        q = args[0]
+        r, h, p, hd = q.shape
+        f, n = (4, 4) if name.startswith("K6") else (10, 7)
+        return f * r * h * p * p * hd, n * r * h * p * hd * q.element_size()
     raise ValueError(f"no work count for {name}")
 
 
@@ -416,13 +510,6 @@ def work_of(name, b, stream_dtype, mm_dtype):
         flops = b * nr * 5 * 2 * p * C
         byts = (2 * b * n * C * si + b * n + b * nr * (C + p) * 4
                 + 3 * 4 * C + 4 * C * 4)
-    elif name.startswith("K6"):
-        flops = b * H * 4 * nr * nr * HD
-        byts = 4 * b * H * nr * HD * si
-    elif name.startswith("K7"):
-        # the logits again, dv, dA, dY, dk
-        flops = b * H * 10 * nr * nr * HD
-        byts = 7 * b * H * nr * HD * si
     elif name.startswith("K9"):
         # the stream's w^T reps again, dw, dreps with k = 1
         flops = b * nr * 6 * p * C
@@ -431,11 +518,6 @@ def work_of(name, b, stream_dtype, mm_dtype):
     elif name.startswith("K3"):
         flops = b * nr * 2 * (2 * p * C)
         byts = b * n * C * si + b * n + 3 * 4 * C + b * nr * (C + p) * 4
-    elif name.startswith("K5"):
-        r, pp = b, nr
-        flops = r * H * (3 * 2 * pp * C * HD + 2 * 2 * pp * pp * HD
-                         + 2 * pp * HD * C)
-        byts = 2 * r * pp * C * si + 4 * C * H * HD * mi + 4 * 4 * C
     elif name.startswith("K8"):
         flops = b * nr * 2 * p * C
         byts = (2 * b * n * C * si + b * n + b * nr * (C + p) * 4
@@ -533,6 +615,7 @@ def phase_kernels(dev):
         cases = kernel_cases(2, dev, sdt)
         cases.update(extra_cases(dev, sdt))
         cases.update(slice3_cases(dev, sdt))
+        cases.update(slice4_cases(dev, sdt))
         for name, (fn, plain, args) in cases.items():
             err, rel = compare(fn, plain, args, mdt)
             ok = rel <= TOL[mdt]
@@ -569,7 +652,8 @@ def autograd_checks(dev, seeds=AUTOGRAD_SEEDS):
     """Each autograd Function's gradients on the card (its backward kernel)
     against autograd through its plain forward, f32 stream and products:
     K1 -> K2 (both residual modes), K3 -> K4, K5 -> block_ref (K6, K7),
-    K6 -> K7 (with EPEG), K8 -> K9, K10 -> K11 (both residual modes), and
+    K5 at hd = 512, K6 -> K7 (with EPEG), K8 -> K9, K10 -> K11 (both
+    residual modes), and
     K12 and K13, whose backwards are autograd through the plain forward (on
     the card, PyTorch ops).  The cotangents are drawn from each of `seeds`.
     Each gradient's max |card - plain| is scaled by max(1, max|plain|) and
@@ -584,6 +668,7 @@ def autograd_checks(dev, seeds=AUTOGRAD_SEEDS):
     cases = kernel_cases(2, dev, torch.float32)
     ex = extra_cases(dev, torch.float32)
     s3 = slice3_cases(dev, torch.float32)
+    s4 = slice4_cases(dev, torch.float32)
     tag = "B=8 G=96 P=144 k=1"
     checks = {
         "K1->K2": (rl.region_layer_fused, rl.region_layer_plain,
@@ -595,6 +680,7 @@ def autograd_checks(dev, seeds=AUTOGRAD_SEEDS):
                    cases["K3 crmsa_compress_grid"][2]),
         "K5->K6,K7": (rb.region_block_fused, rb.region_block_plain,
                       cases["K5 region_block_fused"][2]),
+        "K5->K6,K7 (hd=512)": s4["K5 region_block_fused (hd=512, P=64)"],
         "K6->K7 (P=144, k=15)": (
             ra.region_attention_fused, ra.region_attention_plain,
             ex["K6 region_attention_fused (P=144, k=15)"][2]),
@@ -733,16 +819,20 @@ def check_launches(per_step, expected, what, n=None):
                                  f"{extra}: {rec}")
 
 
-def phase_main_path(dev):
+def phase_main_path(dev, cfg=None, lengths=BAG_LENGTHS, tag="c16_r50",
+                    ph="3"):
+    """Engine.evaluate of `cfg` (c16_r50 by default) on bags of `lengths`
+    patches, batch size 2: every batch through K1, K3, K5 and K8, and the
+    probabilities and mean loss against the CPU run of the same weights."""
     from rrtmil_tpu_torch.config import c16_r50
     from rrtmil_tpu_torch.data.datasets import ArrayDataset
     from rrtmil_tpu_torch.models.rrt import build_model
     from rrtmil_tpu_torch.train.engine import Engine, EngineConfig
 
-    cfg = c16_r50()
+    cfg = cfg or c16_r50()
     rng = np.random.default_rng(0)
     bags = [rng.standard_normal((n, cfg.input_dim), dtype=np.float32)
-            for n in BAG_LENGTHS]
+            for n in lengths]
     labels = [i % 2 for i in range(len(bags))]
     ds = ArrayDataset(bags, labels)
     model = build_model(cfg, device=dev, seed=0)
@@ -755,9 +845,9 @@ def phase_main_path(dev):
     probs, labs, loss = engine.evaluate(ds)
     secs = time.perf_counter() - t0
     launches = launches_now()
-    log(f"[3] Engine.evaluate on {len(ds)} bags in {n_batches} batches: "
-        f"{secs:.2f} s, mean loss {loss:.6f}, launches {launches}")
-    check_launches(engine.records["eval"], C16_EVAL, "c16_r50 evaluate",
+    log(f"[{ph}] {tag} Engine.evaluate on {len(ds)} bags in {n_batches} "
+        f"batches: {secs:.2f} s, mean loss {loss:.6f}, launches {launches}")
+    check_launches(engine.records["eval"], C16_EVAL, f"{tag} evaluate",
                    n_batches)
     if not (np.isfinite(probs).all() and probs.shape == (len(ds),)):
         raise AssertionError(f"bad probabilities {probs}")
@@ -770,30 +860,31 @@ def phase_main_path(dev):
                                      device="cpu").evaluate(ds)
     cpu_secs = time.perf_counter() - t0
     diff = float(np.abs(probs - probs_c).max())
-    log(f"[3] CPU plain versions: {cpu_secs:.1f} s, mean loss {loss_c:.6f}; "
-        f"max |probs card - probs cpu| {diff:.3e} (tol {PROB_TOL})")
-    log(f"[3] probs card {np.round(probs, 5).tolist()}")
+    log(f"[{ph}] CPU plain versions: {cpu_secs:.1f} s, mean loss "
+        f"{loss_c:.6f}; max |probs card - probs cpu| {diff:.3e} (tol "
+        f"{PROB_TOL})")
+    log(f"[{ph}] probs card {np.round(probs, 5).tolist()}")
     if not np.array_equal(labs, labs_c) or diff > PROB_TOL \
             or abs(loss - loss_c) > PROB_TOL:
-        raise AssertionError("card and CPU disagree on the main path")
+        raise AssertionError(f"card and CPU disagree on {tag}'s evaluate")
     return {"batches": n_batches, "seconds": secs, "launches": launches,
             "max_prob_diff": diff, "loss": loss, "loss_cpu": loss_c,
             "probs": probs.tolist()}
 
 
-def phase_train(dev):
-    """Engine.train_epoch on c16_r50 at full width, dropout on, batch size 2:
-    every kernel's counter set to 0 just before the epoch and read just
-    after, each step required to launch all nine."""
+def phase_train(dev, cfg=None, lengths=TRAIN_BAGS, tag="c16_r50", ph="3"):
+    """Engine.train_epoch on `cfg` (c16_r50 by default) at full width,
+    dropout on, batch size 2: every kernel's counter set to 0 just before
+    the epoch and read just after, each step required to launch all nine."""
     from rrtmil_tpu_torch.config import c16_r50
     from rrtmil_tpu_torch.data.datasets import ArrayDataset
     from rrtmil_tpu_torch.models.rrt import build_model
     from rrtmil_tpu_torch.train.engine import Engine, EngineConfig
 
-    cfg = c16_r50()
+    cfg = cfg or c16_r50()
     rng = np.random.default_rng(1)
     bags = [rng.standard_normal((n, cfg.input_dim), dtype=np.float32)
-            for n in TRAIN_BAGS]
+            for n in lengths]
     ds = ArrayDataset(bags, [i % 2 for i in range(len(bags))])
     model = build_model(cfg, device=dev, seed=0)
     engine = counting(Engine)(model, EngineConfig(batch_size=2), cfg.encoder,
@@ -809,11 +900,11 @@ def phase_train(dev):
     launches = launches_now()
     per_step = engine.records["train"]
     step_losses = [float(r["out"]) for r in per_step]
-    log(f"[3] Engine.train_epoch on bags {TRAIN_BAGS} in {n_steps} steps "
-        f"(dropout on): {secs:.2f} s, mean loss {loss:.6f}, step losses "
-        f"{np.round(step_losses, 6).tolist()}")
-    log(f"[3] train launches {launches}")
-    check_launches(per_step, C16_TRAIN, "c16_r50 train", n_steps)
+    log(f"[{ph}] {tag} Engine.train_epoch on bags {lengths} in {n_steps} "
+        f"steps (dropout on): {secs:.2f} s, mean loss {loss:.6f}, step "
+        f"losses {np.round(step_losses, 6).tolist()}")
+    log(f"[{ph}] train launches {launches}")
+    check_launches(per_step, C16_TRAIN, f"{tag} train", n_steps)
     if not (np.isfinite(loss) and np.isfinite(step_losses).all()):
         raise AssertionError(f"the train loss is not finite: {step_losses}")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
@@ -847,18 +938,18 @@ def _adam_params_close(got, want, lr, steps, frac):
     return ok, worst, worst_frac
 
 
-def phase_train_vs_cpu(dev):
-    """Two train steps with dropout off on small bags, on the card and on
-    the CPU from the same weights: the step losses, the first step's
-    gradients and the parameters after both updates, in f32/f32 (TF32 off)
-    and with bf16 products."""
+def phase_train_vs_cpu(dev, base=None, tag="c16_r50", ph="3"):
+    """Two train steps of `base` (c16_r50 by default) with dropout off on
+    small bags, on the card and on the CPU from the same weights: the step
+    losses, the first step's gradients and the parameters after both
+    updates, in f32/f32 (TF32 off) and with bf16 products."""
     import dataclasses
     from rrtmil_tpu_torch.config import c16_r50
     from rrtmil_tpu_torch.data.datasets import ArrayDataset
     from rrtmil_tpu_torch.models.rrt import build_model
     from rrtmil_tpu_torch.train.engine import Engine, EngineConfig
 
-    base = c16_r50()
+    base = base or c16_r50()
     rng = np.random.default_rng(2)
     ds = ArrayDataset([rng.standard_normal((n, base.input_dim),
                                            dtype=np.float32)
@@ -905,7 +996,8 @@ def phase_train_vs_cpu(dev):
             1e-3 if mm == "float32" else None)
         ok = dloss <= tol * max(1.0, max(map(abs, cpu["losses"]))) \
             and dgrad <= tol and ok_p
-        log(f"[3] train card vs CPU, dropout off, {mm} products: step losses "
+        log(f"[{ph}] {tag} train card vs CPU, dropout off, {mm} products: "
+            f"step losses "
             f"{np.round(card['losses'], 6).tolist()} vs "
             f"{np.round(cpu['losses'], 6).tolist()} (max diff {dloss:.3e}); "
             f"first-step grads scaled {dgrad:.3e} (tol {tol:.0e}); params "
@@ -914,12 +1006,23 @@ def phase_train_vs_cpu(dev):
             f"share past 1e-5 {frac:.2e}; card {card['seconds']:.1f} s, CPU "
             f"{cpu['seconds']:.1f} s {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"train steps on the card and the CPU "
-                                 f"disagree ({mm} products)")
+            raise AssertionError(f"{tag} train steps on the card and the "
+                                 f"CPU disagree ({mm} products)")
         out[mm] = {"loss_diff": dloss, "grad_scaled_err": dgrad,
                    "param_max_diff": dparam, "param_share_past": frac,
                    "card_losses": card["losses"], "cpu_losses": cpu["losses"]}
     return out
+
+
+def phase_brca(dev):
+    """brca_r50, whose CR-MSA runs one 512-wide head (K5, and K6 / K7 in its
+    backward, at hd = 512): evaluate, train_epoch and two dropout-off train
+    steps against the CPU, as phase 3 checks c16_r50."""
+    from rrtmil_tpu_torch.config import brca_r50
+    cfg = brca_r50()
+    return {"evaluate": phase_main_path(dev, cfg, BRCA_BAGS, "brca_r50", "8"),
+            "train": phase_train(dev, cfg, BRCA_BAGS, "brca_r50", "8"),
+            "train_vs_cpu": phase_train_vs_cpu(dev, cfg, "brca_r50", "8")}
 
 
 def k5_library_call(args, mmd):
@@ -985,30 +1088,14 @@ def phase_times(dev):
     for b in (1, 8):
         cases = kernel_cases(b, dev, torch.float32)
         for name, (fn, plain, args) in cases.items():
-            if "(" in name:
+            # K5, K6, K7: phase_times_pairs, interleaved with their library
+            if "(" in name or name.startswith(("K5", "K6", "K7")):
                 continue
             mmd = torch.bfloat16
             ms = time_ms(lambda: fn(*args, mm_dtype=mmd))
             plain_ms = time_ms(lambda: plain(*args, mm_dtype=mmd), iters=5,
                                warmup=1)
             lib_ms = None
-            if name.startswith("K5"):
-                lib = k5_library_call(args, mmd)
-                _library_check(name, (lib().transpose(0, 1),),
-                               (plain(*args, mm_dtype=mmd),))
-                lib_ms = time_ms(lib)
-            if name.startswith(("K6", "K7")):
-                q, k, v, _, _, g, _ = cases["K7 region_attention_bwd"][2]
-                fwd, fwd_bwd = attention_library_calls(
-                    (q, k, v, None, None, g, 1.0), mmd)
-                if name.startswith("K6"):
-                    _library_check(name, (fwd(),),
-                                   (plain(*args, mm_dtype=mmd),))
-                    lib_ms = time_ms(fwd)
-                else:
-                    _library_check(name, fwd_bwd(),
-                                   plain(*args, mm_dtype=mmd)[:3])
-                    lib_ms = max(0.0, time_ms(fwd_bwd) - time_ms(fwd))
             flops, byts = work_of(name, b, torch.float32, mmd)
             bms, by = bound_ms(flops, byts, mmd)
             rows.setdefault(name, {})[str(b)] = {
@@ -1466,6 +1553,169 @@ def phase_times_slice3(dev, rows):
     return rows
 
 
+def device_split(fn, iters=10, tries=3):
+    """{kernel name: device ms per call of `fn`} from torch.profiler over
+    `iters` calls (self device time).  A window in which the profiler
+    recorded no device time at all is taken again, up to `tries` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        split = {ev.key: ev.self_device_time_total / 1e3 / iters
+                 for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA
+                 and ev.self_device_time_total > 0}
+        if split:
+            return split
+    return {}
+
+
+def device_ms(fn, iters=10):
+    """Device time per call of `fn`: its kernels' profiled device time."""
+    return sum(device_split(fn, iters).values())
+
+
+def host_ms(fn, iters=50):
+    """Host time per call of `fn`: the wall clock of `iters` calls that only
+    enqueue their launches (no wait for the card inside the window)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs * 1e3 / iters
+
+
+def interleaved_ms(fns, rounds=PAIR_ROUNDS, iters=20):
+    """{name: median ms} of the callables in `fns`, timed with CUDA events
+    in `rounds` rounds that alternate their order (a, b, ..., then ..., b,
+    a), and every round's readings."""
+    for f in fns.values():
+        f()
+    torch.cuda.synchronize()
+    names = list(fns)
+    got = {n: [] for n in names}
+    for r in range(rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            got[n].append(time_ms(fns[n], iters=iters, warmup=1))
+    return {n: float(np.median(v)) for n, v in got.items()}, got
+
+
+def phase_times_pairs(dev, rows):
+    """K5, K6 and K7 against their library calls at c16_r50's shapes (B in
+    {1, 8}) and with brca_r50's 512-wide head (R = 3B, P = 64), and K13
+    against torch.bmm at the 45000-patch survival bag, each pair timed in
+    one interleaved run (median of PAIR_ROUNDS rounds; K7's library time is
+    SDPA forward + backward minus the forward, both in the same run); each
+    beside its device time per call (profiler) and host time per call.  f32
+    stream, bf16 products; K6 and K7 get q, k, v (and g) in bf16, as K5's
+    backward hands them over on the main path (the library call gets the
+    same bf16 tensors), and again in f32 (keys "<B> f32", the operands
+    the earlier timing used).  The medians replace phase 4's single readings of these
+    kernels."""
+    from rrtmil_tpu_torch.ops.kernels import region_attn as ra
+    from rrtmil_tpu_torch.ops.kernels import region_attn_bwd as rab
+    from rrtmil_tpu_torch.ops.kernels import region_block as rb
+    mmd = torch.bfloat16
+    k5, k6, k7, k13 = K[4], K[5], K[6], K[12]
+    cases = {}
+    for b in (1, 8):
+        kc = kernel_cases(b, dev, torch.float32)
+        cases[(k5, str(b))] = kc[k5]
+        for name in (k6, k7):
+            fn, plain, args = kc[name]
+            cases[(name, str(b))] = (fn, plain, tuple(
+                a.to(mmd) if isinstance(a, torch.Tensor) else a
+                for a in args))
+            cases[(name, f"{b} f32")] = kc[name]
+        g = _gen(700 + b)
+        x = _randn((3 * b, 64, 512), g).to(dev)
+        cases[(k5, f"{b} hd=512")] = (
+            rb.region_block_fused, rb.region_block_plain,
+            (x, *layer_weights(512, 1, 512, 0, g, dev)))
+        q, k, v, ga = (_randn((3 * b, 1, 64, 512), g).to(dev).to(mmd)
+                       for _ in range(4))
+        cases[(k6, f"{b} hd=512")] = (
+            ra.region_attention_fused, ra.region_attention_plain,
+            (q, k, v, None, None, 1.0))
+        cases[(k7, f"{b} hd=512")] = (
+            rab.region_attention_bwd, rab.region_attention_bwd_plain,
+            (q, k, v, None, None, ga, 1.0))
+    regions, phi, w, reps = surv_region_inputs(45000, 216, 27, dev,
+                                               torch.float32, 600)
+    from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
+    cases[(k13, "1")] = (ck.crmsa_redistribute, ck.redistribute_plain,
+                         (w, reps))
+    for (name, key), (fn, plain, args) in cases.items():
+        kernel = lambda: fn(*args, mm_dtype=mmd)
+        want = _as_tuple(plain(*args, mm_dtype=mmd))
+        if name == k5:
+            lib = k5_library_call(args, mmd)
+            _library_check(f"{name} ({key})", (lib().transpose(0, 1),), want)
+            fns = {"kernel": kernel, "library": lib}
+        elif name == k13:
+            lib = k13_library_call(args, mmd)
+            _library_check(f"{name} ({key})", (lib(),), want)
+            fns = {"kernel": kernel, "library": lib}
+        else:
+            q, k, v = args[:3]
+            g = args[5] if name == k7 else cases[(k7, key)][2][5]
+            fwd, fwd_bwd = attention_library_calls(
+                (q, k, v, None, None, g, args[-1]), mmd)
+            if name == k6:
+                _library_check(f"{name} ({key})", (fwd(),), want)
+                fns = {"kernel": kernel, "library": fwd}
+            else:
+                _library_check(f"{name} ({key})", fwd_bwd(), want[:3])
+                fns = {"kernel": kernel, "library_fwd_bwd": fwd_bwd,
+                       "library_fwd": fwd}
+        med, rounds = interleaved_ms(fns)
+        if name == k7:
+            lib_ms = max(0.0, med["library_fwd_bwd"] - med["library_fwd"])
+            lib_dev = max(0.0, device_ms(fns["library_fwd_bwd"])
+                          - device_ms(fns["library_fwd"]))
+            lib_host = max(0.0, host_ms(fns["library_fwd_bwd"])
+                           - host_ms(fns["library_fwd"]))
+        else:
+            lib_ms, lib_dev = med["library"], device_ms(fns["library"])
+            lib_host = host_ms(fns["library"])
+        rec = rows.setdefault(name, {}).setdefault(key, {})
+        if "plain_ms" not in rec:
+            rec["plain_ms"] = time_ms(lambda: plain(*args, mm_dtype=mmd),
+                                      iters=5, warmup=1)
+        if "bound_ms" not in rec:
+            flops, byts = work_from_args(name, args)
+            rec["bound_ms"], rec["bound_by"] = bound_ms(flops, byts, mmd)
+            rec.update(flops=flops, bytes=byts)
+        split = device_split(kernel)
+        rec.update({"ms": med["kernel"], "library_ms": lib_ms,
+                    "device_ms": sum(split.values()),
+                    "device_split": {k[:60]: v for k, v in split.items()},
+                    "library_device_ms": lib_dev,
+                    "host_ms": host_ms(kernel), "library_host_ms": lib_host,
+                    "interleaved_rounds": rounds})
+        log(f"[4] {name:28s} B={key:9s} interleaved x{PAIR_ROUNDS}: kernel "
+            f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}, host "
+            f"{rec['host_ms']:.4f}) vs library {lib_ms:.4f} ms (device "
+            f"{lib_dev:.4f}, host {lib_host:.4f}); plain "
+            f"{rec['plain_ms']:.4f}, bound {rec['bound_ms']:.4f} by "
+            f"{rec['bound_by']}")
+        log(f"[4]   device split: " + "; ".join(
+            f"{v:.4f} {k[:50]}" for k, v in sorted(split.items(),
+                                                   key=lambda kv: -kv[1])))
+    del cases
+    torch.cuda.empty_cache()
+    return rows
+
+
 def surv_train_setup(dev, length):
     """A survival_default engine on the card (dropout on) and one bag of
     `length` patches, device-resident; returns a train-step closure."""
@@ -1560,7 +1810,9 @@ def main():
         report["survival_vs_cpu"] = phase_survival_vs_cpu(dev)
         report["ffn"] = phase_ffn(dev)
         report["unmasked"] = phase_unmasked(dev)
-        report["times"] = phase_times_slice3(dev, phase_times(dev))
+        report["brca"] = phase_brca(dev)
+        report["times"] = phase_times_pairs(
+            dev, phase_times_slice3(dev, phase_times(dev)))
         report["throughput"] = phase_throughput(dev)
         report["train_throughput"] = phase_train_throughput(dev)
         report["survival_throughput"] = phase_survival_throughput(dev)
@@ -1583,7 +1835,9 @@ def main():
              "ffn_train_epoch": report.get("ffn", {}),
              "ffn_evaluate": {"launches": report.get("ffn", {})
                               .get("eval_launches", {})},
-             "unmasked_forward": report.get("unmasked", {})}
+             "unmasked_forward": report.get("unmasked", {}),
+             "brca_train_epoch": report.get("brca", {}).get("train", {}),
+             "brca_evaluate": report.get("brca", {}).get("evaluate", {})}
     own = {n: "train_epoch" for n in C16_TRAIN}
     own.update({K[9]: "ffn_train_epoch", K[10]: "ffn_train_epoch",
                 K[11]: "survival_train_epoch", K[12]: "survival_train_epoch"})
@@ -1606,7 +1860,9 @@ def main():
             row["timed_batch"] = int(main_b)
             row["by_batch"] = {b: {k: v for k, v in rec.items()
                                    if k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")}
+                                            "bound_by", "library_ms",
+                                            "device_ms", "library_device_ms",
+                                            "host_ms", "library_host_ms")}
                                for b, rec in t.items()}
         kernels.append(row)
     os.makedirs("chiprun_out", exist_ok=True)

@@ -137,25 +137,85 @@ ln_mask_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
 }
 
 // ---------------------------------------------------------------------------
+// Operand descriptions.  The kernels read their operands where they lie,
+// through strides (in elements), with unit stride along the last axis:
+//
+//  * RowsA: row m of A is region m / P, token m % P, at p + (m / P) * sr +
+//    (m % P) * sp; a plain row-major (M, K) matrix is P = 1, sr = ld.
+//  * Thirds: B (K, N) as up to three column blocks of nper columns (the
+//    q | k | v thirds of a qkv weight, or one block), block t at p[t], all
+//    with one layout: element (k, n) at (k / kdiv) * sk1 + (k % kdiv) * sk0
+//    + (n / ndiv) * sn1 + (n % ndiv) * sn0, so a weight (H, C, hd) or
+//    (H, hd, C) is read as the (C, H * hd) or (H * hd, C) matrix it is; one
+//    of sk0, sn0 is 1.
+//  * Bias3: the bias in the same blocks, contiguous float32, or null.
+// ---------------------------------------------------------------------------
+struct RowsA {
+  const void* p;
+  int P;
+  long long sr, sp;
+};
+struct Thirds {
+  const void* p[3];
+  int nper, kdiv, ndiv;
+  long long sk1, sk0, sn1, sn0;
+  __device__ __forceinline__ long long off(int k, int n) const {
+    return (long long)(k / kdiv) * sk1 + (long long)(k % kdiv) * sk0 +
+           (long long)(n / ndiv) * sn1 + (long long)(n % ndiv) * sn0;
+  }
+};
+struct Bias3 {
+  const float* p[3];
+  int nper;
+  __device__ __forceinline__ float at(int n) const {
+    const int t = n / nper;
+    const float* q = t == 0 ? p[0] : t == 1 ? p[1] : p[2];  // no indexed param array
+    return q ? q[n - t * nper] : 0.f;
+  }
+};
+
+// element accessors of the SIMT product below, as fp32
+template <typename T, bool TR> struct PlainMat {  // (i, j) of row-major or, TR, its transpose
+  const T* p;
+  int ld;
+  __device__ __forceinline__ float at(int i, int j) const {
+    return to_f(TR ? p[(long long)j * ld + i] : p[(long long)i * ld + j]);
+  }
+};
+template <typename T> struct RowsAt {
+  RowsA a;
+  __device__ __forceinline__ float at(int m, int k) const {
+    return to_f(((const T*)a.p)[(long long)(m / a.P) * a.sr + (long long)(m % a.P) * a.sp + k]);
+  }
+};
+template <typename T> struct ThirdsAt {
+  Thirds b;
+  __device__ __forceinline__ float at(int k, int n) const {
+    const int t = n / b.nper;
+    const T* q = (const T*)(t == 0 ? b.p[0] : t == 1 ? b.p[1] : b.p[2]);
+    return to_f(q[b.off(k, n - t * b.nper)]);
+  }
+};
+
+// ---------------------------------------------------------------------------
 // Tiled product  out[M, N] = round_TM(A)[M, K] @ round_TM(B)[K, N] (+ bias[N])
 //                            (* mask[row]) (+ resid[row, N]),  stored as TO.
 // 128 x 128 tile per block of 256 threads, 8 x 8 outputs per thread, fp32
 // FMA on the CUDA cores (so float inputs stay exact float products; no
-// TF32).  A is row-major (M, K) with row stride lda, or, with AT, stored
-// transposed as (K, M); B is row-major (K, N) (ldb), or, with BT, stored as
-// (N, K).  blockIdx.z splits K into chunks of kchunk, each chunk writing its
-// own partial product at out + z * zstride (a later pass sums them in a
-// fixed order, so no atomics and no order-dependent sums).
+// TF32): the f32-product path, and K2's transposed products.  AL / BL read
+// A (m, k) and B (k, n); AT / BT only pick the load pattern that walks the
+// operand's contiguous axis (AT: A stored as (K, M); BT: B stored as (N, K)).
+// blockIdx.z splits K into chunks of kchunk, each chunk writing its own
+// partial product at out + z * zstride (a later pass sums them in a fixed
+// order, so no atomics and no order-dependent sums).
 // ---------------------------------------------------------------------------
 constexpr int GBM = 128, GBN = 128, GBK = 8;
 
-template <typename TA, typename TB, typename TM, typename TO, bool AT, bool BT>
+template <typename TM, typename TO, class AL, class BL, bool AT, bool BT>
 __global__ void __launch_bounds__(256)
-gemm_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B, int ldb,
-            TO* __restrict__ out, int ldc, int M, int N, int K, int kchunk,
-            long long zstride, const float* __restrict__ bias,
-            const uint8_t* __restrict__ rowmask, const TO* __restrict__ resid,
-            int ldr) {
+gemm_kernel(AL A, BL B, TO* __restrict__ out, int ldc, int M, int N, int K, int kchunk,
+            long long zstride, Bias3 bias, const uint8_t* __restrict__ rowmask,
+            const TO* __restrict__ resid, int ldr) {
   __shared__ __align__(16) float As[GBK][GBM];
   __shared__ __align__(16) float Bs[GBK][GBN];
   const int tid = threadIdx.x;
@@ -179,18 +239,14 @@ gemm_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B, int ldb
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int gm = m0 + a_m + (AT ? i : 0), gk = k0 + a_k + (AT ? 0 : i);
-      float v = 0.f;
-      if (gm < M && gk < ke)
-        v = round_to<TM>(to_f(AT ? A[(long long)gk * lda + gm] : A[(long long)gm * lda + gk]));
-      As[a_k + (AT ? 0 : i)][a_m + (AT ? i : 0)] = v;
+      As[a_k + (AT ? 0 : i)][a_m + (AT ? i : 0)] =
+          (gm < M && gk < ke) ? round_to<TM>(A.at(gm, gk)) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int gn = n0 + b_n + (BT ? 0 : i), gk = k0 + b_k + (BT ? i : 0);
-      float v = 0.f;
-      if (gn < N && gk < ke)
-        v = round_to<TM>(to_f(BT ? B[(long long)gn * ldb + gk] : B[(long long)gk * ldb + gn]));
-      Bs[b_k + (BT ? i : 0)][b_n + (BT ? 0 : i)] = v;
+      Bs[b_k + (BT ? i : 0)][b_n + (BT ? 0 : i)] =
+          (gn < N && gk < ke) ? round_to<TM>(B.at(gk, gn)) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -218,8 +274,7 @@ gemm_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B, int ldb
     for (int j = 0; j < 8; ++j) {
       const int gn = n0 + tx * 8 + j;
       if (gn >= N) continue;
-      float v = acc[i][j];
-      if (bias) v += bias[gn];
+      float v = acc[i][j] + bias.at(gn);
       if (rowmask) v *= mrow;
       if (resid) v = to_f(resid[(long long)gm * ldr + gn]) + v;
       out[(long long)gm * ldc + gn] = from_f<TO>(v);
@@ -227,29 +282,31 @@ gemm_kernel(const TA* __restrict__ A, int lda, const TB* __restrict__ B, int ldb
   }
 }
 
+// K2's products: plain row-major operands (or their transposes), no epilogue
 template <typename TA, typename TB, typename TM, typename TO, bool AT, bool BT>
 cudaError_t launch_gemm_ex(const void* A, int lda, const void* B, int ldb, void* out,
                            int ldc, int M, int N, int K, int kchunk,
-                           long long zstride, const void* bias, const void* rowmask,
-                           const void* resid, int ldr, cudaStream_t stream) {
+                           long long zstride, cudaStream_t stream) {
   if (kchunk <= 0 || kchunk % GBK != 0) return cudaErrorInvalidValue;
   dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, (K + kchunk - 1) / kchunk);
-  gemm_kernel<TA, TB, TM, TO, AT, BT><<<grid, 256, 0, stream>>>(
-      (const TA*)A, lda, (const TB*)B, ldb, (TO*)out, ldc, M, N, K, kchunk, zstride,
-      (const float*)bias, (const uint8_t*)rowmask, (const TO*)resid, ldr);
+  gemm_kernel<TM, TO, PlainMat<TA, AT>, PlainMat<TB, BT>, AT, BT><<<grid, 256, 0, stream>>>(
+      PlainMat<TA, AT>{(const TA*)A, lda}, PlainMat<TB, BT>{(const TB*)B, ldb}, (TO*)out,
+      ldc, M, N, K, kchunk, zstride, Bias3{{nullptr, nullptr, nullptr}, N}, nullptr,
+      nullptr, 0);
   return cudaGetLastError();
 }
 
-// the forward's product: B already in TM, K in one chunk
-template <typename TA, typename TM, typename TO>
-cudaError_t launch_gemm(const void* A, int lda, const void* B, int ldb, void* out,
-                        int ldc, int M, int N, int K, const void* bias,
-                        const void* rowmask, const void* resid, int ldr,
-                        cudaStream_t stream) {
+// the forward's f32 product on described operands, K in one chunk
+template <typename TA, typename TB, typename TO>
+cudaError_t launch_gemm_simt(RowsA a, Thirds b, void* out, int ldc, int M, int N, int K,
+                             Bias3 bias, const void* rowmask, const void* resid, int ldr,
+                             cudaStream_t stream) {
   const int kchunk = ((K + GBK - 1) / GBK) * GBK;
-  return launch_gemm_ex<TA, TM, TM, TO, false, false>(
-      A, lda, B, ldb, out, ldc, M, N, K, kchunk > 0 ? kchunk : GBK, 0, bias,
-      rowmask, resid, ldr, stream);
+  dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, 1);
+  gemm_kernel<float, TO, RowsAt<TA>, ThirdsAt<TB>, false, false><<<grid, 256, 0, stream>>>(
+      RowsAt<TA>{a}, ThirdsAt<TB>{b}, (TO*)out, ldc, M, N, K, kchunk > 0 ? kchunk : GBK, 0,
+      bias, (const uint8_t*)rowmask, (const TO*)resid, ldr);
+  return cudaGetLastError();
 }
 
 // out[n] = sum over s = 0..S-1 of part[s * N + n], in that order: the second
@@ -273,118 +330,135 @@ inline cudaError_t launch_reduce_rows(const void* part, int S, long long N, void
 }
 
 // ---------------------------------------------------------------------------
-// Attention core of one (region, head), 64 query rows per block, with the
-// EPEG Toeplitz pass on q and an exact two-pass softmax over key tiles.
+// Attention operands, read where they lie: element d of head h of token p of
+// region r at p + row(r, p) + h * sh + d, where row(r, p) = token_of(r, p) *
+// sp on K1's grid token map (grid > 0) and r * sr + p * sp otherwise.
+// ---------------------------------------------------------------------------
+struct Opnd {
+  const void* p;
+  long long sr, sh, sp;
+};
+
+__device__ __forceinline__ long long row_of(const TokenMap& tm, const Opnd& o, int r, int p) {
+  return tm.grid ? token_of(tm, r, p) * o.sp : (long long)r * o.sr + (long long)p * o.sp;
+}
+
+// ---------------------------------------------------------------------------
+// Attention core of one (region, head), 64 query rows and one 64-wide chunk
+// of the head's output columns per block, with the EPEG Toeplitz pass on q
+// and an exact two-pass softmax over key tiles.  This is the f32-product
+// path (strict parity); bf16 products run the tensor-core core (tc.cuh).
 //
-//   q'  = round_TM(M_h q),  M_h = round_TM(I + T_h)   (k-tap pass, kk > 0)
+//   q'  = round_TM(M_h round_TM(q s)),  M_h = round_TM(I + T_h)  (kk > 0)
 //   L   = q' k^T (+ pb_h when kk > 0 and pb is given)
 //   A   = round_TM(exp(L - max) / sum)                (row softmax)
 //   o   = A v, stored as TO (the TM rounding when TO = TM)
 //
-// Pass 1 walks the key tiles for the row max and sum (online), pass 2
-// recomputes each logit tile and accumulates A v, so no P x P tile is ever
-// held and the probabilities are normalised before the TM rounding, as in
-// the TPU kernel.  q, k, v are read from Y (M, ldy) at the token of each
-// region row (TokenMap): q at column h*HD, k at kcol0 + h*HD, v at
-// vcol0 + h*HD; o goes to O (M, ldo) at column h*HD.  Key columns past P
-// (tile padding) are masked; the bucket's zero tokens are real keys.
+// The logits sum over the whole head width hd (a multiple of 64, <= 512)
+// chunk by chunk; each block (blockIdx.z = output chunk) accumulates only
+// its own 64 columns of o.  Pass 1 walks the key tiles for the row max and
+// sum (online), pass 2 recomputes each logit tile and accumulates A v, so
+// no P x P tile is ever held and the probabilities are normalised before
+// the TM rounding, as in the TPU kernel.  Key columns past P (tile padding)
+// are masked; the bucket's zero tokens are real keys.
 // ---------------------------------------------------------------------------
-constexpr int AQT = 64, AKT = 64;
-constexpr int MAX_KK = 128;
+constexpr int AQT = 64, AKT = 64, ADC = 64;
+constexpr int MAX_KK = 128, MAX_HD = 512;
 
-template <int HD>
-constexpr int attn_smem_bytes() {
-  return (AQT * (HD + 4) + HD * AKT + AKT * HD + AQT * (AKT + 4)) * 4;
+inline int attn_smem_bytes(int hd) {
+  return (AQT * (hd + 4) + ADC * AKT + AKT * ADC + AQT * (AKT + 4)) * 4;
 }
 
-template <typename TM, typename TO, int HD>
+template <typename TI, typename TM, typename TO>
 __global__ void __launch_bounds__(256)
-attn_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
-            TO* __restrict__ O, int ldo, int H, TokenMap tm,
+attn_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float scale,
             const float* __restrict__ pw, int kk, const float* __restrict__ pb) {
-  static_assert(HD == 64, "thread layout assumes 64-wide heads");
-  constexpr int QS = HD + 4, PS = AKT + 4;
+  const int QS = hd + 4, PS = AKT + 4;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;              // [AQT][QS]
-  float* Kt = Qs + AQT * QS;     // [HD][AKT]  (k transposed)
-  float* Vs = Kt + HD * AKT;     // [AKT][HD]
-  float* Ps = Vs + AKT * HD;     // [AQT][PS]
+  float* Qs = smem;              // [AQT][QS]  the whole head width
+  float* Kt = Qs + AQT * QS;     // [ADC][AKT]  one chunk of k, transposed
+  float* Vs = Kt + ADC * AKT;    // [AKT][ADC]  the block's chunk of v
+  float* Ps = Vs + AKT * ADC;    // [AQT][PS]
   __shared__ float coef[MAX_KK];
 
   const int P = tm.P;
   const int r = blockIdx.x / H, h = blockIdx.x % H;
-  const int q0 = blockIdx.y * AQT;
+  const int q0 = blockIdx.y * AQT, oc = blockIdx.z * ADC, nch = hd / ADC;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int qcol = h * HD, kcol = kcol0 + h * HD, vcol = vcol0 + h * HD;
+  const TI* qp = (const TI*)q.p + (long long)h * q.sh;
+  const TI* kp = (const TI*)k.p + (long long)h * k.sh;
+  const TI* vp = (const TI*)v.p + (long long)h * v.sh + oc;
 
-  if (kk > 0) {
+  if (kk > 0) {  // hd == 64
     const int pad = kk / 2;
     for (int t = tid; t < kk; t += blockDim.x)
       coef[t] = round_to<TM>(pw[h * kk + t] + (t == pad ? 1.f : 0.f));
     float* Hs = Kt;  // halo rows q0-pad .. q0+AQT-1+(kk-1-pad), reuses Kt..Ps
     const int nh = AQT + kk - 1;
-    for (int idx = tid; idx < nh * HD; idx += blockDim.x) {
-      const int row = idx / HD, d = idx % HD;
+    for (int idx = tid; idx < nh * ADC; idx += blockDim.x) {
+      const int row = idx / ADC, d = idx % ADC;
       const int p = q0 - pad + row;
-      Hs[idx] = (p >= 0 && p < P) ? to_f(Y[token_of(tm, r, p) * ldy + qcol + d]) : 0.f;
+      Hs[idx] = (p >= 0 && p < P) ? round_to<TM>(to_f(qp[row_of(tm, q, r, p) + d]) * scale)
+                                  : 0.f;
     }
     __syncthreads();
-    for (int idx = tid; idx < AQT * HD; idx += blockDim.x) {
-      const int i = idx / HD, d = idx % HD;
+    for (int idx = tid; idx < AQT * ADC; idx += blockDim.x) {
+      const int i = idx / ADC, d = idx % ADC;
       float acc = 0.f;
-      for (int t = 0; t < kk; ++t) acc = fmaf(coef[t], Hs[(i + t) * HD + d], acc);
+      for (int t = 0; t < kk; ++t) acc = fmaf(coef[t], Hs[(i + t) * ADC + d], acc);
       Qs[i * QS + d] = round_to<TM>(acc);
     }
   } else {
-    for (int idx = tid; idx < AQT * HD; idx += blockDim.x) {
-      const int i = idx / HD, d = idx % HD;
+    for (int idx = tid; idx < AQT * hd; idx += blockDim.x) {
+      const int i = idx / hd, d = idx % hd;
       const int p = q0 + i;
-      Qs[i * QS + d] = p < P ? to_f(Y[token_of(tm, r, p) * ldy + qcol + d]) : 0.f;
+      Qs[i * QS + d] = p < P ? round_to<TM>(to_f(qp[row_of(tm, q, r, p) + d]) * scale) : 0.f;
     }
   }
   __syncthreads();
 
   const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
-  float mrow[4], srow[4], s[4][4], o[4][4];
+  float mrow[4], srow[4], s[4][4], oacc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     mrow[i] = -INFINITY;
     srow[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) o[i][c] = 0.f;
+    for (int c = 0; c < 4; ++c) oacc[i][c] = 0.f;
   }
 
   for (int pass = 0; pass < 2; ++pass) {
     for (int k0 = 0; k0 < P; k0 += AKT) {
-      for (int idx = tid; idx < AKT * HD; idx += blockDim.x) {
-        const int j = idx / HD, d = idx % HD;
-        const int p = k0 + j;
-        float kv = 0.f, vv = 0.f;
-        if (p < P) {
-          const long long row = token_of(tm, r, p) * ldy;
-          kv = to_f(Y[row + kcol + d]);
-          if (pass == 1) vv = to_f(Y[row + vcol + d]);
-        }
-        Kt[d * AKT + j] = kv;
-        if (pass == 1) Vs[j * HD + d] = vv;
-      }
-      __syncthreads();
-
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) {
-        const float4 b = *reinterpret_cast<const float4*>(&Kt[d * AKT + tx * 4]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = Qs[(ty * 4 + i) * QS + d];
-          s[i][0] = fmaf(a, b.x, s[i][0]);
-          s[i][1] = fmaf(a, b.y, s[i][1]);
-          s[i][2] = fmaf(a, b.z, s[i][2]);
-          s[i][3] = fmaf(a, b.w, s[i][3]);
+      for (int c = 0; c < nch; ++c) {
+        for (int idx = tid; idx < AKT * ADC; idx += blockDim.x) {
+          const int j = idx / ADC, d = idx % ADC;
+          const int p = k0 + j;
+          float kv = 0.f, vv = 0.f;
+          if (p < P) {
+            kv = round_to<TM>(to_f(kp[row_of(tm, k, r, p) + c * ADC + d]));
+            if (pass == 1 && c == 0) vv = round_to<TM>(to_f(vp[row_of(tm, v, r, p) + d]));
+          }
+          Kt[d * AKT + j] = kv;
+          if (pass == 1 && c == 0) Vs[j * ADC + d] = vv;
         }
+        __syncthreads();
+#pragma unroll 8
+        for (int d = 0; d < ADC; ++d) {
+          const float4 b = *reinterpret_cast<const float4*>(&Kt[d * AKT + tx * 4]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float a = Qs[(ty * 4 + i) * QS + c * ADC + d];
+            s[i][0] = fmaf(a, b.x, s[i][0]);
+            s[i][1] = fmaf(a, b.y, s[i][1]);
+            s[i][2] = fmaf(a, b.z, s[i][2]);
+            s[i][3] = fmaf(a, b.w, s[i][3]);
+          }
+        }
+        __syncthreads();
       }
 
       if (pass == 0) {
@@ -418,44 +492,30 @@ attn_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
         __syncthreads();
 #pragma unroll 8
         for (int j = 0; j < AKT; ++j) {
-          const float4 v = *reinterpret_cast<const float4*>(&Vs[j * HD + tx * 4]);
+          const float4 vv = *reinterpret_cast<const float4*>(&Vs[j * ADC + tx * 4]);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float a = Ps[(ty * 4 + i) * PS + j];
-            o[i][0] = fmaf(a, v.x, o[i][0]);
-            o[i][1] = fmaf(a, v.y, o[i][1]);
-            o[i][2] = fmaf(a, v.z, o[i][2]);
-            o[i][3] = fmaf(a, v.w, o[i][3]);
+            oacc[i][0] = fmaf(a, vv.x, oacc[i][0]);
+            oacc[i][1] = fmaf(a, vv.y, oacc[i][1]);
+            oacc[i][2] = fmaf(a, vv.z, oacc[i][2]);
+            oacc[i][3] = fmaf(a, vv.w, oacc[i][3]);
           }
         }
+        __syncthreads();
       }
-      __syncthreads();
     }
   }
 
+  TO* op = (TO*)o.p + (long long)h * o.sh + oc + tx * 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int p = q0 + ty * 4 + i;
     if (p >= P) continue;
-    TO* orow = O + token_of(tm, r, p) * ldo + qcol + tx * 4;
+    TO* orow = op + row_of(tm, o, r, p);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) orow[c] = from_f<TO>(o[i][c]);
+    for (int c = 0; c < 4; ++c) orow[c] = from_f<TO>(oacc[i][c]);
   }
-}
-
-template <typename TM, typename TO>
-cudaError_t launch_attention(const void* Y, int ldy, int kcol0, int vcol0, void* O,
-                             int ldo, int R, int H, TokenMap tm, const void* pw,
-                             int kk, const void* pb, cudaStream_t stream) {
-  constexpr int smem = attn_smem_bytes<64>();
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_kernel<TM, TO, 64>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(R * H, (tm.P + AQT - 1) / AQT);
-  attn_kernel<TM, TO, 64><<<grid, 256, smem, stream>>>(
-      (const TM*)Y, ldy, kcol0, vcol0, (TO*)O, ldo, H, tm, (const float*)pw, kk,
-      (const float*)pb);
-  return cudaGetLastError();
 }
 
 }  // namespace rrt

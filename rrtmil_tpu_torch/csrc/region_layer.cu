@@ -1,4 +1,5 @@
-// K1: the whole R-MSA TransLayer forward, as a pipeline of three steps.
+// K1: the whole R-MSA TransLayer forward, as a pipeline of three steps;
+// K5 and K6 run on the same entries.
 //
 // Replaces rrtmil_tpu/ops/pallas/region_layer.py::_layer_fwd_pallas
 // (kernel body _layer_kernel): LayerNorm -> mask -> region partition ->
@@ -10,36 +11,35 @@
 // stream traffic, far above the card's ~295 FLOP/byte ridge; the qkv and
 // output projections are 87% of the FLOPs.
 //
-// What this first design does about it: it keeps the TPU kernel's
-// rounding points and splits the layer where a Hopper block's 227 KB of
-// shared memory ends.  (a) rl_ln_mask writes z = round(mask * LN(x)) in
-// token order, and rl_gemm runs z @ Wqkv + b as one 128x128-tiled product
-// (region order does not matter to a per-token product).  (b)
+// Design: it keeps the TPU kernel's rounding points and splits the layer
+// where a Hopper block's 227 KB of shared memory ends.  (a) rl_ln_mask
+// writes z = round(mask * LN(x)) in token order, and rl_gemm runs
+// z @ Wqkv + b (region order does not matter to a per-token product).  (b)
 // rl_attention gathers each region's rows through the partition map, does
 // the k-tap EPEG pass on q and a two-pass softmax over 64-key tiles, so
-// P up to 784 never needs a P x P tile, and writes the head outputs back in
+// P up to 961 never needs a P x P tile, and writes the head outputs back in
 // token order (the reverse).  (c) rl_gemm again: o @ Wp + bp, times the
-// mask, plus the residual, in the stream dtype.  The products run on the
-// CUDA cores in fp32; tensor cores (wgmma) and fusing (a)-(c) are later
-// work, recorded in PERF.md.
+// mask, plus the residual, in the stream dtype.  With bf16 products the
+// product and the core run on the tensor cores (mma.sync, tc.cuh); with f32
+// products on the CUDA cores in fp32 (common.cuh), for strict parity.
+// Warpgroup products fed by TMA, and fusing (a)-(c), are later work.
 //
 // K5 (rrtmil_tpu/ops/pallas/region_block.py::_block_fwd_pallas, the whole
-// InnerAttention on contiguous regions (R, P, C)) runs on the same three
-// entries: rl_gemm rounds x to the mm dtype as it loads it (the TPU kernel's
-// z = x.astype(mm)), rl_attention with grid = 0 takes the identity token map
-// (row r * P + p), and rl_gemm projects back into x's dtype with no mask or
-// residual.  On the c16_r50 path K5 is the cross-region attention over
-// (B*k, 64, 512), ~0.14 GFLOP a slide: bound by reading its ~2.4 MB of
-// weights and by launch latency, not by FLOPs.  In the unfused R-MSA
-// structure (kk = 15, P = 144) it is bound by its products, like K1.
+// InnerAttention on regions (R, P, C)) is rl_block: the same three steps in
+// one call, reading x and the weights where they lie (x may be a strided
+// view; wq/wk/wv and wp are views of the Linear weights), rounding x to the
+// mm dtype as it loads it (the TPU kernel's z = x.astype(mm)), the core on
+// the identity token map, the projection back into x's dtype.  On the
+// c16_r50 path K5 is the cross-region attention over (B*k, 64, 512),
+// ~0.14 GFLOP a slide: bound by reading its ~2.4 MB of weights and by
+// launch latency, not by FLOPs; at brca_r50 it runs one 512-wide head.
 //
 // K6 (rrtmil_tpu/ops/pallas/region_attn.py::_fused_fwd_pallas, the
-// attention core alone on (R, H, P, hd)) is rl_attention itself: the wrapper
-// packs round(q * scale), k and v as the columns of one (R * P, 3 * H * hd)
-// matrix, and the core writes the head outputs in q's dtype (`to`).  On the
-// c16_r50 train path it runs inside K5's backward at (B, 8, 64, 64), where
-// launch latency, not bytes or FLOPs, bounds it.
-#include "common.cuh"
+// attention core alone on (R, H, P, hd)) is rl_attention itself on q, k, v
+// and o as they lie, q scaled and rounded as it loads.  On the c16_r50
+// train path it runs inside K5's backward at (B, 8, 64, 64), where launch
+// latency and host time, not bytes or FLOPs, bound it.
+#include "tc.cuh"
 
 using namespace rrt;
 
@@ -55,27 +55,91 @@ extern "C" int rl_ln_mask(int ts, int tm, const void* x, const void* mask,
   return (int)cudaGetLastError();
 }
 
-extern "C" int rl_gemm(int ta, int tm, int to, const void* A, int lda,
-                       const void* B, int ldb, void* out, int ldc, int M, int N,
-                       int K, const void* bias, const void* rowmask,
+// out (M, N) row-major = A B (+ bias) (* rowmask) (+ resid): A row m at
+// A + (m / aP) * a_sr + (m % aP) * a_sp; B in up to three column blocks of
+// nper columns at B0, B1, B2, element (k, n) of each at (k / kdiv) * sk1 +
+// (k % kdiv) * sk0 + (n / ndiv) * sn1 + (n % ndiv) * sn0; the bias in the
+// same blocks (contiguous float32, or null)
+extern "C" int rl_gemm(int ta, int tb, int tm, int to, const void* A, int aP,
+                       long long a_sr, long long a_sp, const void* B0,
+                       const void* B1, const void* B2, int nper, int kdiv,
+                       long long sk1, long long sk0, int ndiv, long long sn1,
+                       long long sn0, void* out, int ldc, int M, int N, int K,
+                       const void* bias0, const void* bias1,
+                       const void* bias2, const void* rowmask,
                        const void* resid, int ldr, void* stream) {
+  const RowsA a{A, aP, a_sr, a_sp};
+  const Thirds b{{B0, B1, B2}, nper, kdiv, ndiv, sk1, sk0, sn1, sn0};
+  const Bias3 bias{{(const float*)bias0, (const float*)bias1, (const float*)bias2}, nper};
   cudaError_t err = cudaErrorInvalidValue;
-  RRT_DISPATCH(ta, TA, RRT_DISPATCH(tm, TM, RRT_DISPATCH(to, TO,
-      err = launch_gemm<TA, TM, TO>(A, lda, B, ldb, out, ldc, M, N, K, bias,
-                                    rowmask, resid, ldr,
-                                    (cudaStream_t)stream))));
+  RRT_DISPATCH(ta, TA, RRT_DISPATCH(tb, TB, RRT_DISPATCH(tm, TM, RRT_DISPATCH(to, TO,
+      err = launch_gemm<TA, TB, TM, TO>(a, b, out, ldc, M, N, K, bias, rowmask,
+                                        resid, ldr, (cudaStream_t)stream)))));
   return (int)err;
 }
 
-extern "C" int rl_attention(int tm, int to, const void* Y, int ldy, int kcol0,
-                            int vcol0, void* O, int ldo, int R, int H, int hd,
-                            int P, int grid, int rs, const void* pw, int kk,
+// the attention core on q, k, v (dtype ti) and o (dtype to), each described
+// by (base, region stride, head stride, token-row stride); grid > 0 maps
+// region r, token p to row token_of(r, p) of K1's (B, G*G) stream
+extern "C" int rl_attention(int ti, int tm, int to, const void* q,
+                            long long q_sr, long long q_sh, long long q_sp,
+                            const void* k, long long k_sr, long long k_sh,
+                            long long k_sp, const void* v, long long v_sr,
+                            long long v_sh, long long v_sp, void* o,
+                            long long o_sr, long long o_sh, long long o_sp,
+                            int R, int H, int hd, int P, int grid, int rs,
+                            float scale, const void* pw, int kk,
                             const void* pb, void* stream) {
-  if (hd != 64 || kk < 0 || kk > MAX_KK) return (int)cudaErrorInvalidValue;
-  TokenMap map{grid, rs, grid > 0 ? grid / rs : 0, P};
+  const TokenMap map{grid, rs, grid > 0 ? grid / rs : 0, P};
+  const Opnd oq{q, q_sr, q_sh, q_sp}, ok{k, k_sr, k_sh, k_sp},
+      ov{v, v_sr, v_sh, v_sp}, oo{o, o_sr, o_sh, o_sp};
   cudaError_t err = cudaErrorInvalidValue;
-  RRT_DISPATCH(tm, TM, RRT_DISPATCH(to, TO,
-      err = launch_attention<TM, TO>(Y, ldy, kcol0, vcol0, O, ldo, R, H, map, pw,
-                                     kk, pb, (cudaStream_t)stream)));
+  RRT_DISPATCH(ti, TI, RRT_DISPATCH(tm, TM, RRT_DISPATCH(to, TO,
+      err = launch_attention<TI, TM, TO>(oq, ok, ov, oo, R, H, hd, map, scale,
+                                         pw, kk, pb, (cudaStream_t)stream))));
+  return (int)err;
+}
+
+// K5 in one call: y = round(x) Wqkv + b (the mm dtype), o = attention(y),
+// out = o Wp + bp (x's dtype).  x (R, P, C) at x + r * x_sr + p * x_sp;
+// wq / wk / wv read as (C, H * hd) blocks and wp as (H * hd, C), each by its
+// (kdiv, sk1, sk0, ndiv, sn1, sn0) as in rl_gemm; biases contiguous
+// float32; y (R * P, 3 * H * hd) and o (R * P, H * hd) scratch in the mm
+// dtype; out (R * P, C) contiguous
+extern "C" int rl_block(int ts, int tw, int tm, const void* x, long long x_sr,
+                        long long x_sp, const void* wq, const void* wk,
+                        const void* wv, int w_kdiv, long long w_sk1,
+                        long long w_sk0, int w_ndiv, long long w_sn1,
+                        long long w_sn0, const void* bq, const void* bk,
+                        const void* bv, const void* pw, int kk, const void* pb,
+                        const void* wp, int p_kdiv, long long p_sk1,
+                        long long p_sk0, int p_ndiv, long long p_sn1,
+                        long long p_sn0, const void* bp, void* y, void* o,
+                        void* out, int R, int P, int C, int H, int hd,
+                        void* stream) {
+  const int M = R * P, hh = H * hd, n = 3 * hh;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const RowsA xa{x, P, x_sr, x_sp};
+  const Thirds wqkv{{wq, wk, wv}, hh, w_kdiv, w_ndiv, w_sk1, w_sk0, w_sn1, w_sn0};
+  const Bias3 bqkv{{(const float*)bq, (const float*)bk, (const float*)bv}, hh};
+  const TokenMap map{0, 1, 0, P};
+  const RowsA oa{o, 1, hh, 0};
+  const Thirds wpb{{wp, nullptr, nullptr}, C, p_kdiv, p_ndiv, p_sk1, p_sk0, p_sn1, p_sn0};
+  const Bias3 bpb{{(const float*)bp, nullptr, nullptr}, C};
+  const long long ry = (long long)P * n, ro = (long long)P * hh;
+  cudaError_t err = cudaErrorInvalidValue;
+  RRT_DISPATCH(ts, TS, RRT_DISPATCH(tw, TW, RRT_DISPATCH(tm, TM,
+      err = launch_gemm<TS, TW, TM, TM>(xa, wqkv, y, n, M, n, C, bqkv, nullptr,
+                                        nullptr, 0, st);
+      if (err == cudaSuccess) {
+        const TM* yy = (const TM*)y;
+        err = launch_attention<TM, TM, TM>(
+            Opnd{yy, ry, hd, n}, Opnd{yy + hh, ry, hd, n},
+            Opnd{yy + 2 * hh, ry, hd, n}, Opnd{o, ro, hd, hh}, R, H, hd, map,
+            1.f, pw, kk, pb, st);
+      }
+      if (err == cudaSuccess)
+        err = launch_gemm<TM, TW, TM, TS>(oa, wpb, out, C, M, C, hh, bpb,
+                                          nullptr, nullptr, 0, st))));
   return (int)err;
 }

@@ -24,7 +24,12 @@
 // fourth pass sums the tap and bias partials over the blocks in a fixed
 // order: no atomics, so every run gives the same bits.  Rows are gathered
 // through the same token map as K1's forward, so K2 runs the core on the
-// (B, G*G) token order with no partition copy.
+// (B, G*G) token order with no partition copy.  Head widths past 64 (up to
+// 512, without EPEG: the CR-MSA of crmsa_heads=1 configs) keep the 64-wide
+// register budget: each block owns one 64-wide chunk of the head's output
+// columns (blockIdx.z); the logits, dA = g v^T and D sum over every chunk
+// (queries and keys reloaded chunk by chunk), dq, dk and dv are per-chunk
+// products.
 //
 // K2 replaces rrtmil_tpu/ops/pallas/region_layer.py::_layer_bwd_pallas
 // (kernel body _layer_bwd_kernel): dx, d(LN scale, bias), dWq/dWk/dWv,
@@ -105,13 +110,10 @@ __device__ __forceinline__ void load_queries(const TM* __restrict__ Y, int ldy, 
   }
 }
 
-// s[i][j] = Ys[ty*4+i] . K[tx*4+j], the forward core's loop and order
+// s[i][j] += Ys[ty*4+i] . K[tx*4+j] over one 64-wide chunk, the forward
+// core's loop and order
 __device__ __forceinline__ void tile_logits(const float* Ys, const float* Kt, int tx,
                                             int ty, float (&s)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < HD; ++d) {
     const float4 b = *reinterpret_cast<const float4*>(&Kt[d * BK + tx * 4]);
@@ -126,13 +128,9 @@ __device__ __forceinline__ void tile_logits(const float* Ys, const float* Kt, in
   }
 }
 
-// da[i][j] = G[ty*4+i] . V[tx*4+j]
+// da[i][j] += G[ty*4+i] . V[tx*4+j] over one 64-wide chunk
 __device__ __forceinline__ void tile_da(const float* Gs, const float* Vt, int tx, int ty,
                                         float (&da)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) da[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < HD; ++d) {
     const float4 b = *reinterpret_cast<const float4*>(&Vt[d * BK + tx * 4]);
@@ -145,6 +143,13 @@ __device__ __forceinline__ void tile_da(const float* Gs, const float* Vt, int tx
       da[i][3] = fmaf(a, b.w, da[i][3]);
     }
   }
+}
+
+__device__ __forceinline__ void zero44(float (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
 }
 
 template <typename TM>
@@ -169,7 +174,7 @@ template <typename TM, typename TO>
 __global__ void __launch_bounds__(256)
 attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
                   const TM* __restrict__ G, int ldg, TO* __restrict__ D, int ldd,
-                  int H, TokenMap tm, const float* __restrict__ pw, int kk,
+                  int H, int hd, TokenMap tm, const float* __restrict__ pw, int kk,
                   const float* __restrict__ pb, float scale, float* __restrict__ stats,
                   TM* __restrict__ dy, float* __restrict__ part) {
   extern __shared__ __align__(16) float smem[];
@@ -189,17 +194,36 @@ attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
   const int P = tm.P;
   const int r = blockIdx.x / H, h = blockIdx.x % H;
   const int qt = blockIdx.y, q0 = qt * BQ;
+  const int oc = blockIdx.z, nch = hd / HD;   // this block's 64 columns of dq
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
-  const int qcol = h * HD, kcol = kcol0 + h * HD, vcol = vcol0 + h * HD;
+  const int qcol = h * hd, kcol = kcol0 + h * hd, vcol = vcol0 + h * hd;
 
   if (kk > 0) {
     epeg_coef<TM>(pw, h, kk, coef);
     for (int t = tid; t < kk; t += blockDim.x) dwacc[t] = 0.f;
   }
   __syncthreads();
-  load_queries<TM>(Y, ldy, qcol, G, ldg, qcol, tm, r, q0, coef, kk, Hs, Ys, Gs);
-  __syncthreads();
+  if (nch == 1) load_queries<TM>(Y, ldy, qcol, G, ldg, qcol, tm, r, q0, coef, kk, Hs, Ys, Gs);
+
+  // s = y k^T (and da = g v^T) of key tile k0 over the whole head width,
+  // chunk by chunk (the queries are reloaded per chunk when hd > 64); Ks
+  // receives this block's chunk of k
+  auto logits = [&](int k0, float (&s)[4][4], float (*da)[4][4], bool with_ks) {
+    zero44(s);
+    if (da) zero44(*da);
+    for (int c = 0; c < nch; ++c) {
+      __syncthreads();
+      if (nch > 1)
+        load_queries<TM>(Y, ldy, qcol + c * HD, G, ldg, qcol + c * HD, tm, r, q0, coef, 0,
+                         Hs, Ys, Gs);
+      load_keys<TM>(Y, ldy, kcol + c * HD, vcol + c * HD, tm, r, k0, Kt,
+                    with_ks && c == oc ? Ks : nullptr, da ? Vt : nullptr);
+      __syncthreads();
+      tile_logits(Ys, Kt, tx, ty, s);
+      if (da) tile_da(Gs, Vt, tx, ty, *da);
+    }
+  };
 
   const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
   float mrow[4], srow[4], drow[4], s[4][4], da[4][4], dyacc[4][4];
@@ -215,9 +239,7 @@ attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
 
   // pass 0: row max and sum, as the forward core computes them
   for (int k0 = 0; k0 < P; k0 += BK) {
-    load_keys<TM>(Y, ldy, kcol, vcol, tm, r, k0, Kt, nullptr, nullptr);
-    __syncthreads();
-    tile_logits(Ys, Kt, tx, ty, s);
+    logits(k0, s, nullptr, false);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float tmax = -INFINITY;
@@ -236,32 +258,24 @@ attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
       srow[i] = srow[i] * expf(mrow[i] - mnew) + tsum;
       mrow[i] = mnew;
     }
-    __syncthreads();
   }
 
   // pass 1: D = rowsum(dA * A)
   for (int k0 = 0; k0 < P; k0 += BK) {
-    load_keys<TM>(Y, ldy, kcol, vcol, tm, r, k0, Kt, nullptr, Vt);
-    __syncthreads();
-    tile_logits(Ys, Kt, tx, ty, s);
-    tile_da(Gs, Vt, tx, ty, da);
+    logits(k0, s, &da, false);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (k0 + tx * 4 + j < P)
           drow[i] += da[i][j] * (expf(s[i][j] + bias - mrow[i]) / srow[i]);
-    __syncthreads();
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) drow[i] = warp_sum(drow[i], 16);
 
-  // pass 2: dLc, dY, the tap and bias sums
+  // pass 2: dLc, dY, the tap and bias sums (EPEG: hd = 64, one chunk)
   for (int k0 = 0; k0 < P; k0 += BK) {
-    load_keys<TM>(Y, ldy, kcol, vcol, tm, r, k0, Kt, Ks, Vt);
-    __syncthreads();
-    tile_logits(Ys, Kt, tx, ty, s);
-    tile_da(Gs, Vt, tx, ty, da);
+    logits(k0, s, &da, true);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const bool row_ok = q0 + ty * 4 + i < P;
@@ -324,11 +338,11 @@ attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
 #pragma unroll
       for (int c = 0; c < 4; ++c) o[c] = from_f<TM>(dyacc[i][c]);
     } else {
-      TO* o = D + token_of(tm, r, p) * ldd + qcol + tx * 4;
+      TO* o = D + token_of(tm, r, p) * ldd + qcol + oc * HD + tx * 4;
 #pragma unroll
       for (int c = 0; c < 4; ++c) o[c] = from_f<TO>(scale * dyacc[i][c]);
     }
-    if (tx == 0) {
+    if (tx == 0 && oc == 0) {
       stats[rh * P + p] = mrow[i];
       stats[rhp + rh * P + p] = srow[i];
       stats[2 * rhp + rh * P + p] = drow[i];
@@ -354,7 +368,7 @@ template <typename TM, typename TO>
 __global__ void __launch_bounds__(256)
 attn_bwd_kv_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
                    const TM* __restrict__ G, int ldg, TO* __restrict__ D, int ldd,
-                   int H, TokenMap tm, const float* __restrict__ pw, int kk,
+                   int H, int hd, TokenMap tm, const float* __restrict__ pw, int kk,
                    const float* __restrict__ pb, const float* __restrict__ stats) {
   extern __shared__ __align__(16) float smem[];
   float* Kt = smem;               // [HD][BK]
@@ -369,27 +383,41 @@ attn_bwd_kv_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
   const int P = tm.P;
   const int r = blockIdx.x / H, h = blockIdx.x % H;
   const int k0 = blockIdx.y * BK;
+  const int oc = blockIdx.z, nch = hd / HD;   // this block's 64 columns of dk, dv
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int qcol = h * HD, kcol = kcol0 + h * HD, vcol = vcol0 + h * HD;
+  const int qcol = h * hd, kcol = kcol0 + h * hd, vcol = vcol0 + h * hd;
   const long long rh = (long long)r * H + h;
   const long long rhp = (long long)gridDim.x * P;
 
   if (kk > 0) epeg_coef<TM>(pw, h, kk, coef);
-  load_keys<TM>(Y, ldy, kcol, vcol, tm, r, k0, Kt, nullptr, Vt);
+  if (nch == 1) load_keys<TM>(Y, ldy, kcol, vcol, tm, r, k0, Kt, nullptr, Vt);
   const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
 
   float s[4][4], da[4][4], dk[4][4], dv[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) { dk[a][c] = 0.f; dv[a][c] = 0.f; }
+  zero44(dk);
+  zero44(dv);
 
   for (int q0 = 0; q0 < P; q0 += BQ) {
-    __syncthreads();
-    load_queries<TM>(Y, ldy, qcol, G, ldg, qcol, tm, r, q0, coef, kk, Hs, Ys, Gs);
-    __syncthreads();
-    tile_logits(Ys, Kt, tx, ty, s);
-    tile_da(Gs, Vt, tx, ty, da);
+    // the logits and dA over the whole head width, chunk by chunk; then
+    // this block's chunk of the queries and of g for dk and dv
+    zero44(s);
+    zero44(da);
+    for (int c = 0; c < nch; ++c) {
+      __syncthreads();
+      load_queries<TM>(Y, ldy, qcol + c * HD, G, ldg, qcol + c * HD, tm, r, q0, coef, kk,
+                       Hs, Ys, Gs);
+      if (nch > 1)
+        load_keys<TM>(Y, ldy, kcol + c * HD, vcol + c * HD, tm, r, k0, Kt, nullptr, Vt);
+      __syncthreads();
+      tile_logits(Ys, Kt, tx, ty, s);
+      tile_da(Gs, Vt, tx, ty, da);
+    }
+    if (oc != nch - 1) {
+      __syncthreads();
+      load_queries<TM>(Y, ldy, qcol + oc * HD, G, ldg, qcol + oc * HD, tm, r, q0, coef, kk,
+                       Hs, Ys, Gs);
+      __syncthreads();
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int p = q0 + ty * 4 + i;
@@ -432,7 +460,7 @@ attn_bwd_kv_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
   for (int a = 0; a < 4; ++a) {
     const int p = k0 + ty * 4 + a;
     if (p >= P) continue;
-    const long long row = token_of(tm, r, p) * ldd;
+    const long long row = token_of(tm, r, p) * ldd + oc * HD;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       D[row + kcol + tx * 4 + c] = from_f<TO>(dk[a][c]);
@@ -484,7 +512,7 @@ attn_bwd_dw_kernel(const float* __restrict__ part, int nb, int kk, int H,
 template <typename TM, typename TO>
 cudaError_t launch_attention_bwd(const void* Y, int ldy, int kcol0, int vcol0,
                                  const void* G, int ldg, void* D, int ldd, int R, int H,
-                                 TokenMap tm, const void* pw, int kk, const void* pb,
+                                 int hd, TokenMap tm, const void* pw, int kk, const void* pb,
                                  float scale, void* stats, void* dy, void* part, void* dw,
                                  void* db, cudaStream_t stream) {
   const int nqt = (tm.P + BQ - 1) / BQ;
@@ -495,18 +523,19 @@ cudaError_t launch_attention_bwd(const void* Y, int ldy, int kcol0, int vcol0,
   err = cudaFuncSetAttribute(attn_bwd_kv_kernel<TM, TO>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)skv);
   if (err != cudaSuccess) return err;
-  dim3 grid(R * H, nqt);
+  dim3 grid(R * H, nqt, hd / HD);
   attn_bwd_q_kernel<TM, TO><<<grid, 256, sq, stream>>>(
-      (const TM*)Y, ldy, kcol0, vcol0, (const TM*)G, ldg, (TO*)D, ldd, H, tm,
+      (const TM*)Y, ldy, kcol0, vcol0, (const TM*)G, ldg, (TO*)D, ldd, H, hd, tm,
       (const float*)pw, kk, (const float*)pb, scale, (float*)stats, (TM*)dy,
       (float*)part);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   attn_bwd_kv_kernel<TM, TO><<<grid, 256, skv, stream>>>(
-      (const TM*)Y, ldy, kcol0, vcol0, (const TM*)G, ldg, (TO*)D, ldd, H, tm,
+      (const TM*)Y, ldy, kcol0, vcol0, (const TM*)G, ldg, (TO*)D, ldd, H, hd, tm,
       (const float*)pw, kk, (const float*)pb, (const float*)stats);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (kk > 0) {
-    attn_bwd_dq_kernel<TM, TO><<<grid, 256, (size_t)(BQ + kk - 1) * HD * 4, stream>>>(
+    attn_bwd_dq_kernel<TM, TO><<<dim3(R * H, nqt), 256, (size_t)(BQ + kk - 1) * HD * 4,
+                                 stream>>>(
         (const TM*)dy, (TO*)D, ldd, H, tm, (const float*)pw, kk, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const int n = H * (kk + 1);
@@ -609,11 +638,11 @@ int gemm_tr(int at, int bt, const GemmArgs& g) {
   if (at && !bt)
     return (int)launch_gemm_ex<TA, TB, TM, TO, true, false>(
         g.A, g.lda, g.B, g.ldb, g.out, g.ldc, g.M, g.N, g.K, g.kchunk, g.zstride,
-        nullptr, nullptr, nullptr, 0, g.stream);
+        g.stream);
   if (!at && bt)
     return (int)launch_gemm_ex<TA, TB, TM, TO, false, true>(
         g.A, g.lda, g.B, g.ldb, g.out, g.ldc, g.M, g.N, g.K, g.kchunk, g.zstride,
-        nullptr, nullptr, nullptr, 0, g.stream);
+        g.stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -678,13 +707,14 @@ extern "C" int rb_attention_bwd(int tm, int to, const void* Y, int ldy, int kcol
                                 int H, int hd, int P, int grid, int rs, const void* pw,
                                 int kk, const void* pb, float scale, void* stats, void* dy,
                                 void* part, void* dw, void* db, void* stream) {
-  if (hd != HD || kk < 0 || kk > MAX_KK) return (int)cudaErrorInvalidValue;
+  if (hd <= 0 || hd % HD != 0 || hd > MAX_HD || kk < 0 || kk > MAX_KK || (kk > 0 && hd != HD))
+    return (int)cudaErrorInvalidValue;
   if (kk > 0 && (pw == nullptr || dy == nullptr || part == nullptr || dw == nullptr))
     return (int)cudaErrorInvalidValue;
   TokenMap map{grid, rs, grid > 0 ? grid / rs : 0, P};
   cudaError_t err = cudaErrorInvalidValue;
   RRT_DISPATCH(tm, TM, RRT_DISPATCH(to, TO,
-      err = launch_attention_bwd<TM, TO>(Y, ldy, kcol0, vcol0, G, ldg, D, ldd, R, H, map,
+      err = launch_attention_bwd<TM, TO>(Y, ldy, kcol0, vcol0, G, ldg, D, ldd, R, H, hd, map,
                                          pw, kk, pb, scale, stats, dy, part, dw, db,
                                          (cudaStream_t)stream)));
   return (int)err;

@@ -296,7 +296,7 @@ class CrossRegionAttention(nn.Module):
         # (B*nR, k, C) -> (B*k, nR, C); a view when B = 1, and K5 reads its
         # input in place
         reps = reps.reshape(b, nr, kk, c).transpose(1, 2)
-        reps = self.attn(reps.reshape(b * kk, nr, c).contiguous(), generator)
+        reps = self.attn(reps.reshape(b * kk, nr, c), generator)
         reps = reps.reshape(b, kk, nr, c).transpose(1, 2)
         out = crmsa_redistribute(w, reps.reshape(b * nr, kk, c).float()
                                  .contiguous(), mmd)
@@ -316,8 +316,9 @@ class CrossRegionAttention(nn.Module):
         mmd = _dtype(cfg.attn.mm_dtype)
         reps, w = crmsa_compress_grid(x, mask, ln_s, ln_b, self.phi, geom.grid,
                                       geom.region_size, mmd)
-        reps = reps.transpose(1, 2).reshape(b * kk, nr, c).contiguous()
-        reps = self.attn(reps, generator)
+        # a view when B = 1, read in place by K5
+        reps = self.attn(reps.transpose(1, 2).reshape(b * kk, nr, c),
+                         generator)
         reps = reps.reshape(b, kk, nr, c).transpose(1, 2).float().contiguous()
         if final_ln is not None:
             return crmsa_redistribute_grid_ln(x, mask, w, reps, final_ln[0],

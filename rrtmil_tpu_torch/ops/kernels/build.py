@@ -39,10 +39,15 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "region_layer": {
         "rl_ln_mask": [_I, _I, _P, _P, _P, _P, _P, _LL, _I, _F, _P],
-        "rl_gemm": [_I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,
+        "rl_gemm": [_I, _I, _I, _I, _P, _I, _LL, _LL, _P, _P, _P, _I, _I, _LL,
+                    _LL, _I, _LL, _LL, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                     _I, _P],
-        "rl_attention": [_I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _P, _I, _P, _P],
+        "rl_attention": [_I, _I, _I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P,
+                         _LL, _LL, _LL, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I,
+                         _I, _F, _P, _I, _P, _P],
+        "rl_block": [_I, _I, _I, _P, _LL, _LL, _P, _P, _P, _I, _LL, _LL, _I,
+                     _LL, _LL, _P, _P, _P, _P, _I, _P, _P, _I, _LL, _LL, _I,
+                     _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "region_layer_bwd": {
         "rb_gemm": [_I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
@@ -168,7 +173,14 @@ def ptr(t) -> int:
     return None if t is None else t.data_ptr()
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as an int (the raw-stream
+    accessor skips building a torch.cuda.Stream object on every launch)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -178,6 +190,24 @@ def check(err: int, what: str) -> None:
                            f"(cudaGetLastError)")
 
 
+def same_device(dev: torch.device, tensors: dict) -> None:
+    """Raise unless every tensor given (None skipped) lies on `dev`."""
+    for name, t in tensors.items():
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+
+
+def f32_param(t, name: str):
+    """t's pointer (None for None) after checking the kernels can read it as
+    it is: a contiguous float32 vector or matrix (biases, EPEG taps)."""
+    if t is None:
+        return None
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        raise TypeError(f"{name} must be a contiguous float32 tensor, got "
+                        f"{t.dtype} with strides {t.stride()}")
+    return t.data_ptr()
+
+
 def require_cuda(streams: dict, params: dict) -> None:
     """Raise unless every tensor lies on the first stream tensor's CUDA
     device and the stream tensors (read in place by the kernels) are
@@ -185,9 +215,7 @@ def require_cuda(streams: dict, params: dict) -> None:
     dev = next(iter(streams.values())).device
     if dev.type != "cuda":
         raise ValueError(f"expected CUDA tensors, got {dev}")
-    for name, t in {**streams, **params}.items():
-        if t is not None and t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    same_device(dev, {**streams, **params})
     for name, t in streams.items():
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

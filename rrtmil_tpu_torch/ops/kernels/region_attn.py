@@ -8,11 +8,16 @@ body `_kernel`, pallas_call at region_attn.py:189):
     out = round(A) round(v)        in q's dtype
 
 K6 is an entry point on K1's attention core (`rl_attention` in
-`csrc/region_layer.cu`): the wrapper packs round(q * scale), k and v as the
-columns of one (R * P, 3 * H * hd) matrix and the core writes the head
-outputs in q's dtype.  `region_attention_fused` is a `torch.autograd.Function`
-whose backward is K7 (`region_attn_bwd.py`); on a CPU tensor both directions
-run the plain versions, on a CUDA tensor the kernels.
+`csrc/region_layer.cu`; with bf16 products the tensor-core core of
+`csrc/tc.cuh`): the core reads q, k and v where they lie, through their
+(region, head, token) strides, scales and rounds q as it loads it, and
+writes the head outputs straight into an (R, H, P, hd) tensor in q's dtype;
+the wrapper runs no torch op but that allocation.  Head widths: any
+multiple of 64 up to 512 without EPEG (the CR-MSA of `crmsa_heads=1`
+configs: one 512-wide head), 64 with it.  `region_attention_fused` is a
+`torch.autograd.Function` whose backward is K7 (`region_attn_bwd.py`); on a
+CPU tensor both directions run the plain versions, on a CUDA tensor the
+kernels.
 """
 from __future__ import annotations
 
@@ -20,21 +25,25 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, layout
 from .common import epeg_toeplitz, mm_round
 
-HEAD_DIM = 64      # the attention core's thread layout
+HEAD_DIM = 64      # head width with EPEG, and the cores' column chunk
+MAX_HEAD_DIM = 512  # widest head the cores take (without EPEG)
 MAX_KK = 128       # EPEG taps the core takes
 
 
-def check_heads(wq, pw) -> int:
+def check_heads(wq, pw, max_hd: int = MAX_HEAD_DIM) -> int:
     """The EPEG tap count, after checking the head width (wq: (H, C, hd) or
-    any tensor whose last axis is hd)."""
+    any tensor whose last axis is hd): a multiple of 64 up to `max_hd`
+    without EPEG, 64 with it."""
     hd = wq.shape[-1]
-    if hd != HEAD_DIM:
-        raise ValueError(f"the attention core takes head_dim {HEAD_DIM}, "
-                         f"not {hd} (other widths: ROADMAP.md queue 2)")
     kk = 0 if pw is None else pw.shape[1]
+    top = HEAD_DIM if kk else max_hd
+    if hd % HEAD_DIM or not HEAD_DIM <= hd <= top:
+        raise ValueError(f"the attention core takes head_dim a multiple of "
+                         f"{HEAD_DIM} up to {top}"
+                         f"{' with EPEG' if kk else ''}, not {hd}")
     if kk > MAX_KK:
         raise ValueError(f"EPEG k={kk} exceeds the core's {MAX_KK} taps")
     return kk
@@ -71,38 +80,30 @@ def check_qkv(q, k, v) -> None:
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
 
 
-def pack_qkv(q, k, v, scale: float, mmd) -> torch.Tensor:
-    """(R, H, P, hd) x 3 -> the core's (R * P, 3 * H * hd) operand in the mm
-    dtype: row r * P + p, columns (q | k | v) x (H, hd), q scaled."""
-    r, h, p, hd = q.shape
-    y = torch.stack([(q.float() * scale).to(mmd), k.to(mmd), v.to(mmd)], 2)
-    return y.permute(0, 3, 2, 1, 4).contiguous().reshape(r * p, 3 * h * hd)
-
-
-def epeg_args(w, b, kk):
-    pw_f = w.float().contiguous() if kk else None
-    pb_f = b.float().contiguous() if (kk and b is not None) else None
-    return pw_f, pb_f
-
-
 def _launch(q, k, v, w, b, scale, mmd):
     check_qkv(q, k, v)
     r, h, p, hd = q.shape
     kk = check_heads(q, w)
-    y = pack_qkv(q, k, v, scale, mmd)
-    build.require_cuda({"y": y}, dict(q=q, k=k, v=v, w=w, b=b))
-    lib = build.load("region_layer")
-    pw_f, pb_f = epeg_args(w, b, kk)
-    hh = h * hd
-    o = torch.empty((r * p, hh), dtype=q.dtype, device=q.device)
-    build.check(lib.rl_attention(build.dtype_code(mmd),
-                                 build.dtype_code(q.dtype), y.data_ptr(),
-                                 3 * hh, hh, 2 * hh, o.data_ptr(), hh, r, h,
-                                 hd, p, 0, 0, build.ptr(pw_f), kk,
-                                 build.ptr(pb_f), build.stream_of(q)),
-                "K6 attention")
+    dev = q.device
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype, got {q.dtype} "
+                        f"{k.dtype} {v.dtype}")
+    if k.device != dev or v.device != dev:
+        raise ValueError(f"q, k, v must lie on one device, got {dev} "
+                         f"{k.device} {v.device}")
+    pw = pb = None
+    if kk:
+        build.same_device(dev, dict(w=w, b=b))
+        pw, pb = build.f32_param(w, "pe_weight"), build.f32_param(b, "pe_bias")
+    o = torch.empty((r, h, p, hd), dtype=q.dtype, device=dev)
+    code = build.dtype_code(q.dtype)
+    build.check(build.load("region_layer").rl_attention(
+        code, build.dtype_code(mmd), code, q.data_ptr(), *layout.heads(q, "q"),
+        k.data_ptr(), *layout.heads(k, "k"), v.data_ptr(),
+        *layout.heads(v, "v"), o.data_ptr(), h * p * hd, p * hd, hd, r, h,
+        hd, p, 0, 0, scale, pw, kk, pb, build.stream_of(q)), "K6 attention")
     region_attention_fused.launches += 1
-    return o.reshape(r, p, h, hd).permute(0, 2, 1, 3).contiguous()
+    return o
 
 
 class _RegionAttention(torch.autograd.Function):

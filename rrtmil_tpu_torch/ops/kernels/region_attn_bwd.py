@@ -13,7 +13,8 @@ and g = d(out):
     db[h] = sum dLc
 
 dq, dk, dv come back in the primals' dtypes, dw and db in float32; dw and db
-are None without EPEG (db also without a bias).  The CUDA source is
+are None without EPEG (db also without a bias).  Head widths as K6's: a
+multiple of 64 up to 512 without EPEG, 64 with it.  The CUDA source is
 `csrc/region_layer_bwd.cu` (`rb_attention_bwd`), whose note says what bounds
 it on an H100 and what the design does about it; K2 runs the same entry on
 the R-MSA layer's token order.
@@ -24,9 +25,18 @@ import torch
 
 from . import build
 from .common import epeg_toeplitz, mm_round
-from .region_attn import check_heads, check_qkv, epeg_args, pack_qkv
+from .region_attn import check_heads, check_qkv
 
 QUERY_TILE = 64    # rows of one block of the query-side kernel
+
+
+def pack_qkv(q, k, v, scale: float, mmd) -> torch.Tensor:
+    """(R, H, P, hd) x 3 -> the backward core's (R * P, 3 * H * hd) operand
+    in the mm dtype: row r * P + p, columns (q | k | v) x (H, hd), q
+    scaled."""
+    r, h, p, hd = q.shape
+    y = torch.stack([(q.float() * scale).to(mmd), k.to(mmd), v.to(mmd)], 2)
+    return y.permute(0, 3, 2, 1, 4).contiguous().reshape(r * p, 3 * h * hd)
 
 
 def attention_bwd_core_plain(q, k, v, g, pw, pb, mm_dtype):
@@ -79,11 +89,12 @@ def region_attention_bwd_plain(q, k, v, w, b, g, scale: float,
 
 
 def attention_bwd_launch(lib, tm, to, y, ldy, kcol0, vcol0, gg, ldg, d, ldd,
-                         r, h, p, grid, rs, w, b, kk, scale, stream):
+                         r, h, hd, p, grid, rs, w, b, kk, scale, stream):
     """rb_attention_bwd with its scratch; returns (dw, db) or (None, None)
     without EPEG.  `d` receives dq, dk, dv in the columns of `y`."""
     dev = y.device
-    pw_f, pb_f = epeg_args(w, b, kk)
+    pw = build.f32_param(w, "pe_weight") if kk else None
+    pb = build.f32_param(b, "pe_bias") if kk else None
     stats = torch.empty((3, r * h * p), dtype=torch.float32, device=dev)
     dy = part = dw = db = None
     if kk:
@@ -92,12 +103,12 @@ def attention_bwd_launch(lib, tm, to, y, ldy, kcol0, vcol0, gg, ldg, d, ldd,
         part = torch.empty((h, r * nqt, kk + 1), dtype=torch.float32,
                            device=dev)
         dw = torch.empty((h, kk), dtype=torch.float32, device=dev)
-        if pb_f is not None:
+        if pb is not None:
             db = torch.empty((h,), dtype=torch.float32, device=dev)
     build.check(lib.rb_attention_bwd(
         tm, to, y.data_ptr(), ldy, kcol0, vcol0, gg.data_ptr(), ldg,
-        d.data_ptr(), ldd, r, h, 64, p, grid, rs, build.ptr(pw_f), kk,
-        build.ptr(pb_f), scale, stats.data_ptr(), build.ptr(dy),
+        d.data_ptr(), ldd, r, h, hd, p, grid, rs, pw, kk, pb, scale,
+        stats.data_ptr(), build.ptr(dy),
         build.ptr(part), build.ptr(dw), build.ptr(db), stream),
         "K7 attention backward")
     return dw, db
@@ -118,7 +129,7 @@ def _launch(q, k, v, w, b, g, scale, mmd):
     d = torch.empty((r * p, 3 * hh), dtype=q.dtype, device=q.device)
     dw, db = attention_bwd_launch(
         lib, build.dtype_code(mmd), build.dtype_code(q.dtype), y, 3 * hh, hh,
-        2 * hh, gg, hh, d, 3 * hh, r, h, p, 0, 0, w, b, kk, scale,
+        2 * hh, gg, hh, d, 3 * hh, r, h, hd, p, 0, 0, w, b, kk, scale,
         build.stream_of(q))
     region_attention_bwd.launches += 1
     dq, dk, dv = d.reshape(r, p, 3, h, hd).permute(2, 0, 3, 1, 4)

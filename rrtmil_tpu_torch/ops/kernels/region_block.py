@@ -1,4 +1,4 @@
-"""K5: the whole InnerAttention on contiguous regions, as a CUDA kernel.
+"""K5: the whole InnerAttention on regions, as a CUDA kernel.
 
 Replaces `rrtmil_tpu/ops/pallas/region_block.py::_block_fwd_pallas`
 (kernel body `_block_kernel`, pallas_call at region_block.py:200):
@@ -7,9 +7,15 @@ Replaces `rrtmil_tpu/ops/pallas/region_block.py::_block_fwd_pallas`
               (z Wv + bv) ) Wp + bp,        z = x in the mm dtype
 
 with the q scale folded into wq/bq by the caller.  x (R, P, C) -> (R, P, C)
-in x's dtype.  It runs on K1's entries in `csrc/region_layer.cu` (the
-product, and the attention core with the identity token map); the note
-there says what bounds it on an H100 and what the design does about it.
+in x's dtype.  It is one C call, `rl_block` in `csrc/region_layer.cu`: the
+qkv product, the attention core with the identity token map and the
+projection (with bf16 products all three on the tensor cores,
+`csrc/tc.cuh`), reading x (which may be a strided view, as the B = 1
+cross-region input is) and the weights where they lie: wq/wk/wv (H, C, hd)
+and wp (H, hd, C) as `InnerAttention.kernel_weights()` hands them over,
+views of the qkv and proj Linear weights.  The wrapper runs no torch op but
+`torch.empty` for its output and scratch; the note in the CUDA source says
+what bounds it on an H100 and what the design does about it.
 
 `region_block_fused` is a `torch.autograd.Function`: its forward is K5 (the
 plain version on a CPU tensor), its backward differentiates `block_ref`, the
@@ -23,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from . import build
+from . import build, layout
 from .common import mm_round
 from .region_attn import (attention_core_plain, check_heads,
                           region_attention_fused)
@@ -75,45 +81,56 @@ def block_ref(x, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
 
 def qkv_weights(wq, wk, wv, bq, bk, bv, mm_dtype):
     """(H, C, hd) x3 -> one (C, 3*H*hd) mm-dtype matrix in the flax qkv column
-    order (3, H, hd), and the (3*H*hd,) fp32 bias."""
+    order (3, H, hd), and the (3*H*hd,) fp32 bias (K2's backward products)."""
     c = wq.shape[1]
     w = torch.stack([wq, wk, wv]).permute(2, 0, 1, 3).reshape(c, -1)
     b = torch.stack([bq, bk, bv]).reshape(-1)
     return w.to(mm_dtype).contiguous(), b.float().contiguous()
 
 
+def qkv_args(wq, wk, wv, bq, bk, bv):
+    """((wq, wk, wv) pointers, their shared (C, H * hd) description,
+    (bq, bk, bv) pointers) for `rl_gemm` / `rl_block`."""
+    desc = layout.qkv_cols(wq, "wq")
+    ptrs = (wq.data_ptr(), wk.data_ptr(), wv.data_ptr())
+    sq = layout.stride0(wq)
+    if layout.stride0(wk) != sq or layout.stride0(wv) != sq \
+            or (ptrs[1] | ptrs[2]) % layout.ALIGN:
+        raise ValueError(f"wq, wk, wv must share one aligned layout, got "
+                         f"strides {wq.stride()} {wk.stride()} {wv.stride()}")
+    if wk.dtype != wq.dtype or wv.dtype != wq.dtype:
+        raise TypeError("wq, wk, wv must share one dtype")
+    return (ptrs, desc,
+            (build.f32_param(bq, "bq"), build.f32_param(bk, "bk"),
+             build.f32_param(bv, "bv")))
+
+
 def _launch(x, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp, mmd):
     r, p, c = x.shape
     h, _, hd = wq.shape
     kk = check_heads(wq, pw)
-    build.require_cuda({"x": x}, dict(wq=wq, wk=wk, wv=wv, bq=bq, bk=bk,
-                                      bv=bv, pw=pw, pb=pb, wp=wp, bp=bp))
+    dev = x.device
     if wq.shape[1] != c or wp.shape != (h, hd, c) or bp.shape != (c,):
         raise ValueError(f"weights do not match x {tuple(x.shape)}")
+    if wp.dtype != wq.dtype:
+        raise TypeError("wp must have the qkv weights' dtype")
+    build.same_device(dev, dict(wq=wq, wk=wk, wv=wv, bq=bq, bk=bk, bv=bv,
+                                pw=pw, pb=pb, wp=wp, bp=bp))
+    _, sr, sp = layout.rows(x)
+    wptr, wdesc, bptr = qkv_args(wq, wk, wv, bq, bk, bv)
+    m, hh = r * p, h * hd
+    scratch = torch.empty((m, 4 * hh), dtype=mmd, device=dev)  # y | o
+    out = torch.empty((r, p, c), dtype=x.dtype, device=dev)
     lib = build.load("region_layer")
-    s = build.stream_of(x)
-    tm = build.dtype_code(mmd)
-    m, n, hh = r * p, 3 * h * hd, h * hd
-    wqkv, bqkv = qkv_weights(wq, wk, wv, bq, bk, bv, mmd)
-    y = torch.empty((m, n), dtype=mmd, device=x.device)
-    build.check(lib.rl_gemm(build.dtype_code(x.dtype), tm, tm, x.data_ptr(), c,
-                            wqkv.data_ptr(), n, y.data_ptr(), n, m, n, c,
-                            bqkv.data_ptr(), None, None, 0, s), "K5 qkv")
-    pw_f = pw.float().contiguous() if pw is not None else None
-    pb_f = pb.float().contiguous() if (pw is not None and pb is not None) \
-        else None
-    o = torch.empty((m, hh), dtype=mmd, device=x.device)
-    build.check(lib.rl_attention(tm, tm, y.data_ptr(), n, hh, 2 * hh,
-                                 o.data_ptr(), hh, r, h, hd, p, 0, 0,
-                                 build.ptr(pw_f), kk, build.ptr(pb_f), s),
-                "K5 attention")
-    wp2 = wp.reshape(hh, c).to(mmd).contiguous()
-    bp_f = bp.float().contiguous()
-    out = torch.empty_like(x)
-    build.check(lib.rl_gemm(tm, tm, build.dtype_code(x.dtype), o.data_ptr(),
-                            hh, wp2.data_ptr(), c, out.data_ptr(), c, m, c, hh,
-                            bp_f.data_ptr(), None, None, 0, s),
-                "K5 projection")
+    build.check(lib.rl_block(
+        build.dtype_code(x.dtype), build.dtype_code(wq.dtype),
+        build.dtype_code(mmd), x.data_ptr(), sr, sp, *wptr, *wdesc, *bptr,
+        build.f32_param(pw, "pe_weight") if kk else None, kk,
+        build.f32_param(pb, "pe_bias") if kk else None, wp.data_ptr(),
+        *layout.proj_rows(wp), build.f32_param(bp, "bp"), scratch.data_ptr(),
+        scratch.data_ptr() + m * 3 * hh * scratch.element_size(),
+        out.data_ptr(), r, p, c, h, hd, build.stream_of(x)),
+        "K5 block")
     region_block_fused.launches += 1
     return out
 

@@ -10,7 +10,9 @@ K1 replaces `rrtmil_tpu/ops/pallas/region_layer.py::_layer_fwd_pallas`
 
 on the (B, G*G, C) stream, in x's dtype.  The CUDA source is
 `csrc/region_layer.cu` (a three-step pipeline: LN + qkv product, attention
-core, projection + residual).
+core, projection + residual; with bf16 products the product and the core
+run on the tensor cores, `csrc/tc.cuh`), reading the weights where they lie.
+Head width 64 (no canonical config uses another in the R-MSA layer).
 
 K2 replaces `region_layer.py::_layer_bwd_pallas` (kernel body
 `_layer_bwd_kernel`, pallas_call at region_layer.py:554): from x, the
@@ -31,11 +33,11 @@ from __future__ import annotations
 import torch
 
 from ..regions import region_partition, region_reverse
-from . import build
+from . import build, layout
 from .common import LN_EPS, ln_bwd_plain, ln_mask_plain, ln_stats, mm_round
-from .region_attn import attention_core_plain, check_heads, epeg_args
+from .region_attn import HEAD_DIM, attention_core_plain, check_heads
 from .region_attn_bwd import attention_bwd_core_plain, attention_bwd_launch
-from .region_block import block_core_plain, qkv_weights
+from .region_block import block_core_plain, qkv_args, qkv_weights
 
 COLSUM_ROWS = 256    # rows of one partial column sum
 LN_ROWS_PER_WARP = 32
@@ -123,26 +125,31 @@ def _recompute(lib, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, gs,
     the head outputs o, all in the mm dtype and token order."""
     b, n, c = x.shape
     h, _, hd = wq.shape
-    kk = check_heads(wq, pw)
+    kk = check_heads(wq, pw, HEAD_DIM)
     ts, tm = build.dtype_code(x.dtype), build.dtype_code(mmd)
     m, nq, hh = b * n, 3 * h * hd, h * hd
-    ls, lb = ln_s.float().contiguous(), ln_b.float().contiguous()
     z = torch.empty((m, c), dtype=mmd, device=x.device)
     build.check(lib.rl_ln_mask(ts, tm, x.data_ptr(), mask.data_ptr(),
-                               ls.data_ptr(), lb.data_ptr(), z.data_ptr(), m,
+                               build.f32_param(ln_s, "ln_s"),
+                               build.f32_param(ln_b, "ln_b"), z.data_ptr(), m,
                                c, LN_EPS, s), "K1 layernorm")
-    wqkv, bqkv = qkv_weights(wq, wk, wv, bq, bk, bv, mmd)
+    wptr, wdesc, bptr = qkv_args(wq, wk, wv, bq, bk, bv)
     y = torch.empty((m, nq), dtype=mmd, device=x.device)
-    build.check(lib.rl_gemm(tm, tm, tm, z.data_ptr(), c, wqkv.data_ptr(), nq,
-                            y.data_ptr(), nq, m, nq, c, bqkv.data_ptr(), None,
-                            None, 0, s), "K1 qkv")
-    pw_f, pb_f = epeg_args(pw, pb, kk)
+    build.check(lib.rl_gemm(tm, build.dtype_code(wq.dtype), tm, tm,
+                            z.data_ptr(), 1, c, 0, *wptr, hh, *wdesc,
+                            y.data_ptr(), nq, m, nq, c, *bptr, None, None, 0,
+                            s), "K1 qkv")
     o = torch.empty((m, hh), dtype=mmd, device=x.device)
-    build.check(lib.rl_attention(tm, tm, y.data_ptr(), nq, hh, 2 * hh,
-                                 o.data_ptr(), hh, b * (gs // rs) ** 2, h, hd,
-                                 rs * rs, gs, rs, build.ptr(pw_f), kk,
-                                 build.ptr(pb_f), s), "K1 attention")
-    return ls, lb, z, wqkv, y, o
+    yp, esz = y.data_ptr(), y.element_size()
+    build.check(lib.rl_attention(tm, tm, tm, yp, 0, hd, nq, yp + hh * esz, 0,
+                                 hd, nq, yp + 2 * hh * esz, 0, hd, nq,
+                                 o.data_ptr(), 0, hd, hh, b * (gs // rs) ** 2,
+                                 h, hd, rs * rs, gs, rs, 1.0,
+                                 build.f32_param(pw, "pe_weight") if kk
+                                 else None, kk,
+                                 build.f32_param(pb, "pe_bias") if kk
+                                 else None, s), "K1 attention")
+    return z, y, o
 
 
 def _launch(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
@@ -157,13 +164,13 @@ def _launch(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
     s = build.stream_of(x)
     ts, tm = build.dtype_code(x.dtype), build.dtype_code(mmd)
     m, hh = b * n, h * hd
-    _, _, _, _, _, o = _recompute(lib, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk,
-                                  bv, pw, pb, g, rs, mmd, s)
-    wp2 = wp.reshape(hh, c).to(mmd).contiguous()
-    bp_f = bp.float().contiguous()
+    _, _, o = _recompute(lib, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw,
+                         pb, g, rs, mmd, s)
     out = torch.empty_like(x)
-    build.check(lib.rl_gemm(tm, tm, ts, o.data_ptr(), hh, wp2.data_ptr(), c,
-                            out.data_ptr(), c, m, c, hh, bp_f.data_ptr(),
+    build.check(lib.rl_gemm(tm, build.dtype_code(wp.dtype), tm, ts,
+                            o.data_ptr(), 1, hh, 0, wp.data_ptr(), None, None,
+                            c, *layout.proj_rows(wp), out.data_ptr(), c, m, c,
+                            hh, build.f32_param(bp, "bp"), None, None,
                             mask.data_ptr(),
                             x.data_ptr() if add_residual else None, c, s),
                 "K1 projection")
@@ -232,10 +239,11 @@ def _launch_bwd(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
     s = build.stream_of(x)
     tm = build.dtype_code(mmd)
     m, nq, hh = b * n, 3 * h * hd, h * hd
-    kk = check_heads(wq, pw)
+    kk = check_heads(wq, pw, HEAD_DIM)
     f32 = dict(dtype=torch.float32, device=x.device)
-    ls, _, z, wqkv, y, o = _recompute(rl, x, mask, ln_s, ln_b, wq, wk, wv, bq,
-                                      bk, bv, pw, pb, gs, rs, mmd, s)
+    z, y, o = _recompute(rl, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw,
+                         pb, gs, rs, mmd, s)
+    wqkv, _ = qkv_weights(wq, wk, wv, bq, bk, bv, mmd)
     # gm = round(g * mask), dbp = sum g * mask
     gmm = torch.empty((m, c), dtype=mmd, device=x.device)
     dbp = _colsum(rb, tm, g, m, c, mask, gmm, s)
@@ -248,8 +256,8 @@ def _launch_bwd(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
     # the attention core's backward, on the token map
     dqkv = torch.empty((m, nq), **f32)
     dpw, dpb = attention_bwd_launch(rb, tm, 0, y, nq, hh, 2 * hh, go, hh,
-                                    dqkv, nq, b * (gs // rs) ** 2, h, rs * rs,
-                                    gs, rs, pw, pb, kk, 1.0, s)
+                                    dqkv, nq, b * (gs // rs) ** 2, h, hd,
+                                    rs * rs, gs, rs, pw, pb, kk, 1.0, s)
     dbqkv = _colsum(rb, tm, dqkv, m, nq, None, None, s)
     # dWqkv = z^T round(dqkv), dz = round(dqkv) Wqkv^T
     dwqkv = torch.empty((c, nq), **f32)
@@ -261,7 +269,8 @@ def _launch_bwd(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
     part = torch.empty((2, parts, c), **f32)
     dx = torch.empty_like(x)
     build.check(rb.rb_ln_bwd(build.dtype_code(x.dtype), x.data_ptr(),
-                             mask.data_ptr(), ls.data_ptr(), dz.data_ptr(),
+                             mask.data_ptr(), build.f32_param(ln_s, "ln_s"),
+                             dz.data_ptr(),
                              g.data_ptr() if add_residual else None,
                              dx.data_ptr(), part.data_ptr(), m, c, LN_EPS,
                              LN_ROWS_PER_WARP, s), "K2 layernorm backward")

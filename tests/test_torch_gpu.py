@@ -17,10 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from rrtmil_tpu_torch.config import c16_r50, survival_default
+from rrtmil_tpu_torch.config import (InnerAttentionConfig, brca_r50, c16_r50,
+                                     survival_default)
 from rrtmil_tpu_torch.data.datasets import ArrayDataset
 from rrtmil_tpu_torch.data.survival import ArraySurvivalDataset
-from rrtmil_tpu_torch.models.rrt import build_model
+from rrtmil_tpu_torch.models.rrt import InnerAttention, build_model
 from rrtmil_tpu_torch.models.survival import SurvivalHead
 from rrtmil_tpu_torch.ops.kernels import build
 from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
@@ -280,6 +281,138 @@ def test_survival_epoch_on_card_goes_through_k12_k13():
     loss_c, _ = SurvivalEngine(cpu, SurvivalEngineConfig(num_epochs=1),
                                cfg.encoder, device="cpu").train_epoch(
                                    ds, [0, 1], 0)
+    assert abs(loss - loss_c) <= 1e-4 * max(1.0, abs(loss_c))
+
+
+def _k567(args5, args6, args7, mm, what):
+    """K5, K6 and K7 on the given inputs against their plain versions."""
+    for name, fn, plain, args in (
+            ("K5", rb.region_block_fused, rb.region_block_plain, args5),
+            ("K6", ra.region_attention_fused, ra.region_attention_plain,
+             args6),
+            ("K7", rab.region_attention_bwd, rab.region_attention_bwd_plain,
+             args7)):
+        if args is None:
+            continue
+        got, want = fn(*args, mm_dtype=mm), plain(*args, mm_dtype=mm)
+        torch.cuda.synchronize()
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            if a is None or b is None:
+                assert a is None and b is None, what
+                continue
+            assert a.is_cuda
+            _close(a, b, mm, f"{name} {what}")
+
+
+PAIRS = [(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
+         (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", PAIRS)
+@pytest.mark.parametrize("p", [1, 9, 63, 65, 961])
+def test_cuda_k5_k6_k7_at_ragged_region_sizes(sdt, mm, p):
+    """Ragged P (masked key columns, partial query tiles), EPEG k = 15."""
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(p)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=gen) * sc).to(dev)
+    h, hd, c = 2, 64, 128
+    s = (2.0 / (c + h * hd)) ** 0.5
+    pw, pb = r(h, 15, sc=0.3), r(h, sc=0.1)
+    w = (r(h, c, hd, sc=s / 8), r(h, c, hd, sc=s), r(h, c, hd, sc=s),
+         r(h, hd, sc=0.05), r(h, hd, sc=0.05), r(h, hd, sc=0.05), pw, pb,
+         r(h, hd, c, sc=s), r(c, sc=0.05))
+    q, k, v, g = (r(2, h, p, hd).to(sdt) for _ in range(4))
+    _k567((r(2, p, c).to(sdt), *w), (q, k, v, pw, pb, 0.125),
+          (q, k, v, pw, pb, g, 0.125), mm, f"P={p}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", PAIRS)
+def test_cuda_k5_k6_k7_at_head_width_512(sdt, mm):
+    """brca_r50's CR-MSA shape: one 512-wide head over 64 regions, R = 6;
+    every other head width raises, as does hd = 128 with EPEG."""
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(512)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=gen) * sc).to(dev)
+    c, hd = 512, 512
+    s = (2.0 / (c + hd)) ** 0.5
+    w = (r(1, c, hd, sc=s / 22), r(1, c, hd, sc=s), r(1, c, hd, sc=s),
+         r(1, hd, sc=0.05), r(1, hd, sc=0.05), r(1, hd, sc=0.05), None, None,
+         r(1, hd, c, sc=s), r(c, sc=0.05))
+    q, k, v, g = (r(6, 1, 64, hd).to(sdt) for _ in range(4))
+    _k567((r(6, 64, c).to(sdt), *w), (q, k, v, None, None, hd ** -0.5),
+          (q, k, v, None, None, g, hd ** -0.5), mm, "hd=512")
+    for bad, pw in ((576, None), (96, None), (128, r(1, 15))):
+        x = r(2, 1, 16, bad)
+        with pytest.raises(ValueError, match="head_dim"):
+            ra.region_attention_fused(x, x, x, pw, None, 1.0, mm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", PAIRS)
+@pytest.mark.parametrize("h,hd", [(8, 64), (1, 512)])
+def test_cuda_k5_k6_k7_read_strided_inputs_in_place(sdt, mm, h, hd):
+    """As the model passes them: K5 on the B = 1 cross-region view (k = 3
+    rows of 64 regions, strides (C, 3C, 1)) with an InnerAttention's
+    `kernel_weights()` (views of the Linear weights); K6 and K7 on q, k, v
+    that are views of one packed (R, P, 3, H, hd) tensor."""
+    dev = _cuda()
+    torch.manual_seed(hd)
+    mod = InnerAttention(InnerAttentionConfig(dim=512, num_heads=h,
+                                              head_dim=hd)).to(dev)
+    with torch.no_grad():
+        mod.qkv.bias.normal_(0, 0.05)
+        mod.proj.bias.normal_(0, 0.05)
+    gen = torch.Generator().manual_seed(h)
+    x = torch.randn((1, 64, 3, 512), generator=gen).to(dev).to(sdt)
+    x = x.transpose(1, 2).reshape(3, 64, 512)
+    assert not x.is_contiguous()
+    packed = torch.randn((4, 64, 3, h, hd), generator=gen).to(dev).to(sdt)
+    q, k, v = (packed[:, :, i].permute(0, 2, 1, 3) for i in range(3))
+    g = torch.randn((4, 64, h, hd), generator=gen).to(dev).to(sdt) \
+        .permute(0, 2, 1, 3)
+    with torch.no_grad():
+        _k567((x, *mod.kernel_weights()), (q, k, v, None, None, hd ** -0.5),
+              (q, k, v, None, None, g, hd ** -0.5), mm, f"strided {h}x{hd}")
+
+
+@pytest.mark.gpu
+def test_brca_r50_on_card_goes_through_every_kernel():
+    """brca_r50 (CR-MSA: one 512-wide head): an evaluation and one train
+    step (dropout off, fp32 products, TF32 off) on the card launch K1, K3,
+    K5, K8 every batch and K1-K9 every step; probabilities and the step's
+    loss match the CPU run of the same weights."""
+    _cuda()
+    base = brca_r50()
+    cfg = dataclasses.replace(base, dropout=0.0, encoder=dataclasses.replace(
+        base.encoder, dropout=0.0, mm_dtype="float32"))
+    rng = np.random.default_rng(11)
+    ds = ArrayDataset([rng.standard_normal((n, 1024)).astype(np.float32)
+                       for n in (937, 2213)], [0, 1])
+    fns = (rl.region_layer_fused, rl.region_layer_bwd, ck.crmsa_compress_grid,
+           ck.crmsa_compress_grid_bwd, rb.region_block_fused,
+           ra.region_attention_fused, rab.region_attention_bwd,
+           ck.crmsa_redistribute_grid_ln, ck.crmsa_redistribute_grid_ln_bwd)
+    model = build_model(cfg, seed=0)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    for f in fns:
+        f.launches = 0
+    probs, _, _ = Engine(model, EngineConfig(batch_size=1),
+                         cfg.encoder).evaluate(ds)
+    assert [f.launches for f in fns] == [2, 0, 2, 0, 2, 0, 0, 2, 0]
+    probs_c, _, _ = Engine(cpu, EngineConfig(batch_size=1), cfg.encoder,
+                           device="cpu").evaluate(ds)
+    np.testing.assert_allclose(probs, probs_c, rtol=0, atol=1e-3)
+    for f in fns:
+        f.launches = 0
+    loss = Engine(model, EngineConfig(), cfg.encoder).train_epoch(
+        ds, 0, order=[0])
+    assert [f.launches for f in fns] == [1] * 9
+    loss_c = Engine(cpu, EngineConfig(), cfg.encoder,
+                    device="cpu").train_epoch(ds, 0, order=[0])
     assert abs(loss - loss_c) <= 1e-4 * max(1.0, abs(loss_c))
 
 
