@@ -16,12 +16,14 @@ Phases (each passes or the script exits non-zero; nothing is caught):
    and K13 at a 45000-patch survival bag (R = 64, P = 729, pad rows: tied
    logits) and at P = 9; K5, K6 and K7 also at ragged region sizes
    P in {1, 9, 63, 64, 65, 144, 961} (EPEG k = 15), at brca_r50's CR-MSA
-   shape (one 512-wide head, P = 64, R = 6) and on strided inputs as the
+   shape (one 512-wide head, P = 64, R = 6), K6 and K7 at hd = 128 (P = 64),
+   256 (P = 65) and 512 (P = 144), and on strided inputs as the
    model passes them (the `kernel_weights()` views, the B = 1 cross-region
    view, q / k / v as views of one packed tensor); then each autograd
    Function's gradients against autograd through its plain forward
    (f32/f32, 8 seeded cotangents; the gradients that are zero in exact
-   arithmetic held to NOISE_ABS), K5 -> K6 / K7 also at hd = 512;
+   arithmetic held to NOISE_ABS), K5 -> K6 / K7 also at hd = 512; every
+   kernel check calls the kernel twice and requires the same bits;
 3. c16_r50: a seeded model through `Engine(device="cuda").evaluate` on bags
    of {37, 937, 2213, 9000, 9000, 30000} patches and `Engine.train_epoch`
    (dropout on) on {937, 2213, 9000, 9000, 30000, 30000}, batch size 2,
@@ -47,7 +49,9 @@ Phases (each passes or the script exits non-zero; nothing is caught):
    `F.multi_head_attention_forward`; K6 and K7:
    `scaled_dot_product_attention` forward and backward; K13: `torch.bmm`;
    median of PAIR_ROUNDS alternating rounds), beside its device time per
-   call from the profiler and its host time per call; c16_r50 forward
+   call from the profiler and its host time per call; at hd = 512 also
+   K7's device time with one and with two dq chunks a query-side block
+   (its design choice); c16_r50 forward
    slides/s at L = 9000 for B in {1, 4, 8} and train slides/s for B in
    {1, 8}; survival train bags/s at L = 45000 and 50000; the FFN config's
    forward and train slides/s at L = 9000, B = 8; peak memory;
@@ -423,6 +427,12 @@ def slice4_cases(dev, sdt):
     q, k, v, ga = (_randn((6, 1, 64, 512), g).to(dev).to(sdt)
                    for _ in range(4))
     attn("hd=512, P=64", q, k, v, ga, None, None, 512 ** -0.5)
+    # every other head width the cores take, one key tile and several
+    # (ragged), and hd = 512 past one key tile
+    for h, hd, p in ((2, 128, 64), (2, 256, 65), (1, 512, 144)):
+        q, k, v, ga = (_randn((3, h, p, hd), g).to(dev).to(sdt)
+                       for _ in range(4))
+        attn(f"hd={hd}, P={p}", q, k, v, ga, None, None, hd ** -0.5)
     for h, hd in ((8, 64), (1, 512)):
         view = _randn((1, 64, 3, 512), g).to(dev).to(sdt) \
             .transpose(1, 2).reshape(3, 64, 512)
@@ -553,9 +563,16 @@ def _as_tuple(out):
 
 
 def compare(fn, plain, args, mmd):
+    """(max abs error, scaled error) of the kernel against its plain
+    version; a second call must give the same bits (every cross-block sum
+    is taken in a fixed order, no atomics)."""
     got = _as_tuple(fn(*args, mm_dtype=mmd))
+    again = _as_tuple(fn(*args, mm_dtype=mmd))
     want = _as_tuple(plain(*args, mm_dtype=mmd))
     torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError("two calls on the same inputs differ")
     err, rel = 0.0, 0.0
     if len(got) != len(want):
         raise AssertionError(f"{len(got)} outputs != {len(want)}")
@@ -1702,6 +1719,18 @@ def phase_times_pairs(dev, rows):
                     "library_device_ms": lib_dev,
                     "host_ms": host_ms(kernel), "library_host_ms": lib_host,
                     "interleaved_rounds": rounds})
+        if name == k7 and "hd=512" in key:
+            # the query side's design choice: one or two 64-wide dq chunks a
+            # block (device time, alternating 2, 1, 1, 2)
+            chosen, by = rab.DQ_CHUNKS, {}
+            for n in (2, 1, 1, 2):
+                rab.DQ_CHUNKS = n
+                by.setdefault(str(n), []).append(device_ms(kernel))
+            rab.DQ_CHUNKS = chosen
+            rec["device_ms_by_dq_chunks"] = {n: float(np.mean(v))
+                                             for n, v in by.items()}
+            log(f"[4]   K7 device ms by dq chunks a block: "
+                f"{rec['device_ms_by_dq_chunks']}")
         log(f"[4] {name:28s} B={key:9s} interleaved x{PAIR_ROUNDS}: kernel "
             f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}, host "
             f"{rec['host_ms']:.4f}) vs library {lib_ms:.4f} ms (device "

@@ -9,27 +9,48 @@
 //   dY = round(dLc) k,  dq = s M^T round(dY) (or s dY),  dk = round(dLc)^T y,
 //   dw[t] = sum_{r,i,j} round(dLc)[i,j] round(q k^T)[i+t-k//2, j],
 //   db = sum dLc.
-// What bounds it on an H100: at the c16_r50 train shape inside K5's backward,
-// (B, 8, 64, 64), each (region, head) is ~2 MFLOP and ~40 KB, so launch
-// latency bounds it; inside K2 (P = 144, EPEG k = 15) its ~6 GFLOP a slide
-// make it compute-bound.  Design: flash-style recompute, never a P x P tile
-// in memory, so P up to 961 (L = 60000) runs as it is.  Three kernels:
-// (1) per 64 query rows: the row max and sum (the forward's exact two-pass
-// code, so the softmax has the forward's bits), D = rowsum(dA * A), then
-// dLc tile by tile into dY, the EPEG tap sums (only the k diagonals: the
-// halo rows' q k^T are formed for each key tile and each tap is one
-// 64 x 64 dot) and the bias sum, both as per-block partials; (2) per 64
-// keys: dv and dk, looping over the query tiles with the saved row
-// statistics; (3) with EPEG, dq = M^T dY as the transposed k-tap pass.  A
-// fourth pass sums the tap and bias partials over the blocks in a fixed
-// order: no atomics, so every run gives the same bits.  Rows are gathered
-// through the same token map as K1's forward, so K2 runs the core on the
-// (B, G*G) token order with no partition copy.  Head widths past 64 (up to
-// 512, without EPEG: the CR-MSA of crmsa_heads=1 configs) keep the 64-wide
-// register budget: each block owns one 64-wide chunk of the head's output
-// columns (blockIdx.z); the logits, dA = g v^T and D sum over every chunk
-// (queries and keys reloaded chunk by chunk), dq, dk and dv are per-chunk
-// products.
+// q, k, v and g are read where they lie (Opnd: region, head and token-row
+// strides, K2's grid token map), and dq, dk, dv written the same way.
+//
+// What bounds it on an H100: inside K2 (c16_r50, P = 144, EPEG k = 15,
+// 4096 (region, head) pairs at B = 8) its ~6 GFLOP a slide of 64 x 64 x 64
+// products; at K5's backward on c16_r50 and at brca_r50's one 512-wide head
+// (P = 64: one key and one query tile per pair) launch latency and the
+// latency of each block's few tiles.
+//
+// Design, bf16 products (the tensor cores: mma.sync m16n8k16, fragments by
+// ldmatrix, tc.cuh's warp products; 4 warps of 16 rows per block; 64 x 64
+// tiles in pairs through a 3-stage cp.async ring):
+//  (1) query side, a block per (region, head, 64 queries, one 64-wide
+//      chunk of dq, or two when hd / 64 is even): y and round(g) sit in
+//      shared memory for the whole head width.  Pass 1 walks the key tiles for the forward's online max and
+//      sum of Lc = y k^T (its exact expressions and product order, so A has
+//      the forward's bits) and u = sum exp(Lc - m) dA with dA = g v^T, so
+//      D = rowsum(dA * A) = u / l in fp32; pass 2 recomputes Lc and dA,
+//      forms dLc, rounds it into A fragments in registers and accumulates
+//      dY = round(dLc) k of its chunks.  With a single key tile (P <= 64)
+//      pass 1 is dropped: the logits stay in registers.  With EPEG the
+//      halo rows' round(round(q s) k^T) go through the tensor cores and the
+//      k tap sums sum_ij round(dLc)[i,j] L[i+t,j] through the CUDA cores,
+//      as per-block partials.  It also writes y (the key side's operand),
+//      the row statistics (m, l, D) and dY (EPEG) or dq.
+//  (2) key side, a block per (region, head, 64 keys, chunk oc of dk and
+//      dv): k and v sit in shared memory for the whole head width; each
+//      query tile's y and g stream through the ring, Lc^T = k y^T and
+//      dA^T = v g^T (the same sums as the query side's, transposed), then
+//      A^T and dLc^T from the saved statistics, rounded into fragments for
+//      dv += round(A)^T g and dk += round(dLc)^T y.
+//  (3) with EPEG, dq = s M^T round(dY) as the transposed k-tap pass; (4) the
+//      tap and bias partials summed over the blocks in a fixed order.  No
+//      atomics: every run gives the same bits.
+// At hd > 64 each block owns one or two 64-wide chunks of the outputs and
+// forms the logits over the whole width (a 16 x 512 fp32 accumulator per
+// warp would need 256 registers a thread); two on the query side halve its
+// blocks, which at brca_r50's hd = 512, B = 8 (192 blocks of ~188 KB of
+// shared memory, one an SM) makes one wave of two (measured, PERF.md).
+// f32 products (strict parity; TF32 would break it) keep the SIMT kernels
+// below the tensor-core ones, on the same operand descriptions, with a
+// three-pass query side.
 //
 // K2 replaces rrtmil_tpu/ops/pallas/region_layer.py::_layer_bwd_pallas
 // (kernel body _layer_bwd_kernel): dx, d(LN scale, bias), dWq/dWk/dWv,
@@ -45,29 +66,31 @@
 // on the token map; rb_ln_bwd the LayerNorm backward, one warp per token
 // row, with the mask, the residual's g and per-warp dls/dlb partials.  The
 // products run on the CUDA cores in fp32 (the rounding points are the TPU
-// kernel's); tensor cores are later work, recorded in PERF.md.
-#include "common.cuh"
+// kernel's); tensor cores for them are later work, recorded in PERF.md.
+#include "tc.cuh"
 
 using namespace rrt;
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// f32 products: the SIMT kernels (256 threads, 4 x 4 outputs a thread)
+// ---------------------------------------------------------------------------
 constexpr int BQ = 64, BK = 64, HD = 64;
 constexpr int QS = HD + 4, PS = BK + 4;
 
-// k (and v) of keys k0 .. k0 + 63 of region r, head h: Kt/Vt transposed
-// [d][j], Ks row-major [j][d]; keys past P are zeros.
-template <typename TM>
-__device__ __forceinline__ void load_keys(const TM* __restrict__ Y, int ldy, int kcol,
-                                          int vcol, const TokenMap& tm, int r, int k0,
+// k (and v) of keys k0 .. k0 + 63 of region r (kp, vp: the head's chunk):
+// Kt/Vt transposed [d][j], Ks row-major [j][d]; keys past P are zeros.
+template <typename TI>
+__device__ __forceinline__ void load_keys(const TI* kp, const Opnd& k, const TI* vp,
+                                          const Opnd& v, const TokenMap& tm, int r, int k0,
                                           float* Kt, float* Ks, float* Vt) {
   for (int idx = threadIdx.x; idx < BK * HD; idx += blockDim.x) {
     const int j = idx / HD, d = idx % HD, p = k0 + j;
     float kv = 0.f, vv = 0.f;
     if (p < tm.P) {
-      const long long row = token_of(tm, r, p) * ldy;
-      kv = to_f(Y[row + kcol + d]);
-      if (Vt) vv = to_f(Y[row + vcol + d]);
+      kv = to_f(kp[row_of(tm, k, r, p) + d]);
+      if (Vt) vv = to_f(vp[row_of(tm, v, r, p) + d]);
     }
     Kt[d * BK + j] = kv;
     if (Ks) Ks[j * HD + d] = kv;
@@ -75,38 +98,38 @@ __device__ __forceinline__ void load_keys(const TM* __restrict__ Y, int ldy, int
   }
 }
 
-// Ys = the query tile as the forward's core forms it: round(M_h q) with the
+// Ys = the query tile as the forward's core forms it: M_h (q s) with the
 // k-tap pass (Hs holds the halo rows q0 - k//2 .. q0 + 63 + k - 1 - k//2 of
-// q), or q itself; Gs = the incoming gradient's rows.
-template <typename TM>
-__device__ __forceinline__ void load_queries(const TM* __restrict__ Y, int ldy, int qcol,
-                                             const TM* __restrict__ G, int ldg, int gcol,
-                                             const TokenMap& tm, int r, int q0,
-                                             const float* coef, int kk, float* Hs,
-                                             float* Ys, float* Gs) {
+// q s), or q s itself; Gs = the incoming gradient's rows (qp, gp: the
+// head's chunk)
+template <typename TI>
+__device__ __forceinline__ void load_queries(const TI* qp, const Opnd& q, const TI* gp,
+                                             const Opnd& g, const TokenMap& tm, int r,
+                                             int q0, float scale, const float* coef, int kk,
+                                             float* Hs, float* Ys, float* Gs) {
   const int P = tm.P, tid = threadIdx.x;
   if (kk > 0) {
     const int pad = kk / 2, nh = BQ + kk - 1;
     for (int idx = tid; idx < nh * HD; idx += blockDim.x) {
       const int row = idx / HD, d = idx % HD, p = q0 - pad + row;
-      Hs[idx] = (p >= 0 && p < P) ? to_f(Y[token_of(tm, r, p) * ldy + qcol + d]) : 0.f;
+      Hs[idx] = (p >= 0 && p < P) ? to_f(qp[row_of(tm, q, r, p) + d]) * scale : 0.f;
     }
     __syncthreads();
     for (int idx = tid; idx < BQ * HD; idx += blockDim.x) {
       const int i = idx / HD, d = idx % HD;
       float acc = 0.f;
       for (int t = 0; t < kk; ++t) acc = fmaf(coef[t], Hs[(i + t) * HD + d], acc);
-      Ys[i * QS + d] = round_to<TM>(acc);
+      Ys[i * QS + d] = acc;
     }
   } else {
     for (int idx = tid; idx < BQ * HD; idx += blockDim.x) {
       const int i = idx / HD, d = idx % HD, p = q0 + i;
-      Ys[i * QS + d] = p < P ? to_f(Y[token_of(tm, r, p) * ldy + qcol + d]) : 0.f;
+      Ys[i * QS + d] = p < P ? to_f(qp[row_of(tm, q, r, p) + d]) * scale : 0.f;
     }
   }
   for (int idx = tid; idx < BQ * HD; idx += blockDim.x) {
     const int i = idx / HD, d = idx % HD, p = q0 + i;
-    Gs[i * QS + d] = p < P ? to_f(G[token_of(tm, r, p) * ldg + gcol + d]) : 0.f;
+    Gs[i * QS + d] = p < P ? to_f(gp[row_of(tm, g, r, p) + d]) : 0.f;
   }
 }
 
@@ -170,13 +193,12 @@ size_t kv_smem_bytes(int kk) {
 }
 
 // (1) query side: row statistics, dY (or dq), the EPEG tap and bias partials
-template <typename TM, typename TO>
+template <typename TI, typename TO>
 __global__ void __launch_bounds__(256)
-attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
-                  const TM* __restrict__ G, int ldg, TO* __restrict__ D, int ldd,
-                  int H, int hd, TokenMap tm, const float* __restrict__ pw, int kk,
-                  const float* __restrict__ pb, float scale, float* __restrict__ stats,
-                  TM* __restrict__ dy, float* __restrict__ part) {
+attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenMap tm,
+                  const float* __restrict__ pw, int kk, const float* __restrict__ pb,
+                  float scale, float* __restrict__ stats, float* __restrict__ dy,
+                  float* __restrict__ part) {
   extern __shared__ __align__(16) float smem[];
   const int nh = kk > 0 ? BQ + kk - 1 : 0;
   float* Ys = smem;               // [BQ][QS]
@@ -184,9 +206,9 @@ attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
   float* Kt = Gs + BQ * QS;       // [HD][BK]
   float* Ks = Kt + HD * BK;       // [BK][HD]
   float* Vt = Ks + BK * HD;       // [HD][BK]
-  float* Ps = Vt + HD * BK;       // [BQ][PS]  round(dLc)
-  float* Hs = Ps + BQ * PS;       // [nh][HD]  q halo
-  float* Ls = Hs + nh * HD;       // [nh][PS]  round(q k^T) of the halo rows
+  float* Ps = Vt + HD * BK;       // [BQ][PS]  dLc
+  float* Hs = Ps + BQ * PS;       // [nh][HD]  q s halo
+  float* Ls = Hs + nh * HD;       // [nh][PS]  q k^T of the halo rows
   __shared__ float coef[MAX_KK];
   __shared__ float dwacc[MAX_KK];
   __shared__ float red[256];
@@ -197,14 +219,17 @@ attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
   const int oc = blockIdx.z, nch = hd / HD;   // this block's 64 columns of dq
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
-  const int qcol = h * hd, kcol = kcol0 + h * hd, vcol = vcol0 + h * hd;
+  const TI* qp = (const TI*)q.p + (long long)h * q.sh;
+  const TI* kp = (const TI*)k.p + (long long)h * k.sh;
+  const TI* vp = (const TI*)v.p + (long long)h * v.sh;
+  const TI* gp = (const TI*)g.p + (long long)h * g.sh;
 
   if (kk > 0) {
-    epeg_coef<TM>(pw, h, kk, coef);
+    epeg_coef<float>(pw, h, kk, coef);
     for (int t = tid; t < kk; t += blockDim.x) dwacc[t] = 0.f;
   }
   __syncthreads();
-  if (nch == 1) load_queries<TM>(Y, ldy, qcol, G, ldg, qcol, tm, r, q0, coef, kk, Hs, Ys, Gs);
+  if (nch == 1) load_queries<TI>(qp, q, gp, g, tm, r, q0, scale, coef, kk, Hs, Ys, Gs);
 
   // s = y k^T (and da = g v^T) of key tile k0 over the whole head width,
   // chunk by chunk (the queries are reloaded per chunk when hd > 64); Ks
@@ -215,9 +240,9 @@ attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
     for (int c = 0; c < nch; ++c) {
       __syncthreads();
       if (nch > 1)
-        load_queries<TM>(Y, ldy, qcol + c * HD, G, ldg, qcol + c * HD, tm, r, q0, coef, 0,
-                         Hs, Ys, Gs);
-      load_keys<TM>(Y, ldy, kcol + c * HD, vcol + c * HD, tm, r, k0, Kt,
+        load_queries<TI>(qp + c * HD, q, gp + c * HD, g, tm, r, q0, scale, coef, 0, Hs, Ys,
+                         Gs);
+      load_keys<TI>(kp + c * HD, k, vp + c * HD, v, tm, r, k0, Kt,
                     with_ks && c == oc ? Ks : nullptr, da ? Vt : nullptr);
       __syncthreads();
       tile_logits(Ys, Kt, tx, ty, s);
@@ -287,7 +312,7 @@ attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
           dl = a * (da[i][j] - drow[i]);
         }
         dbacc += dl;
-        Ps[(ty * 4 + i) * PS + tx * 4 + j] = round_to<TM>(dl);
+        Ps[(ty * 4 + i) * PS + tx * 4 + j] = dl;
       }
     }
     if (kk > 0) {
@@ -296,7 +321,7 @@ attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
         float acc = 0.f;
 #pragma unroll 8
         for (int d = 0; d < HD; ++d) acc = fmaf(Hs[hr * HD + d], Kt[d * BK + j], acc);
-        Ls[hr * PS + j] = round_to<TM>(acc);
+        Ls[hr * PS + j] = acc;
       }
     }
     __syncthreads();
@@ -312,8 +337,8 @@ attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
       }
     }
     if (kk > 0) {
-      // tap t (one warp owns it): sum_ij round(dLc)[i,j] L[i + t - k//2, j],
-      // whose halo row is i + t
+      // tap t (one warp owns it): sum_ij dLc[i,j] L[i + t - k//2, j], whose
+      // halo row is i + t
       for (int t = warp; t < kk; t += (int)(blockDim.x >> 5)) {
         float acc = 0.f;
         for (int e = lane; e < BQ * BK; e += 32) {
@@ -334,11 +359,11 @@ attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
     const int p = q0 + ty * 4 + i;
     if (p >= P) continue;
     if (kk > 0) {
-      TM* o = dy + (rh * P + p) * HD + tx * 4;
+      float* o = dy + (rh * P + p) * HD + tx * 4;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) o[c] = from_f<TM>(dyacc[i][c]);
+      for (int c = 0; c < 4; ++c) o[c] = dyacc[i][c];
     } else {
-      TO* o = D + token_of(tm, r, p) * ldd + qcol + oc * HD + tx * 4;
+      TO* o = (TO*)dq.p + row_of(tm, dq, r, p) + (long long)h * dq.sh + oc * HD + tx * 4;
 #pragma unroll
       for (int c = 0; c < 4; ++c) o[c] = from_f<TO>(scale * dyacc[i][c]);
     }
@@ -364,19 +389,18 @@ attn_bwd_q_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
 }
 
 // (2) key side: dk and dv of 64 keys, over every query tile
-template <typename TM, typename TO>
+template <typename TI, typename TO>
 __global__ void __launch_bounds__(256)
-attn_bwd_kv_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
-                   const TM* __restrict__ G, int ldg, TO* __restrict__ D, int ldd,
-                   int H, int hd, TokenMap tm, const float* __restrict__ pw, int kk,
-                   const float* __restrict__ pb, const float* __restrict__ stats) {
+attn_bwd_kv_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, int H, int hd,
+                   TokenMap tm, const float* __restrict__ pw, int kk,
+                   const float* __restrict__ pb, float scale, const float* __restrict__ stats) {
   extern __shared__ __align__(16) float smem[];
   float* Kt = smem;               // [HD][BK]
   float* Vt = Kt + HD * BK;       // [HD][BK]
   float* Ys = Vt + HD * BK;       // [BQ][QS]
   float* Gs = Ys + BQ * QS;       // [BQ][QS]
-  float* Pa = Gs + BQ * QS;       // [BQ][PS]  round(A)
-  float* Pd = Pa + BQ * PS;       // [BQ][PS]  round(dLc)
+  float* Pa = Gs + BQ * QS;       // [BQ][PS]  A
+  float* Pd = Pa + BQ * PS;       // [BQ][PS]  dLc
   float* Hs = Pd + BQ * PS;       // [nh][HD]
   __shared__ float coef[MAX_KK];
 
@@ -385,17 +409,20 @@ attn_bwd_kv_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
   const int k0 = blockIdx.y * BK;
   const int oc = blockIdx.z, nch = hd / HD;   // this block's 64 columns of dk, dv
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int qcol = h * hd, kcol = kcol0 + h * hd, vcol = vcol0 + h * hd;
   const long long rh = (long long)r * H + h;
   const long long rhp = (long long)gridDim.x * P;
+  const TI* qp = (const TI*)q.p + (long long)h * q.sh;
+  const TI* kp = (const TI*)k.p + (long long)h * k.sh;
+  const TI* vp = (const TI*)v.p + (long long)h * v.sh;
+  const TI* gp = (const TI*)g.p + (long long)h * g.sh;
 
-  if (kk > 0) epeg_coef<TM>(pw, h, kk, coef);
-  if (nch == 1) load_keys<TM>(Y, ldy, kcol, vcol, tm, r, k0, Kt, nullptr, Vt);
+  if (kk > 0) epeg_coef<float>(pw, h, kk, coef);
+  if (nch == 1) load_keys<TI>(kp, k, vp, v, tm, r, k0, Kt, nullptr, Vt);
   const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
 
-  float s[4][4], da[4][4], dk[4][4], dv[4][4];
-  zero44(dk);
-  zero44(dv);
+  float s[4][4], da[4][4], dkacc[4][4], dvacc[4][4];
+  zero44(dkacc);
+  zero44(dvacc);
 
   for (int q0 = 0; q0 < P; q0 += BQ) {
     // the logits and dA over the whole head width, chunk by chunk; then
@@ -404,18 +431,17 @@ attn_bwd_kv_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
     zero44(da);
     for (int c = 0; c < nch; ++c) {
       __syncthreads();
-      load_queries<TM>(Y, ldy, qcol + c * HD, G, ldg, qcol + c * HD, tm, r, q0, coef, kk,
-                       Hs, Ys, Gs);
-      if (nch > 1)
-        load_keys<TM>(Y, ldy, kcol + c * HD, vcol + c * HD, tm, r, k0, Kt, nullptr, Vt);
+      load_queries<TI>(qp + c * HD, q, gp + c * HD, g, tm, r, q0, scale, coef, kk, Hs, Ys,
+                       Gs);
+      if (nch > 1) load_keys<TI>(kp + c * HD, k, vp + c * HD, v, tm, r, k0, Kt, nullptr, Vt);
       __syncthreads();
       tile_logits(Ys, Kt, tx, ty, s);
       tile_da(Gs, Vt, tx, ty, da);
     }
     if (oc != nch - 1) {
       __syncthreads();
-      load_queries<TM>(Y, ldy, qcol + oc * HD, G, ldg, qcol + oc * HD, tm, r, q0, coef, kk,
-                       Hs, Ys, Gs);
+      load_queries<TI>(qp + oc * HD, q, gp + oc * HD, g, tm, r, q0, scale, coef, kk, Hs, Ys,
+                       Gs);
       __syncthreads();
     }
 #pragma unroll
@@ -434,8 +460,8 @@ attn_bwd_kv_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
           a = expf(s[i][j] + bias - m) / sum;
           dl = a * (da[i][j] - dsum);
         }
-        Pa[(ty * 4 + i) * PS + tx * 4 + j] = round_to<TM>(a);
-        Pd[(ty * 4 + i) * PS + tx * 4 + j] = round_to<TM>(dl);
+        Pa[(ty * 4 + i) * PS + tx * 4 + j] = a;
+        Pd[(ty * 4 + i) * PS + tx * 4 + j] = dl;
       }
     }
     __syncthreads();
@@ -445,14 +471,14 @@ attn_bwd_kv_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const float pa = Pa[i * PS + ty * 4 + a], pd = Pd[i * PS + ty * 4 + a];
-        dv[a][0] = fmaf(pa, g4.x, dv[a][0]);
-        dv[a][1] = fmaf(pa, g4.y, dv[a][1]);
-        dv[a][2] = fmaf(pa, g4.z, dv[a][2]);
-        dv[a][3] = fmaf(pa, g4.w, dv[a][3]);
-        dk[a][0] = fmaf(pd, y4.x, dk[a][0]);
-        dk[a][1] = fmaf(pd, y4.y, dk[a][1]);
-        dk[a][2] = fmaf(pd, y4.z, dk[a][2]);
-        dk[a][3] = fmaf(pd, y4.w, dk[a][3]);
+        dvacc[a][0] = fmaf(pa, g4.x, dvacc[a][0]);
+        dvacc[a][1] = fmaf(pa, g4.y, dvacc[a][1]);
+        dvacc[a][2] = fmaf(pa, g4.z, dvacc[a][2]);
+        dvacc[a][3] = fmaf(pa, g4.w, dvacc[a][3]);
+        dkacc[a][0] = fmaf(pd, y4.x, dkacc[a][0]);
+        dkacc[a][1] = fmaf(pd, y4.y, dkacc[a][1]);
+        dkacc[a][2] = fmaf(pd, y4.z, dkacc[a][2]);
+        dkacc[a][3] = fmaf(pd, y4.w, dkacc[a][3]);
       }
     }
   }
@@ -460,11 +486,422 @@ attn_bwd_kv_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
   for (int a = 0; a < 4; ++a) {
     const int p = k0 + ty * 4 + a;
     if (p >= P) continue;
-    const long long row = token_of(tm, r, p) * ldd + oc * HD;
+    TO* ko = (TO*)dk.p + row_of(tm, dk, r, p) + (long long)h * dk.sh + oc * HD + tx * 4;
+    TO* vo = (TO*)dv.p + row_of(tm, dv, r, p) + (long long)h * dv.sh + oc * HD + tx * 4;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      D[row + kcol + tx * 4 + c] = from_f<TO>(dk[a][c]);
-      D[row + vcol + tx * 4 + c] = from_f<TO>(dv[a][c]);
+      ko[c] = from_f<TO>(dkacc[a][c]);
+      vo[c] = from_f<TO>(dvacc[a][c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 products: the tensor-core kernels (128 threads, 16 rows a warp)
+// ---------------------------------------------------------------------------
+constexpr int BST = 3;                  // ring stages of 64 x 64 tile pairs
+constexpr int PAIR = 2 * TK * TRS;      // bf16 elements of one stage
+
+// halo rows of the EPEG tap sums, in whole 16-row mma tiles, and enough for
+// every warp's 32-column windows of round(dLc) L^T (tap t of query row i
+// is column i + t: warp w reads rows 16 w .. 16 w + 32 n - 1 with 32 n >=
+// 15 + kk)
+__host__ __device__ inline int halo_rows(int kk) {
+  if (kk <= 0) return 0;
+  const int hr = ((TQ + kk - 1 + 15) / 16) * 16, win = 48 + 32 * ((kk + 15 + 31) / 32);
+  return hr > win ? hr : win;
+}
+int q_tc_smem_bytes(int hd, int kk) {
+  return (2 * TQ * (hd + 8) + BST * PAIR + 2 * halo_rows(kk) * TRS + (kk > 0 ? TQ * TRS : 0)) *
+             2 +
+         TQ * kk * 4;
+}
+int kv_tc_smem_bytes(int hd) { return (2 * TK * (hd + 8) + BST * PAIR) * 2; }
+
+// (1) query side on the tensor cores; a block owns NC chunks of dq (oc0 ..)
+template <typename TI, typename TO, int NC>
+__global__ void __launch_bounds__(128)
+attn_bwd_q_tc(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenMap tm,
+              const float* __restrict__ pw, int kk, const float* __restrict__ pb, float scale,
+              float* __restrict__ stats, bf16* __restrict__ ys, bf16* __restrict__ dy,
+              float* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int QST = hd + 8, HR = halo_rows(kk);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [TQ][QST]  y
+  bf16* Gs = Qs + TQ * QST;                       // [TQ][QST]  round(g)
+  bf16* ring = Gs + TQ * QST;                     // BST x (k tile, v tile)
+  bf16* Hs = ring + BST * PAIR;                    // [HR][TRS]  round(q s), rows q0 - k//2 ..
+  bf16* Ls = Hs + HR * TRS;                       // [HR][TRS]  round(Hs k^T) of one key tile
+  bf16* Ps = Ls + HR * TRS;                       // [TQ][TRS]  round(dLc) of one key tile
+  float* Dg = reinterpret_cast<float*>(Ps + (kk > 0 ? TQ * TRS : 0));  // [TQ][kk] taps by row
+  __shared__ float coef[MAX_KK], dwacc[MAX_KK], red[4];
+
+  const int P = tm.P;
+  const int r = blockIdx.x / H, h = blockIdx.x % H;
+  const int qt = blockIdx.y, q0 = qt * TQ, oc0 = blockIdx.z * NC, nch = hd / TD;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, cq = (lane & 3) * 2;
+  const TI* qp = (const TI*)q.p + (long long)h * q.sh;
+  const TI* kp = (const TI*)k.p + (long long)h * k.sh;
+  const TI* vp = (const TI*)v.p + (long long)h * v.sh;
+  const TI* gp = (const TI*)g.p + (long long)h * g.sh;
+
+  // y as the forward core forms it, and round(g), for the whole head width
+  if (kk > 0) {
+    const int pad = kk / 2;
+    for (int t = tid; t < kk; t += 128) {
+      coef[t] = round_to<bf16>(pw[h * kk + t] + (t == pad ? 1.f : 0.f));
+      dwacc[t] = 0.f;
+    }
+    load_tile<TI>(Hs, TRS, qp, q, tm, r, q0 - pad, HR, TD, scale);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // the forward's k-tap sums, each in tap order; 4 independent chains a
+    // thread
+    for (int i0 = tid; i0 < TQ * TD; i0 += 4 * 128) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int t = 0; t < kk; ++t) {
+        const float c = coef[t];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int idx = i0 + u * 128;
+          acc[u] = fmaf(c, __bfloat162float(Hs[(idx / TD + t) * TRS + idx % TD]), acc[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int idx = i0 + u * 128;
+        Qs[(idx / TD) * QST + idx % TD] = __float2bfloat16(acc[u]);
+      }
+    }
+  } else {
+    load_tile<TI>(Qs, QST, qp, q, tm, r, q0, TQ, hd, scale);
+  }
+  load_tile<TI>(Gs, QST, gp, g, tm, r, q0, TQ, hd, 1.f);
+
+  // items: pass 1 (several key tiles only) = (k, v) chunk c of each key
+  // tile; pass 2 = the same, then (c = nch + x) k chunk oc0 + x again for
+  // each owned chunk but nch - 1, whose k tile the last chunk item holds
+  const int nkt = (P + TK - 1) / TK, last = oc0 + NC - 1 == nch - 1;
+  const int per = nch + NC - last, n1 = nkt > 1 ? nkt * nch : 0, total = n1 + nkt * per;
+  auto locate = [&](int i, int& kt, int& c) {  // c >= nch: an extra item
+    if (i < n1) {
+      kt = i / nch; c = i % nch;
+    } else {
+      kt = (i - n1) / per; c = (i - n1) % per;
+    }
+  };
+  Seg<TI> sg[8];
+  auto fetch = [&](int i) {
+    int kt, c;
+    locate(i, kt, c);
+    const int cc = c < nch ? c : oc0 + c - nch;
+    bf16* T = ring + (i % BST) * PAIR;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int idx = tid + (u & 3) * 128, j = idx >> 3, s8 = idx & 7, p = kt * TK + j;
+      const bool isv = u >= 4, ok = p < P && !(isv && c >= nch);
+      const long long row = !ok ? 0 : isv ? row_of(tm, v, r, p) : row_of(tm, k, r, p);
+      sg[u].fetch(&T[(isv ? TK * TRS : 0) + j * TRS + s8 * 8],
+                  (isv ? vp : kp) + (ok ? row + cc * TD + s8 * 8 : 0), ok);
+    }
+  };
+  auto store = [&](int i) {
+    bf16* T = ring + (i % BST) * PAIR;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int idx = tid + (u & 3) * 128;
+      sg[u].store(&T[(u >= 4 ? TK * TRS : 0) + (idx >> 3) * TRS + (idx & 7) * 8]);
+    }
+  };
+  for (int i = 0; i < BST - 1; ++i) {
+    if (i < total) {
+      fetch(i);
+      store(i);
+    }
+    cp_async_commit();
+  }
+
+  const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
+  const bf16* Qw = Qs + warp * 16 * QST;
+  const bf16* Gw = Gs + warp * 16 * QST;
+  float S[8][4], dA[8][4], dY[NC][8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+  float dbacc = 0.f;
+  uint32_t Pd[4][4];
+#pragma unroll
+  for (int x = 0; x < NC; ++x) zero_acc(dY[x]);
+
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<BST - 2>();
+    __syncthreads();
+    const bool more = i + BST - 1 < total;
+    if (more) fetch(i + BST - 1);
+    int kt, c;
+    locate(i, kt, c);
+    const bf16* Kt = ring + (i % BST) * PAIR;
+    const bf16* Vt = Kt + TK * TRS;
+    if (c < nch) {
+      if (c == 0) {
+        zero_acc(S);
+        zero_acc(dA);
+      }
+      mma_abt(S, Qw + c * TD, QST, Kt, TRS);
+      mma_abt(dA, Gw + c * TD, QST, Vt, TRS);
+    }
+    if (c == nch - 1) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          S[nt][e] = kt * TK + nt * 8 + cq + (e & 1) < P ? S[nt][e] + bias : -INFINITY;
+      if (i < n1 || nkt == 1) online_softmax(S, m, l, dA, u);
+      if (i >= n1) {
+        // dLc = A * (dA - D), rows and keys past P at 0; its bf16 rounding
+        // as A fragments of dY += round(dLc) k
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hr = e >> 1;
+            float dl = 0.f;
+            if (q0 + warp * 16 + g8 + hr * 8 < P && kt * TK + nt * 8 + cq + (e & 1) < P) {
+              const float a = expf(S[nt][e] - m[hr]) / l[hr];
+              dl = a * (dA[nt][e] - u[hr] / l[hr]);
+            }
+            dbacc += dl;
+            S[nt][e] = dl;
+          }
+        pack_frags(Pd, S);
+        if (kk > 0) {
+          // the tap sums of this key tile (hd = 64: Kt is the whole k tile)
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr)
+              store2(&Ps[(warp * 16 + g8 + hr * 8) * TRS + nt * 8 + cq], S[nt][2 * hr],
+                     S[nt][2 * hr + 1]);
+          for (int mt = warp; mt < HR / 16; mt += 4) {
+            float L[8][4];
+            zero_acc(L);
+            mma_abt(L, Hs + mt * 16 * TRS, TRS, Kt, TRS);
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+              for (int hr = 0; hr < 2; ++hr)
+                store2(&Ls[(mt * 16 + g8 + hr * 8) * TRS + nt * 8 + cq], L[nt][2 * hr],
+                       L[nt][2 * hr + 1]);
+          }
+          __syncthreads();
+          // M = round(dLc) L^T on the tensor cores, 32 halo rows a window;
+          // Dg[i][t] = M[i][i + t]; then tap t sums its column of Dg over
+          // the 64 rows in a fixed order
+          for (int w0 = 0; w0 < 15 + kk; w0 += 32) {
+            float M[8][4];
+            zero_acc(M);
+            mma_abt<2>(M, Ps + warp * 16 * TRS, TRS, Ls + (warp * 16 + w0) * TRS, TRS);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int row = g8 + (e >> 1) * 8, t = w0 + nt * 8 + cq + (e & 1) - row;
+                if (t >= 0 && t < kk) Dg[(warp * 16 + row) * kk + t] = M[nt][e];
+              }
+          }
+          __syncthreads();
+          for (int t = warp; t < kk; t += 4) {
+            const float acc = warp_sum(Dg[lane * kk + t] + Dg[(lane + 32) * kk + t]);
+            if (lane == 0) dwacc[t] += acc;
+          }
+        }
+        if (last) mma_pb(dY[NC - 1], Pd, Kt, TRS);
+      }
+    } else if (c >= nch) {
+#pragma unroll
+      for (int x = 0; x < NC; ++x)
+        if (x == c - nch) mma_pb(dY[x], Pd, Kt, TRS);
+    }
+    if (more) store(i + BST - 1);
+    cp_async_commit();
+  }
+  __syncthreads();
+
+  const long long rh = (long long)r * H + h, rhp = (long long)gridDim.x * P;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int p = q0 + warp * 16 + g8 + hr * 8;
+    if (p >= P) continue;
+    if (oc0 == 0 && cq == 0) {
+      stats[rh * P + p] = m[hr];
+      stats[rhp + rh * P + p] = l[hr];
+      stats[2 * rhp + rh * P + p] = u[hr] / l[hr];
+    }
+    if (kk > 0) {
+      bf16* o = dy + (rh * P + p) * TD + cq;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        store2(o + nt * 8, dY[0][nt][2 * hr], dY[0][nt][2 * hr + 1]);
+    } else {
+      TO* o = (TO*)dq.p + row_of(tm, dq, r, p) + (long long)h * dq.sh + oc0 * TD + cq;
+#pragma unroll
+      for (int x = 0; x < NC; ++x)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          store2(o + x * TD + nt * 8, scale * dY[x][nt][2 * hr], scale * dY[x][nt][2 * hr + 1]);
+    }
+  }
+  // y, this block's chunks, for the key side
+  for (int idx = tid; idx < TQ * NC * (TD / 8); idx += 128) {
+    const int i = idx / (NC * TD / 8), s8 = idx % (NC * TD / 8), p = q0 + i;
+    if (p < P)
+      *reinterpret_cast<uint4*>(&ys[(rh * P + p) * hd + oc0 * TD + s8 * 8]) =
+          *reinterpret_cast<const uint4*>(&Qs[i * QST + oc0 * TD + s8 * 8]);
+  }
+  if (kk > 0) {
+    dbacc = warp_sum(dbacc);
+    if (lane == 0) red[warp] = dbacc;
+    __syncthreads();
+    const int R = gridDim.x / H;
+    float* out = part + (((long long)h * R + r) * gridDim.y + qt) * (kk + 1);
+    if (tid == 0) out[kk] = (red[0] + red[1]) + (red[2] + red[3]);
+    for (int t = tid; t < kk; t += 128) out[t] = dwacc[t];
+  }
+}
+
+// (2) key side on the tensor cores; y from the query side's copy ys
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(128)
+attn_bwd_kv_tc(Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, const bf16* __restrict__ ys, int H,
+               int hd, TokenMap tm, int kk, const float* __restrict__ pb,
+               const float* __restrict__ stats) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int QST = hd + 8;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [TK][QST]  round(k)
+  bf16* Vs = Ks + TK * QST;                       // [TK][QST]  round(v)
+  bf16* ring = Vs + TK * QST;                     // BST x (y tile, g tile)
+
+  const int P = tm.P;
+  const int r = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = blockIdx.y * TK, oc = blockIdx.z, nch = hd / TD;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, cq = (lane & 3) * 2;
+  const long long rh = (long long)r * H + h, rhp = (long long)gridDim.x * P;
+  const TI* kp = (const TI*)k.p + (long long)h * k.sh;
+  const TI* vp = (const TI*)v.p + (long long)h * v.sh;
+  const TI* gp = (const TI*)g.p + (long long)h * g.sh;
+  const bf16* yp = ys + rh * P * hd;
+  load_tile<TI>(Ks, QST, kp, k, tm, r, k0, TK, hd, 1.f);
+  load_tile<TI>(Vs, QST, vp, v, tm, r, k0, TK, hd, 1.f);
+
+  // items: (y, g) chunk c of each query tile, then chunk oc again (c ==
+  // nch) when chunk nch - 1 is not the block's own
+  const int nqt = (P + TQ - 1) / TQ, xt = oc != nch - 1, per = nch + xt, total = nqt * per;
+  Seg<bf16> sy[4];
+  Seg<TI> sg[4];
+  auto fetch = [&](int i) {
+    const int qt = i / per, c = i % per, cc = c == nch ? oc : c;
+    bf16* T = ring + (i % BST) * PAIR;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = tid + u * 128, j = idx >> 3, s8 = idx & 7, p = qt * TQ + j;
+      const bool ok = p < P;
+      sy[u].fetch(&T[j * TRS + s8 * 8], yp + (ok ? (long long)p * hd + cc * TD + s8 * 8 : 0),
+                  ok);
+      sg[u].fetch(&T[TK * TRS + j * TRS + s8 * 8],
+                  gp + (ok ? row_of(tm, g, r, p) + cc * TD + s8 * 8 : 0), ok);
+    }
+  };
+  auto store = [&](int i) {
+    bf16* T = ring + (i % BST) * PAIR;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = tid + u * 128;
+      sy[u].store(&T[(idx >> 3) * TRS + (idx & 7) * 8]);
+      sg[u].store(&T[TK * TRS + (idx >> 3) * TRS + (idx & 7) * 8]);
+    }
+  };
+  for (int i = 0; i < BST - 1; ++i) {
+    if (i < total) {
+      fetch(i);
+      store(i);
+    }
+    cp_async_commit();
+  }
+
+  const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
+  const bf16* Kw = Ks + warp * 16 * QST;
+  const bf16* Vw = Vs + warp * 16 * QST;
+  float LT[8][4], dAT[8][4], dK[8][4], dV[8][4];
+  uint32_t Pa[4][4], Pd[4][4];
+  zero_acc(dK);
+  zero_acc(dV);
+
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<BST - 2>();
+    __syncthreads();
+    const bool more = i + BST - 1 < total;
+    if (more) fetch(i + BST - 1);
+    const int qt = i / per, c = i % per;
+    const bf16* Yt = ring + (i % BST) * PAIR;
+    const bf16* Gt = Yt + TK * TRS;
+    if (c < nch) {
+      if (c == 0) {
+        zero_acc(LT);
+        zero_acc(dAT);
+      }
+      mma_abt(LT, Kw + c * TD, QST, Yt, TRS);  // Lc^T: rows keys, columns queries
+      mma_abt(dAT, Vw + c * TD, QST, Gt, TRS);
+    }
+    if (c == nch - 1) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int iq = qt * TQ + nt * 8 + cq + e1;
+          const bool iok = iq < P;
+          float mi = 0.f, li = 1.f, di = 0.f;
+          if (iok) {
+            mi = stats[rh * P + iq];
+            li = stats[rhp + rh * P + iq];
+            di = stats[2 * rhp + rh * P + iq];
+          }
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int e = 2 * hr + e1;
+            float a = 0.f, dl = 0.f;
+            if (iok && k0 + warp * 16 + g8 + hr * 8 < P) {
+              a = expf(LT[nt][e] + bias - mi) / li;
+              dl = a * (dAT[nt][e] - di);
+            }
+            LT[nt][e] = a;
+            dAT[nt][e] = dl;
+          }
+        }
+      pack_frags(Pa, LT);
+      pack_frags(Pd, dAT);
+      if (!xt) {
+        mma_pb(dV, Pa, Gt, TRS);
+        mma_pb(dK, Pd, Yt, TRS);
+      }
+    } else if (c == nch) {
+      mma_pb(dV, Pa, Gt, TRS);
+      mma_pb(dK, Pd, Yt, TRS);
+    }
+    if (more) store(i + BST - 1);
+    cp_async_commit();
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int p = k0 + warp * 16 + g8 + hr * 8;
+    if (p >= P) continue;
+    TO* ko = (TO*)dk.p + row_of(tm, dk, r, p) + (long long)h * dk.sh + oc * TD + cq;
+    TO* vo = (TO*)dv.p + row_of(tm, dv, r, p) + (long long)h * dv.sh + oc * TD + cq;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      store2(ko + nt * 8, dK[nt][2 * hr], dK[nt][2 * hr + 1]);
+      store2(vo + nt * 8, dV[nt][2 * hr], dV[nt][2 * hr + 1]);
     }
   }
 }
@@ -472,8 +909,8 @@ attn_bwd_kv_kernel(const TM* __restrict__ Y, int ldy, int kcol0, int vcol0,
 // (3) dq = scale * M_h^T round(dY): tap t of row i reads dY row i - t + k//2
 template <typename TM, typename TO>
 __global__ void __launch_bounds__(256)
-attn_bwd_dq_kernel(const TM* __restrict__ dy, TO* __restrict__ D, int ldd, int H,
-                   TokenMap tm, const float* __restrict__ pw, int kk, float scale) {
+attn_bwd_dq_kernel(const TM* __restrict__ dy, Opnd dq, int H, TokenMap tm,
+                   const float* __restrict__ pw, int kk, float scale) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float coef[MAX_KK];
   const int P = tm.P;
@@ -492,7 +929,7 @@ attn_bwd_dq_kernel(const TM* __restrict__ dy, TO* __restrict__ D, int ldd, int H
     if (p >= P) continue;
     float acc = 0.f;
     for (int t = 0; t < kk; ++t) acc = fmaf(coef[t], smem[(i + kk - 1 - t) * HD + d], acc);
-    D[token_of(tm, r, p) * ldd + h * HD + d] = from_f<TO>(scale * acc);
+    ((TO*)dq.p)[row_of(tm, dq, r, p) + (long long)h * dq.sh + d] = from_f<TO>(scale * acc);
   }
 }
 
@@ -509,38 +946,72 @@ attn_bwd_dw_kernel(const float* __restrict__ part, int nb, int kk, int H,
   else if (db) db[h] = acc;
 }
 
-template <typename TM, typename TO>
-cudaError_t launch_attention_bwd(const void* Y, int ldy, int kcol0, int vcol0,
-                                 const void* G, int ldg, void* D, int ldd, int R, int H,
-                                 int hd, TokenMap tm, const void* pw, int kk, const void* pb,
-                                 float scale, void* stats, void* dy, void* part, void* dw,
-                                 void* db, cudaStream_t stream) {
-  const int nqt = (tm.P + BQ - 1) / BQ;
-  const size_t sq = q_smem_bytes(kk), skv = kv_smem_bytes(kk);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_kernel<TM, TO>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sq);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_kv_kernel<TM, TO>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)skv);
-  if (err != cudaSuccess) return err;
-  dim3 grid(R * H, nqt, hd / HD);
-  attn_bwd_q_kernel<TM, TO><<<grid, 256, sq, stream>>>(
-      (const TM*)Y, ldy, kcol0, vcol0, (const TM*)G, ldg, (TO*)D, ldd, H, hd, tm,
-      (const float*)pw, kk, (const float*)pb, scale, (float*)stats, (TM*)dy,
-      (float*)part);
+struct BwdArgs {
+  Opnd q, k, v, g, dq, dk, dv;
+  int R, H, hd;
+  TokenMap tm;
+  const float* pw;
+  int kk;
+  const float* pb;
+  float scale;
+  float* stats;
+  void* ys;
+  void* dy;
+  float* part;
+  float* dw;
+  float* db;
+  int qcols;  // dq chunks a query-side block owns (tensor cores): 1 or 2
+};
+
+template <typename TI, typename TO, int NC>
+cudaError_t launch_bwd_tc(const BwdArgs& a, dim3 grid, cudaStream_t stream) {
+  static int done_q = 0, done_kv = 0;
+  const int sq = q_tc_smem_bytes(a.hd, a.kk), skv = kv_tc_smem_bytes(a.hd);
+  cudaError_t err;
+  if ((err = smem_optin(attn_bwd_q_tc<TI, TO, NC>, sq, done_q)) != cudaSuccess) return err;
+  if ((err = smem_optin(attn_bwd_kv_tc<TI, TO>, skv, done_kv)) != cudaSuccess) return err;
+  attn_bwd_q_tc<TI, TO, NC><<<dim3(grid.x, grid.y, grid.z / NC), 128, sq, stream>>>(
+      a.q, a.k, a.v, a.g, a.dq, a.H, a.hd, a.tm, a.pw, a.kk, a.pb, a.scale, a.stats,
+      (bf16*)a.ys, (bf16*)a.dy, a.part);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  attn_bwd_kv_kernel<TM, TO><<<grid, 256, skv, stream>>>(
-      (const TM*)Y, ldy, kcol0, vcol0, (const TM*)G, ldg, (TO*)D, ldd, H, hd, tm,
-      (const float*)pw, kk, (const float*)pb, (const float*)stats);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (kk > 0) {
-    attn_bwd_dq_kernel<TM, TO><<<dim3(R * H, nqt), 256, (size_t)(BQ + kk - 1) * HD * 4,
-                                 stream>>>(
-        (const TM*)dy, (TO*)D, ldd, H, tm, (const float*)pw, kk, scale);
+  attn_bwd_kv_tc<TI, TO><<<grid, 128, skv, stream>>>(a.k, a.v, a.g, a.dk, a.dv,
+                                                     (const bf16*)a.ys, a.H, a.hd, a.tm, a.kk,
+                                                     a.pb, a.stats);
+  return cudaGetLastError();
+}
+
+// tm = bf16: the tensor-core kernels; tm = float: the SIMT ones
+template <typename TI, typename TM, typename TO>
+cudaError_t launch_attention_bwd(const BwdArgs& a, cudaStream_t stream) {
+  const int nqt = (a.tm.P + BQ - 1) / BQ;
+  const dim3 grid(a.R * a.H, nqt, a.hd / HD);
+  cudaError_t err;
+  if (sizeof(TM) == 2) {
+    err = a.qcols == 2 ? launch_bwd_tc<TI, TO, 2>(a, grid, stream)
+                       : launch_bwd_tc<TI, TO, 1>(a, grid, stream);
+    if (err != cudaSuccess) return err;
+  } else {
+    static int done_q = 0, done_kv = 0;
+    const int sq = (int)q_smem_bytes(a.kk), skv = (int)kv_smem_bytes(a.kk);
+    if ((err = smem_optin(attn_bwd_q_kernel<TI, TO>, sq, done_q)) != cudaSuccess) return err;
+    if ((err = smem_optin(attn_bwd_kv_kernel<TI, TO>, skv, done_kv)) != cudaSuccess) return err;
+    attn_bwd_q_kernel<TI, TO><<<grid, 256, sq, stream>>>(a.q, a.k, a.v, a.g, a.dq, a.H, a.hd,
+                                                         a.tm, a.pw, a.kk, a.pb, a.scale,
+                                                         a.stats, (float*)a.dy, a.part);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const int n = H * (kk + 1);
-    attn_bwd_dw_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-        (const float*)part, R * nqt, kk, H, (float*)dw, (float*)db);
+    attn_bwd_kv_kernel<TI, TO><<<grid, 256, skv, stream>>>(a.q, a.k, a.v, a.g, a.dk, a.dv, a.H,
+                                                           a.hd, a.tm, a.pw, a.kk, a.pb,
+                                                           a.scale, a.stats);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (a.kk > 0) {
+    attn_bwd_dq_kernel<TM, TO><<<dim3(a.R * a.H, nqt), 256,
+                                 (size_t)(BQ + a.kk - 1) * HD * 4, stream>>>(
+        (const TM*)a.dy, a.dq, a.H, a.tm, a.pw, a.kk, a.scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int n = a.H * (a.kk + 1);
+    attn_bwd_dw_kernel<<<(n + 255) / 256, 256, 0, stream>>>(a.part, a.R * nqt, a.kk, a.H,
+                                                           a.dw, a.db);
   }
   return cudaGetLastError();
 }
@@ -702,20 +1173,40 @@ extern "C" int rb_ln_bwd(int ts, const void* x, const void* mask, const void* ls
   return (int)cudaGetLastError();
 }
 
-extern "C" int rb_attention_bwd(int tm, int to, const void* Y, int ldy, int kcol0,
-                                int vcol0, const void* G, int ldg, void* D, int ldd, int R,
-                                int H, int hd, int P, int grid, int rs, const void* pw,
-                                int kk, const void* pb, float scale, void* stats, void* dy,
+// the attention core's backward on q, k, v, g (dtype ti) and into dq, dk,
+// dv (dtype to), each described by (base, region stride, head stride,
+// token-row stride); grid > 0 maps region r, token p to row token_of(r, p)
+// of K2's (B, G*G) stream; qcols = the 64-wide dq chunks one query-side
+// block owns with bf16 products (1, or 2 when hd / 64 is even).  Scratch:
+// stats (3, R*H*P) f32; ys (R*H*P, hd) bf16 (tm = 1); with EPEG dy
+// (R*H*P, 64) in the mm dtype and part (H, R*ceil(P/64), kk+1) f32, and the
+// outputs dw (H, kk), db (H,) or null.
+extern "C" int rb_attention_bwd(int tm, int ti, int to, const void* q, long long q_sr,
+                                long long q_sh, long long q_sp, const void* k, long long k_sr,
+                                long long k_sh, long long k_sp, const void* v, long long v_sr,
+                                long long v_sh, long long v_sp, const void* g, long long g_sr,
+                                long long g_sh, long long g_sp, void* dq, long long dq_sr,
+                                long long dq_sh, long long dq_sp, void* dk, long long dk_sr,
+                                long long dk_sh, long long dk_sp, void* dv, long long dv_sr,
+                                long long dv_sh, long long dv_sp, int R, int H, int hd, int P,
+                                int grid, int rs, int qcols, const void* pw, int kk,
+                                const void* pb, float scale, void* stats, void* ys, void* dy,
                                 void* part, void* dw, void* db, void* stream) {
-  if (hd <= 0 || hd % HD != 0 || hd > MAX_HD || kk < 0 || kk > MAX_KK || (kk > 0 && hd != HD))
+  if (hd <= 0 || hd % HD != 0 || hd > MAX_HD || kk < 0 || kk > MAX_KK || (kk > 0 && hd != HD) ||
+      P <= 0 || stats == nullptr || (tm == 1 && ys == nullptr) || qcols < 1 || qcols > 2 ||
+      (hd / HD) % qcols != 0)
     return (int)cudaErrorInvalidValue;
   if (kk > 0 && (pw == nullptr || dy == nullptr || part == nullptr || dw == nullptr))
     return (int)cudaErrorInvalidValue;
-  TokenMap map{grid, rs, grid > 0 ? grid / rs : 0, P};
+  const BwdArgs a{Opnd{q, q_sr, q_sh, q_sp},    Opnd{k, k_sr, k_sh, k_sp},
+                  Opnd{v, v_sr, v_sh, v_sp},    Opnd{g, g_sr, g_sh, g_sp},
+                  Opnd{dq, dq_sr, dq_sh, dq_sp}, Opnd{dk, dk_sr, dk_sh, dk_sp},
+                  Opnd{dv, dv_sr, dv_sh, dv_sp}, R, H, hd,
+                  TokenMap{grid, rs, grid > 0 ? grid / rs : 0, P},
+                  (const float*)pw, kk, (const float*)pb, scale, (float*)stats, ys, dy,
+                  (float*)part, (float*)dw, (float*)db, qcols};
   cudaError_t err = cudaErrorInvalidValue;
-  RRT_DISPATCH(tm, TM, RRT_DISPATCH(to, TO,
-      err = launch_attention_bwd<TM, TO>(Y, ldy, kcol0, vcol0, G, ldg, D, ldd, R, H, hd, map,
-                                         pw, kk, pb, scale, stats, dy, part, dw, db,
-                                         (cudaStream_t)stream)));
+  RRT_DISPATCH(tm, TM, RRT_DISPATCH(ti, TI, RRT_DISPATCH(to, TO,
+      err = launch_attention_bwd<TI, TM, TO>(a, (cudaStream_t)stream))));
   return (int)err;
 }

@@ -1,7 +1,9 @@
 // Tensor-core (mma.sync bf16 -> fp32) attention core and product: the
-// bf16-product path of K1, K2's recompute, K5 and K6.  The f32-product path
-// (strict parity) stays on the SIMT kernels of common.cuh; the launchers at
-// the end of this file pick one by the product dtype.
+// bf16-product path of K1, K2's recompute, K5 and K6; the warp products,
+// the online softmax and the tile loads below also build K7's backward
+// (region_layer_bwd.cu).  The f32-product path (strict parity) stays on the
+// SIMT kernels of common.cuh; the launchers at the end of this file pick
+// one by the product dtype.
 //
 // Why mma.sync and not wgmma / TMA: at K5's and K6's shapes a block does a
 // few 64 x 64 tiles, so launch latency and host time set the pace, not the
@@ -18,6 +20,8 @@ namespace rrt {
 // ---------------------------------------------------------------------------
 // PTX building blocks
 // ---------------------------------------------------------------------------
+constexpr int TD_MMA = 64;  // depth of one warp product (a 64-wide column chunk)
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
@@ -106,6 +110,102 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// Warp-level 16-row products of the attention cores (fp32 sums in acc[nt]:
+// rows g and g + 8 of the warp's 16, columns nt * 8 + cq and + 1, with
+// g = lane / 4, cq = 2 (lane % 4)).
+// acc (16 x 64) += A (16 x 64, rows of stride lda) B^T, B (64 x 64) stored
+// [n][k] with row stride ldb: ks outer, so the sums run in one order.  With
+// N2 < 4 only the first 16 N2 columns (acc[0 .. 2 N2 - 1]).
+template <int N2 = 4>
+__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const bf16* A, int lda,
+                                        const bf16* B, int ldb) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < TD_MMA / 16; ++ks) {
+    uint32_t a[4];
+    ldsm_x4(a, &A[(lane & 15) * lda + ks * 16 + (lane >> 4) * 8]);
+#pragma unroll
+    for (int n2 = 0; n2 < N2; ++n2) {
+      uint32_t b[4];
+      ldsm_x4(b, &B[(n2 * 16 + (lane & 7) + (lane >> 4) * 8) * ldb + ks * 16 +
+                    ((lane >> 3) & 1) * 8]);
+      mma_bf16(acc[2 * n2], a, b[0], b[1]);
+      mma_bf16(acc[2 * n2 + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x 64) += P B, P (16 x 64) as A fragments from pack_frags, B (64 x
+// 64) stored [k][n] with row stride ldb (read by ldmatrix.trans)
+__device__ __forceinline__ void mma_pb(float (&acc)[8][4], const uint32_t (&P)[4][4],
+                                       const bf16* B, int ldb) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int d2 = 0; d2 < 4; ++d2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, &B[(ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb + d2 * 16 +
+                      (lane >> 4) * 8]);
+      mma_bf16(acc[2 * d2], P[ks], b[0], b[1]);
+      mma_bf16(acc[2 * d2 + 1], P[ks], b[2], b[3]);
+    }
+}
+
+// a 16 x 64 accumulator rounded to bf16 and repacked in registers as the A
+// operand of mma_pb
+__device__ __forceinline__ void pack_frags(uint32_t (&P)[4][4], const float (&X)[8][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      P[ks][2 * half] = pack_bf16(X[2 * ks + half][0], X[2 * ks + half][1]);
+      P[ks][2 * half + 1] = pack_bf16(X[2 * ks + half][2], X[2 * ks + half][3]);
+    }
+}
+
+// The online row max m and sum l of rows g and g + 8 over one 64-key logit
+// tile (masked columns at -inf), the forward core's exact expressions; with
+// dA given, also u += sum_j exp(S - m) dA, rescaled with l, so that D =
+// rowsum(dA * A) = u / l once every key tile has been seen.
+__device__ __forceinline__ void online_softmax(const float (&S)[8][4], float (&m)[2],
+                                               float (&l)[2], float (*dA)[4] = nullptr,
+                                               float* u = nullptr) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) tmax = fmaxf(tmax, fmaxf(S[nt][2 * hr], S[nt][2 * hr + 1]));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float mnew = fmaxf(m[hr], tmax);
+    float tsum = 0.f, tu = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float e0 = expf(S[nt][2 * hr] - mnew), e1 = expf(S[nt][2 * hr + 1] - mnew);
+      tsum += e0 + e1;
+      if (dA) tu += e0 * dA[nt][2 * hr] + e1 * dA[nt][2 * hr + 1];
+    }
+    tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
+    tsum += __shfl_xor_sync(0xffffffffu, tsum, 2);
+    const float alpha = expf(m[hr] - mnew);
+    l[hr] = l[hr] * alpha + tsum;
+    if (dA) {
+      tu += __shfl_xor_sync(0xffffffffu, tu, 1);
+      tu += __shfl_xor_sync(0xffffffffu, tu, 2);
+      u[hr] = u[hr] * alpha + tu;
+    }
+    m[hr] = mnew;
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (&X)[8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) X[nt][e] = 0.f;
+}
+
 // ---------------------------------------------------------------------------
 // K6's core (and K1's, K2's recompute's, K5's) with bf16 products, on the
 // tensor cores.  The function and its rounding points are attn_kernel's
@@ -122,7 +222,11 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 // head width (mma m16n8k16, fragments by ldmatrix), then the online row max
 // and sum.  Pass 2: the logits again, A = round(exp(L - max) / sum) repacked
 // in registers as the A operand of A V (no probability tile in shared
-// memory), and V's chunk by ldmatrix.trans.  fp32 sums throughout.
+// memory), and V's chunk by ldmatrix.trans.  fp32 sums throughout.  With a
+// single key tile (P <= 64) at hd > 64 (brca_r50's CR-MSA), pass 1 is
+// dropped (9 ring items at hd = 512, not 17): the max, the sum and the
+// probabilities come from the one logit tile in registers, the values the
+// two passes give.
 // ---------------------------------------------------------------------------
 constexpr int TQ = 64, TK = 64, TD = 64, TRS = TD + 8;  // ring rows: 144 bytes
 constexpr int TST = 4;                                    // ring stages
@@ -132,6 +236,40 @@ inline int attn_tc_smem_bytes(int hd, int kk) {
   const int ring = TC_RING * 2;
   const int halo = kk > 0 ? (TQ + kk - 1) * TD * 2 : 0;
   return TQ * (hd + 8) * 2 + (ring > halo ? ring : halo);
+}
+
+// rows p0 .. p0 + rows - 1 of a token-row operand (width elements from
+// base, p outside [0, P) as zeros), times s and rounded to bf16, into dst
+// (row stride ld), by a 128-thread block.  bf16 at s = 1 goes by cp.async
+// (uncommitted: the caller's next commit and wait cover it); otherwise 4
+// loads in flight per thread, rounded in registers.
+template <typename TI>
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const TI* base, const Opnd& o,
+                                          const TokenMap& tm, int r, int p0, int rows,
+                                          int width, float s) {
+  const int segs = width / 8, n = rows * segs;
+  if (std::is_same<TI, bf16>::value && s == 1.f) {
+    for (int idx = threadIdx.x; idx < n; idx += 128) {
+      const int i = idx / segs, sg = idx % segs, p = p0 + i;
+      const bool ok = p >= 0 && p < tm.P;
+      cp_async16(&dst[i * ld + sg * 8], ok ? base + row_of(tm, o, r, p) + sg * 8 : base, ok);
+    }
+    return;
+  }
+  for (int i0 = 0; i0 < n; i0 += 4 * 128) {
+    uint4 val[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = i0 + u * 128 + threadIdx.x, i = idx / segs, sg = idx % segs, p = p0 + i;
+      val[u] = (idx < n && p >= 0 && p < tm.P) ? load8(base + row_of(tm, o, r, p) + sg * 8, s)
+                                                : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = i0 + u * 128 + threadIdx.x;
+      if (idx < n) *reinterpret_cast<uint4*>(&dst[(idx / segs) * ld + (idx % segs) * 8]) = val[u];
+    }
+  }
 }
 
 template <typename TI, typename TO>
@@ -207,9 +345,12 @@ attn_tc_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float
   }
 
   // the ring's items: pass 1 = (key tile, k chunk) for every chunk; pass 2 =
-  // the same, then the key tile's v chunk of this block's output columns
+  // the same, then the key tile's v chunk of this block's output columns.
+  // One key tile at hd > 64 (`one`): pass 2 alone, the max and sum taken
+  // from the logit tile in registers just before the probabilities.
   const int nkt = (P + TK - 1) / TK;
-  const int n1 = nkt * nch, total = n1 + nkt * (nch + 1);
+  const bool one = nkt == 1 && nch > 1;
+  const int n1 = one ? 0 : nkt * nch, total = n1 + nkt * (nch + 1);
   Seg<TI> sg[4];
   auto locate = [&](int i, int& kt, int& c, bool& isv) {
     if (i < n1) {
@@ -253,10 +394,7 @@ attn_tc_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float
   const int g = lane >> 2, cq = (lane & 3) * 2;
   float S[8][4], O[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   uint32_t Pa[4][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) O[nt][e] = 0.f;
+  zero_acc(O);
 
   for (int i = 0; i < total; ++i) {
     // item i has landed (at most TST - 2 later groups pending), and every
@@ -269,73 +407,25 @@ attn_tc_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float
     locate(i, kt, c, isv);
     const bf16* T = ring + (i % TST) * TK * TRS;
     if (!isv) {
-      if (c == 0) {
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) S[nt][e] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < TD / 16; ++ks) {
-        uint32_t a[4];
-        ldsm_x4(a, &Qs[(warp * 16 + (lane & 15)) * QST + c * TD + ks * 16 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int n2 = 0; n2 < 4; ++n2) {
-          uint32_t b[4];
-          ldsm_x4(b, &T[(n2 * 16 + (lane & 7) + (lane >> 4) * 8) * TRS + ks * 16 +
-                        ((lane >> 3) & 1) * 8]);
-          mma_bf16(S[2 * n2], a, b[0], b[1]);
-          mma_bf16(S[2 * n2 + 1], a, b[2], b[3]);
-        }
-      }
+      if (c == 0) zero_acc(S);
+      mma_abt(S, Qs + warp * 16 * QST + c * TD, QST, T, TRS);
       if (c == nch - 1) {
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             S[nt][e] = kt * TK + nt * 8 + cq + (e & 1) < P ? S[nt][e] + bias : -INFINITY;
-        if (i < n1) {  // pass 1: online row max and sum (rows g and g + 8)
+        if (i < n1 || one) online_softmax(S, m, l);  // pass 1: online row max and sum
+        if (i >= n1) {  // pass 2: the rounded probabilities as A fragments
 #pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            float tmax = -INFINITY;
+          for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-            for (int nt = 0; nt < 8; ++nt)
-              tmax = fmaxf(tmax, fmaxf(S[nt][2 * hr], S[nt][2 * hr + 1]));
-            tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-            tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-            const float mnew = fmaxf(m[hr], tmax);
-            float tsum = 0.f;
-#pragma unroll
-            for (int nt = 0; nt < 8; ++nt)
-              tsum += expf(S[nt][2 * hr] - mnew) + expf(S[nt][2 * hr + 1] - mnew);
-            tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
-            tsum += __shfl_xor_sync(0xffffffffu, tsum, 2);
-            l[hr] = l[hr] * expf(m[hr] - mnew) + tsum;
-            m[hr] = mnew;
-          }
-        } else {  // pass 2: the rounded probabilities as A fragments
-#pragma unroll
-          for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const float* s = S[2 * ks + half];
-              Pa[ks][2 * half] = pack_bf16(expf(s[0] - m[0]) / l[0], expf(s[1] - m[0]) / l[0]);
-              Pa[ks][2 * half + 1] =
-                  pack_bf16(expf(s[2] - m[1]) / l[1], expf(s[3] - m[1]) / l[1]);
-            }
+            for (int e = 0; e < 4; ++e) S[nt][e] = expf(S[nt][e] - m[e >> 1]) / l[e >> 1];
+          pack_frags(Pa, S);
         }
       }
     } else {
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-        for (int d2 = 0; d2 < 4; ++d2) {
-          uint32_t b[4];
-          ldsm_x4_t(b, &T[(ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * TRS + d2 * 16 +
-                          (lane >> 4) * 8]);
-          mma_bf16(O[2 * d2], Pa[ks], b[0], b[1]);
-          mma_bf16(O[2 * d2 + 1], Pa[ks], b[2], b[3]);
-        }
+      mma_pb(O, Pa, T, TRS);
     }
     if (more) store(i + TST - 1);
     cp_async_commit();

@@ -55,9 +55,9 @@ SIGNATURES = {
         "rb_colsum": [_I, _I, _P, _I, _LL, _I, _P, _P, _I, _I, _P, _P],
         "rb_reduce": [_P, _I, _LL, _P, _P],
         "rb_ln_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _P],
-        "rb_attention_bwd": [_I, _I, _P, _I, _I, _I, _P, _I, _P, _I, _I, _I,
+        "rb_attention_bwd": [_I, _I, _I, *[_P, _LL, _LL, _LL] * 7, _I, _I, _I,
                              _I, _I, _I, _I, _P, _I, _P, _F, _P, _P, _P, _P,
-                             _P, _P],
+                             _P, _P, _P],
     },
     "crmsa": {
         "cr_compress_grid": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -12,31 +12,31 @@ and g = d(out):
     dw[h, t] = sum_{r,i,j} round(dLc)[i, j] round(round(q s) k^T)[i+t-k//2, j]
     db[h] = sum dLc
 
-dq, dk, dv come back in the primals' dtypes, dw and db in float32; dw and db
+dq, dk, dv come back in the primals' dtype, dw and db in float32; dw and db
 are None without EPEG (db also without a bias).  Head widths as K6's: a
 multiple of 64 up to 512 without EPEG, 64 with it.  The CUDA source is
-`csrc/region_layer_bwd.cu` (`rb_attention_bwd`), whose note says what bounds
-it on an H100 and what the design does about it; K2 runs the same entry on
-the R-MSA layer's token order.
+`csrc/region_layer_bwd.cu` (`rb_attention_bwd`: with bf16 products on the
+tensor cores, with f32 products on the CUDA cores), whose note says what
+bounds it on an H100 and what the design does about it.  The kernels read
+q, k, v and g where they lie, through their (region, head, token) strides
+(`layout.heads`), and write dq, dk, dv straight into (R, H, P, hd) tensors:
+the wrapper runs no torch op but `torch.empty`.  K2 runs the same entry on
+the R-MSA layer's token order, on the columns of its recomputed qkv.
 """
 from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, layout
 from .common import epeg_toeplitz, mm_round
 from .region_attn import check_heads, check_qkv
 
 QUERY_TILE = 64    # rows of one block of the query-side kernel
-
-
-def pack_qkv(q, k, v, scale: float, mmd) -> torch.Tensor:
-    """(R, H, P, hd) x 3 -> the backward core's (R * P, 3 * H * hd) operand
-    in the mm dtype: row r * P + p, columns (q | k | v) x (H, hd), q
-    scaled."""
-    r, h, p, hd = q.shape
-    y = torch.stack([(q.float() * scale).to(mmd), k.to(mmd), v.to(mmd)], 2)
-    return y.permute(0, 3, 2, 1, 4).contiguous().reshape(r * p, 3 * h * hd)
+# 64-wide dq chunks one query-side block owns with bf16 products when the
+# head has an even number of them: half the blocks, each logit tile formed
+# once for two chunks (at hd = 512, B = 8 one wave of blocks, not two);
+# chip_smoke.py times 1 against 2 at hd = 512
+DQ_CHUNKS = 2
 
 
 def attention_bwd_core_plain(q, k, v, g, pw, pb, mm_dtype):
@@ -88,28 +88,32 @@ def region_attention_bwd_plain(q, k, v, w, b, g, scale: float,
             db)
 
 
-def attention_bwd_launch(lib, tm, to, y, ldy, kcol0, vcol0, gg, ldg, d, ldd,
-                         r, h, hd, p, grid, rs, w, b, kk, scale, stream):
+def attention_bwd_launch(lib, tm, ti, to, ops, r, h, hd, p, grid, rs, w, b,
+                         kk, scale, dev, stream):
     """rb_attention_bwd with its scratch; returns (dw, db) or (None, None)
-    without EPEG.  `d` receives dq, dk, dv in the columns of `y`."""
-    dev = y.device
+    without EPEG.  `ops` holds the (pointer, region, head, token-row
+    strides) descriptions of q, k, v, g (dtype code ti) and of dq, dk, dv
+    (dtype code to); tm is the mm dtype code."""
     pw = build.f32_param(w, "pe_weight") if kk else None
     pb = build.f32_param(b, "pe_bias") if kk else None
-    stats = torch.empty((3, r * h * p), dtype=torch.float32, device=dev)
+    n = r * h * p
+    stats = torch.empty((3, n), dtype=torch.float32, device=dev)
+    ys = torch.empty((n, hd), dtype=torch.bfloat16, device=dev) if tm else None
     dy = part = dw = db = None
     if kk:
         nqt = -(-p // QUERY_TILE)
-        dy = torch.empty((r * h * p, 64), dtype=y.dtype, device=dev)
+        dy = torch.empty((n, 64), device=dev,
+                         dtype=torch.bfloat16 if tm else torch.float32)
         part = torch.empty((h, r * nqt, kk + 1), dtype=torch.float32,
                            device=dev)
         dw = torch.empty((h, kk), dtype=torch.float32, device=dev)
         if pb is not None:
             db = torch.empty((h,), dtype=torch.float32, device=dev)
+    qcols = DQ_CHUNKS if tm and (hd // 64) % DQ_CHUNKS == 0 else 1
     build.check(lib.rb_attention_bwd(
-        tm, to, y.data_ptr(), ldy, kcol0, vcol0, gg.data_ptr(), ldg,
-        d.data_ptr(), ldd, r, h, hd, p, grid, rs, pw, kk, pb, scale,
-        stats.data_ptr(), build.ptr(dy),
-        build.ptr(part), build.ptr(dw), build.ptr(db), stream),
+        tm, ti, to, *[x for op in ops for x in op], r, h, hd, p, grid, rs,
+        qcols, pw, kk, pb, scale, stats.data_ptr(), build.ptr(ys),
+        build.ptr(dy), build.ptr(part), build.ptr(dw), build.ptr(db), stream),
         "K7 attention backward")
     return dw, db
 
@@ -121,20 +125,23 @@ def _launch(q, k, v, w, b, g, scale, mmd):
                          f"{tuple(q.shape)}")
     r, h, p, hd = q.shape
     kk = check_heads(q, w)
-    y = pack_qkv(q, k, v, scale, mmd)
-    gg = g.to(mmd).permute(0, 2, 1, 3).contiguous().reshape(r * p, h * hd)
-    build.require_cuda({"y": y, "g": gg}, dict(w=w, b=b))
-    lib = build.load("region_layer_bwd")
-    hh = h * hd
-    d = torch.empty((r * p, 3 * hh), dtype=q.dtype, device=q.device)
+    dev = q.device
+    if k.dtype != q.dtype or v.dtype != q.dtype or g.dtype != q.dtype:
+        raise TypeError(f"q, k, v, g must share one dtype, got {q.dtype} "
+                        f"{k.dtype} {v.dtype} {g.dtype}")
+    build.same_device(dev, dict(k=k, v=v, g=g, w=w if kk else None,
+                                b=b if kk else None))
+    ops = [(t.data_ptr(), *layout.heads(t, name))
+           for name, t in (("q", q), ("k", k), ("v", v), ("g", g))]
+    outs = [torch.empty((r, h, p, hd), dtype=q.dtype, device=dev)
+            for _ in range(3)]
+    ops += [(o.data_ptr(), h * p * hd, p * hd, hd) for o in outs]
+    code = build.dtype_code(q.dtype)
     dw, db = attention_bwd_launch(
-        lib, build.dtype_code(mmd), build.dtype_code(q.dtype), y, 3 * hh, hh,
-        2 * hh, gg, hh, d, 3 * hh, r, h, hd, p, 0, 0, w, b, kk, scale,
-        build.stream_of(q))
+        build.load("region_layer_bwd"), build.dtype_code(mmd), code, code, ops,
+        r, h, hd, p, 0, 0, w, b, kk, scale, dev, build.stream_of(q))
     region_attention_bwd.launches += 1
-    dq, dk, dv = d.reshape(r, p, 3, h, hd).permute(2, 0, 3, 1, 4)
-    return (dq.contiguous(), dk.to(k.dtype).contiguous(),
-            dv.to(v.dtype).contiguous(), dw, db)
+    return (*outs, dw, db)
 
 
 def region_attention_bwd(q, k, v, w, b, g, scale: float,

@@ -209,6 +209,13 @@ def _gemm(lib, tm, a, lda, b, ldb, out, ldc, m, n, k, *, at=False, bt=False,
                               s), "K2 reduce")
 
 
+def _cols(t, ld, col, hd):
+    """The attention operand at columns col .. of a token-row matrix t with
+    row stride ld, head h at col + h * hd: (pointer, region, head,
+    token-row strides); the token map locates the rows."""
+    return (t.data_ptr() + col * t.element_size(), 0, hd, ld)
+
+
 def _colsum(lib, tm, a, m, n, mask, rounded, s):
     """sum over rows of a * mask (float32), and round(a * mask) into
     `rounded` when given."""
@@ -253,11 +260,16 @@ def _launch_bwd(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
     wp2 = wp.reshape(hh, c).to(mmd).contiguous()
     go = torch.empty((m, hh), dtype=mmd, device=x.device)
     _gemm(rb, tm, gmm, c, wp2, c, go, hh, m, hh, c, bt=True, s=s)
-    # the attention core's backward, on the token map
+    # the attention core's backward, on the token map: q, k, v are the
+    # column blocks (0, hh, 2 hh) of the recomputed qkv y (row stride nq),
+    # and dq, dk, dv go to the same columns of dqkv
     dqkv = torch.empty((m, nq), **f32)
-    dpw, dpb = attention_bwd_launch(rb, tm, 0, y, nq, hh, 2 * hh, go, hh,
-                                    dqkv, nq, b * (gs // rs) ** 2, h, hd,
-                                    rs * rs, gs, rs, pw, pb, kk, 1.0, s)
+    ops = [_cols(y, nq, col, hd) for col in (0, hh, 2 * hh)] \
+        + [_cols(go, hh, 0, hd)] \
+        + [_cols(dqkv, nq, col, hd) for col in (0, hh, 2 * hh)]
+    dpw, dpb = attention_bwd_launch(rb, tm, tm, 0, ops, b * (gs // rs) ** 2,
+                                    h, hd, rs * rs, gs, rs, pw, pb, kk, 1.0,
+                                    x.device, s)
     dbqkv = _colsum(rb, tm, dqkv, m, nq, None, None, s)
     # dWqkv = z^T round(dqkv), dz = round(dqkv) Wqkv^T
     dwqkv = torch.empty((c, nq), **f32)

@@ -113,6 +113,14 @@ def test_cuda_kernels_match_plain(sdt, mm):
         ("K8", ck.crmsa_redistribute_grid_ln, ck.redistribute_grid_ln_plain,
          (x, mask, wgt, reps, ls, lb, x, g, rs)),
     ]
+    # K2's attention backward on ragged token maps: P = 9 (64 regions of a
+    # 24-grid) and P = 961 (one region of a 31-grid), EPEG k = 15
+    for gg, rr in ((24, 3), (31, 31)):
+        x2, m2, (ls2, lb2), wts2, _, _ = _case(dev, sdt, g=gg, rs=rr, seed=gg)
+        cases.append((f"K2 P={rr * rr}", rl.region_layer_bwd,
+                      rl.region_layer_bwd_plain,
+                      (x2, m2, ls2, lb2, *wts2(15),
+                       torch.randn_like(x2.float()).to(sdt), gg, rr, True)))
     for what, fn, plain, args in cases:
         got, want = fn(*args, mm_dtype=mm), plain(*args, mm_dtype=mm)
         torch.cuda.synchronize()
@@ -330,20 +338,22 @@ def test_cuda_k5_k6_k7_at_ragged_region_sizes(sdt, mm, p):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("sdt,mm", PAIRS)
-def test_cuda_k5_k6_k7_at_head_width_512(sdt, mm):
-    """brca_r50's CR-MSA shape: one 512-wide head over 64 regions, R = 6;
+@pytest.mark.parametrize("hd", [128, 256, 512])
+def test_cuda_k5_k6_k7_at_head_width_512(sdt, mm, hd):
+    """brca_r50's CR-MSA shape: one 512-wide head over 64 regions, R = 6,
+    and the other head widths the cores take (128, 256) at the same shape;
     every other head width raises, as does hd = 128 with EPEG."""
     dev = _cuda()
-    gen = torch.Generator().manual_seed(512)
+    gen = torch.Generator().manual_seed(hd)
     r = lambda *s, sc=1.0: (torch.randn(s, generator=gen) * sc).to(dev)
-    c, hd = 512, 512
+    c = 512
     s = (2.0 / (c + hd)) ** 0.5
     w = (r(1, c, hd, sc=s / 22), r(1, c, hd, sc=s), r(1, c, hd, sc=s),
          r(1, hd, sc=0.05), r(1, hd, sc=0.05), r(1, hd, sc=0.05), None, None,
          r(1, hd, c, sc=s), r(c, sc=0.05))
     q, k, v, g = (r(6, 1, 64, hd).to(sdt) for _ in range(4))
     _k567((r(6, 64, c).to(sdt), *w), (q, k, v, None, None, hd ** -0.5),
-          (q, k, v, None, None, g, hd ** -0.5), mm, "hd=512")
+          (q, k, v, None, None, g, hd ** -0.5), mm, f"hd={hd}")
     for bad, pw in ((576, None), (96, None), (128, r(1, 15))):
         x = r(2, 1, 16, bad)
         with pytest.raises(ValueError, match="head_dim"):

@@ -256,15 +256,22 @@ def test_kernel_weights_reach_k5_without_a_copy(monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["contiguous", "cross_region_b1",
-                                  "packed_heads"])
+                                  "packed_heads", "k7_operands"])
 def test_row_and_head_descriptions_gather_the_tensor(case):
     """x (R, P, C) rows and q (R, H, P, hd) heads as the model passes them:
-    contiguous, the B = 1 cross-region view (k = 3 rows of 64 regions) and
-    q / k / v as views of one packed (R, P, 3, H, hd) tensor."""
-    if case == "packed_heads":
-        packed = torch.randn(2, 16, 3, 4, 64)
-        for i in range(3):
-            q = packed[:, :, i].permute(0, 2, 1, 3)
+    contiguous, the B = 1 cross-region view (k = 3 rows of 64 regions),
+    q / k / v as views of one packed (R, P, 3, H, hd) tensor, and K7's
+    operands: q / k / v so, 128 wide, with g an (R, H, P, hd) view of an
+    (R, P, H, hd) tensor that is not contiguous."""
+    if case in ("packed_heads", "k7_operands"):
+        h, hd = (4, 64) if case == "packed_heads" else (2, 128)
+        packed = torch.randn(2, 16, 3, h, hd)
+        heads = [packed[:, :, i].permute(0, 2, 1, 3) for i in range(3)]
+        if case == "k7_operands":
+            g = torch.randn(2, 16, h, hd).permute(0, 2, 1, 3)
+            assert not g.is_contiguous()
+            heads.append(g)
+        for q in heads:
             sr, sh, sp = layout.heads(q)
             got = torch.as_strided(q, q.shape, (sr, sh, sp, 1),
                                    q.storage_offset())
