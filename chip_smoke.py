@@ -19,11 +19,18 @@ Phases (each passes or the script exits non-zero; nothing is caught):
    shape (one 512-wide head, P = 64, R = 6), K6 and K7 at hd = 128 (P = 64),
    256 (P = 65) and 512 (P = 144), and on strided inputs as the
    model passes them (the `kernel_weights()` views, the B = 1 cross-region
-   view, q / k / v as views of one packed tensor); then each autograd
+   view, q / k / v as views of one packed tensor); K2's four products on
+   their own at m in {1, 37, 9224, 73728} tokens (the tensor-core product
+   with bf16 products); K1 / K2 at EPEG k = 21 (both residual modes) and
+   k = 9; K9 at P in {1, 9, 144, 729, 961} with k in {1, 3, 5, 8} on one
+   bag (rows split over blocks), with and without the shortcut, and on 8
+   bags at P = 9 and 144; then each autograd
    Function's gradients against autograd through its plain forward
    (f32/f32, 8 seeded cotangents; the gradients that are zero in exact
-   arithmetic held to NOISE_ABS), K5 -> K6 / K7 also at hd = 512; every
-   kernel check calls the kernel twice and requires the same bits;
+   arithmetic held to NOISE_ABS), K5 -> K6 / K7 also at hd = 512, K1 ->
+   K2 also at k = 21, K8 -> K9 also on one bag without the shortcut (k =
+   5); every kernel check calls the kernel twice and requires the same
+   bits;
 3. c16_r50: a seeded model through `Engine(device="cuda").evaluate` on bags
    of {37, 937, 2213, 9000, 9000, 30000} patches and `Engine.train_epoch`
    (dropout on) on {937, 2213, 9000, 9000, 30000, 30000}, batch size 2,
@@ -32,6 +39,11 @@ Phases (each passes or the script exits non-zero; nothing is caught):
    same weights on the CPU (f32 and bf16 products);
 8. brca_r50 (its CR-MSA runs one 512-wide head): the same three checks as
    phase 3 on bags of {937, 9000, 9000, 30000} patches, batch size 2;
+   nsclc_r50 (EPEG k = 21, CR-MSA k = 5, no shortcut), c16_plip (k = 9,
+   CR-MSA k = 3, input 512) and brca_plip (input 512): evaluate on {937,
+   2213, 9000} and two dropout-off train steps against the CPU, every
+   batch and step through its counted kernels (phase 3's and 8's
+   dropout-off steps are counted too);
 6. survival: `SurvivalEngine.train_epoch` (dropout on) and `validate` on
    survival_default() at full width, bags of {937, 1500, 10000, 30000,
    45000, 50000} patches: each bag whose R-MSA grid exceeds its CR-MSA grid
@@ -51,13 +63,16 @@ Phases (each passes or the script exits non-zero; nothing is caught):
    median of PAIR_ROUNDS alternating rounds), beside its device time per
    call from the profiler and its host time per call; at hd = 512 also
    K7's device time with one and with two dq chunks a query-side block
-   (its design choice); c16_r50 forward
+   (its design choice); K1, K2 and K9 also by device time and kernel
+   name (K2's four products apart); K2's four products at B = 1 and 8
+   interleaved with torch.matmul on the same bf16 operands; c16_r50 forward
    slides/s at L = 9000 for B in {1, 4, 8} and train slides/s for B in
    {1, 8}; survival train bags/s at L = 45000 and 50000; the FFN config's
    forward and train slides/s at L = 9000, B = 8; peak memory;
 5. profile: torch.profiler over three B = 8 forwards, one B = 8 train step
    and one survival train step at L = 45000: device time by kernel and the
-   device's busy share.
+   device's busy share; the train step must run K2's four products on the
+   warpgroup tensor cores (each wgmma call listed) and no SIMT product.
 
 Every counter is set to 0 just before each path and read just after.
 Prints the `{"kernels": [...]}` line (each kernel's launches from its own
@@ -97,6 +112,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # 5.2e-5, K5 by ~1e-6; a wrong term would be of the size of the real
 # gradients (>= 1e-2)
 NOISE_LEAVES = {"K1->K2": (8, 11), "K1->K2 add_residual=False": (8, 11),
+                "K1->K2 (k=21)": (8, 11),
                 "K5->K6,K7": (5,), "K5->K6,K7 (hd=512)": (5,),
                 "K6->K7 (P=144, k=15)": (4,)}
 NOISE_ABS = 3e-4
@@ -116,7 +132,9 @@ ADAM_STEP = 1.01
 PAIR_ROUNDS = 7
 BAG_LENGTHS = (37, 937, 2213, 9000, 9000, 30000)
 BRCA_BAGS = (937, 9000, 9000, 30000)
+CANON_BAGS = (937, 2213, 9000)
 RAGGED_P = (1, 9, 63, 64, 65, 144, 961)
+RAGGED_K9_P = (1, 9, 144, 729, 961)
 TRAIN_BAGS = (937, 2213, 9000, 9000, 30000, 30000)
 TPU_KERNELS = {
     "K1 region_layer_fused": ("rrtmil_tpu/ops/pallas/region_layer.py:44",
@@ -447,6 +465,83 @@ def slice4_cases(dev, sdt):
     return cases
 
 
+def k2_product_cases(dev, mdt, ms=(1, 37, 9216 + 8, 73728)):
+    """K2's four products on their own at c16_r50's (and brca_r50's) R-MSA
+    widths (C = 512, 8 x 64 heads) for token counts m: the weight gradients
+    o^T gm (512 x 512) and z^T round(dqkv) (512 x 1536) summed over the m
+    tokens, and the data gradients gm Wp^T (out in the mm dtype) and
+    round(dqkv) Wqkv^T (f32 out); operands in the mm dtype, as K2 hands
+    them over."""
+    from rrtmil_tpu_torch.ops.kernels import region_layer as rl
+    cases = {}
+    for m in ms:
+        g = torch.Generator(device=dev).manual_seed(m)
+        r = lambda *s: torch.randn(s, generator=g, device=dev).to(mdt)
+        for what, args in (
+                ("dWp", (r(m, 512), r(m, 512), True, torch.float32)),
+                ("dWqkv", (r(m, 512), r(m, 1536), True, torch.float32)),
+                ("d(o)", (r(m, 512), r(512, 512), False, mdt)),
+                ("dz", (r(m, 1536), r(512, 1536), False, torch.float32))):
+            cases[f"K2 products ({what} m={m})"] = (
+                rl.k2_product, rl.k2_product_plain, args)
+    return cases
+
+
+def k9_inputs(b, p, kk, shortcut, dev, sdt, seed):
+    """K9 inputs on b bags of 64 regions of p tokens (G = 8 sqrt(p)), C =
+    512, kk representatives, pad rows at each bag's end."""
+    rs = int(round(p ** 0.5))
+    G = 8 * rs
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, sc=1.0: torch.randn(s, generator=g, device=dev) * sc
+    n = G * G
+    mask = (torch.arange(n, device=dev) < n - 3 * rs)[None].expand(b, n) \
+        .contiguous()
+    x = (r(b, n, 512) * mask[..., None]).to(sdt)
+    sc = (r(b, n, 512) * mask[..., None]).to(sdt) if shortcut else None
+    ls, lb = 1 + r(512, sc=0.1), r(512, sc=0.1)
+    w = torch.rand((b, 64, kk, p), generator=g, device=dev)
+    return (x, mask, w, r(b, 64, kk, 512), ls, lb, sc, r(b, n, 512, sc=0.1),
+            G, rs)
+
+
+def slice6_cases(dev, sdt, mdt):
+    """K2's four products at ragged token counts; K1 and K2 at EPEG k = 21
+    (nsclc_r50) and 9 (c16_plip) on the c16_r50 main-path shape (B = 2, G =
+    96), both residual modes at k = 21; K9 at P in RAGGED_K9_P with k in
+    {1, 3, 5, 8} on one bag (64 regions: each region's rows split over
+    blocks), with the shortcut at k = 1 and 5 and without at k = 3 and 8,
+    and on 8 bags (one block a region) at P = 9 and 144."""
+    from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
+    from rrtmil_tpu_torch.ops.kernels import region_layer as rl
+    cases = k2_product_cases(dev, mdt)
+    x, mask, g = stream_inputs(2, 96, 512, 9000, 106, dev)
+    x = x.to(sdt)
+    ls, lb = ln_params(512, g, dev)
+    gx = _randn((2, 96 * 96, 512), g, 0.1).to(dev).to(sdt)
+    for kk, modes in ((21, (True, False)), (9, (True,))):
+        w1 = layer_weights(512, 8, 64, kk, g, dev)
+        for res in modes:
+            tag = f"k={kk}" + ("" if res else ", add_residual=False")
+            cases[f"K1 region_layer_fused ({tag})"] = (
+                rl.region_layer_fused, rl.region_layer_plain,
+                (x, mask, ls, lb, *w1, 96, 12, res))
+            cases[f"K2 region_layer_bwd ({tag})"] = (
+                rl.region_layer_bwd, rl.region_layer_bwd_plain,
+                (x, mask, ls, lb, *w1, gx, 96, 12, res))
+    runs = [(1, p, kk, kk in (1, 5)) for p in RAGGED_K9_P
+            for kk in (1, 3, 5, 8)]
+    runs += [(8, 9, 5, False), (8, 9, 3, True), (8, 144, 5, False),
+             (8, 144, 3, True)]
+    for b, p, kk, short in runs:
+        cases[f"K9 crmsa_redistribute_grid_ln_bwd (B={b} P={p} k={kk}"
+              f"{'' if short else ' no shortcut'})"] = (
+            ck.crmsa_redistribute_grid_ln_bwd,
+            ck.redistribute_grid_ln_bwd_plain,
+            k9_inputs(b, p, kk, short, dev, sdt, 900 + 10 * p + kk + b))
+    return cases
+
+
 def work_from_args(name, args):
     """(flops, bytes) of K10-K13 on these inputs: each input read once, each
     output written once."""
@@ -633,6 +728,7 @@ def phase_kernels(dev):
         cases.update(extra_cases(dev, sdt))
         cases.update(slice3_cases(dev, sdt))
         cases.update(slice4_cases(dev, sdt))
+        cases.update(slice6_cases(dev, sdt, mdt))
         for name, (fn, plain, args) in cases.items():
             err, rel = compare(fn, plain, args, mdt)
             ok = rel <= TOL[mdt]
@@ -668,9 +764,10 @@ def phase_kernels(dev):
 def autograd_checks(dev, seeds=AUTOGRAD_SEEDS):
     """Each autograd Function's gradients on the card (its backward kernel)
     against autograd through its plain forward, f32 stream and products:
-    K1 -> K2 (both residual modes), K3 -> K4, K5 -> block_ref (K6, K7),
-    K5 at hd = 512, K6 -> K7 (with EPEG), K8 -> K9, K10 -> K11 (both
-    residual modes), and
+    K1 -> K2 (both residual modes, and at EPEG k = 21), K3 -> K4, K5 ->
+    block_ref (K6, K7), K5 at hd = 512, K6 -> K7 (with EPEG), K8 -> K9 (and
+    on one bag with k = 5 and no shortcut: each region's rows split over
+    K9 blocks), K10 -> K11 (both residual modes), and
     K12 and K13, whose backwards are autograd through the plain forward (on
     the card, PyTorch ops).  The cotangents are drawn from each of `seeds`.
     Each gradient's max |card - plain| is scaled by max(1, max|plain|) and
@@ -686,6 +783,7 @@ def autograd_checks(dev, seeds=AUTOGRAD_SEEDS):
     ex = extra_cases(dev, torch.float32)
     s3 = slice3_cases(dev, torch.float32)
     s4 = slice4_cases(dev, torch.float32)
+    s6 = slice6_cases(dev, torch.float32, torch.float32)
     tag = "B=8 G=96 P=144 k=1"
     checks = {
         "K1->K2": (rl.region_layer_fused, rl.region_layer_plain,
@@ -704,6 +802,12 @@ def autograd_checks(dev, seeds=AUTOGRAD_SEEDS):
         "K8->K9": (ck.crmsa_redistribute_grid_ln,
                    ck.redistribute_grid_ln_plain,
                    cases["K8 crmsa_redistribute_grid_ln"][2]),
+        "K8->K9 (B=1, k=5, no shortcut)": (
+            ck.crmsa_redistribute_grid_ln, ck.redistribute_grid_ln_plain,
+            k9_inputs(1, 144, 5, False, dev, torch.float32, 950)[:6]
+            + (None, 96, 12)),
+        "K1->K2 (k=21)": (rl.region_layer_fused, rl.region_layer_plain,
+                          s6["K1 region_layer_fused (k=21)"][2]),
         "K10->K11": s3[f"K10 crmsa_redistribute_grid ({tag})"],
         "K10->K11 add_residual=False": s3[
             f"K10 crmsa_redistribute_grid ({tag} add_residual=False)"],
@@ -957,9 +1061,10 @@ def _adam_params_close(got, want, lr, steps, frac):
 
 def phase_train_vs_cpu(dev, base=None, tag="c16_r50", ph="3"):
     """Two train steps of `base` (c16_r50 by default) with dropout off on
-    small bags, on the card and on the CPU from the same weights: the step
-    losses, the first step's gradients and the parameters after both
-    updates, in f32/f32 (TF32 off) and with bf16 products."""
+    small bags, on the card and on the CPU from the same weights: each card
+    step through K1-K9 (counted), the step losses, the first step's
+    gradients and the parameters after both updates, in f32/f32 (TF32 off)
+    and with bf16 products."""
     import dataclasses
     from rrtmil_tpu_torch.config import c16_r50
     from rrtmil_tpu_torch.data.datasets import ArrayDataset
@@ -980,12 +1085,15 @@ def phase_train_vs_cpu(dev, base=None, tag="c16_r50", ph="3"):
                                            mm_dtype=mm))
         runs = {}
         for key, d in (("card", dev), ("cpu", "cpu")):
-            rec = {"losses": [], "grads": None}
+            rec = {"losses": [], "grads": None, "steps": []}
 
             class Recording(Engine):
                 def _train_step(self, *a, **k):
+                    before = launches_now()
                     loss = super()._train_step(*a, **k)
                     rec["losses"].append(float(loss))
+                    rec["steps"].append({"launches": {
+                        n: v - before[n] for n, v in launches_now().items()}})
                     return loss
 
                 def _apply_grads(self, lr):
@@ -1004,6 +1112,8 @@ def phase_train_vs_cpu(dev, base=None, tag="c16_r50", ph="3"):
                              for n, p in model.named_parameters()}
             runs[key] = rec
         card, cpu = runs["card"], runs["cpu"]
+        check_launches(card["steps"], C16_TRAIN, f"{tag} train ({mm})",
+                       len(cpu["losses"]))
         dloss = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
         dgrad = max((card["grads"][n] - g).abs().max().item()
                     / max(1.0, g.abs().max().item())
@@ -1040,6 +1150,23 @@ def phase_brca(dev):
     return {"evaluate": phase_main_path(dev, cfg, BRCA_BAGS, "brca_r50", "8"),
             "train": phase_train(dev, cfg, BRCA_BAGS, "brca_r50", "8"),
             "train_vs_cpu": phase_train_vs_cpu(dev, cfg, "brca_r50", "8")}
+
+
+def phase_canonical(dev):
+    """The other canonical configs the port runs, each reaching the kernels
+    at settings c16_r50 does not: nsclc_r50 (EPEG k = 21 in K1 / K2, CR-MSA
+    k = 5 in K3 / K4 / K8 / K9, no shortcut into K8 / K9), c16_plip (k = 9,
+    CR-MSA k = 3, input width 512) and brca_plip (input width 512):
+    evaluate on CANON_BAGS and two dropout-off train steps against the CPU,
+    every batch and step through its counted kernels."""
+    from rrtmil_tpu_torch import config
+    out = {}
+    for tag in ("nsclc_r50", "c16_plip", "brca_plip"):
+        cfg = getattr(config, tag)()
+        out[tag] = {
+            "evaluate": phase_main_path(dev, cfg, CANON_BAGS, tag, "8"),
+            "train_vs_cpu": phase_train_vs_cpu(dev, cfg, tag, "8")}
+    return out
 
 
 def k5_library_call(args, mmd):
@@ -1115,13 +1242,73 @@ def phase_times(dev):
             lib_ms = None
             flops, byts = work_of(name, b, torch.float32, mmd)
             bms, by = bound_ms(flops, byts, mmd)
-            rows.setdefault(name, {})[str(b)] = {
+            rec = rows.setdefault(name, {})[str(b)] = {
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                 "bound_by": by, "library_ms": lib_ms, "flops": flops,
                 "bytes": byts}
             log(f"[4] {name:32s} B={b}: {ms:.4f} ms (plain {plain_ms:.4f}, "
                 f"bound {bms:.4f} by {by}, library "
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f}'})")
+            if name.startswith(("K1", "K2", "K9")):
+                split = device_split(lambda: fn(*args, mm_dtype=mmd), iters=5)
+                rec["device_ms"] = sum(split.values())
+                rec["device_split"] = {k[:80]: v for k, v in split.items()}
+                log(f"[4]   device {rec['device_ms']:.4f} ms: " + "; ".join(
+                    f"{v:.4f} {k[:60]}" for k, v in sorted(
+                        split.items(), key=lambda kv: -kv[1])[:6]))
+        torch.cuda.empty_cache()
+    return rows
+
+
+K2_PRODUCTS = ("dWp = o^T gm", "d(o) = gm Wp^T", "dWqkv = z^T round(dqkv)",
+               "dz = round(dqkv) Wqkv^T")
+
+
+def phase_times_products(dev, rows):
+    """K2's four products at a 9000-patch bag's token counts (B = 8: m =
+    73,728; B = 1: 9,216) on bf16 operands, each interleaved with
+    torch.matmul on the same operands (PAIR_ROUNDS alternating rounds,
+    median; a yardstick: the port never calls it), beside each side's
+    device time from the profiler and the bound (operations at the bf16
+    peak, operands read once, the output written once)."""
+    from rrtmil_tpu_torch.ops.kernels import region_layer as rl
+    mmd = torch.bfloat16
+    for b in (1, 8):
+        m = b * 96 * 96
+        g = torch.Generator(device=dev).manual_seed(800 + b)
+        r = lambda *s: torch.randn(s, generator=g, device=dev).to(mmd)
+        for name, (a, w, at, odt) in zip(K2_PRODUCTS, (
+                (r(m, 512), r(m, 512), True, torch.float32),
+                (r(m, 512), r(512, 512), False, mmd),
+                (r(m, 512), r(m, 1536), True, torch.float32),
+                (r(m, 1536), r(512, 1536), False, torch.float32))):
+            kernel = lambda: rl.k2_product(a, w, at, odt, mmd)
+            at_ = a.t() if at else a
+            w_ = w if at else w.t()
+            lib = lambda: torch.matmul(at_, w_)
+            _library_check(f"K2 product {name} B={b}", (lib(),),
+                           (rl.k2_product_plain(a, w, at, odt, mmd),))
+            med, rounds = interleaved_ms({"kernel": kernel, "library": lib})
+            mm_, nn_ = at_.shape[0], w_.shape[1]
+            flops = 2 * mm_ * nn_ * at_.shape[1]
+            byts = (a.numel() + w.numel()) * 2 + mm_ * nn_ * (
+                4 if odt == torch.float32 else 2)
+            bms, by = bound_ms(flops, byts, mmd)
+            split = device_split(kernel)
+            rec = rows.setdefault(f"K2 product {name}", {})[str(b)] = {
+                "ms": med["kernel"], "library_ms": med["library"],
+                "device_ms": sum(split.values()),
+                "device_split": {k[:80]: v for k, v in split.items()},
+                "library_device_ms": device_ms(lib), "bound_ms": bms,
+                "bound_by": by, "flops": flops, "bytes": byts,
+                "tflops": flops / (med["kernel"] * 1e9),
+                "interleaved_rounds": rounds}
+            log(f"[4] K2 product {name:26s} B={b} (m={m}): kernel "
+                f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}, "
+                f"{rec['tflops']:.1f} TFLOP/s) vs torch.matmul "
+                f"{rec['library_ms']:.4f} ms (device "
+                f"{rec['library_device_ms']:.4f}); bound {bms:.4f} by {by}")
+            del a, w, at_, w_
         torch.cuda.empty_cache()
     return rows
 
@@ -1257,6 +1444,17 @@ def phase_profile(dev, b=8, iters=3, train=False, fn=None, what=None):
             and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) * iters
+    # K2's products: each wgmma call in launch order (the two weight
+    # gradients share a kernel name); the SIMT product's total
+    wgmma = [(ev.name, ev.self_device_time_total / 1e3)
+             for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA and "gemm_wgmma" in ev.name]
+    simt_ms = sum(ms for n, ms in rows if "rrt::gemm_kernel<" in n) * iters
+    if wgmma:
+        named = len(wgmma) == 4 * iters
+        for i, (n, ms) in enumerate(wgmma):
+            log(f"[5]   wgmma call {i}: {ms:.4f} ms "
+                f"{K2_PRODUCTS[i % 4] if named else ''} ({n[:60]})")
     top = 12 if what == "forward" else 16
     for name, ms in rows[:top]:
         log(f"[5] {ms:9.4f} ms/{what}  {name[:90]}")
@@ -1267,7 +1465,9 @@ def phase_profile(dev, b=8, iters=3, train=False, fn=None, what=None):
     return {"batch": b, "what": what, "wall_ms_per_iter": wall_ms / iters,
             "kernel_ms_per_iter": busy / iters,
             "busy_share": busy / wall_ms if rows else None,
-            "top": [{"kernel": n, "ms_per_iter": ms} for n, ms in rows[:top]]}
+            "top": [{"kernel": n, "ms_per_iter": ms} for n, ms in rows[:top]],
+            "wgmma_calls": [{"kernel": n, "ms": ms} for n, ms in wgmma],
+            "simt_product_ms": simt_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1840,14 +2040,21 @@ def main():
         report["ffn"] = phase_ffn(dev)
         report["unmasked"] = phase_unmasked(dev)
         report["brca"] = phase_brca(dev)
-        report["times"] = phase_times_pairs(
-            dev, phase_times_slice3(dev, phase_times(dev)))
+        report["canonical"] = phase_canonical(dev)
+        report["times"] = phase_times_products(dev, phase_times_pairs(
+            dev, phase_times_slice3(dev, phase_times(dev))))
         report["throughput"] = phase_throughput(dev)
         report["train_throughput"] = phase_train_throughput(dev)
         report["survival_throughput"] = phase_survival_throughput(dev)
         report["ffn_throughput"] = phase_ffn_throughput(dev)
         report["profile"] = phase_profile(dev)
         report["train_profile"] = phase_profile(dev, iters=1, train=True)
+        tp = report["train_profile"]
+        if len(tp["wgmma_calls"]) != 4 or tp["simt_product_ms"] > 0:
+            raise AssertionError(
+                f"the bf16 train step ran {len(tp['wgmma_calls'])} wgmma "
+                f"products (4 expected) and {tp['simt_product_ms']:.3f} ms of "
+                f"the SIMT product (none expected)")
         report["survival_profile"] = phase_profile(
             dev, b=1, iters=1, fn=surv_train_setup(dev, 45000),
             what="survival train step (L=45000)")

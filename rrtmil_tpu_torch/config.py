@@ -61,7 +61,9 @@ class InnerAttentionConfig:
     backend: str = "auto"               # 'auto' | 'pallas': the fused
     # structure (hand-written CUDA kernels on a CUDA tensor, their plain
     # PyTorch versions on a CPU tensor); 'xla': the unfused module structure
-    # (on a CUDA tensor its inner attention still runs the K5 kernel).
+    # (on a CUDA tensor its inner attention still runs the K5 kernel, and
+    # the CR-MSA K12 / K13, with float32 products whatever mm_dtype says:
+    # the XLA formulation rounds no product).
     epeg_fold: bool = False             # fold the (k,1) EPEG conv into q
     # before the fused kernel (exact: the query-axis conv commutes with the
     # key matmul, ops/epeg.epeg_fold_q) so the kernel runs its plain

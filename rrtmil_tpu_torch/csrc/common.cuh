@@ -309,8 +309,17 @@ cudaError_t launch_gemm_simt(RowsA a, Thirds b, void* out, int ldc, int M, int N
   return cudaGetLastError();
 }
 
-// out[n] = sum over s = 0..S-1 of part[s * N + n], in that order: the second
-// pass of every cross-block sum (weight and bias gradients), deterministic.
+// out[n] = sum over s = 0..S-1 of part[s * N + n]: the second pass of every
+// cross-block sum (weight and bias gradients), deterministic.  With many
+// columns (the weight gradients' partials) a thread owns a column and adds
+// its S rows in order; with few (bias and LayerNorm partials, hundreds to
+// thousands of rows of 0.5-2 K columns) a block owns 32 columns (a lane
+// each) and splits the rows into one stripe of consecutive rows a warp,
+// each stripe summed in order and the stripes added in warp order.  The
+// choice and the split depend on (S, N) alone, so every call on the same
+// shapes gives the same bits.
+constexpr long long REDUCE_WIDE = 32768;  // columns past which a thread owns one
+
 __global__ void __launch_bounds__(256)
 reduce_rows_kernel(const float* __restrict__ part, int S, long long N,
                    float* __restrict__ out) {
@@ -321,11 +330,37 @@ reduce_rows_kernel(const float* __restrict__ part, int S, long long N,
   out[n] = acc;
 }
 
+__global__ void __launch_bounds__(1024)
+reduce_rows_striped_kernel(const float* __restrict__ part, int S, long long N,
+                           float* __restrict__ out) {
+  __shared__ float stripe[32][32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, W = blockDim.x >> 5;
+  const long long n = (long long)blockIdx.x * 32 + lane;
+  const int s0 = (int)((long long)S * w / W), s1 = (int)((long long)S * (w + 1) / W);
+  float acc = 0.f;
+  if (n < N) {
+#pragma unroll 4
+    for (int s = s0; s < s1; ++s) acc += part[(long long)s * N + n];
+  }
+  stripe[w][lane] = acc;
+  __syncthreads();
+  if (w == 0 && n < N) {
+    float t = 0.f;
+    for (int v = 0; v < W; ++v) t += stripe[v][lane];
+    out[n] = t;
+  }
+}
+
 inline cudaError_t launch_reduce_rows(const void* part, int S, long long N, void* out,
                                       cudaStream_t stream) {
   if (S <= 0 || N <= 0) return cudaErrorInvalidValue;
-  reduce_rows_kernel<<<(unsigned)((N + 255) / 256), 256, 0, stream>>>(
-      (const float*)part, S, N, (float*)out);
+  if (N >= REDUCE_WIDE || S < 32) {
+    reduce_rows_kernel<<<(unsigned)((N + 255) / 256), 256, 0, stream>>>(
+        (const float*)part, S, N, (float*)out);
+  } else {
+    reduce_rows_striped_kernel<<<(unsigned)((N + 31) / 32), 1024, 0, stream>>>(
+        (const float*)part, S, N, (float*)out);
+  }
   return cudaGetLastError();
 }
 

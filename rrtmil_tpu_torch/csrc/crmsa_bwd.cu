@@ -18,16 +18,23 @@
 //
 // What bounds both on an H100: bytes.  A c16_r50 slide moves ~38 MB (K4:
 // x read, dx written) and ~75 MB (K9: x, shortcut and g read, dx written)
-// against a few tens of MFLOP.  Design, for both: one block per region, as
-// K3's forward.  A first pass gives each token row to a warp (LayerNorm
-// statistics, the logits or the per-token products, the row sums the
-// LayerNorm backward needs), the per-region reductions over P run in
-// shared memory, and a last pass gives each thread a channel and walks the
-// region's rows, so every read and write is coalesced, the region's
-// ~290 KB stay in the 50 MB L2 between the passes, and each per-channel sum
-// (dls, dlb, dphi, dreps) stays in one thread's registers.  The sums across
-// regions are per-region partials that cb_reduce adds in a fixed order: no
-// atomics, so every run gives the same bits.
+// against a few tens of MFLOP.  K4's design: one block per region, as K3's
+// forward.  A first pass gives each token row to a warp (LayerNorm
+// statistics, the logits, the row sums the LayerNorm backward needs), the
+// per-region reductions over P run in shared memory, and a last pass gives
+// each thread a channel and walks the region's rows, so every read and write
+// is coalesced and each per-channel sum (dls, dlb, dphi) stays in one
+// thread's registers.  K9's design: one pass over x, the shortcut and g, as
+// the TPU kernel (its two-pass form read them twice: at B = 8 the regions
+// in flight hold ~450 MB, far past the 50 MB L2).  A warp owns a token row
+// at a time and, beside dx and the row's dw sums, adds the row's terms into
+// its own partials (dls and dlb in registers, dreps in its slice of shared
+// memory), so the warps of a block run without a barrier between rows and
+// keep their loads in flight; the warps' partials are summed in warp order
+// at the end.  Each region's rows are split over enough blocks that B = 1
+// (64 regions) still puts two blocks on every SM.  The sums across blocks
+// are partials that cb_reduce adds in a fixed order: no atomics, so every
+// run gives the same bits.
 //
 // K11 replaces crmsa_kernels.py::_rgrid_bwd_pallas (kernel body
 // _rgrid_bwd_kernel), the backward of K10: with gm = round(g * mask) in
@@ -41,6 +48,8 @@
 // a row for its k dot products over C (dw), and each thread keeps the k
 // dreps sums of its channels in registers across all chunks.  g crosses
 // device memory once.  At B = 1 a 64-region bag keeps only 64 SMs busy.
+#include <algorithm>
+
 #include "common.cuh"
 
 using namespace rrt;
@@ -252,91 +261,177 @@ compress_grid_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ m
   }
 }
 
-size_t rgrid_smem_bytes(int C, int k, int P) {
-  return (size_t)(k * P + k * C + 5 * P) * 4 + (size_t)P * 4;
+constexpr int K9_MAX_WARPS = 8;
+constexpr int K9_SMEM_BUDGET = 110 * 1024;  // two blocks an SM
+
+// warps of a K9 block: each keeps its dreps partials (k x C floats) in
+// shared memory beside round(reps), within K9_SMEM_BUDGET
+int rgrid_warps(int C, int k) {
+  const int per = k * C * 4;
+  return std::max(1, std::min(K9_MAX_WARPS, (K9_SMEM_BUDGET - per - C * 4) / per));
 }
 
-// x + mask * round(w)^T round(reps) (+ shortcut): K8's stream, K8's order
-template <typename TS>
-__device__ __forceinline__ float stream_value(const TS* __restrict__ x,
-                                              const TS* __restrict__ sc, long long at,
-                                              const float* wm, const float* repm, int k,
-                                              int P, int C, int p, int c, float m) {
-  float y = 0.f;
-  for (int j = 0; j < k; ++j) y = fmaf(wm[j * P + p], repm[j * C + c], y);
-  float v = to_f(x[at]) + y * m;
-  if (sc) v += to_f(sc[at]);
-  return v;
+size_t rgrid_smem_bytes(int C, int k, int warps) {
+  return ((size_t)(1 + warps) * k * C + C) * 4;
 }
 
-template <typename TS, typename TM>
-__global__ void __launch_bounds__(256)
+// 4 consecutive elements (16-byte aligned float, 8-byte aligned bf16) as fp32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// K9, one pass over the region's rows p0 .. p1 - 1 (p1 - p0 <= chunk),
+// each warp its rows p0 + warp, p0 + warp + W, ... with no barrier between
+// rows.  The warp recomputes the stream value x + mask * round(w)^T
+// round(reps) (+ shortcut) (K8's order), runs the LayerNorm backward,
+// writes dx and the row's k dw sums, and adds the row's terms into its
+// partials: dls += gym * zhat and dlb += gym (gym = g * mask) in its lanes'
+// registers, dreps[j] += round(w)[j, p] * gm (gm = round(gout * mask)) in
+// its own k x C slice of shared memory.  At the end the warps' partials
+// are summed in warp order into part_reps[part, region, k, C] and
+// part_ln[part * R + region, 2 C], which cb_reduce sums in a fixed order.
+// A lane holds NC channels as NC / 4 groups of 4 (group lane + 32 i:
+// channels 4 (lane + 32 i) .. + 3), moved as 16-byte vectors, every load of
+// a row issued before any is used; C is a multiple of 4, C <= 32 NC.
+template <typename TS, typename TM, int NC>
+__global__ void __launch_bounds__(32 * K9_MAX_WARPS, NC <= 16 ? 2 : 1)
 redistribute_ln_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
                            const float* __restrict__ w, const float* __restrict__ reps,
                            const float* __restrict__ ls, const TS* __restrict__ sc,
                            const float* __restrict__ g, TS* __restrict__ dx,
-                           float* __restrict__ dw, float* __restrict__ dreps,
-                           float* __restrict__ part, int G, int rs, int C, int k,
-                           float eps) {
+                           float* __restrict__ dw, float* __restrict__ part_reps,
+                           float* __restrict__ part_ln, int G, int rs, int C, int k,
+                           int chunk, float eps) {
+  constexpr int NQ = NC / 4;  // 4-channel groups a lane holds
   extern __shared__ __align__(16) float sm[];
   const int P = rs * rs, nrs = G / rs;
-  const int region = blockIdx.x;
-  float* wm = sm;                  // [k][P] round(w)
-  float* repm = wm + k * P;        // [k][C] round(reps)
-  float* mu = repm + k * C;        // [P]
-  float* rstd = mu + P;            // [P]
-  float* msk = rstd + P;           // [P]
-  float* m1 = msk + P;             // [P]
-  float* m2 = m1 + P;              // [P]
-  int* tok = (int*)(m2 + P);       // [P]
+  const int region = blockIdx.x, R = gridDim.x, part = blockIdx.y;
+  const int p0 = part * chunk, p1 = min(P, p0 + chunk);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = blockDim.x >> 5;
+  const int nq = C / 4;
+  float* lss = sm;               // [C] the LayerNorm scale
+  float* repm = lss + C;         // [k][C] round(reps)
+  float* wdr = repm + k * C;     // [W][k][C] each warp's dreps partials
+  float* mine = wdr + (long long)warp * k * C;
   const TokenMap map{G, rs, nrs, P};
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
 
-  for (int i = tid; i < k * P; i += blockDim.x)
-    wm[i] = round_to<TM>(w[(long long)region * k * P + i]);
+  for (int i = tid; i < C; i += blockDim.x) lss[i] = ls[i];
   for (int i = tid; i < k * C; i += blockDim.x)
     repm[i] = round_to<TM>(reps[(long long)region * k * C + i]);
-  for (int p = tid; p < P; p += blockDim.x) tok[p] = (int)token_of(map, region, p);
+  for (int i = tid; i < W * k * C; i += blockDim.x) wdr[i] = 0.f;
+  float pls[NC], plb[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    pls[i] = 0.f;
+    plb[i] = 0.f;
+  }
   __syncthreads();
 
-  // phase 1, one warp per row: the LayerNorm backward, dx, dw
-  for (int p = warp; p < P; p += nwarps) {
-    const long long t = tok[p];
+  for (int p = p0 + warp; p < p1; p += W) {
+    const long long t = token_of(map, region, p);
     const float m = mask[t] ? 1.f : 0.f;
-    float vals[CPL], dzh[CPL];
+    float wr[KMAX];
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
-      vals[i] = c < C ? stream_value(x, sc, t * C + c, wm, repm, k, P, C, p, c, m) : 0.f;
+    for (int j = 0; j < KMAX; ++j)
+      wr[j] = j < k ? round_to<TM>(w[((long long)region * k + j) * P + p]) : 0.f;
+    // the row's loads, all issued before any is used (group index clamped;
+    // groups past C are zeroed below)
+    float vals[NC], gv[NC], sv[NC];
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const long long at = t * C + 4 * min(lane + 32 * i, nq - 1);
+      const float4 xv = load4(x + at), gg = load4(g + at);
+      const float4 ss = sc ? load4(sc + at) : make_float4(0.f, 0.f, 0.f, 0.f);
+      vals[4 * i] = xv.x; vals[4 * i + 1] = xv.y; vals[4 * i + 2] = xv.z; vals[4 * i + 3] = xv.w;
+      gv[4 * i] = gg.x; gv[4 * i + 1] = gg.y; gv[4 * i + 2] = gg.z; gv[4 * i + 3] = gg.w;
+      sv[4 * i] = ss.x; sv[4 * i + 1] = ss.y; sv[4 * i + 2] = ss.z; sv[4 * i + 3] = ss.w;
     }
-    float mu_p, rstd_p;
-    warp_ln_stats(vals, C, lane, eps, mu_p, rstd_p);
-    float a = 0.f, b = 0.f;
+    float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
-      if (c < C) {
-        vals[i] = (vals[i] - mu_p) * rstd_p;
-        dzh[i] = g[t * C + c] * m * ls[c];
-        a += dzh[i];
-        b += dzh[i] * vals[i];
+    for (int i = 0; i < NQ; ++i) {
+      const int q = lane + 32 * i, c0 = 4 * min(q, nq - 1);
+      const bool ok = q < nq;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float y = 0.f;
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j)
+          if (j < k) y = fmaf(wr[j], repm[j * C + c0 + e], y);
+        const float v = ok ? vals[4 * i + e] + y * m + sv[4 * i + e] : 0.f;
+        vals[4 * i + e] = v;
+        gv[4 * i + e] = ok ? gv[4 * i + e] * m : 0.f;
+        s1 += v;
+        s2 += v * v;
       }
     }
-    const float m1p = warp_sum(a) / C, m2p = warp_sum(b) / C;
+    // the LayerNorm statistics (flax fast variance), as warp_ln_stats
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    const float mu = s1 / C;
+    const float rstd = 1.f / sqrtf(fmaxf(0.f, s2 / C - mu * mu) + eps);
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int c0 = 4 * min(lane + 32 * i, nq - 1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float zh = (vals[4 * i + e] - mu) * rstd;
+        vals[4 * i + e] = zh;
+        const float dzh = gv[4 * i + e] * lss[c0 + e];
+        a += dzh;
+        b += dzh * zh;
+      }
+    }
+    const float m1 = warp_sum(a) / C, m2 = warp_sum(b) / C;
     float acc[KMAX];
 #pragma unroll
     for (int j = 0; j < KMAX; ++j) acc[j] = 0.f;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
-      if (c < C) {
-        const float gout = rstd_p * (dzh[i] - m1p - vals[i] * m2p);
-        dx[t * C + c] = from_f<TS>(gout);
-        const float gm = round_to<TM>(gout * m);
+    for (int i = 0; i < NQ; ++i) {
+      const int q = lane + 32 * i;
+      if (q < nq) {
+        const int c0 = 4 * q;
+        float go[4], gm[4];
 #pragma unroll
-        for (int j = 0; j < KMAX; ++j)
-          if (j < k) acc[j] = fmaf(repm[j * C + c], gm, acc[j]);
+        for (int e = 0; e < 4; ++e) {
+          const int n = 4 * i + e;
+          go[e] = rstd * (gv[n] * lss[c0 + e] - m1 - vals[n] * m2);
+          gm[e] = round_to<TM>(go[e] * m);
+          pls[n] += gv[n] * vals[n];
+          plb[n] += gv[n];
+        }
+        store4(dx + t * C + c0, go[0], go[1], go[2], go[3]);
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) {
+          if (j < k) {
+            const float4 rv = *reinterpret_cast<const float4*>(&repm[j * C + c0]);
+            acc[j] = fmaf(rv.x, gm[0], fmaf(rv.y, gm[1], fmaf(rv.z, gm[2],
+                                                             fmaf(rv.w, gm[3], acc[j]))));
+            float4* d = reinterpret_cast<float4*>(&mine[j * C + c0]);
+            float4 u = *d;
+            u.x = fmaf(wr[j], gm[0], u.x);
+            u.y = fmaf(wr[j], gm[1], u.y);
+            u.z = fmaf(wr[j], gm[2], u.z);
+            u.w = fmaf(wr[j], gm[3], u.w);
+            *d = u;
+          }
+        }
       }
     }
 #pragma unroll
@@ -346,34 +441,54 @@ redistribute_ln_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__
         if (lane == 0) dw[((long long)region * k + j) * P + p] = s;
       }
     }
-    if (lane == 0) { mu[p] = mu_p; rstd[p] = rstd_p; msk[p] = m; m1[p] = m1p; m2[p] = m2p; }
   }
   __syncthreads();
 
-  // phase 2, one thread per channel: dreps and the dls / dlb partials
-  for (int c = tid; c < C; c += blockDim.x) {
-    const float s = ls[c];
-    float dls = 0.f, dlb = 0.f, dr[KMAX];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) dr[j] = 0.f;
-    for (int p = 0; p < P; ++p) {
-      const long long at = (long long)tok[p] * C + c;
-      const float m = msk[p];
-      const float zhat =
-          (stream_value(x, sc, at, wm, repm, k, P, C, p, c, m) - mu[p]) * rstd[p];
-      const float gym = g[at] * m;
-      dls += gym * zhat;
-      dlb += gym;
-      const float gout = rstd[p] * (gym * s - m1[p] - zhat * m2[p]);
-      const float gm = round_to<TM>(gout * m);
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j < k) dr[j] = fmaf(wm[j * P + p], gm, dr[j]);
-    }
-    for (int j = 0; j < k; ++j) dreps[((long long)region * k + j) * C + c] = dr[j];
-    part[(long long)region * 2 * C + c] = dls;
-    part[(long long)region * 2 * C + C + c] = dlb;
+  // the warps' partials, summed in warp order
+  const long long blk = (long long)part * R + region;
+  for (int e = tid; e < k * C; e += blockDim.x) {
+    float s = 0.f;
+    for (int v = 0; v < W; ++v) s += wdr[(long long)v * k * C + e];
+    part_reps[blk * k * C + e] = s;
   }
+  for (int r = 0; r < 2; ++r) {  // dls, then dlb, through the same buffer
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      const int q = lane + 32 * i;
+      if (q < nq) {
+        const int n = 4 * i;
+        if (r)
+          store4(&wdr[warp * C + 4 * q], plb[n], plb[n + 1], plb[n + 2], plb[n + 3]);
+        else
+          store4(&wdr[warp * C + 4 * q], pls[n], pls[n + 1], pls[n + 2], pls[n + 3]);
+      }
+    }
+    __syncthreads();
+    for (int c = tid; c < C; c += blockDim.x) {
+      float s = 0.f;
+      for (int v = 0; v < W; ++v) s += wdr[v * C + c];
+      part_ln[blk * 2 * C + r * C + c] = s;
+    }
+  }
+}
+
+template <typename TS, typename TM, int NC>
+cudaError_t launch_redistribute_ln_bwd(dim3 grid, int warps, size_t smem, cudaStream_t stream,
+                                       const void* x, const void* mask, const void* w,
+                                       const void* reps, const void* ls, const void* sc,
+                                       const void* g, void* dx, void* dw, void* part_reps,
+                                       void* part_ln, int G, int rs, int C, int k, int chunk,
+                                       float eps) {
+  cudaError_t err = cudaFuncSetAttribute(redistribute_ln_bwd_kernel<TS, TM, NC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  redistribute_ln_bwd_kernel<TS, TM, NC><<<grid, 32 * warps, smem, stream>>>(
+      (const TS*)x, (const uint8_t*)mask, (const float*)w, (const float*)reps,
+      (const float*)ls, (const TS*)sc, (const float*)g, (TS*)dx, (float*)dw,
+      (float*)part_reps, (float*)part_ln, G, rs, C, k, chunk, eps);
+  return cudaGetLastError();
 }
 
 constexpr int BT = 16;   // token rows per chunk (K11)
@@ -485,25 +600,34 @@ extern "C" int cb_compress_grid_bwd(int ts, int tm, const void* x, const void* m
   return (int)cudaGetLastError();
 }
 
+// K9: one block per (region, chunk of `chunk` token rows); the partials
+// part_reps (parts, R, k, C) and part_ln (parts * R, 2 C) are summed by
+// cb_reduce over the parts (dreps) and over every block (dls, dlb)
 extern "C" int cb_redistribute_ln_bwd(int ts, int tm, const void* x, const void* mask,
                                       const void* w, const void* reps, const void* ls,
                                       const void* sc, const void* g, void* dx, void* dw,
-                                      void* dreps, void* part, int B, int G, int rs, int C,
-                                      int k, float eps, void* stream) {
-  if (C > 32 * CPL || k < 1 || k > KMAX || G % rs != 0) return (int)cudaErrorInvalidValue;
-  const int nrs = G / rs;
-  const size_t smem = rgrid_smem_bytes(C, k, rs * rs);
-  cudaError_t err = cudaSuccess;
+                                      void* part_reps, void* part_ln, int B, int G, int rs,
+                                      int C, int k, int chunk, float eps, void* stream) {
+  if (C > 32 * CPL || C % 4 != 0 || k < 1 || k > KMAX || rs < 1 || G % rs != 0 ||
+      chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nrs = G / rs, P = rs * rs;
+  const dim3 grid(B * nrs * nrs, (P + chunk - 1) / chunk);
+  const int warps = rgrid_warps(C, k);
+  const size_t smem = rgrid_smem_bytes(C, k, warps);
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaErrorInvalidValue;
+#define RRT_K9(NC)                                                                       \
+  err = launch_redistribute_ln_bwd<TS, TM, NC>(grid, warps, smem, s, x, mask, w, reps, ls, \
+                                               sc, g, dx, dw, part_reps, part_ln, G, rs,  \
+                                               C, k, chunk, eps)
   RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
-      err = cudaFuncSetAttribute(redistribute_ln_bwd_kernel<TS, TM>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      redistribute_ln_bwd_kernel<TS, TM><<<B * nrs * nrs, 256, smem,
-                                           (cudaStream_t)stream>>>(
-          (const TS*)x, (const uint8_t*)mask, (const float*)w, (const float*)reps,
-          (const float*)ls, (const TS*)sc, (const float*)g, (TS*)dx, (float*)dw,
-          (float*)dreps, (float*)part, G, rs, C, k, eps)));
-  return (int)cudaGetLastError();
+      if (C <= 128) RRT_K9(4);
+      else if (C <= 256) RRT_K9(8);
+      else if (C <= 512) RRT_K9(16);
+      else RRT_K9(32)));
+#undef RRT_K9
+  return (int)err;
 }
 
 // K11: g (B, G*G, C) -> dw (B, nR, k, P), dreps (B, nR, k, C)

@@ -59,15 +59,19 @@
 // projection backward, qkv backward) against ~57 MB of x, g and dx.
 // Design: a pipeline, like K1's forward.  The recompute runs K1's own
 // entries (rl_ln_mask, rl_gemm, rl_attention in region_layer.cu); then
-// rb_colsum forms round(g * mask) and the dbp partials; rb_gemm the weight
-// gradients o^T gm and z^T round(dqkv) (A^T B, split along the token axis
-// into partials that rb_reduce sums in order) and the data gradients
+// rb_colsum forms round(g * mask) and the dbp partials; four products, the
+// weight gradients o^T gm and z^T round(dqkv) (A^T B, split along the token
+// axis into partials that rb_reduce sums in order) and the data gradients
 // gm Wp^T and round(dqkv) Wqkv^T (A B^T); rb_attention_bwd the core above
-// on the token map; rb_ln_bwd the LayerNorm backward, one warp per token
-// row, with the mask, the residual's g and per-warp dls/dlb partials.  The
-// products run on the CUDA cores in fp32 (the rounding points are the TPU
-// kernel's); tensor cores for them are later work, recorded in PERF.md.
-#include "tc.cuh"
+// on the token map; rb_colsum again for dbqkv (the sum of the unrounded
+// dqkv) and, with bf16 products, round(dqkv) into a bf16 copy, the TPU
+// kernel's rounding point, which both dqkv products read; rb_ln_bwd the
+// LayerNorm backward, one warp per token row, with the mask, the
+// residual's g and per-warp dls/dlb partials.  With bf16 products the four
+// products run on the warpgroup tensor cores (rb_gemm_tc, wgmma.cuh: TMA
+// ring, operands read where they lie); with f32 products (strict parity)
+// on the CUDA cores in fp32 (rb_gemm, common.cuh's SIMT product).
+#include "wgmma.cuh"
 
 using namespace rrt;
 
@@ -1142,6 +1146,26 @@ extern "C" int rb_gemm(int tm, int a32, int b32, int o32, int at, int bt, const 
   if (tm == 0) return gemm_tm<float>(a32, b32, o32, at, bt, g);
   if (tm == 1) return gemm_tm<bf16>(a32, b32, o32, at, bt, g);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 products on the warpgroup tensor cores (wgmma.cuh): mn = 1, out =
+// A^T B with A stored (K, M), B stored (K, N), the token axis K split into
+// chunks of kchunk rows (a multiple of 64), chunk z written at out + z *
+// zstride; mn = 0, out = A B^T with A stored (M, K), B stored (N, K).  A and
+// B bf16; out float (o32) or bf16.
+extern "C" int rb_gemm_tc(int mn, int o32, const void* A, int lda, const void* B, int ldb,
+                          void* out, int ldc, int M, int N, int K, int kchunk,
+                          long long zstride, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (mn)
+    return (int)(o32 ? wg::launch_gemm_wgmma<true, float>(A, lda, B, ldb, out, ldc, M, N, K,
+                                                          kchunk, zstride, s)
+                     : wg::launch_gemm_wgmma<true, bf16>(A, lda, B, ldb, out, ldc, M, N, K,
+                                                         kchunk, zstride, s));
+  return (int)(o32 ? wg::launch_gemm_wgmma<false, float>(A, lda, B, ldb, out, ldc, M, N, K,
+                                                         kchunk, zstride, s)
+                   : wg::launch_gemm_wgmma<false, bf16>(A, lda, B, ldb, out, ldc, M, N, K,
+                                                        kchunk, zstride, s));
 }
 
 extern "C" int rb_colsum(int ta, int tm, const void* A, int lda, long long M, int N,

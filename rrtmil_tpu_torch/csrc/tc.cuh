@@ -7,8 +7,8 @@
 //
 // Why mma.sync and not wgmma / TMA: at K5's and K6's shapes a block does a
 // few 64 x 64 tiles, so launch latency and host time set the pace, not the
-// tensor-core rate; warpgroup products fed by TMA rings are the design for
-// K1's and K2's large products, a later redesign.
+// tensor-core rate.  K2's four large products run on warpgroup products fed
+// by a TMA ring (wgmma.cuh); K1's qkv product is the next candidate.
 #pragma once
 
 #include <type_traits>

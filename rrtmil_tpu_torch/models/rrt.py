@@ -27,10 +27,11 @@ Two structures, as in the JAX package:
 On a CUDA tensor every route launches the hand-written kernels, whatever
 the backend: the JAX package's 'xla' backend never reaches a Pallas kernel
 (rrt.py:150-151), but the port runs no eager code on the card, so there
-'xla' selects only the unfused structure.  On a CPU tensor the kernels'
-plain versions run, and backend 'xla' keeps the JAX package's XLA
-formulation of InnerAttention; its CrossRegionAttention is K12/K13's plain
-versions with float32 products, which round nothing, as the XLA einsums.
+'xla' selects only the unfused structure, and its kernels run with float32
+products (`products_dtype`), which round nothing, as the XLA einsums.  On a
+CPU tensor the kernels' plain versions run, and backend 'xla' keeps the JAX
+package's XLA formulation of InnerAttention; its CrossRegionAttention is
+K12/K13's plain versions with float32 products.
 
 The JAX package's TPU gates (layer_fusable_geometry, crmsa_fusable_geometry,
 legal_cb) have no counterpart: the kernels take every geometry of these
@@ -211,7 +212,7 @@ class InnerAttention(nn.Module):
             raise _todo("attention-probability dropout (attn_dropout > 0)")
         if x.is_cuda or cfg.backend != "xla":
             out = region_block_fused(x.to(cdt), *self.kernel_weights(),
-                                     mm_dtype=_dtype(cfg.mm_dtype))
+                                     mm_dtype=products_dtype(cfg))
         else:
             out = self._forward_xla(x, cdt)
         return dropout(out, cfg.proj_dropout, generator, self.training)
@@ -233,6 +234,13 @@ class InnerAttention(nn.Module):
                            v.float())
         out = out.transpose(1, 2).reshape(b_, n, h * hd).to(cdt)
         return F.linear(out, self.proj.weight.to(cdt), self.proj.bias.to(cdt))
+
+
+def products_dtype(cfg: InnerAttentionConfig) -> torch.dtype:
+    """The products dtype of the kernels of a layer of `cfg`, on either
+    device: float32 for backend 'xla', whose XLA formulation rounds no
+    product (the JAX package's rrt.py:150,366), else cfg.mm_dtype."""
+    return torch.float32 if cfg.backend == "xla" else _dtype(cfg.mm_dtype)
 
 
 class RegionAttention(nn.Module):
@@ -288,10 +296,9 @@ class CrossRegionAttention(nn.Module):
         geom = grid_geometry(length, cfg.region)
         rs, nr, kk = geom.region_size, geom.num_regions, cfg.crmsa_k
         x = _fit_length(x, geom.padded_length).reshape(b, geom.grid, geom.grid, c)
-        # the XLA einsums (rrt.py:392-440) round nothing: K12/K13's plain
-        # versions at float32 products are that formulation
-        mmd = (torch.float32 if cfg.attn.backend == "xla" and not x.is_cuda
-               else _dtype(cfg.attn.mm_dtype))
+        # the XLA einsums (rrt.py:392-440) round nothing: K12/K13 at float32
+        # products are that formulation
+        mmd = products_dtype(cfg.attn)
         reps, w = crmsa_compress(region_partition(x, rs), self.phi, mmd)
         # (B*nR, k, C) -> (B*k, nR, C); a view when B = 1, and K5 reads its
         # input in place

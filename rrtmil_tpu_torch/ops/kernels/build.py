@@ -52,6 +52,8 @@ SIGNATURES = {
     "region_layer_bwd": {
         "rb_gemm": [_I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
                     _I, _I, _LL, _P],
+        "rb_gemm_tc": [_I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _LL,
+                       _P],
         "rb_colsum": [_I, _I, _P, _I, _LL, _I, _P, _P, _I, _I, _P, _P],
         "rb_reduce": [_P, _I, _LL, _P, _P],
         "rb_ln_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _P],
@@ -72,7 +74,7 @@ SIGNATURES = {
         "cb_compress_grid_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _F, _P],
         "cb_redistribute_ln_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _P, _I, _I, _I, _I, _I, _F, _P],
+                                   _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
         "cb_redistribute_grid_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _P],
         "cb_reduce": [_P, _I, _LL, _P, _P],

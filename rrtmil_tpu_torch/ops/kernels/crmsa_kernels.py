@@ -59,9 +59,21 @@ from ..regions import region_partition, region_reverse
 from . import build
 from .common import (LN_EPS, ln_bwd_plain, ln_fast, ln_mask_plain, ln_stats,
                      mm_round)
-from .region_layer import check_grid
+from .region_layer import SMS, check_grid
 
 MAX_K = 8   # representatives per region the kernels take
+K9_ROWS = 8            # token rows one round of a K9 block takes (a warp each)
+K9_BLOCKS_PER_SM = 2   # K9 blocks the row split gives every SM at least
+
+
+def k9_row_split(regions: int, p: int, sms: int = SMS) -> int:
+    """Token rows of a region per K9 block: each region's p rows split over
+    enough blocks that regions x blocks >= K9_BLOCKS_PER_SM blocks an SM
+    (or one block a round of K9_ROWS rows, when p is too short for that); a
+    multiple of K9_ROWS."""
+    steps = -(-p // K9_ROWS)
+    need = max(1, -(-K9_BLOCKS_PER_SM * sms // regions))
+    return max(1, steps // need) * K9_ROWS
 
 
 def compress_grid_plain(x, mask, ln_s, ln_b, phi, grid_side: int,
@@ -273,23 +285,32 @@ def _launch_redistribute_bwd(x, mask, w, reps, ln_s, ln_b, shortcut, gout,
     build.require_cuda({"x": x, "mask": mask, "w": w, "reps": reps,
                         "shortcut": shortcut, "g": gout},
                        dict(ln_s=ln_s, ln_b=ln_b))
+    _check_vector_rows(c, x, shortcut, gout)
     lib = build.load("crmsa_bwd")
     s = build.stream_of(x)
     ls = ln_s.float().contiguous()
     dx = torch.empty_like(x)
     f32 = dict(dtype=torch.float32, device=x.device)
     dw = torch.empty((b, nr, k, p), **f32)
-    dreps = torch.empty((b, nr, k, c), **f32)
-    part = torch.empty((b * nr, 2 * c), **f32)
+    chunk = k9_row_split(b * nr, p)
+    parts = -(-p // chunk)
+    nrep = b * nr * k * c
+    # one allocation each for the outputs (dreps, dls | dlb) and the
+    # blocks' partials (dreps, then dls | dlb)
+    outs = torch.empty((nrep + 2 * c,), **f32)
+    part = torch.empty((parts * (nrep + b * nr * 2 * c),), **f32)
+    dreps, out = outs[:nrep].view(b, nr, k, c), outs[nrep:]
+    part_reps, part_ln = part[:parts * nrep], part[parts * nrep:]
     build.check(lib.cb_redistribute_ln_bwd(
         build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
         mask.data_ptr(), w.data_ptr(), reps.data_ptr(), ls.data_ptr(),
         build.ptr(shortcut), gout.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-        dreps.data_ptr(), part.data_ptr(), b, g, rs, c, k, LN_EPS, s),
-        "K9 redistribute backward")
-    out = torch.empty((2 * c,), **f32)
-    build.check(lib.cb_reduce(part.data_ptr(), b * nr, 2 * c, out.data_ptr(),
-                              s), "K9 reduce")
+        part_reps.data_ptr(), part_ln.data_ptr(), b, g, rs, c, k, chunk,
+        LN_EPS, s), "K9 redistribute backward")
+    build.check(lib.cb_reduce(part_reps.data_ptr(), parts, nrep,
+                              dreps.data_ptr(), s), "K9 reduce")
+    build.check(lib.cb_reduce(part_ln.data_ptr(), parts * b * nr, 2 * c,
+                              out.data_ptr(), s), "K9 reduce")
     crmsa_redistribute_grid_ln_bwd.launches += 1
     return (dx, dw, dreps, out[:c], out[c:],
             None if shortcut is None else dx)
@@ -456,7 +477,7 @@ MAX_C = 1024   # channels the K10-K13 kernels take (32 x CPL in common.cuh)
 
 
 def _check_vector_rows(c: int, *tensors) -> None:
-    """K10 and K13 move four channels per lane: C % 4 == 0 and 16-byte
+    """K9, K10 and K13 move four channels per lane: C % 4 == 0 and 16-byte
     aligned rows."""
     if c % 4 or c > MAX_C:
         raise ValueError(f"the redistribute kernels take C % 4 == 0 and "

@@ -20,7 +20,10 @@ weights and g = d(out) it recomputes the layer and returns the gradients of
 (x, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp), rounding where the
 TPU kernel rounds (z, the qkv, the Toeplitz matrix, o, g * mask, d(o),
 d(logits), d(qkv)).  Its CUDA source is `csrc/region_layer_bwd.cu`, with
-K1's entries for the recompute.  The notes in both sources say what bounds
+K1's entries for the recompute; with bf16 products its four products (the
+weight gradients o^T gm, z^T round(dqkv) and the data gradients gm Wp^T,
+round(dqkv) Wqkv^T, `k2_product`) run on the warpgroup tensor cores
+(`csrc/wgmma.cuh`).  The notes in both sources say what bounds
 the kernels on an H100 and what the design does about it.
 
 `region_layer_fused` is a `torch.autograd.Function` whose forward is K1 and
@@ -42,6 +45,9 @@ from .region_block import block_core_plain, qkv_args, qkv_weights
 COLSUM_ROWS = 256    # rows of one partial column sum
 LN_ROWS_PER_WARP = 32
 SMS = 132            # streaming multiprocessors of an H100 SXM
+TC_TILE = 128        # output tile side of the tensor-core product (wgmma.cuh)
+TC_STEP = 64         # token rows one k step of it reads
+TC_MIN_STEPS = 4     # k steps a chunk of the token split takes at least
 
 
 def region_layer_plain(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb,
@@ -179,17 +185,39 @@ def _launch(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
 
 
 def _split(m: int, tiles: int) -> int:
-    """Rows of the token axis per partial product: enough partials to give
-    the card ~2 blocks an SM, none shorter than 256 rows; a multiple of 8."""
+    """Rows of the token axis per partial product of the SIMT product (f32
+    products): enough partials to give the card ~2 blocks an SM, none
+    shorter than 256 rows; a multiple of 8."""
     chunks = max(1, min(-(-2 * SMS // tiles), -(-m // 256)))
     rows = -(-m // chunks)
     return -(-rows // 8) * 8
 
 
+def token_split(m: int, tiles: int, sms: int = SMS) -> int:
+    """Rows of the token axis per chunk of a weight gradient on the tensor
+    cores (one block of 128 x 128 outputs an SM, `tiles` of them): the
+    chunk count that minimises waves x (k steps a block + 2 for its
+    partial's store), at most four waves, no chunk under TC_MIN_STEPS k
+    steps; a multiple of TC_STEP, so no k step crosses two chunks."""
+    steps = -(-m // TC_STEP)
+    most = max(1, steps // TC_MIN_STEPS)
+    best, best_cost = 1, None
+    for chunks in range(1, min(most, max(1, 4 * sms // tiles)) + 1):
+        cost = -(-tiles * chunks // sms) * (-(-steps // chunks) + 2)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = chunks, cost
+    return -(-steps // best) * TC_STEP
+
+
 def _gemm(lib, tm, a, lda, b, ldb, out, ldc, m, n, k, *, at=False, bt=False,
           s=None):
     """out = round(A) round(B) (A^T with at, B^T with bt); with at the token
-    axis k is split into partials that are summed in order into `out`."""
+    axis k is split into partials that are summed in order into `out`.
+    bf16 products run on the tensor cores and read A and B as they are
+    (bf16), f32 products on the SIMT product."""
+    if tm == 1:
+        _gemm_tc(lib, a, lda, b, ldb, out, ldc, m, n, k, at, s)
+        return
     a32 = int(a.dtype == torch.float32)
     b32 = int(b.dtype == torch.float32)
     o32 = int(out.dtype == torch.float32)
@@ -207,6 +235,66 @@ def _gemm(lib, tm, a, lda, b, ldb, out, ldc, m, n, k, *, at=False, bt=False,
                             kchunk, m * n, s), "K2 weight product")
     build.check(lib.rb_reduce(part.data_ptr(), parts, m * n, out.data_ptr(),
                               s), "K2 reduce")
+
+
+def _gemm_tc(lib, a, lda, b, ldb, out, ldc, m, n, k, at, s):
+    """The bf16 product on the warpgroup tensor cores: A^T B (at: A (k, m),
+    B (k, n), split along the token axis k) or A B^T (A (m, k), B (n, k))."""
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core product reads bfloat16 operands, "
+                        f"not {a.dtype} and {b.dtype}")
+    o32 = int(out.dtype == torch.float32)
+    if not at:
+        build.check(lib.rb_gemm_tc(0, o32, a.data_ptr(), lda, b.data_ptr(),
+                                   ldb, out.data_ptr(), ldc, m, n, k,
+                                   -(-k // TC_STEP) * TC_STEP, 0, s),
+                    "K2 product")
+        return
+    kchunk = token_split(k, -(-m // TC_TILE) * -(-n // TC_TILE))
+    parts = -(-k // kchunk)
+    part = out if parts == 1 else torch.empty((parts, m, n),
+                                              dtype=torch.float32,
+                                              device=a.device)
+    build.check(lib.rb_gemm_tc(1, 1, a.data_ptr(), lda, b.data_ptr(), ldb,
+                               part.data_ptr(), n if parts > 1 else ldc, m,
+                               n, k, kchunk, m * n, s), "K2 weight product")
+    if parts > 1:
+        build.check(lib.rb_reduce(part.data_ptr(), parts, m * n,
+                                  out.data_ptr(), s), "K2 reduce")
+
+
+def k2_product_plain(a, b, at: bool, out_dtype=torch.float32,
+                     mm_dtype=torch.bfloat16):
+    """Plain PyTorch version of K2's products: round(a)^T round(b) (at) or
+    round(a) round(b)^T in float32, stored as out_dtype."""
+    a, b = mm_round(a, mm_dtype).float(), mm_round(b, mm_dtype).float()
+    return (a.t() @ b if at else a @ b.t()).to(out_dtype)
+
+
+def k2_product(a, b, at: bool, out_dtype=torch.float32,
+               mm_dtype=torch.bfloat16):
+    """One of K2's products on its own (the wrapper of the kernels its
+    backward launches): a^T b with at (a (m, M), b (m, N): a weight
+    gradient, summed over the m tokens in chunks added in order), else
+    a b^T (a (M, K), b (N, K): a data gradient); operands rounded to
+    mm_dtype, fp32 sums, out_dtype out.  Contiguous operands; with bf16
+    products they must be bf16 already (the tensor cores read them as they
+    lie).  On CPU tensors the plain version."""
+    if a.device.type == "cpu":
+        return k2_product_plain(a, b, at, out_dtype, mm_dtype)
+    build.require_cuda({"a": a, "b": b}, {})
+    lib = build.load("region_layer_bwd")
+    if at:
+        (k, m), n = a.shape, b.shape[1]
+    else:
+        (m, k), n = a.shape, b.shape[0]
+    if (b.shape[0] if at else b.shape[1]) != k:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} do not "
+                         f"share the summed axis")
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    _gemm(lib, build.dtype_code(mm_dtype), a, a.shape[1], b, b.shape[1], out,
+          n, m, n, k, at=at, bt=not at, s=build.stream_of(a))
+    return out
 
 
 def _cols(t, ld, col, hd):
@@ -270,12 +358,17 @@ def _launch_bwd(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
     dpw, dpb = attention_bwd_launch(rb, tm, tm, 0, ops, b * (gs // rs) ** 2,
                                     h, hd, rs * rs, gs, rs, pw, pb, kk, 1.0,
                                     x.device, s)
-    dbqkv = _colsum(rb, tm, dqkv, m, nq, None, None, s)
+    # dbqkv = the sum of dqkv; with bf16 products round(dqkv) into a bf16
+    # copy, which both products read (the tensor cores read bf16 as it lies)
+    dqm = torch.empty((m, nq), dtype=mmd, device=x.device) \
+        if mmd != torch.float32 else None
+    dbqkv = _colsum(rb, tm, dqkv, m, nq, None, dqm, s)
+    dqm = dqkv if dqm is None else dqm
     # dWqkv = z^T round(dqkv), dz = round(dqkv) Wqkv^T
     dwqkv = torch.empty((c, nq), **f32)
-    _gemm(rb, tm, z, c, dqkv, nq, dwqkv, nq, c, nq, m, at=True, s=s)
+    _gemm(rb, tm, z, c, dqm, nq, dwqkv, nq, c, nq, m, at=True, s=s)
     dz = torch.empty((m, c), **f32)
-    _gemm(rb, tm, dqkv, nq, wqkv, nq, dz, c, m, c, nq, bt=True, s=s)
+    _gemm(rb, tm, dqm, nq, wqkv, nq, dz, c, m, c, nq, bt=True, s=s)
     # the LayerNorm backward (+ g through the residual)
     parts = -(-m // LN_ROWS_PER_WARP)
     part = torch.empty((2, parts, c), **f32)

@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from rrtmil_tpu_torch.config import (InnerAttentionConfig, brca_r50, c16_r50,
+from rrtmil_tpu_torch.config import (InnerAttentionConfig, brca_plip,
+                                     brca_r50, c16_plip, c16_r50, nsclc_r50,
                                      survival_default)
 from rrtmil_tpu_torch.data.datasets import ArrayDataset
 from rrtmil_tpu_torch.data.survival import ArraySurvivalDataset
@@ -34,6 +35,12 @@ from rrtmil_tpu_torch.train.surv_engine import (SurvivalEngine,
                                                 SurvivalEngineConfig)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# K2's gradients that are zero in exact arithmetic (a key-constant logit
+# shift cancels in the softmax), by output position: the key bias and the
+# EPEG bias; rounding noise on both sides, with the absolute limit the
+# autograd checks of chip_smoke.py hold them to in float32
+K2_NOISE_GRADS = (7, 10)
+NOISE_ABS = 3e-4
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -389,18 +396,22 @@ def test_cuda_k5_k6_k7_read_strided_inputs_in_place(sdt, mm, h, hd):
 
 
 @pytest.mark.gpu
-def test_brca_r50_on_card_goes_through_every_kernel():
-    """brca_r50 (CR-MSA: one 512-wide head): an evaluation and one train
-    step (dropout off, fp32 products, TF32 off) on the card launch K1, K3,
-    K5, K8 every batch and K1-K9 every step; probabilities and the step's
-    loss match the CPU run of the same weights."""
+@pytest.mark.parametrize("config", [brca_r50, nsclc_r50, c16_plip, brca_plip])
+def test_brca_r50_on_card_goes_through_every_kernel(config):
+    """brca_r50 (CR-MSA: one 512-wide head) and the canonical configs that
+    reach the kernels at settings c16_r50 does not (nsclc_r50: EPEG k = 21,
+    CR-MSA k = 5, no shortcut into K8 / K9; c16_plip: k = 9, CR-MSA k = 3,
+    input width 512; brca_plip: input width 512): an evaluation and one
+    train step (dropout off, fp32 products, TF32 off) on the card launch
+    K1, K3, K5, K8 every batch and K1-K9 every step; probabilities and the
+    step's loss match the CPU run of the same weights."""
     _cuda()
-    base = brca_r50()
+    base = config()
     cfg = dataclasses.replace(base, dropout=0.0, encoder=dataclasses.replace(
         base.encoder, dropout=0.0, mm_dtype="float32"))
     rng = np.random.default_rng(11)
-    ds = ArrayDataset([rng.standard_normal((n, 1024)).astype(np.float32)
-                       for n in (937, 2213)], [0, 1])
+    ds = ArrayDataset([rng.standard_normal((n, cfg.input_dim))
+                       .astype(np.float32) for n in (937, 2213)], [0, 1])
     fns = (rl.region_layer_fused, rl.region_layer_bwd, ck.crmsa_compress_grid,
            ck.crmsa_compress_grid_bwd, rb.region_block_fused,
            ra.region_attention_fused, rab.region_attention_bwd,
@@ -424,6 +435,147 @@ def test_brca_r50_on_card_goes_through_every_kernel():
     loss_c = Engine(cpu, EngineConfig(), cfg.encoder,
                     device="cpu").train_epoch(ds, 0, order=[0])
     assert abs(loss - loss_c) <= 1e-4 * max(1.0, abs(loss_c))
+
+
+def _twice(fn, args, mm):
+    """fn's outputs on args, after checking a second call gives the same
+    bits (every cross-block sum is taken in a fixed order, no atomics)."""
+    got, again = fn(*args, mm_dtype=mm), fn(*args, mm_dtype=mm)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b), \
+            "two calls on the same inputs differ"
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mm", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 37, 9216 + 8, 73728])
+def test_cuda_k2_products_match_plain(mm, m):
+    """K2's four products on their own, at c16_r50's (and brca_r50's) R-MSA
+    widths (C = 512, 8 x 64 heads) and ragged token counts m: the weight
+    gradients o^T gm (512 x 512) and z^T round(dqkv) (512 x 1536), summed
+    over the m tokens in chunks, and the data gradients gm Wp^T (bf16 out)
+    and round(dqkv) Wqkv^T (f32 out).  bf16 products run on the warpgroup
+    tensor cores, f32 products on the SIMT product."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(m)
+    r = lambda *s: torch.randn(s, generator=gen, device=dev).to(mm)
+    cases = (("dWp", (r(m, 512), r(m, 512), True, torch.float32)),
+             ("dWqkv", (r(m, 512), r(m, 1536), True, torch.float32)),
+             ("d(o)", (r(m, 512), r(512, 512), False, mm)),
+             ("dz", (r(m, 1536), r(512, 1536), False, torch.float32)))
+    for what, args in cases:
+        (got,) = _twice(rl.k2_product, args, mm)
+        _close(got, rl.k2_product_plain(*args, mm_dtype=mm), mm,
+               f"{what} m={m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", PAIRS)
+@pytest.mark.parametrize("kk", [15, 21])
+@pytest.mark.parametrize("add_residual", [True, False])
+def test_cuda_k1_k2_at_c16_r50_width(sdt, mm, kk, add_residual):
+    """K1's forward and K2's gradients at the R-MSA layer's full width (C =
+    512, 8 x 64 heads, P = 144, EPEG k = 15 as c16_r50 and 21 as nsclc_r50)
+    against their plain versions, both residual modes; K2 gives the same
+    bits on a second call.  The key-bias and EPEG-bias gradients are zero in
+    exact arithmetic, so both sides return rounding noise there: they are
+    held to twice the plain version's own distance from its float32-product
+    run, or NOISE_ABS, whichever is larger."""
+    dev = _cuda()
+    x, mask, (ls, lb), weights, _, _ = _case(dev, sdt, c=512, h=8, seed=kk)
+    w = weights(kk)
+    gx = torch.randn(x.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(kk), device=dev).to(sdt)
+    args = (x, mask, ls, lb, *w, 24, 12, add_residual)
+    (out,) = _twice(rl.region_layer_fused, args, mm)
+    _close(out, rl.region_layer_plain(*args, mm_dtype=mm), mm, "K1")
+    args = (x, mask, ls, lb, *w, gx, 24, 12, add_residual)
+    got = _twice(rl.region_layer_bwd, args, mm)
+    want = rl.region_layer_bwd_plain(*args, mm_dtype=mm)
+    exact = rl.region_layer_bwd_plain(*args, mm_dtype=torch.float32)
+    what = f"K2 k={kk} add_residual={add_residual}"
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None or b is None:
+            assert a is None and b is None
+            continue
+        if i in K2_NOISE_GRADS:
+            own = (b.float() - exact[i].float()).abs().max().item()
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= max(NOISE_ABS, 2 * own), \
+                f"{what} gradient {i}: {err:.3e} past the noise {own:.3e}"
+            continue
+        _close(a, b, mm, what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", PAIRS)
+@pytest.mark.parametrize("p", [1, 9, 144, 729, 961])
+@pytest.mark.parametrize("b", [1, 8])
+def test_cuda_k9_at_ragged_region_sizes(sdt, mm, p, b):
+    """K9 on 64 regions a bag of p tokens each (B = 1: each region's rows
+    split over several blocks; B = 8: one block a region), C = 512, with
+    k in {1, 3, 5, 8} representatives, with and without the shortcut,
+    against its plain version; the same bits on a second call."""
+    dev = _cuda()
+    rs = int(round(p ** 0.5))
+    g = 8 * rs
+    gen = torch.Generator(device=dev).manual_seed(p + b)
+    r = lambda *s, sc=1.0: torch.randn(s, generator=gen, device=dev) * sc
+    n = g * g
+    mask = torch.arange(n, device=dev)[None].expand(b, n) < n - 3 * rs
+    x = (r(b, n, 512) * mask[..., None]).to(sdt)
+    sc = (r(b, n, 512) * mask[..., None]).to(sdt)
+    ls, lb = 1 + r(512, sc=0.1), r(512, sc=0.1)
+    for k in (1, 3, 5, 8):
+        w = torch.rand((b, 64, k, p), generator=gen, device=dev)
+        reps, gout = r(b, 64, k, 512), r(b, n, 512, sc=0.1)
+        for short in (sc, None):
+            args = (x, mask, w, reps, ls, lb, short, gout, g, rs)
+            got = _twice(ck.crmsa_redistribute_grid_ln_bwd, args, mm)
+            want = ck.redistribute_grid_ln_bwd_plain(*args, mm_dtype=mm)
+            for a, c in zip(got, want):
+                if a is None or c is None:
+                    assert a is None and c is None
+                    continue
+                _close(a, c, mm, f"K9 P={p} k={k} B={b} "
+                                 f"shortcut={short is not None}")
+
+
+@pytest.mark.gpu
+def test_xla_backend_on_card_matches_cpu():
+    """c16_r50 with backend 'xla' (the unfused structure) and the default
+    mm_dtype (bfloat16): on the card its kernels (K5, K12, K13) run with
+    float32 products, as the XLA formulation rounds no product, so the
+    logits match the CPU 'xla' path at 1e-4 (TF32 off), masked and not."""
+    dev = _cuda()
+    base = c16_r50()
+    cfg = dataclasses.replace(base, encoder=dataclasses.replace(
+        base.encoder, backend="xla"))
+    assert cfg.encoder.mm_dtype == "bfloat16"
+    model = build_model(cfg, seed=0).eval()
+    cpu = build_model(cfg, device="cpu", seed=0).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn((2, 2304, 1024), generator=gen)
+    mask = torch.ones((2, 2304), dtype=torch.bool)
+    mask[1, 2213:] = False
+    x = x * mask[..., None]
+    fns = (rb.region_block_fused, ck.crmsa_compress, ck.crmsa_redistribute)
+    for f in fns:
+        f.launches = 0
+    with torch.no_grad():
+        for xb, kw in ((x[:1, :2213], {}),
+                       (x, dict(mask=mask, length=2304))):
+            got = model(xb.to(dev), **{k: v.to(dev) if torch.is_tensor(v)
+                                       else v for k, v in kw.items()})
+            want = cpu(xb, **kw)
+            _close(got.float().cpu(), want.float(), torch.float32,
+                   f"xla logits {tuple(xb.shape)}")
+    assert all(f.launches >= 2 for f in fns)
 
 
 def test_kernel_libraries_build_into_an_ignored_directory():

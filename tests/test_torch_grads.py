@@ -337,3 +337,44 @@ def test_plain_backwards_equal_autograd_of_plain_forwards(kk):
                                live, gr)
     for i, (a, b) in enumerate(zip(got, want)):
         _close(a.numpy(), b.numpy(), "float32", f"K5 grad {i}")
+
+
+@pytest.mark.parametrize("m,tiles", [(73728, 16), (73728, 48), (9224, 16),
+                                     (9224, 48), (405000, 48), (1000, 16),
+                                     (37, 48), (1, 16)])
+def test_k2_token_split_covers_the_tokens_and_fills_the_card(m, tiles):
+    """K2's weight gradients on the tensor cores split the m tokens into
+    chunks: every token in exactly one chunk, every chunk but the last a
+    whole number of the product's 64-row k steps (no k step crosses two
+    chunks), and the blocks fill their waves of the card to >= 90% unless
+    the chunks are already as short as the planner allows."""
+    rows = rl.token_split(m, tiles)
+    assert rows % rl.TC_STEP == 0
+    parts = -(-m // rows)
+    bounds = [(i * rows, min(m, (i + 1) * rows)) for i in range(parts)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == m
+    assert all(b0 < b1 for b0, b1 in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    blocks = tiles * parts
+    fill = blocks / (-(-blocks // rl.SMS) * rl.SMS)
+    most = max(1, -(-m // rl.TC_STEP) // rl.TC_MIN_STEPS)
+    assert fill >= 0.9 or parts >= min(most, 4 * rl.SMS // tiles)
+
+
+@pytest.mark.parametrize("regions,p", [(64, 144), (512, 144), (64, 961),
+                                       (64, 729), (64, 9), (128, 1),
+                                       (16, 961), (1024, 9)])
+def test_k9_row_split_covers_the_rows_and_fills_the_card(regions, p):
+    """K9 splits each region's p token rows over blocks: every row in
+    exactly one block, each block's share a multiple of the 8 rows a step
+    takes (the last may be short), and at least two blocks an SM unless
+    every block is already down to one step."""
+    rows = ck.k9_row_split(regions, p)
+    assert rows % ck.K9_ROWS == 0 and rows > 0
+    parts = -(-p // rows)
+    covered = np.zeros(p, int)
+    for i in range(parts):
+        covered[i * rows:min(p, (i + 1) * rows)] += 1
+    assert (covered == 1).all()
+    assert regions * parts >= ck.K9_BLOCKS_PER_SM * rl.SMS \
+        or rows == ck.K9_ROWS

@@ -165,6 +165,30 @@ def test_fused_path_calls_each_kernel_wrapper_once(monkeypatch):
                      "region_block_fused", "crmsa_redistribute_grid_ln"]
 
 
+@pytest.mark.parametrize("backend,mm,want", [
+    ("xla", "bfloat16", torch.float32), ("xla", "float32", torch.float32),
+    ("auto", "bfloat16", torch.bfloat16), ("pallas", "float32", torch.float32)])
+def test_products_dtype_follows_the_backend(monkeypatch, backend, mm, want):
+    """Backend 'xla' rounds no product (the JAX package's XLA formulation),
+    so its kernels get float32 products on either device, whatever
+    mm_dtype says; the fused backends get mm_dtype.  The unfused CR-MSA
+    hands K12 and K13 that dtype."""
+    import rrtmil_tpu_torch.models.rrt as rrt
+    _, tcfg = _cfgs(64, backend, mm)
+    assert rrt.products_dtype(tcfg.encoder.crmsa_layer().crmsa.attn) == want
+    assert rrt.products_dtype(tcfg.encoder.rmsa_layer().rmsa.attn) == want
+    seen = []
+    for name in ("crmsa_compress", "crmsa_redistribute"):
+        def spy(*a, _orig=getattr(rrt, name), **k):
+            seen.append(a[-1])
+            return _orig(*a, **k)
+        monkeypatch.setattr(rrt, name, spy)
+    x, _, _ = _batch((150,), 64, tcfg.encoder, seed=0)
+    with torch.no_grad():
+        RRTMIL(tcfg).eval()(torch.from_numpy(x[:, :150]))   # unfused CR-MSA
+    assert seen == [want, want]
+
+
 def test_unmasked_input_matches_jax():
     """Called without a mask, both models run the unfused structure on the
     unpadded bag (the encoder pads inside each layer); the port's
