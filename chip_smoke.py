@@ -24,13 +24,18 @@ Phases (each passes or the script exits non-zero; nothing is caught):
    with bf16 products); K1 / K2 at EPEG k = 21 (both residual modes) and
    k = 9; K9 at P in {1, 9, 144, 729, 961} with k in {1, 3, 5, 8} on one
    bag (rows split over blocks), with and without the shortcut, and on 8
-   bags at P = 9 and 144; then each autograd
+   bags at P = 9 and 144; K3 and K4 (each region's rows split over blocks)
+   at the c16_r50 shape for B in {1, 8} and on one bag at P in {1, 9, 729,
+   961} with k in {1, 3, 5, 8} (a row of regions pad rows but a token:
+   tied logits), K12 at R = 64, P = 729 with k in {1, 5, 8} and at P = 9
+   with k in {1, 8}; then each autograd
    Function's gradients against autograd through its plain forward
    (f32/f32, 8 seeded cotangents; the gradients that are zero in exact
    arithmetic held to NOISE_ABS), K5 -> K6 / K7 also at hd = 512, K1 ->
    K2 also at k = 21, K8 -> K9 also on one bag without the shortcut (k =
    5); every kernel check calls the kernel twice and requires the same
-   bits;
+   bits; K2's P = 961 f32 EPEG-bias gradient (zero in exact arithmetic)
+   reported against its plain version over the 8 seeds (no limit here);
 3. c16_r50: a seeded model through `Engine(device="cuda").evaluate` on bags
    of {37, 937, 2213, 9000, 9000, 30000} patches and `Engine.train_epoch`
    (dropout on) on {937, 2213, 9000, 9000, 30000, 30000}, batch size 2,
@@ -63,8 +68,8 @@ Phases (each passes or the script exits non-zero; nothing is caught):
    median of PAIR_ROUNDS alternating rounds), beside its device time per
    call from the profiler and its host time per call; at hd = 512 also
    K7's device time with one and with two dq chunks a query-side block
-   (its design choice); K1, K2 and K9 also by device time and kernel
-   name (K2's four products apart); K2's four products at B = 1 and 8
+   (its design choice); K1, K2, K3, K4, K9 and K12 also by device time
+   and kernel name (K2's four products apart); K2's four products at B = 1 and 8
    interleaved with torch.matmul on the same bf16 operands; c16_r50 forward
    slides/s at L = 9000 for B in {1, 4, 8} and train slides/s for B in
    {1, 8}; survival train bags/s at L = 45000 and 50000; the FFN config's
@@ -72,7 +77,10 @@ Phases (each passes or the script exits non-zero; nothing is caught):
 5. profile: torch.profiler over three B = 8 forwards, one B = 8 train step
    and one survival train step at L = 45000: device time by kernel and the
    device's busy share; the train step must run K2's four products on the
-   warpgroup tensor cores (each wgmma call listed) and no SIMT product.
+   warpgroup tensor cores (each wgmma call listed) and no SIMT product;
+   the forward, train and survival profiles must name the compression's
+   kernels (compress_rows_kernel, compress_reps_kernel, and in the train
+   step compress_bwd_kernel).
 
 Every counter is set to 0 just before each path and read just after.
 Prints the `{"kernels": [...]}` line (each kernel's launches from its own
@@ -135,6 +143,7 @@ BRCA_BAGS = (937, 9000, 9000, 30000)
 CANON_BAGS = (937, 2213, 9000)
 RAGGED_P = (1, 9, 63, 64, 65, 144, 961)
 RAGGED_K9_P = (1, 9, 144, 729, 961)
+RAGGED_CR_P = (1, 9, 729, 961)
 TRAIN_BAGS = (937, 2213, 9000, 9000, 30000, 30000)
 TPU_KERNELS = {
     "K1 region_layer_fused": ("rrtmil_tpu/ops/pallas/region_layer.py:44",
@@ -542,6 +551,59 @@ def slice6_cases(dev, sdt, mdt):
     return cases
 
 
+def compress_inputs(b, p, kk, dev, sdt, seed):
+    """K3 / K4 inputs on b bags of 64 regions of p tokens (G = 8 sqrt(p)),
+    C = 512, kk representatives with phi of the init's U(+-1/sqrt(kk)): the
+    last row of regions is pad rows but for one token, so their logits tie
+    at 0 (a region with one real token, regions with none); d(reps) and
+    d(w) for the backward."""
+    rs = int(round(p ** 0.5))
+    G, n = 8 * rs, 64 * p
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, sc=1.0: torch.randn(s, generator=g, device=dev) * sc
+    mask = (torch.arange(n, device=dev) < n - rs * G + 1)[None] \
+        .expand(b, n).contiguous()
+    x = (r(b, n, 512) * mask[..., None]).to(sdt)
+    phi = (torch.rand((512, kk), generator=g, device=dev) * 2 - 1) / kk ** 0.5
+    return (x, mask, 1 + r(512, sc=0.1), r(512, sc=0.1), phi,
+            r(b, 64, kk, 512, sc=0.1), r(b, 64, kk, p, sc=0.1), G, rs)
+
+
+def slice7_cases(dev, sdt):
+    """K3 and K4 (each region's rows split over blocks) at the c16_r50
+    main-path shape for B in {1, 8} (k = 1), and on one bag of 64 regions at
+    P in RAGGED_CR_P with k in {1, 3, 5, 8}, pad rows tying at 0; K12 at a
+    45000-patch survival bag (R = 64, P = 729, pad rows) with k in {1, 5, 8}
+    and at P = 9 with k in {1, 8} (k = 3 in slice3_cases)."""
+    from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
+    cases = {}
+    runs = [(b, 144, 1, f"B={b}") for b in (1, 8)]
+    runs += [(1, p, kk, f"P={p} k={kk}") for p in RAGGED_CR_P
+             for kk in (1, 3, 5, 8)]
+    for b, p, kk, tag in runs:
+        if p == 144:
+            x, mask, g = stream_inputs(b, 96, 512, 9000, 700 + b, dev)
+            ls, lb = ln_params(512, g, dev)
+            args = (x.to(sdt), mask, ls, lb, _randn((512, 1), g).to(dev),
+                    _randn((b, 64, 1, 512), g, 0.1).to(dev),
+                    _randn((b, 64, 1, 144), g, 0.1).to(dev), 96, 12)
+        else:
+            args = compress_inputs(b, p, kk, dev, sdt, 710 + 10 * p + kk)
+        cases[f"K3 crmsa_compress_grid ({tag})"] = (
+            ck.crmsa_compress_grid, ck.compress_grid_plain,
+            args[:5] + args[7:])
+        cases[f"K4 crmsa_compress_grid_bwd ({tag})"] = (
+            ck.crmsa_compress_grid_bwd, ck.compress_grid_bwd_plain, args)
+    for length, G, rs, kks in ((45000, 216, 27, (1, 5, 8)),
+                               (500, 24, 3, (1, 8))):
+        for kk in kks:
+            regions, phi, _, _ = surv_region_inputs(length, G, rs, dev, sdt,
+                                                    720 + G + kk, kk)
+            cases[f"K12 crmsa_compress (L={length} P={rs * rs} k={kk})"] = (
+                ck.crmsa_compress, ck.compress_plain, (regions, phi))
+    return cases
+
+
 def work_from_args(name, args):
     """(flops, bytes) of K10-K13 on these inputs: each input read once, each
     output written once."""
@@ -729,6 +791,7 @@ def phase_kernels(dev):
         cases.update(slice3_cases(dev, sdt))
         cases.update(slice4_cases(dev, sdt))
         cases.update(slice6_cases(dev, sdt, mdt))
+        cases.update(slice7_cases(dev, sdt))
         for name, (fn, plain, args) in cases.items():
             err, rel = compare(fn, plain, args, mdt)
             ok = rel <= TOL[mdt]
@@ -757,8 +820,41 @@ def phase_kernels(dev):
         errors[name]["float32/bfloat16 L=60000"] = err
         torch.cuda.empty_cache()
     errors["autograd"] = autograd_checks(dev)
+    errors["k2_bias_noise"] = k2_bias_noise(dev)
     torch.cuda.empty_cache()
     return errors
+
+
+def k2_bias_noise(dev, seeds=AUTOGRAD_SEEDS):
+    """K2's EPEG-bias gradient at P = 961 with f32 products (one 31 x 31
+    region a bag, C = 128, 2 x 64 heads, EPEG k = 15: the shape of
+    tests/test_torch_gpu.py::test_cuda_kernels_match_plain's K2 P = 961
+    case).  It is zero in exact arithmetic, so the kernel and the plain
+    version both return rounding noise; |kernel - plain| for each seeded
+    incoming gradient is reported (that test holds it to 1e-4), not held to
+    a limit here."""
+    from rrtmil_tpu_torch.ops.kernels import region_layer as rl
+    g = _gen(31)
+    c, n = 128, 31 * 31
+    mask = torch.zeros((2, n), dtype=torch.bool)
+    mask[0, :500], mask[1, :300] = True, True
+    x = (_randn((2, n, c), g) * mask[..., None]).to(dev)
+    w = layer_weights(c, 2, 64, 15, g, dev)
+    ls, lb = ln_params(c, g, dev)
+    mask = mask.to(dev)
+    diffs = []
+    for seed in seeds:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        gx = torch.randn((2, n, c), generator=gen, device=dev)
+        args = (x, mask, ls, lb, *w, gx, 31, 31, True)
+        got = rl.region_layer_bwd(*args, mm_dtype=torch.float32)[10]
+        want = rl.region_layer_bwd_plain(*args, mm_dtype=torch.float32)[10]
+        diffs.append((got - want).abs().max().item())
+    log("[2] K2 P=961 f32 EPEG-bias gradient (zero in exact arithmetic), "
+        "|kernel - plain| by seed: " + ", ".join(f"{d:.3e}" for d in diffs)
+        + f"; above the gpu test's 1e-4 in {sum(d > 1e-4 for d in diffs)} "
+        f"of {len(diffs)}")
+    return {"abs_diff_by_seed": diffs, "test_limit": 1e-4}
 
 
 def autograd_checks(dev, seeds=AUTOGRAD_SEEDS):
@@ -1249,7 +1345,7 @@ def phase_times(dev):
             log(f"[4] {name:32s} B={b}: {ms:.4f} ms (plain {plain_ms:.4f}, "
                 f"bound {bms:.4f} by {by}, library "
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f}'})")
-            if name.startswith(("K1", "K2", "K9")):
+            if name.startswith(("K1", "K2", "K3", "K4", "K9")):
                 split = device_split(lambda: fn(*args, mm_dtype=mmd), iters=5)
                 rec["device_ms"] = sum(split.values())
                 rec["device_split"] = {k[:80]: v for k, v in split.items()}
@@ -1458,6 +1554,15 @@ def phase_profile(dev, b=8, iters=3, train=False, fn=None, what=None):
     top = 12 if what == "forward" else 16
     for name, ms in rows[:top]:
         log(f"[5] {ms:9.4f} ms/{what}  {name[:90]}")
+    # the CR-MSA compression's kernels (K3 / K12 and K4), by name, their
+    # instantiations summed (pass 1 runs in K3 and in K4)
+    compress = {}
+    for n, ms in rows:
+        if "compress_" in n:
+            base = n.split("<")[0].split("::")[-1].split()[-1]
+            compress[base] = compress.get(base, 0.0) + ms
+    for n, ms in sorted(compress.items()):
+        log(f"[5]   {n}: {ms:.4f} ms/{what}")
     log(f"[5] B={b}: kernels {busy / iters:.3f} ms per {what}; the "
         f"profiled window {wall_ms / iters:.3f} ms per {what} (busy share "
         f"{busy / wall_ms:.3f}, profiler overhead included)"
@@ -1467,7 +1572,7 @@ def phase_profile(dev, b=8, iters=3, train=False, fn=None, what=None):
             "busy_share": busy / wall_ms if rows else None,
             "top": [{"kernel": n, "ms_per_iter": ms} for n, ms in rows[:top]],
             "wgmma_calls": [{"kernel": n, "ms": ms} for n, ms in wgmma],
-            "simt_product_ms": simt_ms}
+            "simt_product_ms": simt_ms, "compress_kernels": compress}
 
 
 # ---------------------------------------------------------------------------
@@ -1759,12 +1864,19 @@ def phase_times_slice3(dev, rows):
             lib_ms = time_ms(lib)
         flops, byts = work_from_args(name, args)
         bms, by = bound_ms(flops, byts, mmd)
-        rows.setdefault(name, {})[str(b)] = {
+        rec = rows.setdefault(name, {})[str(b)] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms, "flops": flops, "bytes": byts}
         log(f"[4] {name:32s} B={b}: {ms:.4f} ms (plain {plain_ms:.4f}, "
             f"bound {bms:.4f} by {by}, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f}'})")
+        if name.startswith("K12"):
+            split = device_split(lambda: fn(*args, mm_dtype=mmd), iters=5)
+            rec["device_ms"] = sum(split.values())
+            rec["device_split"] = {k[:80]: v for k, v in split.items()}
+            log(f"[4]   device {rec['device_ms']:.4f} ms: " + "; ".join(
+                f"{v:.4f} {k[:60]}" for k, v in sorted(
+                    split.items(), key=lambda kv: -kv[1])))
     del cases
     torch.cuda.empty_cache()
     return rows
@@ -2058,6 +2170,13 @@ def main():
         report["survival_profile"] = phase_profile(
             dev, b=1, iters=1, fn=surv_train_setup(dev, 45000),
             what="survival train step (L=45000)")
+        rows_reps = {"compress_rows_kernel", "compress_reps_kernel"}
+        for key, want in (("profile", rows_reps),
+                          ("train_profile", rows_reps | {"compress_bwd_kernel"}),
+                          ("survival_profile", rows_reps)):
+            seen = set(report[key]["compress_kernels"])
+            if not want <= seen:
+                raise AssertionError(f"{key} names no {sorted(want - seen)}")
     report["seconds"] = time.perf_counter() - t_start
 
     # launches: each kernel's count on its own path's train run (K1-K9 the

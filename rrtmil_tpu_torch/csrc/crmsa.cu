@@ -8,22 +8,28 @@
 //   mm      = (logits - min_P) / (max_P - min_P + 1e-8)
 //   reps    = round(combine) @ z   (B, nR, k, C) f32;  w = mm * dispatch.
 // Bound on an H100: bytes (~19 MFLOP against ~19 MB a c16_r50 slide).
-// Design: one block per region.  Warps own token rows: each row is read
-// once for its LN statistics and logits (kept in shared memory with the
-// per-token mean and 1/std), the two softmaxes and min/max are reduced in
-// shared memory, then the block re-reads the region (its ~290 KB stay in the
-// 50 MB L2) to form reps with threads across channels, so reads stay
-// coalesced and no P x C tile has to fit in shared memory.
 //
 // K12 replaces crmsa_kernels.py::_compress_pallas (kernel body
 // _compress_kernel): K3's math on regions that are already partitioned,
 // (R, P, C) in the stream dtype, with no LayerNorm and no mask: z = round(x).
-// Same kernel (template flag LN = false, contiguous token map).  Bound:
-// bytes (a survival bag of 45000 patches: R = 64, P = 729, C = 512 f32,
-// ~96 MB read, ~0.029 ms).  One block per region: the logits need all of C
-// before either softmax, and a region's reductions stay in one block, so at
-// B = 1 only 64 of the 132 SMs work; splitting a region across blocks would
-// need a cross-block softmax (a later PR's work).
+// Bound: bytes (a survival bag of 45000 patches: R = 64, P = 729, C = 512
+// f32, ~96 MB read, ~0.029 ms).
+//
+// Design of both (the same two kernels; crmsa.cuh has the shared pieces and
+// the layout): combine is rounded to TM only once it is normalised by the
+// region's max and sum over all P, so no block can form a region's reps
+// before every logit of the region exists, and the region is read twice.
+// Pass 1 (compress_rows_kernel) gives each token row to a warp, 16-byte
+// loads, and writes the row's k logits and LayerNorm statistics; pass 2
+// (compress_reps_kernel) reduces the region's logits (max, min, sum: a few
+// KB, in a fixed order in every block), forms combine and w a thread a row,
+// then streams the rows, a thread a 16-byte channel group, adding combine z
+// into registers.  Each region's rows are split over blocks
+// (crmsa_kernels.row_split) so that B = 1 (64 regions) and the 64-region
+// survival bag put two blocks on every SM; the blocks' partials are added in
+// a fixed order by launch_reduce_rows.  At B = 1 the re-read comes from L2
+// (19 MB of stream); at B = 8 (151 MB) from device memory, so K3 moves the
+// stream twice there.
 //
 // K8 replaces crmsa_kernels.py::_rgrid_ln_pallas (kernel body
 // _rgrid_ln_kernel): per token, round(w)^T round(reps) from its region,
@@ -46,123 +52,119 @@
 // token row writing four channels per lane per step; x, the mask and the
 // output cross device memory once, and a B = 1 survival bag still gives
 // 64 x 23 blocks to the 132 SMs.
-#include "common.cuh"
+#include "crmsa.cuh"
 
 using namespace rrt;
 
-constexpr int KMAX = 8;  // CR-MSA representatives per region (crmsa_k)
-
-// LN = true: K3 on the raw stream (map: the grid); LN = false: K12 on
-// partitioned regions (map: contiguous), where z = round(x) and mask is unused.
-template <typename TS, typename TM, bool LN>
-__global__ void __launch_bounds__(256)
-compress_grid_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
+// Pass 2 of K3 and K12 (pass 1: compress_rows_kernel, crmsa.cuh).  The
+// region's max, min and softmax sums from its logits; a thread a row of the
+// chunk for its combine (rounded to TM once normalised by the region's
+// sums), w, LayerNorm statistics and mask; then thread (slot, group) adds
+// combine z of its channel group over rows p0 + slot, p0 + slot + slots,
+// ... (UNR of them in flight) into registers, and the slots' sums, added in
+// slot order, go to reps_part[part, region] (reps itself with one part).
+// KB >= k bounds the accumulators.
+template <typename TS, typename TM, int KB>
+__global__ void __launch_bounds__(CR_THREADS)
+compress_reps_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
                      const float* __restrict__ ls, const float* __restrict__ lb,
-                     const float* __restrict__ phi, float* __restrict__ reps,
-                     float* __restrict__ w, TokenMap map, int C, int k, float eps) {
+                     const float* __restrict__ logits, const float* __restrict__ stats,
+                     float* __restrict__ reps_part, float* __restrict__ w, TokenMap map, int C,
+                     int k, int chunk, int slots, int vec) {
+  constexpr int VW = vec_width<TS>(), UNR = 16 / VW;
   extern __shared__ __align__(16) float sm[];
   __shared__ float lmax[KMAX], lmin[KMAX], lsum[KMAX];
-  const int P = map.P;
-  const int region = blockIdx.x;
-  float* phis = sm;               // [C][k], rounded to TM
-  float* logit = phis + C * k;    // [k][P]
-  float* comb = logit + k * P;    // [k][P], rounded to TM
-  float* mu = comb + k * P;       // [P]
-  float* rstd = mu + P;           // [P]
-  float* msk = rstd + P;          // [P]
-  int* tok = (int*)(msk + P);     // [P] stream row of each region token
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int Cp = padded_channels<TS>(C), ng = Cp / VW, P = map.P;
+  const int region = blockIdx.x, R = gridDim.x, part = blockIdx.y;
+  const int p0 = part * chunk, np = min(P, p0 + chunk) - p0;
+  const int tid = threadIdx.x, slot = tid / ng, c0 = (tid - slot * ng) * VW;
+  float* lg = sm;                   // [k][P] the region's logits
+  float* cm = lg + k * P;           // [k][chunk] round(combine) of the chunk's rows
+  float* rmu = cm + k * chunk;      // [chunk] mean, then 1/std, then mask
+  float* rrs = rmu + chunk;
+  float* rmk = rrs + chunk;
+  const long long base = region_base(map, region);
 
-  for (int i = tid; i < C * k; i += blockDim.x) phis[i] = round_to<TM>(phi[i]);
-  for (int p = tid; p < P; p += blockDim.x) tok[p] = (int)token_of(map, region, p);
+  for (int i = tid; i < k * P; i += blockDim.x) lg[i] = logits[(long long)region * k * P + i];
   __syncthreads();
-
-  // phase 1: LN statistics and phi logits, one warp per token row
-  for (int p = warp; p < P; p += nwarps) {
-    const TS* xr = x + (long long)tok[p] * C;
-    const float m = LN ? (mask[tok[p]] ? 1.f : 0.f) : 1.f;
-    float vals[CPL];
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
-      vals[i] = c < C ? to_f(xr[c]) : 0.f;
-    }
-    float mu_p = 0.f, rstd_p = 1.f;
-    if (LN) warp_ln_stats(vals, C, lane, eps, mu_p, rstd_p);
-    float acc[KMAX];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) acc[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
-      if (c < C) {
-        const float z = round_to<TM>(
-            LN ? ln_apply(vals[i], mu_p, rstd_p, ls[c], lb[c], m) : vals[i]);
-#pragma unroll
-        for (int j = 0; j < KMAX; ++j)
-          if (j < k) acc[j] = fmaf(phis[c * k + j], z, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      if (j < k) {
-        const float s = warp_sum(acc[j]);
-        if (lane == 0) logit[j * P + p] = s;
-      }
-    }
-    if (lane == 0) { mu[p] = mu_p; rstd[p] = rstd_p; msk[p] = m; }
-  }
+  region_stats(lg, P, k, lmax, lmin, lsum);
   __syncthreads();
-
-  // phase 2: max, min and softmax denominator over P, one warp per row j
-  if (warp < k) {
-    float mx = -INFINITY, mn = INFINITY;
-    for (int p = lane; p < P; p += 32) {
-      mx = fmaxf(mx, logit[warp * P + p]);
-      mn = fminf(mn, logit[warp * P + p]);
-    }
-    mx = warp_max(mx);
-    mn = warp_min(mn);
-    float s = 0.f;
-    for (int p = lane; p < P; p += 32) s += expf(logit[warp * P + p] - mx);
-    s = warp_sum(s);
-    if (lane == 0) { lmax[warp] = mx; lmin[warp] = mn; lsum[warp] = s; }
-  }
-  __syncthreads();
-
-  // phase 3: combine (softmax over P), dispatch (softmax over k), w
-  for (int p = tid; p < P; p += blockDim.x) {
-    float dmax = -INFINITY;
-    for (int j = 0; j < k; ++j) dmax = fmaxf(dmax, logit[j * P + p]);
-    float dsum = 0.f;
-    for (int j = 0; j < k; ++j) dsum += expf(logit[j * P + p] - dmax);
+  for (int i = tid; i < np; i += blockDim.x) {
+    const int p = p0 + i;
+    float dmax, dsum;
+    token_softmax(lg, P, k, p, dmax, dsum);
     for (int j = 0; j < k; ++j) {
-      const float l = logit[j * P + p];
-      comb[j * P + p] = round_to<TM>(expf(l - lmax[j]) / lsum[j]);
-      const float disp = expf(l - dmax) / dsum;
-      const float mmv = (l - lmin[j]) / (lmax[j] - lmin[j] + 1e-8f);
-      w[((long long)region * k + j) * P + p] = mmv * disp;
+      const float l = lg[j * P + p];
+      cm[j * chunk + i] = round_to<TM>(expf(l - lmax[j]) / lsum[j]);
+      w[((long long)region * k + j) * P + p] =
+          (l - lmin[j]) / (lmax[j] - lmin[j] + 1e-8f) * (expf(l - dmax) / dsum);
+    }
+    const long long t = row_token(map, base, p), rp = (long long)region * P + p;
+    rmk[i] = mask ? (mask[t] ? 1.f : 0.f) : 1.f;
+    rmu[i] = ls ? stats[2 * rp] : 0.f;
+    rrs[i] = ls ? stats[2 * rp + 1] : 1.f;
+  }
+  __syncthreads();
+
+  float acc[KB][VW];
+#pragma unroll
+  for (int j = 0; j < KB; ++j)
+#pragma unroll
+    for (int e = 0; e < VW; ++e) acc[j][e] = 0.f;
+  if (slot < slots) {
+    float s[VW], b[VW];
+#pragma unroll
+    for (int e = 0; e < VW; ++e) {
+      s[e] = ls && c0 + e < C ? ls[c0 + e] : 0.f;
+      b[e] = ls && c0 + e < C ? lb[c0 + e] : 0.f;
+    }
+    for (int i0 = slot; i0 < np; i0 += UNR * slots) {
+      float v[UNR][VW];
+#pragma unroll
+      for (int q = 0; q < UNR; ++q) {
+        const int i = i0 + q * slots;
+        if (i < np) {
+          load_group<TS>(x + row_token(map, base, p0 + i) * C, c0, C, vec, v[q]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VW; ++e) v[q][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < UNR; ++q) {
+        const int i = i0 + q * slots;
+        if (i < np) {
+          const float mu = rmu[i], rstd = rrs[i], m = rmk[i];
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            const float z = round_to<TM>(ls ? ln_apply(v[q][e], mu, rstd, s[e], b[e], m)
+                                            : v[q][e]);
+#pragma unroll
+            for (int j = 0; j < KB; ++j)
+              if (j < k) acc[j][e] = fmaf(cm[j * chunk + i], z, acc[j][e]);
+          }
+        }
+      }
     }
   }
   __syncthreads();
 
-  // phase 4: reps = combine @ z, threads across channels, z recomputed
-  for (int c = tid; c < C; c += blockDim.x) {
-    float acc[KMAX];
+  // the slots' sums in slot order (the staging arrays are dead: reuse them)
+  float* red = sm;  // [slots][k][Cp]
+  if (slot < slots) {
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) acc[j] = 0.f;
-    const float s = LN ? ls[c] : 1.f, b = LN ? lb[c] : 0.f;
-    for (int p = 0; p < P; ++p) {
-      const float v = to_f(x[(long long)tok[p] * C + c]);
-      const float z = round_to<TM>(LN ? ln_apply(v, mu[p], rstd[p], s, b, msk[p]) : v);
+    for (int j = 0; j < KB; ++j)
+      if (j < k)
 #pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j < k) acc[j] = fmaf(comb[j * P + p], z, acc[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j)
-      if (j < k) reps[((long long)region * k + j) * C + c] = acc[j];
+        for (int e = 0; e < VW; ++e) red[((long long)slot * k + j) * Cp + c0 + e] = acc[j][e];
+  }
+  __syncthreads();
+  float* out = reps_part + ((long long)part * R + region) * k * C;
+  for (int e = tid; e < k * C; e += blockDim.x) {
+    const int j = e / C, c = e - j * C;
+    float t = 0.f;
+    for (int u = 0; u < slots; ++u) t += red[((long long)u * k + j) * Cp + c];
+    out[e] = t;
   }
 }
 
@@ -286,46 +288,86 @@ redistribute_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
   }
 }
 
-static size_t compress_smem_bytes(int C, int k, int P) {
-  return (size_t)(C * k + 2 * k * P + 3 * P) * 4 + (size_t)P * 4;
+template <typename TS, typename TM, int KB>
+cudaError_t launch_compress_reps(dim3 grid, StreamShape sh, size_t smem, cudaStream_t s,
+                                 const void* x, const void* mask, const float* ls,
+                                 const float* lb, const float* logits, const float* stats,
+                                 float* reps_part, float* w, TokenMap map, int C, int k,
+                                 int chunk, int vec) {
+  cudaError_t err = cr_smem(compress_reps_kernel<TS, TM, KB>, smem);
+  if (err != cudaSuccess) return err;
+  compress_reps_kernel<TS, TM, KB><<<grid, sh.threads, smem, s>>>(
+      (const TS*)x, (const uint8_t*)mask, ls, lb, logits, stats, reps_part, w, map, C, k, chunk,
+      sh.slots, vec);
+  return cudaGetLastError();
 }
 
+// K3 (ls given: LayerNorm and mask on the grid map) and K12 (contiguous
+// regions, z = round(x)): the two passes over R regions of P rows split into
+// chunks of `chunk`, then, with more than one chunk a region, the partials
+// part (parts, R, k, C) summed over the chunks in order into reps.  scratch:
+// the rows' logits (R, k, P) and LayerNorm statistics (R, P, 2).
+template <typename TS, typename TM>
+int compress(const void* x, const void* mask, const float* ls, const float* lb,
+             const float* phi, float* reps, float* w, float* scratch, float* part, int R,
+             TokenMap map, int C, int k, int chunk, float eps, cudaStream_t s) {
+  const int P = map.P, parts = (P + chunk - 1) / chunk;
+  if (parts > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  const int Cp = padded_channels<TS>(C), vec = use_vec<TS>(x, C);
+  const StreamShape sh = stream_shape<TS>(C);
+  const size_t smem = (size_t)std::max(k * P + (k + 3) * chunk, sh.slots * k * Cp) * 4;
+  const dim3 grid(R, parts);
+  float* logits = scratch;
+  float* stats = scratch + (long long)R * k * P;
+  float* reps_part = parts > 1 ? part : reps;
+  cudaError_t err = launch_compress_rows<TS, TM, false>(
+      grid, s, x, mask, ls, lb, phi, nullptr, logits, stats, nullptr, nullptr, nullptr, map, C,
+      k, chunk, vec, eps);
+  if (err != cudaSuccess) return (int)err;
+#define RRT_REPS(KB)                                                                          \
+  err = launch_compress_reps<TS, TM, KB>(grid, sh, smem, s, x, mask, ls, lb, logits, stats,   \
+                                         reps_part, w, map, C, k, chunk, vec)
+  switch (k_bound(k)) {
+    case 1: RRT_REPS(1); break;
+    case 4: RRT_REPS(4); break;
+    default: RRT_REPS(8); break;
+  }
+#undef RRT_REPS
+  if (err == cudaSuccess && parts > 1)
+    err = launch_reduce_rows(part, parts, (long long)R * k * C, reps, s);
+  return (int)err;
+}
+
+// K3: x (B, G*G, C) -> reps (B, nR, k, C), w (B, nR, k, P); scratch
+// (R (k + 2) P floats) and part (parts, R, k, C) when P > chunk
 extern "C" int cr_compress_grid(int ts, int tm, const void* x, const void* mask,
                                 const void* ls, const void* lb, const void* phi,
-                                void* reps, void* w, int B, int G, int rs, int C,
-                                int k, float eps, void* stream) {
-  if (C > 32 * CPL || k < 1 || k > KMAX || G % rs != 0) return (int)cudaErrorInvalidValue;
+                                void* reps, void* w, void* scratch, void* part, int B, int G,
+                                int rs, int C, int k, int chunk, float eps, void* stream) {
+  if (C < 1 || C > 32 * CPL || k < 1 || k > KMAX || rs < 1 || G % rs != 0 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
   const int nrs = G / rs;
-  const size_t smem = compress_smem_bytes(C, k, rs * rs);
   const TokenMap map{G, rs, nrs, rs * rs};
-  cudaError_t err = cudaSuccess;
   RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
-      err = cudaFuncSetAttribute(compress_grid_kernel<TS, TM, true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      compress_grid_kernel<TS, TM, true><<<B * nrs * nrs, 256, smem, (cudaStream_t)stream>>>(
-          (const TS*)x, (const uint8_t*)mask, (const float*)ls, (const float*)lb,
-          (const float*)phi, (float*)reps, (float*)w, map, C, k, eps)));
-  return (int)cudaGetLastError();
+      return compress<TS, TM>(x, mask, (const float*)ls, (const float*)lb, (const float*)phi,
+                              (float*)reps, (float*)w, (float*)scratch, (float*)part,
+                              B * nrs * nrs, map, C, k, chunk, eps, (cudaStream_t)stream)));
+  return (int)cudaErrorInvalidValue;
 }
 
-// K12: x (R, P, C) -> reps (R, k, C), w (R, k, P)
+// K12: x (R, P, C) -> reps (R, k, C), w (R, k, P); scratch (R k P floats)
+// and part as K3's
 extern "C" int cr_compress(int ts, int tm, const void* x, const void* phi, void* reps,
-                           void* w, int R, int P, int C, int k, void* stream) {
-  if (C > 32 * CPL || k < 1 || k > KMAX || R < 1 || P < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = compress_smem_bytes(C, k, P);
+                           void* w, void* scratch, void* part, int R, int P, int C, int k,
+                           int chunk, void* stream) {
+  if (C < 1 || C > 32 * CPL || k < 1 || k > KMAX || R < 1 || P < 1 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
   const TokenMap map{0, 1, 1, P};
-  cudaError_t err = cudaSuccess;
   RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
-      err = cudaFuncSetAttribute(compress_grid_kernel<TS, TM, false>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      compress_grid_kernel<TS, TM, false><<<R, 256, smem, (cudaStream_t)stream>>>(
-          (const TS*)x, nullptr, nullptr, nullptr, (const float*)phi, (float*)reps,
-          (float*)w, map, C, k, 0.f)));
-  return (int)cudaGetLastError();
+      return compress<TS, TM>(x, nullptr, nullptr, nullptr, (const float*)phi, (float*)reps,
+                              (float*)w, (float*)scratch, (float*)part, R, map, C, k, chunk,
+                              0.f, (cudaStream_t)stream)));
+  return (int)cudaErrorInvalidValue;
 }
 
 // K10 (G > 0: regions of the (B, G*G, C) stream, R = B * (G / rs)^2, x may be

@@ -18,15 +18,20 @@
 //
 // What bounds both on an H100: bytes.  A c16_r50 slide moves ~38 MB (K4:
 // x read, dx written) and ~75 MB (K9: x, shortcut and g read, dx written)
-// against a few tens of MFLOP.  K4's design: one block per region, as K3's
-// forward.  A first pass gives each token row to a warp (LayerNorm
-// statistics, the logits, the row sums the LayerNorm backward needs), the
-// per-region reductions over P run in shared memory, and a last pass gives
-// each thread a channel and walks the region's rows, so every read and write
-// is coalesced and each per-channel sum (dls, dlb, dphi) stays in one
-// thread's registers.  K9's design: one pass over x, the shortcut and g, as
-// the TPU kernel (its two-pass form read them twice: at B = 8 the regions
-// in flight hold ~450 MB, far past the 50 MB L2).  A warp owns a token row
+// against a few tens of MFLOP.  K4's design (K3's layout, crmsa.cuh): a
+// first row pass (a warp a token row, 16-byte loads) writes each row's k
+// logits, d_comb, LayerNorm statistics and the two k-wide row sums its
+// LayerNorm backward needs; a second reads them back (a few floats a row)
+// for the region's sums over P and each row's scalars, then streams the
+// rows, a thread a 16-byte channel group: dx written with 16-byte stores,
+// the per-channel sums (dls, dlb, dphi) in registers.  Each region's rows
+// are split over blocks as K3's, so B = 1 fills the card; launch_reduce_rows
+// adds the blocks' partials in a fixed order.  The stream is read twice
+// (from L2 at B = 1) and dx written once.
+//
+// K9's design: one pass over x, the shortcut and g, as the TPU kernel (its
+// two-pass form read them twice: at B = 8 the regions in flight hold ~450
+// MB, far past the 50 MB L2).  A warp owns a token row
 // at a time and, beside dx and the row's dw sums, adds the row's terms into
 // its own partials (dls and dlb in registers, dreps in its slice of shared
 // memory), so the warps of a block run without a barrier between rows and
@@ -48,216 +53,236 @@
 // a row for its k dot products over C (dw), and each thread keeps the k
 // dreps sums of its channels in registers across all chunks.  g crosses
 // device memory once.  At B = 1 a 64-region bag keeps only 64 SMs busy.
-#include <algorithm>
-
-#include "common.cuh"
+#include "crmsa.cuh"
 
 using namespace rrt;
 
 namespace {
 
-constexpr int KMAX = 8;  // CR-MSA representatives per region (crmsa_k)
-
-size_t cgrid_smem_bytes(int C, int k, int P) {
-  return (size_t)(2 * C * k + 4 * k * P + 5 * P) * 4 + (size_t)P * 4;
-}
-
-template <typename TS, typename TM>
-__global__ void __launch_bounds__(256)
-compress_grid_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
-                         const float* __restrict__ ls, const float* __restrict__ lb,
-                         const float* __restrict__ phi, const float* __restrict__ dreps,
-                         const float* __restrict__ dw, TS* __restrict__ dx,
-                         float* __restrict__ part, int G, int rs, int C, int k, float eps) {
+// Pass 2 of K4 (pass 1: compress_rows_kernel with DC: the rows' logits,
+// d_comb, LayerNorm statistics and LayerNorm-backward row sums).  Every
+// block of a region reduces, in one fixed order, the region's logits (max,
+// min, softmax sums), the sums over P of the softmax and min-max backwards
+// (s1, sdm, s3 and the tie counts) and A_j = sum_c ls round(dreps_j), B_j =
+// sum_c ls phi_j.  A thread a row of the chunk forms the row's dl =
+// round(d logit), round(combine) and the LayerNorm backward's means, which
+// are linear in them: m1 = m / C (round(comb) A + dl B), m2 = m / C
+// (round(comb) su + dl sv).  Then thread (slot, group) streams its channel
+// group over rows p0 + slot, p0 + slot + slots, ... (UNR in flight):
+// dz = round(comb)^T round(dreps) + dl^T phi, dx written with 16-byte
+// stores, dls, dlb and dphi (dl z^T) added in registers; the slots' sums,
+// added in slot order, go to part[part * R + region] = (dls | dlb | dphi^T),
+// which launch_reduce_rows sums over every block.  KB >= k bounds the
+// accumulators.
+template <typename TS, typename TM, int KB>
+__global__ void __launch_bounds__(CR_THREADS)
+compress_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
+                    const float* __restrict__ ls, const float* __restrict__ lb,
+                    const float* __restrict__ phi, const float* __restrict__ dreps,
+                    const float* __restrict__ dw, const float* __restrict__ logits,
+                    const float* __restrict__ stats, const float* __restrict__ dcomb,
+                    const float* __restrict__ su, const float* __restrict__ sv,
+                    TS* __restrict__ dx, float* __restrict__ part, TokenMap map, int C, int k,
+                    int chunk, int slots, int vec) {
+  constexpr int VW = vec_width<TS>(), UNR = 16 / VW;
   extern __shared__ __align__(16) float sm[];
-  __shared__ float lmax[KMAX], lmin[KMAX], lsum[KMAX];
-  __shared__ float s1[KMAX], s2[KMAX], s3[KMAX], nmin[KMAX], nmax[KMAX];
-  const int P = rs * rs, nrs = G / rs;
-  const int region = blockIdx.x;
-  float* phis = sm;                // [C][k] round(phi)
-  float* drm = phis + C * k;       // [k][C] round(dreps)
-  float* logit = drm + k * C;      // [k][P]
-  float* comb = logit + k * P;     // [k][P]
-  float* disp = comb + k * P;      // [k][P]
-  float* dl = disp + k * P;        // [k][P] d(combine) of each logit, then round(dlogit)
-  float* mu = dl + k * P;          // [P]
-  float* rstd = mu + P;            // [P]
-  float* msk = rstd + P;           // [P]
-  float* m1 = msk + P;             // [P]
-  float* m2 = m1 + P;              // [P]
-  int* tok = (int*)(m2 + P);       // [P]
-  const TokenMap map{G, rs, nrs, P};
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float* dr = dreps + (long long)region * k * C;
-  const float* dwr = dw + (long long)region * k * P;
+  __shared__ float lmax[KMAX], lmin[KMAX], lsum[KMAX], ga[KMAX], gb[KMAX];
+  __shared__ float s1[KMAX], sdm[KMAX], s3[KMAX], nmin[KMAX], nmax[KMAX];
+  const int Cp = padded_channels<TS>(C), ng = Cp / VW, P = map.P;
+  const int region = blockIdx.x, R = gridDim.x, pt = blockIdx.y;
+  const int p0 = pt * chunk, np = min(P, p0 + chunk) - p0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = blockDim.x >> 5;
+  const int slot = tid / ng, c0 = (tid - slot * ng) * VW;
+  float* phit = sm;                // [k][Cp] phi^T (not rounded: dz's second term)
+  float* drm = phit + k * Cp;      // [k][Cp] round(dreps_r)
+  float* lg = drm + k * Cp;        // [k][P] the region's logits
+  float* rc = lg + k * P;          // [k][chunk] round(combine) of the chunk's rows
+  float* rdl = rc + k * chunk;     // [k][chunk] dl
+  float* rmu = rdl + k * chunk;    // [chunk] mean, 1/std, mask, m1, m2
+  float* rrs = rmu + chunk;
+  float* rmk = rrs + chunk;
+  float* rm1 = rmk + chunk;
+  float* rm2 = rm1 + chunk;
+  const long long rk = (long long)region * k;
+  const float* dwr = dw + rk * P;
+  const float* dcr = dcomb + rk * P;
+  const long long base = region_base(map, region);
 
-  for (int i = tid; i < C * k; i += blockDim.x) phis[i] = round_to<TM>(phi[i]);
-  for (int i = tid; i < k * C; i += blockDim.x) drm[i] = round_to<TM>(dr[i]);
-  for (int p = tid; p < P; p += blockDim.x) tok[p] = (int)token_of(map, region, p);
-  __syncthreads();
-
-  // phase 1: LayerNorm statistics, the logits (K3's code) and d_comb per row
-  for (int p = warp; p < P; p += nwarps) {
-    const TS* xr = x + (long long)tok[p] * C;
-    const float m = mask[tok[p]] ? 1.f : 0.f;
-    float vals[CPL];
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
-      vals[i] = c < C ? to_f(xr[c]) : 0.f;
-    }
-    float mu_p, rstd_p;
-    warp_ln_stats(vals, C, lane, eps, mu_p, rstd_p);
-    float acc[KMAX], dac[KMAX];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) { acc[j] = 0.f; dac[j] = 0.f; }
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const int c = lane + 32 * i;
-      if (c < C) {
-        const float z = round_to<TM>(ln_apply(vals[i], mu_p, rstd_p, ls[c], lb[c], m));
-#pragma unroll
-        for (int j = 0; j < KMAX; ++j)
-          if (j < k) {
-            acc[j] = fmaf(phis[c * k + j], z, acc[j]);
-            dac[j] = fmaf(drm[j * C + c], z, dac[j]);
-          }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      if (j < k) {
-        const float s = warp_sum(acc[j]), d = warp_sum(dac[j]);
-        if (lane == 0) { logit[j * P + p] = s; dl[j * P + p] = d; }
-      }
-    }
-    if (lane == 0) { mu[p] = mu_p; rstd[p] = rstd_p; msk[p] = m; }
+  for (int i = tid; i < k * Cp; i += blockDim.x) {
+    const int j = i / Cp, c = i - j * Cp;
+    phit[i] = c < C ? phi[c * k + j] : 0.f;
+    drm[i] = c < C ? round_to<TM>(dreps[(rk + j) * C + c]) : 0.f;
   }
+  for (int i = tid; i < k * P; i += blockDim.x) lg[i] = logits[rk * P + i];
+  __syncthreads();
+  region_stats(lg, P, k, lmax, lmin, lsum);
   __syncthreads();
 
-  // phase 2: max, min and softmax denominator over P (K3's code)
-  if (warp < k) {
-    float mx = -INFINITY, mn = INFINITY;
-    for (int p = lane; p < P; p += 32) {
-      mx = fmaxf(mx, logit[warp * P + p]);
-      mn = fminf(mn, logit[warp * P + p]);
-    }
-    mx = warp_max(mx);
-    mn = warp_min(mn);
-    float s = 0.f;
-    for (int p = lane; p < P; p += 32) s += expf(logit[warp * P + p] - mx);
-    s = warp_sum(s);
-    if (lane == 0) { lmax[warp] = mx; lmin[warp] = mn; lsum[warp] = s; }
-  }
-  __syncthreads();
-
-  // phase 3: combine and dispatch
-  for (int p = tid; p < P; p += blockDim.x) {
-    float dmax = -INFINITY;
-    for (int j = 0; j < k; ++j) dmax = fmaxf(dmax, logit[j * P + p]);
-    float dsum = 0.f;
-    for (int j = 0; j < k; ++j) dsum += expf(logit[j * P + p] - dmax);
-    for (int j = 0; j < k; ++j) {
-      const float l = logit[j * P + p];
-      comb[j * P + p] = expf(l - lmax[j]) / lsum[j];
-      disp[j * P + p] = expf(l - dmax) / dsum;
-    }
-  }
-  __syncthreads();
-
-  // phase 4: the sums over P of each row j (one warp per row)
-  if (warp < k) {
-    const int j = warp;
-    const float rng = lmax[j] - lmin[j] + 1e-8f;
+  // the sums over P of each row j, a warp a row: d_comb combine, d_mm, d_mm
+  // lz, the tie counts; and A_j, B_j over the channels
+  for (int j = warp; j < k; j += W) {
     float a = 0.f, b = 0.f, c = 0.f, nlo = 0.f, nhi = 0.f;
     for (int p = lane; p < P; p += 32) {
-      const float l = logit[j * P + p], lz = l - lmin[j];
-      const float dmm = dwr[j * P + p] * disp[j * P + p];
-      a += dl[j * P + p] * comb[j * P + p];
-      b += dmm * (lz - rng);
+      float dmax, dsum;
+      token_softmax(lg, P, k, p, dmax, dsum);
+      const float l = lg[j * P + p], lz = l - lmin[j];
+      const float dmm = dwr[j * P + p] * (expf(l - dmax) / dsum);
+      a += dcr[j * P + p] * (expf(l - lmax[j]) / lsum[j]);
+      b += dmm;
       c += dmm * lz;
       nlo += l == lmin[j] ? 1.f : 0.f;
       nhi += l == lmax[j] ? 1.f : 0.f;
     }
+    float ca = 0.f, cb = 0.f;
+    for (int cc = lane; cc < C; cc += 32) {
+      ca = fmaf(ls[cc], drm[j * Cp + cc], ca);
+      cb = fmaf(ls[cc], phit[j * Cp + cc], cb);
+    }
     a = warp_sum(a); b = warp_sum(b); c = warp_sum(c);
     nlo = warp_sum(nlo); nhi = warp_sum(nhi);
-    if (lane == 0) { s1[j] = a; s2[j] = b; s3[j] = c; nmin[j] = nlo; nmax[j] = nhi; }
+    ca = warp_sum(ca); cb = warp_sum(cb);
+    if (lane == 0) {
+      s1[j] = a; sdm[j] = b; s3[j] = c; nmin[j] = nlo; nmax[j] = nhi;
+      ga[j] = ca; gb[j] = cb;
+    }
   }
   __syncthreads();
 
-  // phase 5: the logit gradient, rounded to TM
-  for (int p = tid; p < P; p += blockDim.x) {
-    float tdisp = 0.f;
+  // a thread a row: its logit gradient (rounded to TM), round(combine), the
+  // LayerNorm statistics, mask and backward means
+  for (int i = tid; i < np; i += blockDim.x) {
+    const int p = p0 + i;
+    float dmax, dsum, tdisp = 0.f;
+    token_softmax(lg, P, k, p, dmax, dsum);
     for (int j = 0; j < k; ++j) {
-      const float rng = lmax[j] - lmin[j] + 1e-8f;
-      const float mmv = (logit[j * P + p] - lmin[j]) / rng;
-      tdisp += dwr[j * P + p] * mmv * disp[j * P + p];
+      const float l = lg[j * P + p];
+      tdisp += dwr[j * P + p] * ((l - lmin[j]) / (lmax[j] - lmin[j] + 1e-8f)) *
+               (expf(l - dmax) / dsum);
     }
+    const long long t = row_token(map, base, p), rp = (long long)region * P + p;
+    const float m = mask[t] ? 1.f : 0.f;
+    float t1 = 0.f, t2 = 0.f;
     for (int j = 0; j < k; ++j) {
-      const float l = logit[j * P + p];
+      const float l = lg[j * P + p];
       const float rng = lmax[j] - lmin[j] + 1e-8f;
       const float mmv = (l - lmin[j]) / rng;
-      const float dmm = dwr[j * P + p] * disp[j * P + p];
-      const float ddisp = dwr[j * P + p] * mmv;
-      float g = comb[j * P + p] * (dl[j * P + p] - s1[j]);
-      g += disp[j * P + p] * (ddisp - tdisp);
-      g += dmm / rng;
-      const float dlmin = s2[j] / (rng * rng), dlmax = -s3[j] / (rng * rng);
-      if (l == lmin[j]) g += dlmin / nmin[j];
-      if (l == lmax[j]) g += dlmax / nmax[j];
-      dl[j * P + p] = round_to<TM>(g);
+      const float comb = expf(l - lmax[j]) / lsum[j], disp = expf(l - dmax) / dsum;
+      const float dwv = dwr[j * P + p];
+      float g = comb * (dcr[j * P + p] - s1[j]);
+      g += disp * (dwv * mmv - tdisp);
+      // the min-max backward as the plain version gathers it: exact for a
+      // region whose tokens all tie (see compress_grid_bwd_plain)
+      const float emin = l == lmin[j] ? 1.f : 0.f, emax = l == lmax[j] ? 1.f : 0.f;
+      g += (dwv * disp - emin * sdm[j] / nmin[j]) / rng;
+      g += (emin / nmin[j] - emax / nmax[j]) * s3[j] / (rng * rng);
+      const float d = round_to<TM>(g), r = round_to<TM>(comb);
+      rdl[j * chunk + i] = d;
+      rc[j * chunk + i] = r;
+      t1 += r * ga[j] + d * gb[j];
+      t2 += r * su[(rk + j) * P + p] + d * sv[(rk + j) * P + p];
+    }
+    rmu[i] = stats[2 * rp];
+    rrs[i] = stats[2 * rp + 1];
+    rmk[i] = m;
+    rm1[i] = m * t1 / C;
+    rm2[i] = m * t2 / C;
+  }
+  __syncthreads();
+
+  float pls[VW], plb[VW], pph[KB][VW];
+#pragma unroll
+  for (int e = 0; e < VW; ++e) {
+    pls[e] = plb[e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < KB; ++j) pph[j][e] = 0.f;
+  }
+  if (slot < slots) {
+    float s[VW], b[VW];
+#pragma unroll
+    for (int e = 0; e < VW; ++e) {
+      s[e] = c0 + e < C ? ls[c0 + e] : 0.f;
+      b[e] = c0 + e < C ? lb[c0 + e] : 0.f;
+    }
+    for (int i0 = slot; i0 < np; i0 += UNR * slots) {
+      float v[UNR][VW];
+      long long row[UNR];
+#pragma unroll
+      for (int q = 0; q < UNR; ++q) {
+        const int i = i0 + q * slots;
+        row[q] = i < np ? row_token(map, base, p0 + i) * C : 0;
+        if (i < np) {
+          load_group<TS>(x + row[q], c0, C, vec, v[q]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VW; ++e) v[q][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < UNR; ++q) {
+        const int i = i0 + q * slots;
+        if (i < np) {
+          const float mu = rmu[i], rstd = rrs[i], m = rmk[i], m1 = rm1[i], m2 = rm2[i];
+          float dz[VW], o[VW];
+#pragma unroll
+          for (int e = 0; e < VW; ++e) dz[e] = 0.f;
+#pragma unroll
+          for (int j = 0; j < KB; ++j) {
+            if (j < k) {
+              const float r = rc[j * chunk + i];
+              float f[VW];
+              lds<VW>(drm + j * Cp + c0, f);
+#pragma unroll
+              for (int e = 0; e < VW; ++e) dz[e] = fmaf(r, f[e], dz[e]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < KB; ++j) {
+            if (j < k) {
+              const float d = rdl[j * chunk + i];
+              float f[VW];
+              lds<VW>(phit + j * Cp + c0, f);
+#pragma unroll
+              for (int e = 0; e < VW; ++e) dz[e] = fmaf(d, f[e], dz[e]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            const float zh = (v[q][e] - mu) * rstd;
+            const float z = round_to<TM>(ln_apply(v[q][e], mu, rstd, s[e], b[e], m));
+            const float dzs = dz[e] * m;
+            pls[e] += dzs * zh;
+            plb[e] += dzs;
+#pragma unroll
+            for (int j = 0; j < KB; ++j)
+              if (j < k) pph[j][e] = fmaf(rdl[j * chunk + i], z, pph[j][e]);
+            o[e] = rstd * (dzs * s[e] - m1 - zh * m2);
+          }
+          store_group<TS>(dx + row[q], c0, C, vec, o);
+        }
+      }
     }
   }
   __syncthreads();
 
-  // phase 6: the LayerNorm backward's row means, one warp per row
-  for (int p = warp; p < P; p += nwarps) {
-    const TS* xr = x + (long long)tok[p] * C;
-    float a = 0.f, b = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      float dz = 0.f;
-      for (int j = 0; j < k; ++j)
-        dz = fmaf(round_to<TM>(comb[j * P + p]), drm[j * C + c], dz);
-      for (int j = 0; j < k; ++j) dz = fmaf(dl[j * P + p], phi[c * k + j], dz);
-      const float zhat = (to_f(xr[c]) - mu[p]) * rstd[p];
-      const float dzh = dz * msk[p] * ls[c];
-      a += dzh;
-      b += dzh * zhat;
+  // the slots' sums in slot order (the staging arrays are dead: reuse them)
+  float* red = sm;  // [slots][2 + k][Cp]
+  if (slot < slots) {
+#pragma unroll
+    for (int e = 0; e < VW; ++e) {
+      red[((long long)slot * (2 + k)) * Cp + c0 + e] = pls[e];
+      red[((long long)slot * (2 + k) + 1) * Cp + c0 + e] = plb[e];
+#pragma unroll
+      for (int j = 0; j < KB; ++j)
+        if (j < k) red[((long long)slot * (2 + k) + 2 + j) * Cp + c0 + e] = pph[j][e];
     }
-    a = warp_sum(a);
-    b = warp_sum(b);
-    if (lane == 0) { m1[p] = a / C; m2[p] = b / C; }
   }
   __syncthreads();
-
-  // phase 7: dx and the per-channel sums, one thread per channel
-  for (int c = tid; c < C; c += blockDim.x) {
-    const float s = ls[c], bb = lb[c];
-    float dls = 0.f, dlb = 0.f, dph[KMAX];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) dph[j] = 0.f;
-    for (int p = 0; p < P; ++p) {
-      const long long at = (long long)tok[p] * C + c;
-      const float xv = to_f(x[at]);
-      const float zhat = (xv - mu[p]) * rstd[p];
-      const float z = round_to<TM>(ln_apply(xv, mu[p], rstd[p], s, bb, msk[p]));
-      float dz = 0.f;
-      for (int j = 0; j < k; ++j)
-        dz = fmaf(round_to<TM>(comb[j * P + p]), drm[j * C + c], dz);
-      for (int j = 0; j < k; ++j) dz = fmaf(dl[j * P + p], phi[c * k + j], dz);
-      const float dzs = dz * msk[p];
-      dls += dzs * zhat;
-      dlb += dzs;
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j < k) dph[j] = fmaf(dl[j * P + p], z, dph[j]);
-      dx[at] = from_f<TS>(rstd[p] * (dzs * s - m1[p] - zhat * m2[p]));
-    }
-    float* out = part + (long long)region * (2 + k) * C;
-    out[c] = dls;
-    out[C + c] = dlb;
-    for (int j = 0; j < k; ++j) out[(2 + j) * C + c] = dph[j];
+  float* out = part + ((long long)pt * R + region) * (2 + k) * C;
+  for (int e = tid; e < (2 + k) * C; e += blockDim.x) {
+    const int r = e / C, c = e - r * C;
+    float t = 0.f;
+    for (int u = 0; u < slots; ++u) t += red[((long long)u * (2 + k) + r) * Cp + c];
+    out[e] = t;
   }
 }
 
@@ -578,26 +603,77 @@ redistribute_grid_bwd_kernel(const TS* __restrict__ g, const uint8_t* __restrict
   }
 }
 
+template <typename TS, typename TM, int KB>
+cudaError_t launch_compress_bwd(dim3 grid, StreamShape sh, size_t smem, cudaStream_t s,
+                                const void* x, const void* mask, const float* ls,
+                                const float* lb, const float* phi, const float* dreps,
+                                const float* dw, const float* logits, const float* stats,
+                                const float* dcomb, const float* su, const float* sv, void* dx,
+                                float* part, TokenMap map, int C, int k, int chunk, int vec) {
+  cudaError_t err = cr_smem(compress_bwd_kernel<TS, TM, KB>, smem);
+  if (err != cudaSuccess) return err;
+  compress_bwd_kernel<TS, TM, KB><<<grid, sh.threads, smem, s>>>(
+      (const TS*)x, (const uint8_t*)mask, ls, lb, phi, dreps, dw, logits, stats, dcomb, su, sv,
+      (TS*)dx, part, map, C, k, chunk, sh.slots, vec);
+  return cudaGetLastError();
+}
+
+// K4's two passes and the sum of the blocks' partials.  scratch: the rows'
+// logits, d_comb, su and sv (R, k, P) each, then their LayerNorm statistics
+// (R, P, 2); part (parts * R, (2 + k) C); out = (dls | dlb | dphi^T).
+template <typename TS, typename TM>
+int compress_bwd(const void* x, const void* mask, const float* ls, const float* lb,
+                 const float* phi, const float* dreps, const float* dw, void* dx,
+                 float* scratch, float* part, float* out, int R, TokenMap map, int C, int k,
+                 int chunk, float eps, cudaStream_t s) {
+  const int P = map.P, parts = (P + chunk - 1) / chunk;
+  const int Cp = padded_channels<TS>(C), vec = use_vec<TS>(x, C) && use_vec<TS>(dx, C);
+  const StreamShape sh = stream_shape<TS>(C);
+  const size_t smem = (size_t)std::max(2 * k * Cp + k * P + (2 * k + 5) * chunk,
+                                       sh.slots * (2 + k) * Cp) * 4;
+  const dim3 grid(R, parts);
+  const long long rkp = (long long)R * k * P;
+  float *logits = scratch, *dcomb = scratch + rkp, *su = scratch + 2 * rkp,
+        *sv = scratch + 3 * rkp, *stats = scratch + 4 * rkp;
+  cudaError_t err = launch_compress_rows<TS, TM, true>(grid, s, x, mask, ls, lb, phi, dreps,
+                                                      logits, stats, dcomb, su, sv, map, C, k,
+                                                      chunk, vec, eps);
+  if (err != cudaSuccess) return (int)err;
+#define RRT_COMPRESS_BWD(KB)                                                                \
+  err = launch_compress_bwd<TS, TM, KB>(grid, sh, smem, s, x, mask, ls, lb, phi, dreps, dw, \
+                                        logits, stats, dcomb, su, sv, dx, part, map, C, k,  \
+                                        chunk, vec)
+  switch (k_bound(k)) {
+    case 1: RRT_COMPRESS_BWD(1); break;
+    case 4: RRT_COMPRESS_BWD(4); break;
+    default: RRT_COMPRESS_BWD(8); break;
+  }
+#undef RRT_COMPRESS_BWD
+  if (err == cudaSuccess)
+    err = launch_reduce_rows(part, parts * R, (long long)(2 + k) * C, out, s);
+  return (int)err;
+}
+
 }  // namespace
 
+// K4: x (B, G*G, C), d(reps) (B, nR, k, C), d(w) (B, nR, k, P) -> dx in x's
+// dtype and out = (dls | dlb | dphi^T) ((2 + k) C); scratch (R (4 k + 2) P
+// floats) and part (parts * R, (2 + k) C) as compress_bwd takes them
 extern "C" int cb_compress_grid_bwd(int ts, int tm, const void* x, const void* mask,
                                     const void* ls, const void* lb, const void* phi,
-                                    const void* dreps, const void* dw, void* dx, void* part,
-                                    int B, int G, int rs, int C, int k, float eps,
-                                    void* stream) {
-  if (C > 32 * CPL || k < 1 || k > KMAX || G % rs != 0) return (int)cudaErrorInvalidValue;
+                                    const void* dreps, const void* dw, void* dx,
+                                    void* scratch, void* part, void* out, int B, int G, int rs,
+                                    int C, int k, int chunk, float eps, void* stream) {
+  if (C < 1 || C > 32 * CPL || k < 1 || k > KMAX || rs < 1 || G % rs != 0 || chunk < 1)
+    return (int)cudaErrorInvalidValue;
   const int nrs = G / rs;
-  const size_t smem = cgrid_smem_bytes(C, k, rs * rs);
-  cudaError_t err = cudaSuccess;
+  const TokenMap map{G, rs, nrs, rs * rs};
   RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
-      err = cudaFuncSetAttribute(compress_grid_bwd_kernel<TS, TM>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      compress_grid_bwd_kernel<TS, TM><<<B * nrs * nrs, 256, smem, (cudaStream_t)stream>>>(
-          (const TS*)x, (const uint8_t*)mask, (const float*)ls, (const float*)lb,
-          (const float*)phi, (const float*)dreps, (const float*)dw, (TS*)dx,
-          (float*)part, G, rs, C, k, eps)));
-  return (int)cudaGetLastError();
+      return compress_bwd<TS, TM>(x, mask, (const float*)ls, (const float*)lb,
+                                  (const float*)phi, (const float*)dreps, (const float*)dw, dx,
+                                  (float*)scratch, (float*)part, (float*)out, B * nrs * nrs,
+                                  map, C, k, chunk, eps, (cudaStream_t)stream)));
+  return (int)cudaErrorInvalidValue;
 }
 
 // K9: one block per (region, chunk of `chunk` token rows); the partials

@@ -215,7 +215,7 @@ attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenM
   float* Ls = Hs + nh * HD;       // [nh][PS]  q k^T of the halo rows
   __shared__ float coef[MAX_KK];
   __shared__ float dwacc[MAX_KK];
-  __shared__ float red[256];
+  __shared__ float red[BQ];
 
   const int P = tm.P;
   const int r = blockIdx.x / H, h = blockIdx.x % H;
@@ -255,13 +255,16 @@ attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenM
   };
 
   const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
-  float mrow[4], srow[4], drow[4], s[4][4], da[4][4], dyacc[4][4];
-  float dbacc = 0.f;
+  // dbrow: this thread's share of its 4 rows' sums of dLc (the bias
+  // gradient), kept per row: each row of dLc sums to zero in exact
+  // arithmetic, so a row's sum is taken whole before rows are added
+  float mrow[4], srow[4], drow[4], dbrow[4], s[4][4], da[4][4], dyacc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     mrow[i] = -INFINITY;
     srow[i] = 0.f;
     drow[i] = 0.f;
+    dbrow[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < 4; ++c) dyacc[i][c] = 0.f;
   }
@@ -315,7 +318,7 @@ attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenM
           const float a = expf(s[i][j] + bias - mrow[i]) / srow[i];
           dl = a * (da[i][j] - drow[i]);
         }
-        dbacc += dl;
+        dbrow[i] += dl;
         Ps[(ty * 4 + i) * PS + tx * 4 + j] = dl;
       }
     }
@@ -378,14 +381,20 @@ attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenM
     }
   }
   if (kk > 0) {
-    red[tid] = dbacc;
+    // each row's sum over its keys (the 16 tx lanes), then the tile's 64
+    // rows added in row order
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float row = warp_sum(dbrow[i], 16);
+      if (tx == 0) red[ty * 4 + i] = row;
+    }
     __syncthreads();
     const int R = gridDim.x / H;
     const long long slot = ((long long)h * R + r) * gridDim.y + qt;
     float* out = part + slot * (kk + 1);
     if (tid == 0) {
       float acc = 0.f;
-      for (int i = 0; i < (int)blockDim.x; ++i) acc += red[i];
+      for (int i = 0; i < BQ; ++i) acc += red[i];
       out[kk] = acc;
     }
     for (int t = tid; t < kk; t += blockDim.x) out[t] = dwacc[t];

@@ -62,17 +62,18 @@ SIGNATURES = {
                              _P, _P, _P],
     },
     "crmsa": {
-        "cr_compress_grid": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _F, _P],
+        "cr_compress_grid": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _I, _I, _F, _P],
         "cr_redistribute_ln": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _F, _P],
-        "cr_compress": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "cr_compress": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _P],
         "cr_redistribute": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _P],
     },
     "crmsa_bwd": {
         "cb_compress_grid_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _F, _P],
+                                 _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
         "cb_redistribute_ln_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
         "cb_redistribute_grid_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -15,7 +15,9 @@ w^T reps per region -> reverse -> mask -> + x -> + shortcut -> the
 encoder-final LayerNorm -> mask, as the f32 encoder output.
 
 The CUDA source is `csrc/crmsa.cu`; its note says what bounds each kernel on
-an H100 and what the design does about it.
+an H100 and what the design does about it.  K3, K12 and K4 share the row
+passes and layout of `csrc/crmsa.cuh`: each region's rows split over blocks
+by `row_split`.
 
 Their backwards: K4 `crmsa_compress_grid_bwd` replaces
 `crmsa_kernels.py::_cgrid_bwd_pallas` (kernel body `_cgrid_bwd_kernel`,
@@ -62,18 +64,20 @@ from .common import (LN_EPS, ln_bwd_plain, ln_fast, ln_mask_plain, ln_stats,
 from .region_layer import SMS, check_grid
 
 MAX_K = 8   # representatives per region the kernels take
-K9_ROWS = 8            # token rows one round of a K9 block takes (a warp each)
-K9_BLOCKS_PER_SM = 2   # K9 blocks the row split gives every SM at least
+SPLIT_ROWS = 8           # rows a round of a split block takes (a warp each)
+SPLIT_BLOCKS_PER_SM = 2  # blocks the row split gives every SM at least
 
 
-def k9_row_split(regions: int, p: int, sms: int = SMS) -> int:
-    """Token rows of a region per K9 block: each region's p rows split over
-    enough blocks that regions x blocks >= K9_BLOCKS_PER_SM blocks an SM
-    (or one block a round of K9_ROWS rows, when p is too short for that); a
-    multiple of K9_ROWS."""
-    steps = -(-p // K9_ROWS)
-    need = max(1, -(-K9_BLOCKS_PER_SM * sms // regions))
-    return max(1, steps // need) * K9_ROWS
+def row_split(regions: int, p: int, sms: int = SMS) -> int:
+    """Token rows of a region per block of the row-split kernels (K3, K4,
+    K9, K12): each region's p rows split over enough blocks that regions x
+    blocks >= SPLIT_BLOCKS_PER_SM blocks an SM (or one block a round of
+    SPLIT_ROWS rows, when p is too short for that); a multiple of
+    SPLIT_ROWS.  Block i of a region takes rows i * chunk .. min(p, (i + 1)
+    * chunk) - 1."""
+    steps = -(-p // SPLIT_ROWS)
+    need = max(1, -(-SPLIT_BLOCKS_PER_SM * sms // regions))
+    return max(1, steps // need) * SPLIT_ROWS
 
 
 def compress_grid_plain(x, mask, ln_s, ln_b, phi, grid_side: int,
@@ -117,7 +121,12 @@ def compress_grid_bwd_plain(x, mask, ln_s, ln_b, phi, dreps, dw,
                             grid_side: int, region_size: int,
                             mm_dtype=torch.bfloat16):
     """Plain PyTorch version of K4: (dx, dls, dlb, dphi) given d(reps) and
-    d(w); the min and max gradients are split equally among ties."""
+    d(w); the min and max gradients are split equally among ties.  The TPU
+    kernel adds d_mm / rng and the min's - sum d_mm / rng as two terms that
+    cancel for a region of one token (or of tied tokens only), where rng is
+    1e-8: its gradient there is float32 rounding times 1e8.  This version
+    takes their difference first, which is exact there and the same sum
+    elsewhere (held to jax.vjp of the XLA reference in the tests)."""
     mmd = mm_dtype
     b, n, c = x.shape
     g, rs = grid_side, region_size
@@ -141,13 +150,19 @@ def compress_grid_bwd_plain(x, mask, ln_s, ln_b, phi, dreps, dw,
     d_mm, d_disp = dwf * dispatch, dwf * (lz / rng)
     dl = combine * (d_comb - (d_comb * combine).sum(-1, keepdim=True))
     dl = dl + dispatch * (d_disp - (d_disp * dispatch).sum(-2, keepdim=True))
-    dl = dl + d_mm / rng
-    dlmin = (d_mm * (lz - rng)).sum(-1, keepdim=True) / (rng * rng)
-    dlmax = -(d_mm * lz).sum(-1, keepdim=True) / (rng * rng)
+    # the min-max backward: d_mm / rng, minus the sum of d_mm (lz - rng) /
+    # rng^2 on the min and plus - sum d_mm lz / rng^2 on the max, each split
+    # equally among tied tokens; the first two are gathered as (d_mm -
+    # sum d_mm / n_min) / rng, so a region whose tokens all tie (one token,
+    # or only pad rows) cancels exactly instead of through two terms of
+    # d_mm / 1e-8
     eqmin = (logits == lmin).float()
     eqmax = (logits == lmax).float()
-    dl = dl + dlmin * eqmin / eqmin.sum(-1, keepdim=True)
-    dl = dl + dlmax * eqmax / eqmax.sum(-1, keepdim=True)
+    nmin = eqmin.sum(-1, keepdim=True)
+    nmax = eqmax.sum(-1, keepdim=True)
+    s3 = (d_mm * lz).sum(-1, keepdim=True)
+    dl = dl + (d_mm - eqmin * d_mm.sum(-1, keepdim=True) / nmin) / rng
+    dl = dl + (eqmin / nmin - eqmax / nmax) * s3 / (rng * rng)
     dlm = mm_round(dl, mmd)
     dzr = (torch.einsum("brkp,brkc->brpc", mm_round(combine, mmd), drm)
            + torch.einsum("brkp,ck->brpc", dlm, phi.float()))
@@ -187,6 +202,20 @@ def _check_k(k: int) -> None:
                          f"representatives, not {k}")
 
 
+def _compress_scratch(r, p, c, k, dev, per_row: int):
+    """(scratch, part, chunk) of K3 / K12 on r regions of p rows: the row
+    split, and one float32 allocation for the rows' scratch (per_row floats
+    a row: K3's k logits and LayerNorm statistics, K12's k logits) and, with
+    more than one chunk a region, the blocks' partial reps (parts, R, k, C);
+    part is None with one chunk (reps are written in place)."""
+    chunk = row_split(r, p)
+    parts = -(-p // chunk)
+    rows = r * per_row * p
+    scratch = torch.empty((rows + (parts * r * k * c if parts > 1 else 0),),
+                          dtype=torch.float32, device=dev)
+    return scratch[:rows], (scratch[rows:] if parts > 1 else None), chunk
+
+
 def _launch_compress(x, mask, ln_s, ln_b, phi, g, rs, mmd):
     b, n, c = x.shape
     k = phi.shape[1]
@@ -200,11 +229,12 @@ def _launch_compress(x, mask, ln_s, ln_b, phi, g, rs, mmd):
     phi_f = phi.float().contiguous()
     reps = torch.empty((b, nr, k, c), dtype=torch.float32, device=x.device)
     w = torch.empty((b, nr, k, p), dtype=torch.float32, device=x.device)
+    scratch, part, chunk = _compress_scratch(b * nr, p, c, k, x.device, k + 2)
     build.check(lib.cr_compress_grid(
         build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
         mask.data_ptr(), ls.data_ptr(), lb.data_ptr(), phi_f.data_ptr(),
-        reps.data_ptr(), w.data_ptr(), b, g, rs, c, k, LN_EPS,
-        build.stream_of(x)), "K3 compress")
+        reps.data_ptr(), w.data_ptr(), scratch.data_ptr(), build.ptr(part), b,
+        g, rs, c, k, chunk, LN_EPS, build.stream_of(x)), "K3 compress")
     crmsa_compress_grid.launches += 1
     return reps, w
 
@@ -256,20 +286,26 @@ def _launch_compress_bwd(x, mask, ln_s, ln_b, phi, dreps, dw, g, rs, mmd):
     build.require_cuda({"x": x, "mask": mask, "dreps": dreps, "dw": dw},
                        dict(ln_s=ln_s, ln_b=ln_b, phi=phi))
     lib = build.load("crmsa_bwd")
-    s = build.stream_of(x)
     ls, lb = ln_s.float().contiguous(), ln_b.float().contiguous()
     phi_f = phi.float().contiguous()
     dx = torch.empty_like(x)
-    part = torch.empty((b * nr, (2 + k) * c), dtype=torch.float32,
-                       device=x.device)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    r = b * nr
+    chunk = row_split(r, p)
+    parts = -(-p // chunk)
+    # one allocation: the rows' scratch (logits, d_comb and the LayerNorm
+    # backward's two row sums, k each, and the LayerNorm statistics), the
+    # blocks' partials (parts * R, (2 + k) C) and the summed (dls | dlb |
+    # dphi^T)
+    rows, wide = r * (4 * k + 2) * p, parts * r * (2 + k) * c
+    scratch = torch.empty((rows + wide + (2 + k) * c,), **f32)
+    out = scratch[rows + wide:]
     build.check(lib.cb_compress_grid_bwd(
         build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
         mask.data_ptr(), ls.data_ptr(), lb.data_ptr(), phi_f.data_ptr(),
-        dreps.data_ptr(), dw.data_ptr(), dx.data_ptr(), part.data_ptr(), b, g,
-        rs, c, k, LN_EPS, s), "K4 compress backward")
-    out = torch.empty(((2 + k) * c,), dtype=torch.float32, device=x.device)
-    build.check(lib.cb_reduce(part.data_ptr(), b * nr, (2 + k) * c,
-                              out.data_ptr(), s), "K4 reduce")
+        dreps.data_ptr(), dw.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
+        scratch[rows:].data_ptr(), out.data_ptr(), b, g, rs, c, k, chunk,
+        LN_EPS, build.stream_of(x)), "K4 compress backward")
     crmsa_compress_grid_bwd.launches += 1
     return dx, out[:c], out[c:2 * c], out[2 * c:].reshape(k, c).t()
 
@@ -292,7 +328,7 @@ def _launch_redistribute_bwd(x, mask, w, reps, ln_s, ln_b, shortcut, gout,
     dx = torch.empty_like(x)
     f32 = dict(dtype=torch.float32, device=x.device)
     dw = torch.empty((b, nr, k, p), **f32)
-    chunk = k9_row_split(b * nr, p)
+    chunk = row_split(b * nr, p)
     parts = -(-p // chunk)
     nrep = b * nr * k * c
     # one allocation each for the outputs (dreps, dls | dlb) and the
@@ -509,10 +545,12 @@ def _launch_compress_regions(x, phi, mmd):
     phi_f = phi.float().contiguous()
     reps = torch.empty((r, k, c), dtype=torch.float32, device=x.device)
     w = torch.empty((r, k, p), dtype=torch.float32, device=x.device)
+    scratch, part, chunk = _compress_scratch(r, p, c, k, x.device, k)
     build.check(lib.cr_compress(
         build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
-        phi_f.data_ptr(), reps.data_ptr(), w.data_ptr(), r, p, c, k,
-        build.stream_of(x)), "K12 compress")
+        phi_f.data_ptr(), reps.data_ptr(), w.data_ptr(), scratch.data_ptr(),
+        build.ptr(part), r, p, c, k, chunk, build.stream_of(x)),
+        "K12 compress")
     crmsa_compress.launches += 1
     return reps, w
 

@@ -30,6 +30,7 @@ from rrtmil_tpu_torch.ops.kernels import region_attn as ra
 from rrtmil_tpu_torch.ops.kernels import region_attn_bwd as rab
 from rrtmil_tpu_torch.ops.kernels import region_block as rb
 from rrtmil_tpu_torch.ops.kernels import region_layer as rl
+from rrtmil_tpu_torch.ops.regions import region_partition
 from rrtmil_tpu_torch.train.engine import Engine, EngineConfig
 from rrtmil_tpu_torch.train.surv_engine import (SurvivalEngine,
                                                 SurvivalEngineConfig)
@@ -543,6 +544,46 @@ def test_cuda_k9_at_ragged_region_sizes(sdt, mm, p, b):
                     continue
                 _close(a, c, mm, f"K9 P={p} k={k} B={b} "
                                  f"shortcut={short is not None}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", PAIRS)
+@pytest.mark.parametrize("p,c", [(1, 512), (9, 512), (144, 512), (729, 512),
+                                 (961, 512), (9, 130)])
+@pytest.mark.parametrize("b", [1, 8])
+def test_cuda_compress_at_ragged_region_sizes(sdt, mm, p, c, b):
+    """K3 and K4 on 64 regions a bag of p tokens each (B = 1: each region's
+    rows split over blocks; B = 8: one block a region) with k in {1, 3, 5,
+    8}, the last row of regions pad rows but one token (their logits tie at
+    0), and K12 on the same regions partitioned; C = 130 takes the
+    element-wise loads (rows not a whole number of 16-byte groups).
+    Against the plain versions, the same bits on a second call."""
+    dev = _cuda()
+    rs = int(round(p ** 0.5))
+    g = 8 * rs
+    gen = torch.Generator(device=dev).manual_seed(10 * p + b)
+    r = lambda *s, sc=1.0: torch.randn(s, generator=gen, device=dev) * sc
+    n = g * g
+    mask = (torch.arange(n, device=dev) < n - rs * g + 1)[None].expand(b, n) \
+        .contiguous()
+    x = (r(b, n, c) * mask[..., None]).to(sdt)
+    ls, lb = 1 + r(c, sc=0.1), r(c, sc=0.1)
+    regions = region_partition(x.reshape(b, g, g, c), rs).reshape(-1, p, c)
+    for k in (1, 3, 5, 8):
+        phi = (torch.rand((c, k), generator=gen, device=dev) * 2 - 1) \
+            / k ** 0.5
+        dreps, dw = r(b, 64, k, c, sc=0.1), r(b, 64, k, p, sc=0.1)
+        for what, fn, plain, args in (
+                ("K3", ck.crmsa_compress_grid, ck.compress_grid_plain,
+                 (x, mask, ls, lb, phi, g, rs)),
+                ("K4", ck.crmsa_compress_grid_bwd, ck.compress_grid_bwd_plain,
+                 (x, mask, ls, lb, phi, dreps, dw, g, rs)),
+                ("K12", ck.crmsa_compress, ck.compress_plain,
+                 (regions, phi))):
+            got = _twice(fn, args, mm)
+            want = plain(*args, mm_dtype=mm)
+            for a, w in zip(got, want):
+                _close(a, w, mm, f"{what} P={p} C={c} k={k} B={b}")
 
 
 @pytest.mark.gpu

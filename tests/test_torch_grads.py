@@ -369,12 +369,12 @@ def test_k9_row_split_covers_the_rows_and_fills_the_card(regions, p):
     exactly one block, each block's share a multiple of the 8 rows a step
     takes (the last may be short), and at least two blocks an SM unless
     every block is already down to one step."""
-    rows = ck.k9_row_split(regions, p)
-    assert rows % ck.K9_ROWS == 0 and rows > 0
+    rows = ck.row_split(regions, p)
+    assert rows % ck.SPLIT_ROWS == 0 and rows > 0
     parts = -(-p // rows)
     covered = np.zeros(p, int)
     for i in range(parts):
         covered[i * rows:min(p, (i + 1) * rows)] += 1
     assert (covered == 1).all()
-    assert regions * parts >= ck.K9_BLOCKS_PER_SM * rl.SMS \
-        or rows == ck.K9_ROWS
+    assert regions * parts >= ck.SPLIT_BLOCKS_PER_SM * rl.SMS \
+        or rows == ck.SPLIT_ROWS
