@@ -35,9 +35,17 @@
 // _rgrid_ln_kernel): per token, round(w)^T round(reps) from its region,
 // times the mask, + x (the layer residual), + the encoder's global
 // shortcut, then the encoder-final LayerNorm and mask, written as fp32.
-// Bound on an H100: bytes (~57 MB a c16_r50 slide).  Design: one warp per
-// token row, the row held in registers, so x, the shortcut and the output
-// each cross device memory once; w and reps are tiny and stay in L2.
+// Bound on an H100: bytes (~57 MB a c16_r50 slide, f32 stream).  Design:
+// K9's row layout (crmsa.cuh): one block per (region, chunk of token rows),
+// a warp a row, a lane four consecutive channels a group (16-byte loads of
+// x and the shortcut, 8-byte for a bf16 stream; 16-byte stores of the
+// output), every load of a row issued before any is used, so x, the
+// shortcut and the output each cross device memory once.  round(reps),
+// round(w) of the block's rows and the LayerNorm's scale and bias are
+// staged in shared memory once a block.  The stream value and its
+// statistics come from stream_ln, which K9 calls too.  K8 sums nothing
+// across rows, so the chunk is chosen for the card alone
+// (crmsa_kernels.k8_split: row_split's chunk, at most K8_ROWS rows).
 //
 // K10 replaces crmsa_kernels.py::_redistribute_grid_pallas (kernel body
 // _redistribute_grid_kernel): out = x + mask * reverse(round(w)^T
@@ -168,49 +176,72 @@ compress_reps_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
   }
 }
 
-template <typename TS, typename TM>
-__global__ void __launch_bounds__(256)
+// K8: one block per (region, chunk of `chunk` token rows), a warp a row at
+// a time (rows p0 + warp, p0 + warp + W, ...), no barrier between rows.  The
+// region's round(reps), the block's round(w) and the LayerNorm's scale and
+// bias are staged in shared memory once a block; a row's mask, x and
+// shortcut loads are all issued before any is used; stream_ln forms the
+// stream value and its statistics (as K9 recomputes them), and the masked
+// LayerNorm goes out as fp32 with 16-byte stores.
+template <typename TS, typename TM, int NC>
+__global__ void __launch_bounds__(CR_THREADS, NC <= 16 ? 2 : 1)
 redistribute_ln_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
                        const float* __restrict__ w, const float* __restrict__ reps,
                        const float* __restrict__ ls, const float* __restrict__ lb,
-                       const TS* __restrict__ sc, float* __restrict__ out,
-                       long long M, int G, int rs, int C, int k, float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long t = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (t >= M) return;
-  const int gg = G * G, nrs = G / rs, P = rs * rs;
-  const int b = (int)(t / gg), pos = (int)(t % gg);
-  const int gi = pos / G, gj = pos % G;
-  const long long region = (long long)b * nrs * nrs + (gi / rs) * nrs + gj / rs;
-  const int p = (gi % rs) * rs + gj % rs;
-  const float m = mask[t] ? 1.f : 0.f;
+                       const TS* __restrict__ sc, float* __restrict__ out, TokenMap map, int C,
+                       int k, int chunk, float eps) {
+  constexpr int NQ = NC / 4;
+  extern __shared__ __align__(16) float sm[];
+  float* lss = sm;             // [C] the LayerNorm scale, then [C] its bias
+  float* lbs = lss + C;
+  float* repm = lbs + C;       // [k][C] round(reps_r)
+  float* ws = repm + k * C;    // [k][chunk] round(w_r) of the block's rows
+  const int P = map.P, region = blockIdx.x, p0 = blockIdx.y * chunk;
+  const int np = min(P, p0 + chunk) - p0, nq = C / 4;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = blockDim.x >> 5;
+  const long long base = region_base(map, region);
 
-  float wj[KMAX];
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j)
-    wj[j] = j < k ? round_to<TM>(w[(region * k + j) * P + p]) : 0.f;
-
-  float vals[CPL];
-#pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < C) {
-      float y = 0.f;
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j < k) y = fmaf(wj[j], round_to<TM>(reps[(region * k + j) * C + c]), y);
-      float v = to_f(x[t * C + c]) + y * m;
-      if (sc) v += to_f(sc[t * C + c]);
-      vals[i] = v;
-    } else {
-      vals[i] = 0.f;
-    }
+  for (int i = tid; i < C; i += blockDim.x) {
+    lss[i] = ls[i];
+    lbs[i] = lb[i];
   }
-  warp_ln_mask(vals, C, lane, ls, lb, m, eps);
+  for (int i = tid; i < k * C; i += blockDim.x)
+    repm[i] = round_to<TM>(reps[(long long)region * k * C + i]);
+  for (int i = tid; i < k * np; i += blockDim.x) {
+    const int j = i / np, r = i - j * np;
+    ws[j * chunk + r] = round_to<TM>(w[((long long)region * k + j) * P + p0 + r]);
+  }
+  __syncthreads();
+
+  for (int i = warp; i < np; i += W) {
+    const long long t = row_token(map, base, p0 + i);
+    const float m = mask[t] ? 1.f : 0.f;
+    float v[NC], s[NC];
+    load_row4<TS, NC>(x + t * C, lane, nq, v);
+    if (sc) {
+      load_row4<TS, NC>(sc + t * C, lane, nq, s);
+    } else {
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    const int c = lane + 32 * i;
-    if (c < C) out[t * C + c] = vals[i];
+      for (int n = 0; n < NC; ++n) s[n] = 0.f;
+    }
+    float wr[KMAX];
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) wr[j] = j < k ? ws[j * chunk + i] : 0.f;
+    float mu, rstd;
+    stream_ln<NC>(v, s, m, wr, repm, k, C, lane, eps, mu, rstd);
+#pragma unroll
+    for (int g = 0; g < NQ; ++g) {
+      const int q = lane + 32 * g;
+      if (q < nq) {
+        const float4 a = *reinterpret_cast<const float4*>(lss + 4 * q);
+        const float4 b = *reinterpret_cast<const float4*>(lbs + 4 * q);
+        store4(out + t * C + 4 * q,
+               make_float4(ln_apply(v[4 * g], mu, rstd, a.x, b.x, m),
+                           ln_apply(v[4 * g + 1], mu, rstd, a.y, b.y, m),
+                           ln_apply(v[4 * g + 2], mu, rstd, a.z, b.z, m),
+                           ln_apply(v[4 * g + 3], mu, rstd, a.w, b.w, m)));
+      }
+    }
   }
 }
 
@@ -219,24 +250,6 @@ redistribute_ln_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mas
 // mask == nullptr: no mask.  One block per (region, RT rows), one warp per
 // row, four channels per lane per step (C % 4 == 0).
 constexpr int RT = 32;
-
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(q[0]), b = __bfloat1622float2(q[1]);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
-  q[0] = __floats2bfloat162_rn(v[0], v[1]);
-  q[1] = __floats2bfloat162_rn(v[2], v[3]);
-}
 
 template <typename TS, typename TM>
 __global__ void __launch_bounds__(256)
@@ -278,12 +291,13 @@ redistribute_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
 #pragma unroll
       for (int e = 0; e < 4; ++e) y[e] *= m;
       if (x) {
-        float xv[4];
-        load4(x + t * C + c, xv);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) y[e] = xv[e] + y[e];
+        const float4 xv = load4(x + t * C + c);
+        y[0] = xv.x + y[0];
+        y[1] = xv.y + y[1];
+        y[2] = xv.z + y[2];
+        y[3] = xv.w + y[3];
       }
-      store4(out + t * C + c, y);
+      store4(out + t * C + c, make_float4(y[0], y[1], y[2], y[3]));
     }
   }
 }
@@ -389,18 +403,40 @@ extern "C" int cr_redistribute(int ts, int tm, const void* x, const void* mask,
   return (int)cudaGetLastError();
 }
 
+template <typename TS, typename TM, int NC>
+cudaError_t launch_redistribute_ln(dim3 grid, size_t smem, cudaStream_t s, const void* x,
+                                   const void* mask, const float* w, const float* reps,
+                                   const float* ls, const float* lb, const void* sc, float* out,
+                                   TokenMap map, int C, int k, int chunk, float eps) {
+  cudaError_t err = cr_smem(redistribute_ln_kernel<TS, TM, NC>, smem);
+  if (err != cudaSuccess) return err;
+  redistribute_ln_kernel<TS, TM, NC><<<grid, CR_THREADS, smem, s>>>(
+      (const TS*)x, (const uint8_t*)mask, w, reps, ls, lb, (const TS*)sc, out, map, C, k, chunk,
+      eps);
+  return cudaGetLastError();
+}
+
+// K8: x (B, G*G, C) (+ shortcut, or null) -> out (B, G*G, C) fp32, one block
+// per (region, chunk of `chunk` token rows)
 extern "C" int cr_redistribute_ln(int ts, int tm, const void* x, const void* mask,
                                   const void* w, const void* reps, const void* ls,
-                                  const void* lb, const void* sc, void* out, int B,
-                                  int G, int rs, int C, int k, float eps,
-                                  void* stream) {
-  if (C > 32 * CPL || k < 1 || k > KMAX || G % rs != 0) return (int)cudaErrorInvalidValue;
-  const long long M = (long long)B * G * G;
-  const unsigned blocks = (unsigned)((M + 7) / 8);
-  RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
-      redistribute_ln_kernel<TS, TM><<<blocks, 256, 0, (cudaStream_t)stream>>>(
-          (const TS*)x, (const uint8_t*)mask, (const float*)w, (const float*)reps,
-          (const float*)ls, (const float*)lb, (const TS*)sc, (float*)out, M, G, rs,
-          C, k, eps)));
-  return (int)cudaGetLastError();
+                                  const void* lb, const void* sc, void* out, int B, int G,
+                                  int rs, int C, int k, int chunk, float eps, void* stream) {
+  if (C < 4 || C % 4 != 0 || C > 32 * CPL || k < 1 || k > KMAX || rs < 1 || G % rs != 0 ||
+      chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nrs = G / rs, P = rs * rs;
+  const TokenMap map{G, rs, nrs, P};
+  const dim3 grid(B * nrs * nrs, (P + chunk - 1) / chunk);
+  const size_t smem = (size_t)(2 * C + k * C + k * chunk) * 4;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaErrorInvalidValue;
+#define RRT_K8(NC)                                                                         \
+  err = launch_redistribute_ln<TS, TM, NC>(grid, smem, s, x, mask, (const float*)w,         \
+                                           (const float*)reps, (const float*)ls,            \
+                                           (const float*)lb, sc, (float*)out, map, C, k,    \
+                                           chunk, eps)
+  RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM, RRT_BY_ROW4(C, RRT_K8)));
+#undef RRT_K8
+  return (int)err;
 }

@@ -1,5 +1,8 @@
-// The CR-MSA compression's shared pieces: K3 / K12 (crmsa.cu) and their
-// backward K4 (crmsa_bwd.cu) read the stream in one layout.
+// The CR-MSA layer's shared pieces: K3 / K12 (crmsa.cu) and their backward
+// K4 (crmsa_bwd.cu) read the stream in one layout, described here; the
+// redistribution's kernels (K8, K10 in crmsa.cu; K9, K11 in crmsa_bwd.cu)
+// in another, a warp a row (load_row4, and stream_ln: K8's stream value and
+// LayerNorm statistics, which K9 recomputes).
 //
 // A region's P token rows are split over blocks (blockIdx.x the region,
 // blockIdx.y the chunk of `chunk` rows, chosen by crmsa_kernels.row_split
@@ -136,6 +139,103 @@ __device__ __forceinline__ long long row_token(const TokenMap& tm, long long bas
   const int pi = p / tm.rs;
   return base + (long long)pi * tm.grid + (p - pi * tm.rs);
 }
+
+// ---------------------------------------------------------------------------
+// The redistribution's row layout (K8, K9, K10, K11): a warp owns a token
+// row, a lane NC channels as NC / 4 groups of four consecutive channels
+// (group lane + 32 i: channels 4 (lane + 32 i) .. + 3), each moved as one
+// 16-byte (float) or 8-byte (bf16) vector; C % 4 == 0, C <= 32 NC.
+// ---------------------------------------------------------------------------
+
+// 4 consecutive elements (16-byte aligned float, 8-byte aligned bf16) as
+// fp32, and back
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// The lane's groups of a row as fp32: v[4 i + e] is channel 4 (lane + 32 i)
+// + e.  A group past the row (q >= nq = C / 4) reads the row's last group,
+// so every load stays in bounds; the callers zero those.
+template <typename T, int NC>
+__device__ __forceinline__ void load_row4(const T* __restrict__ row, int lane, int nq,
+                                          float (&v)[NC]) {
+#pragma unroll
+  for (int i = 0; i < NC / 4; ++i) {
+    const float4 u = load4(row + 4 * min(lane + 32 * i, nq - 1));
+    v[4 * i] = u.x; v[4 * i + 1] = u.y; v[4 * i + 2] = u.z; v[4 * i + 3] = u.w;
+  }
+}
+
+// K8's stream value x + mask * round(w)^T round(reps) (+ shortcut) of the
+// warp's row and its LayerNorm statistics (flax fast variance: var = max(0,
+// E[v^2] - mu^2)).  K8 computes its output and K9 its backward from this one
+// function, rounded op by op, so K9 recomputes K8's values bit for bit.  v:
+// the row's x on entry (load_row4), the stream value on exit, zero past C;
+// s: the shortcut's row (zeros without one); wr[j] = round(w)[j, p]; repm:
+// round(reps_r) [k][C] in shared memory.
+template <int NC>
+__device__ __forceinline__ void stream_ln(float (&v)[NC], const float (&s)[NC], float m,
+                                          const float (&wr)[KMAX], const float* repm, int k,
+                                          int C, int lane, float eps, float& mu, float& rstd) {
+  const int nq = C / 4;
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < NC / 4; ++i) {
+    const int q = lane + 32 * i, c0 = 4 * min(q, nq - 1);
+    float y[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < k) {
+        const float4 r = *reinterpret_cast<const float4*>(repm + j * C + c0);
+        y[0] = fmaf(wr[j], r.x, y[0]);
+        y[1] = fmaf(wr[j], r.y, y[1]);
+        y[2] = fmaf(wr[j], r.z, y[2]);
+        y[3] = fmaf(wr[j], r.w, y[3]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float u = q < nq ? __fadd_rn(fmaf(y[e], m, v[4 * i + e]), s[4 * i + e]) : 0.f;
+      v[4 * i + e] = u;
+      s1 = __fadd_rn(s1, u);
+      s2 = fmaf(u, u, s2);
+    }
+  }
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  mu = __fdiv_rn(s1, (float)C);
+  rstd = __frcp_rn(__fsqrt_rn(__fadd_rn(fmaxf(0.f, __fsub_rn(__fdiv_rn(s2, (float)C),
+                                                            __fmul_rn(mu, mu))),
+                                        eps)));
+}
+
+// Channels a lane holds in the redistribution's row layout: 4, 8, 16 or 32
+inline int row4_channels(int C) { return C <= 128 ? 4 : C <= 256 ? 8 : C <= 512 ? 16 : 32; }
+
+// LAUNCH(NC) for the lane channels C needs
+#define RRT_BY_ROW4(C, LAUNCH)            \
+  switch (rrt::row4_channels(C)) {        \
+    case 4: LAUNCH(4); break;             \
+    case 8: LAUNCH(8); break;             \
+    case 16: LAUNCH(16); break;           \
+    default: LAUNCH(32); break;           \
+  }
 
 // Mean and 1/sqrt(var + eps) of the warp's row (flax fast variance), as
 // warp_ln_stats

@@ -31,28 +31,29 @@
 //
 // K9's design: one pass over x, the shortcut and g, as the TPU kernel (its
 // two-pass form read them twice: at B = 8 the regions in flight hold ~450
-// MB, far past the 50 MB L2).  A warp owns a token row
-// at a time and, beside dx and the row's dw sums, adds the row's terms into
-// its own partials (dls and dlb in registers, dreps in its slice of shared
-// memory), so the warps of a block run without a barrier between rows and
-// keep their loads in flight; the warps' partials are summed in warp order
-// at the end.  Each region's rows are split over enough blocks that B = 1
-// (64 regions) still puts two blocks on every SM.  The sums across blocks
-// are partials that cb_reduce adds in a fixed order: no atomics, so every
-// run gives the same bits.
+// MB, far past the 50 MB L2), in the redistribution's row layout of
+// crmsa.cuh (a lane four consecutive channels a group, 16-byte loads; 8-byte
+// for a bf16 stream).  A warp owns a token row at a time: it recomputes the
+// stream value and statistics with K8's own function (stream_ln, so the
+// values are K8's bit for bit), writes dx and the row's dw sums, and adds
+// the row's terms into its own partials (dls and dlb in registers, dreps in
+// its slice of shared memory), so the warps of a block run without a
+// barrier between rows and keep their loads in flight; the warps' partials
+// are summed in warp order at the end.  Each region's rows are split over
+// enough blocks (crmsa_kernels.row_split) that B = 1 (64 regions) still
+// puts two blocks on every SM; launch_reduce_rows adds the blocks' partials
+// in a fixed order: no atomics, so every run gives the same bits.
 //
 // K11 replaces crmsa_kernels.py::_rgrid_bwd_pallas (kernel body
 // _rgrid_bwd_kernel), the backward of K10: with gm = round(g * mask) in
 // region order, dw = round(reps) gm^T (k, P) and dreps = round(w) gm (k, C)
 // per region; dx (g itself, or zeros) stays in the wrapper.  Bound: bytes
 // (c16_r50 + FFN at L = 9000, B = 8: the f32 g, ~151 MB, ~0.045 ms).
-// Design: one block per region, so dreps (a sum over the region's P rows)
-// never crosses blocks: no partials, deterministic by construction.  The
-// block walks its region in chunks of 16 token rows: the chunk's gm rows are
-// staged once in shared memory (coalesced row reads), then each warp takes
-// a row for its k dot products over C (dw), and each thread keeps the k
-// dreps sums of its channels in registers across all chunks.  g crosses
-// device memory once.  At B = 1 a 64-region bag keeps only 64 SMs busy.
+// Design: K9's kernel without the LayerNorm (one template, LN = false): no
+// x, shortcut or dx, g read once in its own dtype, gm formed in registers,
+// dw a warp sum against round(reps) in shared memory, dreps in per-warp
+// partials; rows split over blocks as K9's, and a region of one chunk
+// writes dreps in place (no second pass).
 #include "crmsa.cuh"
 
 using namespace rrt;
@@ -289,141 +290,108 @@ compress_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
 constexpr int K9_MAX_WARPS = 8;
 constexpr int K9_SMEM_BUDGET = 110 * 1024;  // two blocks an SM
 
-// warps of a K9 block: each keeps its dreps partials (k x C floats) in
-// shared memory beside round(reps), within K9_SMEM_BUDGET
+// warps of a K9 / K11 block: each keeps its dreps partials (k x C floats)
+// in shared memory beside round(reps), within K9_SMEM_BUDGET
 int rgrid_warps(int C, int k) {
   const int per = k * C * 4;
   return std::max(1, std::min(K9_MAX_WARPS, (K9_SMEM_BUDGET - per - C * 4) / per));
 }
 
-size_t rgrid_smem_bytes(int C, int k, int warps) {
-  return ((size_t)(1 + warps) * k * C + C) * 4;
+// round(reps), the warps' dreps partials and, with the LayerNorm, its scale
+size_t rgrid_smem_bytes(int C, int k, int warps, bool ln) {
+  return ((size_t)(1 + warps) * k * C + (ln ? C : 0)) * 4;
 }
 
-// 4 consecutive elements (16-byte aligned float, 8-byte aligned bf16) as fp32
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(bf16* p, float a, float b, float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-// K9, one pass over the region's rows p0 .. p1 - 1 (p1 - p0 <= chunk),
-// each warp its rows p0 + warp, p0 + warp + W, ... with no barrier between
-// rows.  The warp recomputes the stream value x + mask * round(w)^T
-// round(reps) (+ shortcut) (K8's order), runs the LayerNorm backward,
-// writes dx and the row's k dw sums, and adds the row's terms into its
-// partials: dls += gym * zhat and dlb += gym (gym = g * mask) in its lanes'
-// registers, dreps[j] += round(w)[j, p] * gm (gm = round(gout * mask)) in
-// its own k x C slice of shared memory.  At the end the warps' partials
-// are summed in warp order into part_reps[part, region, k, C] and
-// part_ln[part * R + region, 2 C], which cb_reduce sums in a fixed order.
-// A lane holds NC channels as NC / 4 groups of 4 (group lane + 32 i:
-// channels 4 (lane + 32 i) .. + 3), moved as 16-byte vectors, every load of
-// a row issued before any is used; C is a multiple of 4, C <= 32 NC.
-template <typename TS, typename TM, int NC>
+// K9 (LN) and K11 (!LN), one pass over the region's rows p0 .. p1 - 1 (p1 -
+// p0 <= chunk), each warp its rows p0 + warp, p0 + warp + W, ... with no
+// barrier between rows, in the row layout of crmsa.cuh (a lane NC channels
+// as groups of 4, every load of a row issued before any is used).
+//  * K9: the warp recomputes K8's stream value and statistics (stream_ln,
+//    the function K8 computes them with), runs the LayerNorm backward,
+//    writes dx and adds dls += gym * zhat, dlb += gym (gym = g * mask) into
+//    its lanes' registers; gm = round(mask * dx).
+//  * K11: gm = round(g * mask), g in the stream dtype.
+// Both write the row's k dw sums round(reps) gm^T (a warp sum each) and add
+// dreps[j] += round(w)[j, p] gm into the warp's own k x C slice of shared
+// memory.  At the end the warps' partials are summed in warp order into
+// part_reps[part, region, k, C] (dreps itself when a region is one chunk)
+// and, K9, part_ln[part * R + region, 2 C] = (dls | dlb); launch_reduce_rows
+// sums them over the blocks in a fixed order.  C is a multiple of 4, C <= 32
+// NC.
+template <typename TS, typename TG, typename TM, int NC, bool LN>
 __global__ void __launch_bounds__(32 * K9_MAX_WARPS, NC <= 16 ? 2 : 1)
-redistribute_ln_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
-                           const float* __restrict__ w, const float* __restrict__ reps,
-                           const float* __restrict__ ls, const TS* __restrict__ sc,
-                           const float* __restrict__ g, TS* __restrict__ dx,
-                           float* __restrict__ dw, float* __restrict__ part_reps,
-                           float* __restrict__ part_ln, int G, int rs, int C, int k,
-                           int chunk, float eps) {
+redistribute_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
+                        const float* __restrict__ w, const float* __restrict__ reps,
+                        const float* __restrict__ ls, const TS* __restrict__ sc,
+                        const TG* __restrict__ g, TS* __restrict__ dx, float* __restrict__ dw,
+                        float* __restrict__ part_reps, float* __restrict__ part_ln,
+                        TokenMap map, int C, int k, int chunk, float eps) {
   constexpr int NQ = NC / 4;  // 4-channel groups a lane holds
   extern __shared__ __align__(16) float sm[];
-  const int P = rs * rs, nrs = G / rs;
-  const int region = blockIdx.x, R = gridDim.x, part = blockIdx.y;
+  const int P = map.P, region = blockIdx.x, R = gridDim.x, part = blockIdx.y;
   const int p0 = part * chunk, p1 = min(P, p0 + chunk);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = blockDim.x >> 5;
   const int nq = C / 4;
-  float* lss = sm;               // [C] the LayerNorm scale
-  float* repm = lss + C;         // [k][C] round(reps)
-  float* wdr = repm + k * C;     // [W][k][C] each warp's dreps partials
+  float* repm = sm;                    // [k][C] round(reps)
+  float* lss = repm + k * C;           // [C] the LayerNorm scale (K9)
+  float* wdr = lss + (LN ? C : 0);     // [W][k][C] each warp's dreps partials
   float* mine = wdr + (long long)warp * k * C;
-  const TokenMap map{G, rs, nrs, P};
+  const long long base = region_base(map, region);
 
-  for (int i = tid; i < C; i += blockDim.x) lss[i] = ls[i];
+  if constexpr (LN)
+    for (int i = tid; i < C; i += blockDim.x) lss[i] = ls[i];
   for (int i = tid; i < k * C; i += blockDim.x)
     repm[i] = round_to<TM>(reps[(long long)region * k * C + i]);
   for (int i = tid; i < W * k * C; i += blockDim.x) wdr[i] = 0.f;
   float pls[NC], plb[NC];
 #pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    pls[i] = 0.f;
-    plb[i] = 0.f;
-  }
+  for (int n = 0; n < NC; ++n) pls[n] = plb[n] = 0.f;
   __syncthreads();
 
   for (int p = p0 + warp; p < p1; p += W) {
-    const long long t = token_of(map, region, p);
+    const long long t = row_token(map, base, p);
     const float m = mask[t] ? 1.f : 0.f;
     float wr[KMAX];
 #pragma unroll
     for (int j = 0; j < KMAX; ++j)
       wr[j] = j < k ? round_to<TM>(w[((long long)region * k + j) * P + p]) : 0.f;
-    // the row's loads, all issued before any is used (group index clamped;
-    // groups past C are zeroed below)
-    float vals[NC], gv[NC], sv[NC];
+    float gv[NC], xv[NC];
+    load_row4<TG, NC>(g + t * C, lane, nq, gv);
+    float mu = 0.f, rstd = 1.f, m1 = 0.f, m2 = 0.f;
+    if constexpr (LN) {
+      float s[NC];
+      load_row4<TS, NC>(x + t * C, lane, nq, xv);
+      if (sc) {
+        load_row4<TS, NC>(sc + t * C, lane, nq, s);
+      } else {
 #pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      const long long at = t * C + 4 * min(lane + 32 * i, nq - 1);
-      const float4 xv = load4(x + at), gg = load4(g + at);
-      const float4 ss = sc ? load4(sc + at) : make_float4(0.f, 0.f, 0.f, 0.f);
-      vals[4 * i] = xv.x; vals[4 * i + 1] = xv.y; vals[4 * i + 2] = xv.z; vals[4 * i + 3] = xv.w;
-      gv[4 * i] = gg.x; gv[4 * i + 1] = gg.y; gv[4 * i + 2] = gg.z; gv[4 * i + 3] = gg.w;
-      sv[4 * i] = ss.x; sv[4 * i + 1] = ss.y; sv[4 * i + 2] = ss.z; sv[4 * i + 3] = ss.w;
-    }
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      const int q = lane + 32 * i, c0 = 4 * min(q, nq - 1);
-      const bool ok = q < nq;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float y = 0.f;
-#pragma unroll
-        for (int j = 0; j < KMAX; ++j)
-          if (j < k) y = fmaf(wr[j], repm[j * C + c0 + e], y);
-        const float v = ok ? vals[4 * i + e] + y * m + sv[4 * i + e] : 0.f;
-        vals[4 * i + e] = v;
-        gv[4 * i + e] = ok ? gv[4 * i + e] * m : 0.f;
-        s1 += v;
-        s2 += v * v;
+        for (int n = 0; n < NC; ++n) s[n] = 0.f;
       }
-    }
-    // the LayerNorm statistics (flax fast variance), as warp_ln_stats
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    const float mu = s1 / C;
-    const float rstd = 1.f / sqrtf(fmaxf(0.f, s2 / C - mu * mu) + eps);
-    float a = 0.f, b = 0.f;
+      stream_ln<NC>(xv, s, m, wr, repm, k, C, lane, eps, mu, rstd);
+      // zhat into xv, gym = g * mask (zero past C) into gv, the backward's
+      // two row means
+      float a = 0.f, b = 0.f;
 #pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      const int c0 = 4 * min(lane + 32 * i, nq - 1);
+      for (int i = 0; i < NQ; ++i) {
+        const int q = lane + 32 * i;
+        const float4 l = *reinterpret_cast<const float4*>(lss + 4 * min(q, nq - 1));
+        const float lv[4] = {l.x, l.y, l.z, l.w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float zh = (vals[4 * i + e] - mu) * rstd;
-        vals[4 * i + e] = zh;
-        const float dzh = gv[4 * i + e] * lss[c0 + e];
-        a += dzh;
-        b += dzh * zh;
+        for (int e = 0; e < 4; ++e) {
+          const int n = 4 * i + e;
+          const float zh = (xv[n] - mu) * rstd;
+          xv[n] = zh;
+          gv[n] = q < nq ? gv[n] * m : 0.f;
+          const float dzh = gv[n] * lv[e];
+          a += dzh;
+          b += dzh * zh;
+        }
       }
+      m1 = warp_sum(a) / C;
+      m2 = warp_sum(b) / C;
     }
-    const float m1 = warp_sum(a) / C, m2 = warp_sum(b) / C;
+    // a group at a time: gm (K9: from dx, written here), the row's dw sums
+    // and the warp's dreps partials
     float acc[KMAX];
 #pragma unroll
     for (int j = 0; j < KMAX; ++j) acc[j] = 0.f;
@@ -432,29 +400,37 @@ redistribute_ln_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__
       const int q = lane + 32 * i;
       if (q < nq) {
         const int c0 = 4 * q;
-        float go[4], gm[4];
+        float gm[4];
+        if constexpr (LN) {
+          const float4 l = *reinterpret_cast<const float4*>(lss + c0);
+          const float lv[4] = {l.x, l.y, l.z, l.w};
+          float go[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int n = 4 * i + e;
-          go[e] = rstd * (gv[n] * lss[c0 + e] - m1 - vals[n] * m2);
-          gm[e] = round_to<TM>(go[e] * m);
-          pls[n] += gv[n] * vals[n];
-          plb[n] += gv[n];
+          for (int e = 0; e < 4; ++e) {
+            const int n = 4 * i + e;
+            go[e] = rstd * (gv[n] * lv[e] - m1 - xv[n] * m2);
+            gm[e] = round_to<TM>(go[e] * m);
+            pls[n] += gv[n] * xv[n];
+            plb[n] += gv[n];
+          }
+          store4(dx + t * C + c0, make_float4(go[0], go[1], go[2], go[3]));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gm[e] = round_to<TM>(gv[4 * i + e] * m);
         }
-        store4(dx + t * C + c0, go[0], go[1], go[2], go[3]);
 #pragma unroll
         for (int j = 0; j < KMAX; ++j) {
           if (j < k) {
             const float4 rv = *reinterpret_cast<const float4*>(&repm[j * C + c0]);
             acc[j] = fmaf(rv.x, gm[0], fmaf(rv.y, gm[1], fmaf(rv.z, gm[2],
-                                                             fmaf(rv.w, gm[3], acc[j]))));
+                                                          fmaf(rv.w, gm[3], acc[j]))));
             float4* d = reinterpret_cast<float4*>(&mine[j * C + c0]);
-            float4 u = *d;
-            u.x = fmaf(wr[j], gm[0], u.x);
-            u.y = fmaf(wr[j], gm[1], u.y);
-            u.z = fmaf(wr[j], gm[2], u.z);
-            u.w = fmaf(wr[j], gm[3], u.w);
-            *d = u;
+            float4 o = *d;
+            o.x = fmaf(wr[j], gm[0], o.x);
+            o.y = fmaf(wr[j], gm[1], o.y);
+            o.z = fmaf(wr[j], gm[2], o.z);
+            o.w = fmaf(wr[j], gm[3], o.w);
+            *d = o;
           }
         }
       }
@@ -476,131 +452,43 @@ redistribute_ln_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__
     for (int v = 0; v < W; ++v) s += wdr[(long long)v * k * C + e];
     part_reps[blk * k * C + e] = s;
   }
-  for (int r = 0; r < 2; ++r) {  // dls, then dlb, through the same buffer
-    __syncthreads();
+  if constexpr (LN) {
+    for (int r = 0; r < 2; ++r) {  // dls, then dlb, through the same buffer
+      __syncthreads();
 #pragma unroll
-    for (int i = 0; i < NQ; ++i) {
-      const int q = lane + 32 * i;
-      if (q < nq) {
-        const int n = 4 * i;
-        if (r)
-          store4(&wdr[warp * C + 4 * q], plb[n], plb[n + 1], plb[n + 2], plb[n + 3]);
-        else
-          store4(&wdr[warp * C + 4 * q], pls[n], pls[n + 1], pls[n + 2], pls[n + 3]);
+      for (int i = 0; i < NQ; ++i) {
+        const int q = lane + 32 * i;
+        if (q < nq) {
+          const int n = 4 * i;
+          store4(&wdr[warp * C + 4 * q],
+                 r ? make_float4(plb[n], plb[n + 1], plb[n + 2], plb[n + 3])
+                   : make_float4(pls[n], pls[n + 1], pls[n + 2], pls[n + 3]));
+        }
       }
-    }
-    __syncthreads();
-    for (int c = tid; c < C; c += blockDim.x) {
-      float s = 0.f;
-      for (int v = 0; v < W; ++v) s += wdr[v * C + c];
-      part_ln[blk * 2 * C + r * C + c] = s;
+      __syncthreads();
+      for (int c = tid; c < C; c += blockDim.x) {
+        float s = 0.f;
+        for (int v = 0; v < W; ++v) s += wdr[v * C + c];
+        part_ln[blk * 2 * C + r * C + c] = s;
+      }
     }
   }
 }
 
-template <typename TS, typename TM, int NC>
-cudaError_t launch_redistribute_ln_bwd(dim3 grid, int warps, size_t smem, cudaStream_t stream,
-                                       const void* x, const void* mask, const void* w,
-                                       const void* reps, const void* ls, const void* sc,
-                                       const void* g, void* dx, void* dw, void* part_reps,
-                                       void* part_ln, int G, int rs, int C, int k, int chunk,
-                                       float eps) {
-  cudaError_t err = cudaFuncSetAttribute(redistribute_ln_bwd_kernel<TS, TM, NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <typename TS, typename TG, typename TM, int NC, bool LN>
+cudaError_t launch_redistribute_bwd(dim3 grid, int warps, size_t smem, cudaStream_t stream,
+                                    const void* x, const void* mask, const void* w,
+                                    const void* reps, const void* ls, const void* sc,
+                                    const void* g, void* dx, void* dw, float* part_reps,
+                                    float* part_ln, TokenMap map, int C, int k, int chunk,
+                                    float eps) {
+  cudaError_t err = cr_smem(redistribute_bwd_kernel<TS, TG, TM, NC, LN>, smem);
   if (err != cudaSuccess) return err;
-  redistribute_ln_bwd_kernel<TS, TM, NC><<<grid, 32 * warps, smem, stream>>>(
+  redistribute_bwd_kernel<TS, TG, TM, NC, LN><<<grid, 32 * warps, smem, stream>>>(
       (const TS*)x, (const uint8_t*)mask, (const float*)w, (const float*)reps,
-      (const float*)ls, (const TS*)sc, (const float*)g, (TS*)dx, (float*)dw,
-      (float*)part_reps, (float*)part_ln, G, rs, C, k, chunk, eps);
+      (const float*)ls, (const TS*)sc, (const TG*)g, (TS*)dx, (float*)dw, part_reps, part_ln,
+      map, C, k, chunk, eps);
   return cudaGetLastError();
-}
-
-constexpr int BT = 16;   // token rows per chunk (K11)
-constexpr int CPT = 4;   // channels per thread (K11): C <= 4 * 256
-
-size_t rgrid_bwd_smem_bytes(int C, int k) {
-  return (size_t)(k * C + BT * C + k * BT) * 4;
-}
-
-template <typename TS, typename TM>
-__global__ void __launch_bounds__(256)
-redistribute_grid_bwd_kernel(const TS* __restrict__ g, const uint8_t* __restrict__ mask,
-                             const float* __restrict__ w, const float* __restrict__ reps,
-                             float* __restrict__ dw, float* __restrict__ dreps,
-                             TokenMap map, int C, int k) {
-  extern __shared__ __align__(16) float sm[];
-  float* rs_ = sm;             // [k][C] round(reps_r)
-  float* gs = rs_ + k * C;     // [BT][C] round(g * mask) of the chunk's rows
-  float* ws = gs + BT * C;     // [k][BT] round(w_r) of the chunk's rows
-  const int P = map.P;
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const float* rr = reps + (long long)r * k * C;
-  for (int i = tid; i < k * C; i += blockDim.x) rs_[i] = round_to<TM>(rr[i]);
-  float acc[CPT][KMAX];
-#pragma unroll
-  for (int i = 0; i < CPT; ++i)
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) acc[i][j] = 0.f;
-
-  for (int p0 = 0; p0 < P; p0 += BT) {
-    const int nb = min(BT, P - p0);
-    for (int i = tid; i < nb * C; i += blockDim.x) {
-      const int row = i / C, c = i - row * C;
-      const long long t = token_of(map, r, p0 + row);
-      const float m = mask[t] ? 1.f : 0.f;
-      gs[i] = round_to<TM>(to_f(g[t * C + c]) * m);
-    }
-    for (int i = tid; i < k * BT; i += blockDim.x) {
-      const int j = i / BT, row = i % BT;
-      ws[i] = row < nb ? round_to<TM>(w[((long long)r * k + j) * P + p0 + row]) : 0.f;
-    }
-    __syncthreads();
-    // dw: one warp per row, k dot products over C
-    for (int row = warp; row < nb; row += nwarps) {
-      float a[KMAX];
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j) a[j] = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float gv = gs[row * C + c];
-#pragma unroll
-        for (int j = 0; j < KMAX; ++j)
-          if (j < k) a[j] = fmaf(rs_[j * C + c], gv, a[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j) {
-        if (j < k) {
-          const float s = warp_sum(a[j]);
-          if (lane == 0) dw[((long long)r * k + j) * P + p0 + row] = s;
-        }
-      }
-    }
-    // dreps: each thread its channels, the chunk's rows in order
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int c = tid + i * blockDim.x;
-      if (c < C) {
-        for (int row = 0; row < nb; ++row) {
-          const float gv = gs[row * C + c];
-#pragma unroll
-          for (int j = 0; j < KMAX; ++j)
-            if (j < k) acc[i][j] = fmaf(ws[j * BT + row], gv, acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < CPT; ++i) {
-    const int c = tid + i * blockDim.x;
-    if (c < C) {
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j)
-        if (j < k) dreps[((long long)r * k + j) * C + c] = acc[i][j];
-    }
-  }
 }
 
 template <typename TS, typename TM, int KB>
@@ -676,58 +564,83 @@ extern "C" int cb_compress_grid_bwd(int ts, int tm, const void* x, const void* m
   return (int)cudaErrorInvalidValue;
 }
 
-// K9: one block per (region, chunk of `chunk` token rows); the partials
-// part_reps (parts, R, k, C) and part_ln (parts * R, 2 C) are summed by
-// cb_reduce over the parts (dreps) and over every block (dls, dlb)
+// K9 and K11's shared frame: one block per (region, chunk of `chunk` token
+// rows) of the (B, G*G, C) stream; with more than one chunk a region the
+// blocks' dreps partials go to part (parts, R, k, C) and are summed into
+// dreps, else straight into dreps
+struct RgridPlan {
+  TokenMap map;
+  dim3 grid;
+  int R, parts;
+  bool ok;
+};
+
+static RgridPlan rgrid_plan(int B, int G, int rs, int C, int k, int chunk) {
+  RgridPlan pl{};
+  pl.ok = C >= 4 && C <= 32 * CPL && C % 4 == 0 && k >= 1 && k <= KMAX && rs >= 1 &&
+          G % rs == 0 && chunk >= 1;
+  if (!pl.ok) return pl;
+  const int nrs = G / rs, P = rs * rs;
+  pl.map = TokenMap{G, rs, nrs, P};
+  pl.R = B * nrs * nrs;
+  pl.parts = (P + chunk - 1) / chunk;
+  pl.grid = dim3(pl.R, pl.parts);
+  return pl;
+}
+
+// K9: x, the shortcut (or null) in the stream dtype, g = d(out) fp32 ->
+// dx, dw (B, nR, k, P), dreps (B, nR, k, C) and dln = (dls | dlb) (2 C);
+// part: (parts, R, k, C) floats when a region is more than one chunk, then
+// (parts * R, 2 C) for the blocks' dls / dlb partials
 extern "C" int cb_redistribute_ln_bwd(int ts, int tm, const void* x, const void* mask,
                                       const void* w, const void* reps, const void* ls,
                                       const void* sc, const void* g, void* dx, void* dw,
-                                      void* part_reps, void* part_ln, int B, int G, int rs,
+                                      void* dreps, void* dln, void* part, int B, int G, int rs,
                                       int C, int k, int chunk, float eps, void* stream) {
-  if (C > 32 * CPL || C % 4 != 0 || k < 1 || k > KMAX || rs < 1 || G % rs != 0 ||
-      chunk < 1)
-    return (int)cudaErrorInvalidValue;
-  const int nrs = G / rs, P = rs * rs;
-  const dim3 grid(B * nrs * nrs, (P + chunk - 1) / chunk);
+  const RgridPlan pl = rgrid_plan(B, G, rs, C, k, chunk);
+  if (!pl.ok || part == nullptr) return (int)cudaErrorInvalidValue;
+  const long long nrep = (long long)pl.R * k * C;
+  float* part_reps = pl.parts > 1 ? (float*)part : (float*)dreps;
+  float* part_ln = (float*)part + (pl.parts > 1 ? pl.parts * nrep : 0);
   const int warps = rgrid_warps(C, k);
-  const size_t smem = rgrid_smem_bytes(C, k, warps);
+  const size_t smem = rgrid_smem_bytes(C, k, warps, true);
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaErrorInvalidValue;
-#define RRT_K9(NC)                                                                       \
-  err = launch_redistribute_ln_bwd<TS, TM, NC>(grid, warps, smem, s, x, mask, w, reps, ls, \
-                                               sc, g, dx, dw, part_reps, part_ln, G, rs,  \
-                                               C, k, chunk, eps)
-  RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
-      if (C <= 128) RRT_K9(4);
-      else if (C <= 256) RRT_K9(8);
-      else if (C <= 512) RRT_K9(16);
-      else RRT_K9(32)));
+#define RRT_K9(NC)                                                                            \
+  err = launch_redistribute_bwd<TS, float, TM, NC, true>(pl.grid, warps, smem, s, x, mask, w, \
+                                                         reps, ls, sc, g, dx, dw, part_reps,  \
+                                                         part_ln, pl.map, C, k, chunk, eps)
+  RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM, RRT_BY_ROW4(C, RRT_K9)));
 #undef RRT_K9
+  if (err == cudaSuccess && pl.parts > 1)
+    err = launch_reduce_rows(part_reps, pl.parts, nrep, dreps, s);
+  if (err == cudaSuccess)
+    err = launch_reduce_rows(part_ln, pl.parts * pl.R, 2LL * C, dln, s);
   return (int)err;
 }
 
-// K11: g (B, G*G, C) -> dw (B, nR, k, P), dreps (B, nR, k, C)
+// K11: g (B, G*G, C) in the stream dtype -> dw (B, nR, k, P), dreps (B, nR,
+// k, C); part (parts, R, k, C) floats when a region is more than one chunk
+// (else unused, may be null)
 extern "C" int cb_redistribute_grid_bwd(int ts, int tm, const void* g, const void* mask,
                                         const void* w, const void* reps, void* dw,
-                                        void* dreps, int B, int G, int rs, int C, int k,
-                                        void* stream) {
-  if (C > CPT * 256 || k < 1 || k > KMAX || rs < 1 || G % rs != 0)
-    return (int)cudaErrorInvalidValue;
-  const int nrs = G / rs;
-  const TokenMap map{G, rs, nrs, rs * rs};
-  const size_t smem = rgrid_bwd_smem_bytes(C, k);
-  cudaError_t err = cudaSuccess;
-  RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
-      err = cudaFuncSetAttribute(redistribute_grid_bwd_kernel<TS, TM>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return (int)err;
-      redistribute_grid_bwd_kernel<TS, TM><<<B * nrs * nrs, 256, smem,
-                                             (cudaStream_t)stream>>>(
-          (const TS*)g, (const uint8_t*)mask, (const float*)w, (const float*)reps,
-          (float*)dw, (float*)dreps, map, C, k)));
-  return (int)cudaGetLastError();
-}
-
-extern "C" int cb_reduce(const void* part, int S, long long N, void* out, void* stream) {
-  return (int)launch_reduce_rows(part, S, N, out, (cudaStream_t)stream);
+                                        void* dreps, void* part, int B, int G, int rs, int C,
+                                        int k, int chunk, void* stream) {
+  const RgridPlan pl = rgrid_plan(B, G, rs, C, k, chunk);
+  if (!pl.ok || (pl.parts > 1 && part == nullptr)) return (int)cudaErrorInvalidValue;
+  float* part_reps = pl.parts > 1 ? (float*)part : (float*)dreps;
+  const int warps = rgrid_warps(C, k);
+  const size_t smem = rgrid_smem_bytes(C, k, warps, false);
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaErrorInvalidValue;
+#define RRT_K11(NC)                                                                           \
+  err = launch_redistribute_bwd<TS, TS, TM, NC, false>(pl.grid, warps, smem, s, nullptr, mask, \
+                                                       w, reps, nullptr, nullptr, g, nullptr, \
+                                                       dw, part_reps, nullptr, pl.map, C, k,  \
+                                                       chunk, 0.f)
+  RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM, RRT_BY_ROW4(C, RRT_K11)));
+#undef RRT_K11
+  if (err == cudaSuccess && pl.parts > 1)
+    err = launch_reduce_rows(part_reps, pl.parts, (long long)pl.R * k * C, dreps, s);
+  return (int)err;
 }

@@ -65,7 +65,7 @@ SIGNATURES = {
         "cr_compress_grid": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _I, _I, _I, _I, _F, _P],
         "cr_redistribute_ln": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _F, _P],
+                               _I, _I, _I, _I, _F, _P],
         "cr_compress": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _P],
         "cr_redistribute": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -75,10 +75,10 @@ SIGNATURES = {
         "cb_compress_grid_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
         "cb_redistribute_ln_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-        "cb_redistribute_grid_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _I, _I, _P],
-        "cb_reduce": [_P, _I, _LL, _P, _P],
+                                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                   _P],
+        "cb_redistribute_grid_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                     _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -17,7 +17,11 @@ encoder-final LayerNorm -> mask, as the f32 encoder output.
 The CUDA source is `csrc/crmsa.cu`; its note says what bounds each kernel on
 an H100 and what the design does about it.  K3, K12 and K4 share the row
 passes and layout of `csrc/crmsa.cuh`: each region's rows split over blocks
-by `row_split`.
+by `row_split`.  K8, K9 and K11 share its other layout, a warp a token row
+and a lane four consecutive channels a group (16-byte loads), each region's
+rows split over blocks (K8 by `k8_split`, K9 and K11 by `row_split`); K8 and
+K9 form the stream value and its LayerNorm statistics with one device
+function (`stream_ln`), so K9 recomputes K8's values bit for bit.
 
 Their backwards: K4 `crmsa_compress_grid_bwd` replaces
 `crmsa_kernels.py::_cgrid_bwd_pallas` (kernel body `_cgrid_bwd_kernel`,
@@ -33,9 +37,9 @@ pallas_call at crmsa_kernels.py:594): K8 without the final LayerNorm,
 x + mask * reverse(w^T reps) in x's dtype, or without x when add_residual is
 False.  K11 `crmsa_redistribute_grid_bwd` replaces `_rgrid_bwd_pallas`
 (kernel body `_rgrid_bwd_kernel`, pallas_call at crmsa_kernels.py:696): dw
-and dreps of K10; K10's dx is g itself, or nothing, in its Function
-(crmsa_kernels.py:725).  K10's source is `csrc/crmsa.cu`, K11's
-`csrc/crmsa_bwd.cu`.
+and dreps of K10, as K9's kernel without the LayerNorm (one template); K10's
+dx is g itself, or nothing, in its Function (crmsa_kernels.py:725).  K10's
+source is `csrc/crmsa.cu`, K11's `csrc/crmsa_bwd.cu`.
 
 K12 `crmsa_compress` replaces `_compress_pallas` (kernel body
 `_compress_kernel`, pallas_call at crmsa_kernels.py:103): K3's math on
@@ -66,18 +70,27 @@ from .region_layer import SMS, check_grid
 MAX_K = 8   # representatives per region the kernels take
 SPLIT_ROWS = 8           # rows a round of a split block takes (a warp each)
 SPLIT_BLOCKS_PER_SM = 2  # blocks the row split gives every SM at least
+K8_ROWS = 64             # token rows a K8 block takes at most (8 a warp)
 
 
 def row_split(regions: int, p: int, sms: int = SMS) -> int:
     """Token rows of a region per block of the row-split kernels (K3, K4,
-    K9, K12): each region's p rows split over enough blocks that regions x
-    blocks >= SPLIT_BLOCKS_PER_SM blocks an SM (or one block a round of
-    SPLIT_ROWS rows, when p is too short for that); a multiple of
+    K9, K11, K12): each region's p rows split over enough blocks that
+    regions x blocks >= SPLIT_BLOCKS_PER_SM blocks an SM (or one block a
+    round of SPLIT_ROWS rows, when p is too short for that); a multiple of
     SPLIT_ROWS.  Block i of a region takes rows i * chunk .. min(p, (i + 1)
     * chunk) - 1."""
     steps = -(-p // SPLIT_ROWS)
     need = max(1, -(-SPLIT_BLOCKS_PER_SM * sms // regions))
     return max(1, steps // need) * SPLIT_ROWS
+
+
+def k8_split(regions: int, p: int, sms: int = SMS) -> int:
+    """Token rows of a region per K8 block: `row_split`'s chunk, cut to
+    K8_ROWS.  K8 sums nothing across rows, so a chunk costs only the
+    staging of round(reps) and round(w) a block; the cap was picked from
+    K8's device time at caps 16, 32, 64 and none on an H100 (PERF.md)."""
+    return min(row_split(regions, p, sms), K8_ROWS)
 
 
 def compress_grid_plain(x, mask, ln_s, ln_b, phi, grid_side: int,
@@ -216,6 +229,26 @@ def _compress_scratch(r, p, c, k, dev, per_row: int):
     return scratch[:rows], (scratch[rows:] if parts > 1 else None), chunk
 
 
+def _rgrid_bwd_buffers(r, p, c, k, dev, ln: bool = False):
+    """(dw, dreps, dln, part, chunk) of K9 (ln) or K11 on r regions of p
+    rows: the row split, and one float32 allocation for dw (r k p), dreps
+    (r k c), K9's summed dls | dlb (2 c; else None) and `part`: the blocks'
+    dreps partials (chunks, r, k, c) when a region is more than one chunk
+    (else the kernel writes dreps in place), then K9's dls | dlb partials
+    (chunks * r, 2 c); None when empty."""
+    chunk = row_split(r, p)
+    parts = -(-p // chunk)
+    sizes = (r * k * p, r * k * c, 2 * c if ln else 0,
+             (parts * r * k * c if parts > 1 else 0)
+             + (parts * r * 2 * c if ln else 0))
+    buf = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    views, at = [], 0
+    for n in sizes:
+        views.append(buf[at:at + n] if n else None)
+        at += n
+    return (*views, chunk)
+
+
 def _launch_compress(x, mask, ln_s, ln_b, phi, g, rs, mmd):
     b, n, c = x.shape
     k = phi.shape[1]
@@ -261,6 +294,7 @@ def _launch_redistribute(x, mask, w, reps, ln_s, ln_b, shortcut, g, rs, mmd):
     _check_redistribute(x, mask, w, reps, shortcut, g, rs)
     build.require_cuda({"x": x, "mask": mask, "w": w, "reps": reps,
                         "shortcut": shortcut}, dict(ln_s=ln_s, ln_b=ln_b))
+    _check_vector_rows(c, x, shortcut)
     lib = build.load("crmsa")
     ls, lb = ln_s.float().contiguous(), ln_b.float().contiguous()
     out = torch.empty((b, n, c), dtype=torch.float32, device=x.device)
@@ -268,7 +302,8 @@ def _launch_redistribute(x, mask, w, reps, ln_s, ln_b, shortcut, g, rs, mmd):
         build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
         mask.data_ptr(), w.data_ptr(), reps.data_ptr(), ls.data_ptr(),
         lb.data_ptr(), build.ptr(shortcut), out.data_ptr(), b, g, rs, c, k,
-        LN_EPS, build.stream_of(x)), "K8 redistribute")
+        k8_split(b * (g // rs) ** 2, rs * rs), LN_EPS, build.stream_of(x)),
+        "K8 redistribute")
     crmsa_redistribute_grid_ln.launches += 1
     return out
 
@@ -323,33 +358,19 @@ def _launch_redistribute_bwd(x, mask, w, reps, ln_s, ln_b, shortcut, gout,
                        dict(ln_s=ln_s, ln_b=ln_b))
     _check_vector_rows(c, x, shortcut, gout)
     lib = build.load("crmsa_bwd")
-    s = build.stream_of(x)
     ls = ln_s.float().contiguous()
     dx = torch.empty_like(x)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dw = torch.empty((b, nr, k, p), **f32)
-    chunk = row_split(b * nr, p)
-    parts = -(-p // chunk)
-    nrep = b * nr * k * c
-    # one allocation each for the outputs (dreps, dls | dlb) and the
-    # blocks' partials (dreps, then dls | dlb)
-    outs = torch.empty((nrep + 2 * c,), **f32)
-    part = torch.empty((parts * (nrep + b * nr * 2 * c),), **f32)
-    dreps, out = outs[:nrep].view(b, nr, k, c), outs[nrep:]
-    part_reps, part_ln = part[:parts * nrep], part[parts * nrep:]
+    dw, dreps, out, part, chunk = _rgrid_bwd_buffers(b * nr, p, c, k,
+                                                     x.device, ln=True)
     build.check(lib.cb_redistribute_ln_bwd(
         build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
         mask.data_ptr(), w.data_ptr(), reps.data_ptr(), ls.data_ptr(),
         build.ptr(shortcut), gout.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-        part_reps.data_ptr(), part_ln.data_ptr(), b, g, rs, c, k, chunk,
-        LN_EPS, s), "K9 redistribute backward")
-    build.check(lib.cb_reduce(part_reps.data_ptr(), parts, nrep,
-                              dreps.data_ptr(), s), "K9 reduce")
-    build.check(lib.cb_reduce(part_ln.data_ptr(), parts * b * nr, 2 * c,
-                              out.data_ptr(), s), "K9 reduce")
+        dreps.data_ptr(), out.data_ptr(), part.data_ptr(), b, g, rs, c, k,
+        chunk, LN_EPS, build.stream_of(x)), "K9 redistribute backward")
     crmsa_redistribute_grid_ln_bwd.launches += 1
-    return (dx, dw, dreps, out[:c], out[c:],
-            None if shortcut is None else dx)
+    return (dx, dw.view(b, nr, k, p), dreps.view(b, nr, k, c), out[:c],
+            out[c:], None if shortcut is None else dx)
 
 
 def _device(x, what: str) -> str:
@@ -509,12 +530,12 @@ def redistribute_grid_bwd_plain(mask, w, reps, g, grid_side: int,
     return dw, dreps
 
 
-MAX_C = 1024   # channels the K10-K13 kernels take (32 x CPL in common.cuh)
+MAX_C = 1024   # channels the K8-K13 kernels take (32 x CPL in common.cuh)
 
 
 def _check_vector_rows(c: int, *tensors) -> None:
-    """K9, K10 and K13 move four channels per lane: C % 4 == 0 and 16-byte
-    aligned rows."""
+    """K8-K11 and K13 move four channels a lane at a time: C % 4 == 0,
+    C <= MAX_C and 16-byte aligned streams."""
     if c % 4 or c > MAX_C:
         raise ValueError(f"the redistribute kernels take C % 4 == 0 and "
                          f"C <= {MAX_C} channels, not {c}")
@@ -594,17 +615,17 @@ def _launch_redistribute_grid_bwd(mask, w, reps, gout, g, rs, mmd):
     gout = gout.contiguous()
     _check_redistribute(gout, mask, w, reps, None, g, rs)
     build.require_cuda({"g": gout, "mask": mask, "w": w, "reps": reps}, {})
+    _check_vector_rows(c, gout)
     lib = build.load("crmsa_bwd")
-    f32 = dict(dtype=torch.float32, device=gout.device)
-    dw = torch.empty((b, nr, k, p), **f32)
-    dreps = torch.empty((b, nr, k, c), **f32)
+    dw, dreps, _, part, chunk = _rgrid_bwd_buffers(b * nr, p, c, k,
+                                                   gout.device)
     build.check(lib.cb_redistribute_grid_bwd(
         build.dtype_code(gout.dtype), build.dtype_code(mmd), gout.data_ptr(),
         mask.data_ptr(), w.data_ptr(), reps.data_ptr(), dw.data_ptr(),
-        dreps.data_ptr(), b, g, rs, c, k, build.stream_of(gout)),
-        "K11 redistribute backward")
+        dreps.data_ptr(), build.ptr(part), b, g, rs, c, k, chunk,
+        build.stream_of(gout)), "K11 redistribute backward")
     crmsa_redistribute_grid_bwd.launches += 1
-    return dw, dreps
+    return dw.view(b, nr, k, p), dreps.view(b, nr, k, c)
 
 
 def _plain_vjp(plain, ctx, grads):

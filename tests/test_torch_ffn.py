@@ -54,15 +54,23 @@ def _close(got, want, mm, what=""):
     assert err <= TOL[mm], f"{what} {mm}: scaled error {err:.3e}"
 
 
-def _grid_case(rng, lengths=(40, 25)):
-    """A (B, G*G, C) stream with pad rows, w and reps of a 4-wide grid."""
-    b, n, nr = len(lengths), G * G, (G // RS) ** 2
+def _grid_case(rng, lengths=(40, 25), g_side=G, rs=RS, k=K, tie=False):
+    """A (B, G*G, C) stream with pad rows, w and reps of an rs-wide grid,
+    and an upstream gradient g (not zero on pad rows); with `tie`, w takes
+    one value a representative on pad rows (as K3 gives rows whose logits
+    tie)."""
+    b, n, nr = len(lengths), g_side * g_side, (g_side // rs) ** 2
     mask = np.zeros((b, n), bool)
     for i, l in enumerate(lengths):
         mask[i, :l] = True
     x = rng.standard_normal((b, n, C)).astype(np.float32) * mask[..., None]
-    w = rng.uniform(0, 1, (b, nr, K, RS * RS)).astype(np.float32)
-    reps = rng.standard_normal((b, nr, K, C)).astype(np.float32)
+    w = rng.uniform(0, 1, (b, nr, k, rs * rs)).astype(np.float32)
+    if tie:
+        m = g_side // rs
+        pad = ~mask.reshape(b, m, rs, m, rs).transpose(0, 1, 3, 2, 4) \
+            .reshape(b, nr, 1, rs * rs)
+        w = np.where(pad, w[:, :1, :, :1], w)
+    reps = rng.standard_normal((b, nr, k, C)).astype(np.float32)
     g = rng.standard_normal((b, n, C)).astype(np.float32)
     return x, mask, w, reps, g
 
@@ -71,46 +79,95 @@ def _grid_case(rng, lengths=(40, 25)):
 # K10 / K11 against the Pallas kernels
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("add_residual", [True, False])
-@pytest.mark.parametrize("stream,mm", [("float32", "float32"),
-                                       ("float32", "bfloat16"),
-                                       ("bfloat16", "bfloat16")])
-def test_k10_k11_plain_match_pallas(stream, mm, add_residual):
-    rng = np.random.default_rng(1)
-    x, mask, w, reps, g = _grid_case(rng)
+# K10 / K11 cases (P, k, stream, mm, add_residual): the first six on the
+# 8-grid of 4-wide regions (P = 16, k = 3); then P in {1, 9, 144}
+# (ck.row_split's region sizes: one token, rows not a multiple of 8,
+# c16_r50's) with k in {1, 3, 5, 8}, the second bag's last row of regions
+# pad rows but one token (masked; their w tied), and bf16 streams
+RGRID_GEOMS = {1: (8, 1), 9: (12, 3), 144: (24, 12)}   # P: (G, rs)
+RGRID_CASES = [pytest.param(16, K, st, mm, res, id=f"{st}-{mm}-{res}")
+               for res in (True, False)
+               for st, mm in (("float32", "float32"), ("float32", "bfloat16"),
+                              ("bfloat16", "bfloat16"))]
+RGRID_CASES += [pytest.param(p, k, "float32", "float32", k in (1, 5),
+                             id=f"P{p}-k{k}")
+                for p in RGRID_GEOMS for k in (1, 3, 5, 8)]
+RGRID_CASES += [pytest.param(*c, id="P{}-k{}-{}-{}-{}".format(*c)) for c in (
+    (9, 3, "float32", "bfloat16", True),
+    (144, 5, "bfloat16", "bfloat16", False))]
+
+
+@pytest.mark.parametrize("p,k,stream,mm,add_residual", RGRID_CASES)
+def test_k10_k11_plain_match_pallas(p, k, stream, mm, add_residual):
+    if p == 16:
+        g_side, rs = G, RS
+        x, mask, w, reps, g = _grid_case(np.random.default_rng(1))
+    else:
+        g_side, rs = RGRID_GEOMS[p]
+        n = g_side * g_side
+        x, mask, w, reps, g = _grid_case(
+            np.random.default_rng(50 + p + k), (n, n - rs * g_side + 1),
+            g_side, rs, k, tie=True)
     (jsd, tsd), (jmm, tmm) = DT[stream], DT[mm]
     jx, jg = jnp.asarray(x, jsd), jnp.asarray(g, jsd)
-    want = _redistribute_grid_pallas(
-        jx, jnp.asarray(mask), jnp.asarray(w), jnp.asarray(reps),
-        grid_side=G, region_size=RS, add_residual=add_residual,
-        mm_dtype=jmm, interpret=True)
     tx = torch.from_numpy(x).to(tsd)
     got = ck.crmsa_redistribute_grid(tx, torch.from_numpy(mask),
                                      torch.from_numpy(w),
-                                     torch.from_numpy(reps), G, RS,
+                                     torch.from_numpy(reps), g_side, rs,
                                      add_residual, mm_dtype=tmm)
     assert got.dtype == tsd
-    _close(got, want, mm, "K10")
+    if p == 16:   # K10 against its Pallas kernel (the region-size cases hold
+        # K11, the kernel whose rows they split, and keep the suite short)
+        want = _redistribute_grid_pallas(
+            jx, jnp.asarray(mask), jnp.asarray(w), jnp.asarray(reps),
+            grid_side=g_side, region_size=rs, add_residual=add_residual,
+            mm_dtype=jmm, interpret=True)
+        _close(got, want, mm, "K10")
     jdw, jdreps = _rgrid_bwd_pallas(jnp.asarray(mask), jnp.asarray(w),
-                                    jnp.asarray(reps), jg, grid_side=G,
-                                    region_size=RS, mm_dtype=jmm,
+                                    jnp.asarray(reps), jg, grid_side=g_side,
+                                    region_size=rs, mm_dtype=jmm,
                                     interpret=True)
     tg = torch.from_numpy(g).to(tsd)
     dw, dreps = ck.crmsa_redistribute_grid_bwd(
         torch.from_numpy(mask), torch.from_numpy(w), torch.from_numpy(reps),
-        tg, G, RS, mm_dtype=tmm)
-    _close(dw, jdw, mm, "K11 dw")
-    _close(dreps, jdreps, mm, "K11 dreps")
+        tg, g_side, rs, mm_dtype=tmm)
+    _close(dw, jdw, mm, f"K11 dw P={p} k={k}")
+    _close(dreps, jdreps, mm, f"K11 dreps P={p} k={k}")
     # the Function: K10 forward, K11 backward, dx = g or nothing
     xs = tx.clone().requires_grad_(True)
     ws = torch.from_numpy(w).requires_grad_(True)
-    rs = torch.from_numpy(reps).requires_grad_(True)
-    out = ck.crmsa_redistribute_grid(xs, torch.from_numpy(mask), ws, rs, G, RS,
-                                     add_residual, mm_dtype=tmm)
-    dx, dw2, dr2 = torch.autograd.grad(out, (xs, ws, rs), tg,
+    rt = torch.from_numpy(reps).requires_grad_(True)
+    out = ck.crmsa_redistribute_grid(xs, torch.from_numpy(mask), ws, rt,
+                                     g_side, rs, add_residual, mm_dtype=tmm)
+    dx, dw2, dr2 = torch.autograd.grad(out, (xs, ws, rt), tg,
                                        allow_unused=True)
     assert torch.equal(dw2, dw) and torch.equal(dr2, dreps)
     assert torch.equal(dx, tg) if add_residual else dx is None
+
+
+@pytest.mark.parametrize("regions,p", [(64, 144), (512, 144), (64, 1),
+                                       (64, 9), (64, 729), (512, 961)])
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("ln", [False, True])
+def test_rgrid_bwd_buffers_hold_each_gradient_once(regions, p, k, ln):
+    """K11's (ln False) and K9's launch buffers: one allocation holds dw,
+    dreps, K9's dls | dlb and, only when a region is more than one
+    row_split chunk, the blocks' dreps partials (and K9's dls | dlb
+    partials)."""
+    dw, dreps, dln, part, chunk = ck._rgrid_bwd_buffers(
+        regions, p, C, k, "cpu", ln=ln)
+    assert chunk == ck.row_split(regions, p)
+    parts = -(-p // chunk)
+    assert dw.numel() == regions * k * p
+    assert dreps.numel() == regions * k * C
+    assert (dln is None) != ln and (not ln or dln.numel() == 2 * C)
+    want = (parts * regions * k * C if parts > 1 else 0) \
+        + (parts * regions * 2 * C if ln else 0)
+    assert (part is None) == (want == 0)
+    assert part is None or part.numel() == want
+    views = [v for v in (dw, dreps, dln, part) if v is not None]
+    assert all(v.untyped_storage().data_ptr()
+               == dw.untyped_storage().data_ptr() for v in views)
 
 
 def test_k10_function_matches_autograd_of_its_plain_forward():

@@ -548,6 +548,47 @@ def test_cuda_k9_at_ragged_region_sizes(sdt, mm, p, b):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("sdt,mm", PAIRS)
+@pytest.mark.parametrize("p", [1, 9, 144, 729, 961])
+@pytest.mark.parametrize("b", [1, 8])
+def test_cuda_k8_k11_at_ragged_region_sizes(sdt, mm, p, b):
+    """K8 and K11 on 64 regions a bag of p tokens each (each region's rows
+    split over blocks: K8 by ck.k8_split, K11 by ck.row_split), C = 512,
+    with k in {1, 3, 5, 8}; the last row of regions pad rows but one token,
+    masked (K8 writes 0 there, K11's gm is 0 there) and tied (w one value a
+    representative there); K8 with and without the shortcut.  Against the
+    plain versions, the same bits on a second call."""
+    dev = _cuda()
+    rs = int(round(p ** 0.5))
+    g = 8 * rs
+    gen = torch.Generator(device=dev).manual_seed(20 * p + b)
+    r = lambda *s, sc=1.0: torch.randn(s, generator=gen, device=dev) * sc
+    n = g * g
+    mask = (torch.arange(n, device=dev) < n - rs * g + 1)[None].expand(b, n) \
+        .contiguous()
+    pad = ~region_partition(mask.reshape(b, g, g, 1), rs).reshape(b, 64, 1, p)
+    x = (r(b, n, 512) * mask[..., None]).to(sdt)
+    sc = (r(b, n, 512) * mask[..., None]).to(sdt)
+    ls, lb = 1 + r(512, sc=0.1), r(512, sc=0.1)
+    gout = r(b, n, 512, sc=0.1).to(sdt)
+    for k in (1, 3, 5, 8):
+        w = torch.rand((b, 64, k, p), generator=gen, device=dev)
+        w = torch.where(pad, w[:, :1, :, :1], w).contiguous()
+        reps = r(b, 64, k, 512)
+        for short in (sc, None):
+            args = (x, mask, w, reps, ls, lb, short, g, rs)
+            (out,) = _twice(ck.crmsa_redistribute_grid_ln, args, mm)
+            assert (out[~mask] == 0).all()
+            _close(out, ck.redistribute_grid_ln_plain(*args, mm_dtype=mm),
+                   mm, f"K8 P={p} k={k} B={b} shortcut={short is not None}")
+        args = (mask, w, reps, gout, g, rs)
+        got = _twice(ck.crmsa_redistribute_grid_bwd, args, mm)
+        want = ck.redistribute_grid_bwd_plain(*args, mm_dtype=mm)
+        for a, c in zip(got, want):
+            _close(a, c, mm, f"K11 P={p} k={k} B={b}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", PAIRS)
 @pytest.mark.parametrize("p,c", [(1, 512), (9, 512), (144, 512), (729, 512),
                                  (961, 512), (9, 130)])
 @pytest.mark.parametrize("b", [1, 8])

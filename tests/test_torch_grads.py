@@ -363,13 +363,17 @@ def test_k2_token_split_covers_the_tokens_and_fills_the_card(m, tiles):
 
 @pytest.mark.parametrize("regions,p", [(64, 144), (512, 144), (64, 961),
                                        (64, 729), (64, 9), (128, 1),
-                                       (16, 961), (1024, 9)])
+                                       (16, 961), (1024, 9), (64, 1),
+                                       (512, 961), (2, 729)])
 def test_k9_row_split_covers_the_rows_and_fills_the_card(regions, p):
-    """K9 splits each region's p token rows over blocks: every row in
-    exactly one block, each block's share a multiple of the 8 rows a step
-    takes (the last may be short), and at least two blocks an SM unless
-    every block is already down to one step."""
+    """K9 and K11 split each region's p token rows over blocks: every row
+    in exactly one block, each block's share a multiple of the 8 rows a
+    step takes (the last may be short), and at least two blocks an SM
+    unless every block is already down to one step.  K8 takes the same
+    chunk cut to K8_ROWS, so it splits at least as finely."""
     rows = ck.row_split(regions, p)
+    assert ck.k8_split(regions, p) == min(rows, ck.K8_ROWS)
+    assert ck.K8_ROWS % ck.SPLIT_ROWS == 0
     assert rows % ck.SPLIT_ROWS == 0 and rows > 0
     parts = -(-p // rows)
     covered = np.zeros(p, int)

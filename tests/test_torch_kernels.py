@@ -132,26 +132,84 @@ def test_k5_region_block_plain_matches_pallas(p, kk, mm):
     _close(got, want, mm, "K5")
 
 
-@pytest.mark.parametrize("mm", ["float32", "bfloat16"])
-@pytest.mark.parametrize("with_shortcut", [True, False])
-def test_k8_redistribute_grid_ln_plain_matches_pallas(with_shortcut, mm):
-    g, rs, lengths = GEOMS[0]
-    k = 1
-    rng = np.random.default_rng(4)
-    x, mask = _stream(rng, len(lengths), g, lengths)
-    nr, p = (g // rs) ** 2, rs * rs
-    w = rng.uniform(0, 1, (len(lengths), nr, k, p)).astype(np.float32)
-    reps = rng.standard_normal((len(lengths), nr, k, C)).astype(np.float32)
+# K8 cases (P, k, shortcut, stream, mm): the first four on GEOMS[0] (P =
+# 16); then P in {1, 9, 144} (ck.row_split's region sizes: one token, rows
+# not a multiple of 8, c16_r50's) with k in {1, 3, 5, 8}, the second bag's
+# last row of regions pad rows but one token (masked, their w tied), and
+# bf16 streams
+K8_GEOMS = {1: (8, 1), 9: (12, 3), 144: (24, 12)}   # P: (G, rs)
+K8_CASES = [pytest.param(16, 1, sc, "float32", mm, id=f"{sc}-{mm}")
+            for sc in (True, False) for mm in ("float32", "bfloat16")]
+K8_CASES += [pytest.param(p, k, k in (1, 5), "float32", "float32",
+                          id=f"P{p}-k{k}")
+             for p in K8_GEOMS for k in (1, 3, 5, 8)]
+K8_CASES += [pytest.param(*c, id="P{}-k{}-{}-{}-{}".format(*c)) for c in (
+    (9, 3, True, "float32", "bfloat16"), (144, 5, False, "float32", "bfloat16"),
+    (144, 1, True, "bfloat16", "bfloat16"), (9, 8, False, "bfloat16", "bfloat16"))]
+
+
+def _k8_inputs(p, k, with_shortcut, seed):
+    """x (pad rows zero), mask, w (U(0, 1); tied on pad rows), reps, the
+    LayerNorm and the shortcut on two bags; P = 16 keeps GEOMS[0]'s bags."""
+    rng = np.random.default_rng(seed)
+    if p == 16:
+        g, rs, lengths = GEOMS[0]
+        x, mask = _stream(rng, len(lengths), g, lengths)
+    else:
+        g, rs = K8_GEOMS[p]
+        n = g * g
+        mask = np.ones((2, n), bool)
+        mask[1, n - rs * g + 1:] = False
+        x = rng.standard_normal((2, n, C)).astype(np.float32) * mask[..., None]
+    b, nr = x.shape[0], (g // rs) ** 2
+    w = rng.uniform(0, 1, (b, nr, k, rs * rs)).astype(np.float32)
+    if p != 16:
+        pad = ~mask.reshape(b, g // rs, rs, g // rs, rs).transpose(
+            0, 1, 3, 2, 4).reshape(b, nr, 1, rs * rs)
+        w = np.where(pad, w[:, :1, :, :1], w)
+    reps = rng.standard_normal((b, nr, k, C)).astype(np.float32)
     ls, lb = _ln(rng)
     sc = (rng.standard_normal(x.shape).astype(np.float32) * mask[..., None]
           if with_shortcut else None)
+    return x, mask, w, reps, ls, lb, sc, g, rs
+
+
+@pytest.mark.parametrize("p,k,with_shortcut,stream,mm", K8_CASES)
+def test_k8_redistribute_grid_ln_plain_matches_pallas(p, k, with_shortcut,
+                                                      stream, mm):
+    x, mask, w, reps, ls, lb, sc, g, rs = _k8_inputs(
+        p, k, with_shortcut, 4 if p == 16 else 40 + p + k)
+    jsd, tsd = MM[stream]
     jmm, tmm = MM[mm]
-    want = _rgrid_ln_pallas(_j(x), _j(mask), _j(w), _j(reps), _j(ls), _j(lb),
-                            _j(sc), grid_side=g, region_size=rs, mm_dtype=jmm,
+    want = _rgrid_ln_pallas(_j(x).astype(jsd), _j(mask), _j(w), _j(reps),
+                            _j(ls), _j(lb),
+                            None if sc is None else _j(sc).astype(jsd),
+                            grid_side=g, region_size=rs, mm_dtype=jmm,
                             interpret=True)
-    got = ck.crmsa_redistribute_grid_ln(_t(x), _t(mask), _t(w), _t(reps),
-                                        _t(ls), _t(lb), _t(sc), g, rs, tmm)
-    _close(got, want, mm, "K8")
+    got = ck.crmsa_redistribute_grid_ln(
+        _t(x).to(tsd), _t(mask), _t(w), _t(reps), _t(ls), _t(lb),
+        None if sc is None else _t(sc).to(tsd), g, rs, tmm)
+    assert got.dtype == torch.float32
+    assert (got[~_t(mask)] == 0).all()
+    _close(got, want, mm, f"K8 P={p} k={k} {stream} stream")
+
+
+@pytest.mark.parametrize("c,ok", [(512, True), (1024, True), (4, True),
+                                  (130, False), (510, False), (1028, False),
+                                  (2048, False)])
+def test_vector_rows_check_takes_what_k8_to_k11_take(c, ok):
+    """K8-K11 and K13 move four channels a lane at a time: their launchers
+    call `_check_vector_rows`, which raises ValueError for C % 4 != 0 and
+    for C > 1024 (the launchers run only on a card, so the check is called
+    here directly) and for a stream that is not 16-byte aligned."""
+    x = torch.zeros(c + 1)
+    if ok:
+        ck._check_vector_rows(c, x[:c])
+        with pytest.raises(ValueError, match="aligned"):
+            ck._check_vector_rows(c, x[1:])
+    else:
+        with pytest.raises(ValueError, match="C % 4 == 0"):
+            ck._check_vector_rows(c, x[:c])
 
 
 def test_bf16_stream_k1_plain_matches_pallas():
