@@ -3,7 +3,8 @@
     python3 chip_smoke.py            # the whole run (one card)
     python3 chip_smoke.py --quick    # phases 0-2 only: build + kernel checks
 
-Phases (each passes or the script exits non-zero; nothing is caught):
+Phases (each passes or the script exits non-zero; nothing is caught but
+phase 9's own interruption):
 
 0. device: `nvidia-smi` name and power limit, TF32 off for matmul and cuDNN;
 1. build: nvcc of every `rrtmil_tpu_torch/csrc/*.cu` (one process each, in
@@ -49,10 +50,23 @@ Phases (each passes or the script exits non-zero; nothing is caught):
 8. brca_r50 (its CR-MSA runs one 512-wide head): the same three checks as
    phase 3 on bags of {937, 9000, 9000, 30000} patches, batch size 2;
    nsclc_r50 (EPEG k = 21, CR-MSA k = 5, no shortcut), c16_plip (k = 9,
-   CR-MSA k = 3, input 512) and brca_plip (input 512): evaluate on {937,
-   2213, 9000} and two dropout-off train steps against the CPU, every
-   batch and step through its counted kernels (phase 3's and 8's
-   dropout-off steps are counted too);
+   CR-MSA k = 3, input 512), brca_plip (input 512) and nsclc_plip
+   (`crmsa_mlp`: K1 / K5 in evaluate, K1, K2, K5, K6, K7 in training, never
+   K3 / K4 / K8 / K9): evaluate on {937, 2213, 9000} and two dropout-off
+   train steps against the CPU, every batch and step through its counted
+   kernels and no other (phase 3's and 8's dropout-off steps are counted
+   too);
+9. the CLI: `rrtmil_tpu_torch.main` in this process on synthetic sets of 12
+   bags of 800-9500 patches (planted signal) in a temporary directory,
+   2 folds x 2 epochs, batch size 1: (a) c16_r50's flags launch K1-K9 and
+   no other kernel, the second epoch's bags all come from the device bag
+   cache, both checkpoint families are written; (b) the same run cut before
+   fold 0's epoch 1 and resumed with --auto_resume equals, within 1e-6, an
+   uninterrupted run handed the train order the resumed epoch draws (the
+   reference's order stream restarts after a resume), and its fold 1 equals
+   (a)'s; (c) (a) with --amp; (d) nsclc_plip's flags (TCGA layout) launch
+   K1, K2, K5, K6 and K7 only; each run's per-epoch seconds, train and eval
+   slides/s and cache hits printed;
 6. survival: `SurvivalEngine.train_epoch` (dropout on) and `validate` on
    survival_default() at full width, bags of {937, 1500, 10000, 30000,
    45000, 50000} patches: each bag whose R-MSA grid exceeds its CR-MSA grid
@@ -77,8 +91,9 @@ Phases (each passes or the script exits non-zero; nothing is caught):
    time; K2's four products at B = 1 and 8
    interleaved with torch.matmul on the same bf16 operands; c16_r50 forward
    slides/s at L = 9000 for B in {1, 4, 8} and train slides/s for B in
-   {1, 8}; survival train bags/s at L = 45000 and 50000; the FFN config's
-   forward and train slides/s at L = 9000, B = 8; peak memory;
+   {1, 8}, and with --amp (bf16 compute on bf16 bags) forward and train
+   for B in {1, 8}; survival train bags/s at L = 45000 and 50000; the FFN
+   config's forward and train slides/s at L = 9000, B = 8; peak memory;
 5. profile: torch.profiler over three B = 8 forwards, one B = 8 train step
    and one survival train step at L = 45000: device time by kernel, the
    device's busy share, and the window's steps by CUDA events; the train
@@ -96,7 +111,8 @@ Phases (each passes or the script exits non-zero; nothing is caught):
 Every counter is set to 0 just before each path and read just after.
 Prints the `{"kernels": [...]}` line (each kernel's launches from its own
 path: K1-K9 the c16_r50 train epoch, K10 / K11 the FFN one, K12 / K13 the
-survival one), the card's name and power limit, and as its last line
+survival one; `launches_by_path` adds every other path, phase 9's CLI runs
+among them), the card's name and power limit, and as its last line
 `{"ok": true, "device": {...}}`.  Writes the full report to
 chiprun_out/chip_smoke.json.
 """
@@ -211,6 +227,10 @@ SURV_MATCHED = C16_TRAIN
 # never K8 / K9
 FFN_EVAL = [K[0], K[2], K[4], K[9]]
 FFN_TRAIN = K[:7] + [K[9], K[10]]
+# nsclc_plip (crmsa_mlp): the CR-MSA layer takes the XLA route (torch ops)
+# around K5, so K3 / K4 / K8 / K9 never run
+MLP_EVAL = [K[0], K[4]]
+MLP_TRAIN = [K[0], K[1], K[4], K[5], K[6]]
 SURV_BAGS = (937, 1500, 10000, 30000, 45000, 50000)
 SURV_CPU_BAGS = (1500, 10000)
 FFN_BAGS = (937, 2213, 9000, 9000)
@@ -1112,10 +1132,11 @@ def check_launches(per_step, expected, what, n=None):
 
 
 def phase_main_path(dev, cfg=None, lengths=BAG_LENGTHS, tag="c16_r50",
-                    ph="3"):
+                    ph="3", expect=C16_EVAL):
     """Engine.evaluate of `cfg` (c16_r50 by default) on bags of `lengths`
-    patches, batch size 2: every batch through K1, K3, K5 and K8, and the
-    probabilities and mean loss against the CPU run of the same weights."""
+    patches, batch size 2: every batch through the kernels of `expect` (K1,
+    K3, K5 and K8) and no other, and the probabilities and mean loss against
+    the CPU run of the same weights."""
     from rrtmil_tpu_torch.config import c16_r50
     from rrtmil_tpu_torch.data.datasets import ArrayDataset
     from rrtmil_tpu_torch.models.rrt import build_model
@@ -1139,7 +1160,7 @@ def phase_main_path(dev, cfg=None, lengths=BAG_LENGTHS, tag="c16_r50",
     launches = launches_now()
     log(f"[{ph}] {tag} Engine.evaluate on {len(ds)} bags in {n_batches} "
         f"batches: {secs:.2f} s, mean loss {loss:.6f}, launches {launches}")
-    check_launches(engine.records["eval"], C16_EVAL, f"{tag} evaluate",
+    check_launches(engine.records["eval"], expect, f"{tag} evaluate",
                    n_batches)
     if not (np.isfinite(probs).all() and probs.shape == (len(ds),)):
         raise AssertionError(f"bad probabilities {probs}")
@@ -1191,7 +1212,7 @@ def phase_train(dev, cfg=None, lengths=TRAIN_BAGS, tag="c16_r50", ph="3"):
     secs = time.perf_counter() - t0
     launches = launches_now()
     per_step = engine.records["train"]
-    step_losses = [float(r["out"]) for r in per_step]
+    step_losses = [float(r["out"][0]) for r in per_step]
     log(f"[{ph}] {tag} Engine.train_epoch on bags {lengths} in {n_steps} "
         f"steps (dropout on): {secs:.2f} s, mean loss {loss:.6f}, step "
         f"losses {np.round(step_losses, 6).tolist()}")
@@ -1230,10 +1251,12 @@ def _adam_params_close(got, want, lr, steps, frac):
     return ok, worst, worst_frac
 
 
-def phase_train_vs_cpu(dev, base=None, tag="c16_r50", ph="3"):
+def phase_train_vs_cpu(dev, base=None, tag="c16_r50", ph="3",
+                       expect=C16_TRAIN):
     """Two train steps of `base` (c16_r50 by default) with dropout off on
     small bags, on the card and on the CPU from the same weights: each card
-    step through K1-K9 (counted), the step losses, the first step's
+    step through the kernels of `expect` (K1-K9, counted), the step losses,
+    the first step's
     gradients and the parameters after both updates, in f32/f32 (TF32 off)
     and with bf16 products."""
     import dataclasses
@@ -1261,11 +1284,11 @@ def phase_train_vs_cpu(dev, base=None, tag="c16_r50", ph="3"):
             class Recording(Engine):
                 def _train_step(self, *a, **k):
                     before = launches_now()
-                    loss = super()._train_step(*a, **k)
-                    rec["losses"].append(float(loss))
+                    meters = super()._train_step(*a, **k)
+                    rec["losses"].append(float(meters[0]))
                     rec["steps"].append({"launches": {
                         n: v - before[n] for n, v in launches_now().items()}})
-                    return loss
+                    return meters
 
                 def _apply_grads(self, lr):
                     if rec["grads"] is None:
@@ -1283,7 +1306,7 @@ def phase_train_vs_cpu(dev, base=None, tag="c16_r50", ph="3"):
                              for n, p in model.named_parameters()}
             runs[key] = rec
         card, cpu = runs["card"], runs["cpu"]
-        check_launches(card["steps"], C16_TRAIN, f"{tag} train ({mm})",
+        check_launches(card["steps"], expect, f"{tag} train ({mm})",
                        len(cpu["losses"]))
         dloss = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
         dgrad = max((card["grads"][n] - g).abs().max().item()
@@ -1327,17 +1350,308 @@ def phase_canonical(dev):
     """The other canonical configs the port runs, each reaching the kernels
     at settings c16_r50 does not: nsclc_r50 (EPEG k = 21 in K1 / K2, CR-MSA
     k = 5 in K3 / K4 / K8 / K9, no shortcut into K8 / K9), c16_plip (k = 9,
-    CR-MSA k = 3, input width 512) and brca_plip (input width 512):
-    evaluate on CANON_BAGS and two dropout-off train steps against the CPU,
-    every batch and step through its counted kernels."""
+    CR-MSA k = 3, input width 512), brca_plip (input width 512) and
+    nsclc_plip (EPEG k = 13; `crmsa_mlp`: its CR-MSA layer runs torch ops
+    around K5 at one 512-wide head, so only K1, K5 evaluate and K1, K2, K5,
+    K6, K7 train): evaluate on CANON_BAGS and two dropout-off train steps
+    against the CPU, every batch and step through its counted kernels."""
     from rrtmil_tpu_torch import config
     out = {}
-    for tag in ("nsclc_r50", "c16_plip", "brca_plip"):
+    for tag, ev, tr in (("nsclc_r50", C16_EVAL, C16_TRAIN),
+                        ("c16_plip", C16_EVAL, C16_TRAIN),
+                        ("brca_plip", C16_EVAL, C16_TRAIN),
+                        ("nsclc_plip", MLP_EVAL, MLP_TRAIN)):
         cfg = getattr(config, tag)()
         out[tag] = {
-            "evaluate": phase_main_path(dev, cfg, CANON_BAGS, tag, "8"),
-            "train_vs_cpu": phase_train_vs_cpu(dev, cfg, tag, "8")}
+            "evaluate": phase_main_path(dev, cfg, CANON_BAGS, tag, "8", ev),
+            "train_vs_cpu": phase_train_vs_cpu(dev, cfg, tag, "8", tr)}
     return out
+
+
+# ---------------------------------------------------------------------------
+# slice 9: the classification CLI (rrtmil_tpu_torch.main)
+# ---------------------------------------------------------------------------
+
+# `python -m rrtmil_tpu_torch.main` flags: c16_r50 (the defaults are its
+# encoder but for CR-MSA k = 1 and the shortcut) and nsclc_plip
+CLI_C16 = ["--crmsa_k", "1", "--all_shortcut", "--input_dim", "1024"]
+CLI_NSCLC_PLIP = ["--datasets", "tcga", "--tcga_sub", "nsclc",
+                  "--input_dim", "512", "--epeg_k", "13", "--crmsa_k", "3",
+                  "--crmsa_heads", "1", "--all_shortcut", "--crmsa_mlp"]
+CLI_RUN = ["--cv_fold", "2", "--num_epoch", "2", "--seed", "2021"]
+CLI_BAGS = 12
+CLI_LENGTHS = (800, 9500)
+# a resumed run against the same computation uninterrupted: the same bits
+# are expected (no kernel adds with atomics), held to 1e-6
+RESUME_TOL = 1e-6
+
+
+class CliInterrupt(Exception):
+    """Raised inside a CLI run to cut it as a killed process would be."""
+
+
+def write_cli_data(root, tcga, dim, seed):
+    """A synthetic set of CLI_BAGS bags of CLI_LENGTHS patches, half of them
+    with a planted signal (+0.3 on their first tenth): camelyon16's layout
+    (root/pt/{slide}.npy, label.csv of slide,0|1) or TCGA's
+    (root/pt_files/{patient}-01Z.npy, label.csv of patient,LUAD|LUSC)."""
+    rng = np.random.default_rng(seed)
+    sub = "pt_files" if tcga else "pt"
+    os.makedirs(os.path.join(root, sub))
+    rows, patches = [], 0
+    for i in range(CLI_BAGS):
+        n, label = int(rng.integers(*CLI_LENGTHS)), i % 2
+        bag = rng.standard_normal((n, dim), dtype=np.float32)
+        if label:
+            bag[: n // 10] += 0.3
+        name = f"TCGA-SM-{i:04d}" if tcga else f"slide_{i:03d}"
+        np.save(os.path.join(root, sub, name + ("-01Z" if tcga else "")
+                             + ".npy"), bag)
+        tag = ("LUSC" if label else "LUAD") if tcga else label
+        rows.append(f"{name},{tag}\n")
+        patches += n
+    with open(os.path.join(root, "label.csv"), "w") as f:
+        f.write("".join(rows))
+    return patches
+
+
+def cli_engine(stats, finals=None, stop_at=None, order_at=None):
+    """The harness's Engine, recording every train epoch and evaluation
+    (fold, epoch, bags, seconds to the last sync, device cache hits and
+    misses, the train loss) in `stats` and each fold's weights after its
+    last train epoch in `finals` (a dict by fold, when given); raising CliInterrupt at (fold,
+    epoch) `stop_at` before that epoch trains; training (fold, epoch)
+    `order_at[0]` in the order `order_at[1]`."""
+    from rrtmil_tpu_torch.train.engine import Engine
+
+    class Measured(Engine):
+        epoch = None
+
+        def _cache_counts(self):
+            c = self._dcache
+            return (c.hits, c.misses) if c is not None else (0, 0)
+
+        def _measure(self, kind, run, n):
+            h0, m0 = self._cache_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            h1, m1 = self._cache_counts()
+            stats.append({"kind": kind, "fold": self.fold,
+                          "epoch": self.epoch, "bags": n, "seconds": secs,
+                          "slides_per_s": n / secs, "cache_hits": h1 - h0,
+                          "cache_misses": m1 - m0})
+            return out
+
+        def train_epoch(self, dataset, epoch, order=None):
+            if (self.fold, epoch) == stop_at:
+                raise CliInterrupt
+            if order_at is not None and (self.fold, epoch) == order_at[0]:
+                order = order_at[1]
+            self.epoch = epoch
+            loss = self._measure("train", lambda: super(
+                Measured, self).train_epoch(dataset, epoch, order),
+                len(dataset))
+            stats[-1]["loss"] = loss
+            if finals is not None:
+                finals[self.fold] = {k: v.detach().cpu().clone() for k, v in
+                                     self.model.state_dict().items()}
+            return loss
+
+        def evaluate(self, dataset, order=None):
+            return self._measure("eval", lambda: super(
+                Measured, self).evaluate(dataset, order), len(dataset))
+    return Measured
+
+
+def run_cli(argv, stats, finals=None, **engine_kw):
+    """`rrtmil_tpu_torch.main.main(argv)` in this process, its engine
+    measured by cli_engine."""
+    from rrtmil_tpu_torch import main as cli
+    from rrtmil_tpu_torch.harness import classification
+    orig = classification.Engine
+    classification.Engine = cli_engine(stats, finals, **engine_kw)
+    try:
+        return cli.main(argv)
+    finally:
+        classification.Engine = orig
+
+
+def best_weights(out_dir, fold):
+    return torch.load(os.path.join(out_dir, f"fold_{fold}_model_best_auc.pt"),
+                      map_location="cpu", weights_only=True)
+
+
+def weights_diff(a, b):
+    if a.keys() != b.keys():
+        raise AssertionError("best-AUC weights hold other tensors")
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+
+
+def metrics_diff(a, b):
+    return max(abs(x - y) for key in ("acs", "auc", "pre", "rec", "fs")
+               for x, y in zip(a[key], b[key]))
+
+
+def epoch_summary(stats, epoch):
+    """Train and eval seconds and slides/s of one epoch, summed over folds,
+    and its device cache hits and misses."""
+    out = {}
+    for kind in ("train", "eval"):
+        rows = [r for r in stats if r["kind"] == kind and r["epoch"] == epoch]
+        secs = sum(r["seconds"] for r in rows)
+        bags = sum(r["bags"] for r in rows)
+        out[kind] = {"seconds": secs, "bags": bags,
+                     "slides_per_s": bags / secs if secs else None,
+                     "cache_hits": sum(r["cache_hits"] for r in rows),
+                     "cache_misses": sum(r["cache_misses"] for r in rows)}
+    return out
+
+
+def phase_cli(dev):
+    """`python -m rrtmil_tpu_torch.main` in this process on the card, on
+    synthetic sets written to a temporary directory, 2 folds x 2 epochs at
+    batch size 1: (a) c16_r50's flags (input 1024): every kernel of K1-K9
+    launched, none else; every second epoch's train and eval bags served
+    from the device cache; both checkpoint families written; (b) the same
+    run cut before fold 0's epoch 1 and restarted with --auto_resume: its
+    best-AUC and final weights, epoch losses and metrics equal (RESUME_TOL)
+    to an uninterrupted run handed the order the resumed epoch draws (the
+    reference's order stream restarts after a resume), and its fold 1 equal
+    to (a)'s; (c) (a) with
+    --amp; (d) nsclc_plip's flags (TCGA layout, input 512): K1, K2, K5, K6
+    and K7 launched, K3 / K4 / K8 / K9 not.  Counters set to 0 just before
+    each run and read just after."""
+    import tempfile
+    from rrtmil_tpu_torch.train.engine import FIXED_LOADER_SEED
+    report = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = {"c16": os.path.join(tmp, "c16"),
+                 "nsclc": os.path.join(tmp, "nsclc")}
+        t0 = time.perf_counter()
+        patches = {"c16": write_cli_data(roots["c16"], False, 1024, 0),
+                   "nsclc": write_cli_data(roots["nsclc"], True, 512, 1)}
+        log(f"[9] wrote {CLI_BAGS} bags each ({patches} patches) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        outs = os.path.join(tmp, "out")
+
+        def argv(data, flags, title, *extra):
+            return (CLI_RUN + flags + list(extra)
+                    + ["--dataset_root", roots[data], "--model_path", outs,
+                       "--title", title])
+
+        def out_dir(title):
+            return os.path.join(outs, "mil_new_c16", title)
+
+        finals = {"a": {}, "resume": {}, "resume_ref": {}}
+
+        def run(tag, data, flags, title, expect, *extra, finals=None):
+            stats = []
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = run_cli(argv(data, flags, title, *extra), stats,
+                              finals)
+            secs = time.perf_counter() - t0
+            launches = launches_now()
+            missed = [n for n in expect if launches[n] < 1]
+            extra_k = [n for n, v in launches.items() if v and n not in expect]
+            for r in stats:
+                log(f"[9] {tag} fold {r['fold']} epoch {r['epoch']} "
+                    f"{r['kind']}: {r['bags']} bags {r['seconds']:.3f} s "
+                    f"({r['slides_per_s']:.2f} slides/s), device cache "
+                    f"{r['cache_hits']} hits / {r['cache_misses']} misses")
+            summary = {e: epoch_summary(stats, e) for e in (0, 1)}
+            log(f"[9] {tag}: {secs:.1f} s, test AUC {metrics['auc']}, "
+                f"launches {launches}")
+            if missed or extra_k:
+                raise AssertionError(f"{tag}: missed {missed}, ran {extra_k}")
+            later = summary[1]
+            if any(later[k]["cache_misses"] or later[k]["cache_hits"]
+                   != later[k]["bags"] for k in later):
+                raise AssertionError(f"{tag}: epoch 1 not served from the "
+                                     f"device cache: {later}")
+            if not all(np.isfinite(metrics[k]).all() for k in metrics):
+                raise AssertionError(f"{tag}: metrics {metrics}")
+            return {"seconds": secs, "launches": launches,
+                    "metrics": metrics, "epochs": summary, "stats": stats}
+
+        report["c16_r50"] = run("c16_r50", "c16", CLI_C16, "a", C16_TRAIN,
+                                finals=finals["a"])
+        need = {"ckp.pt", "ckp_host.pkl", "fold_0_model_best_auc.pt",
+                "fold_1_model_best_auc.pt"}
+        have = set(os.listdir(out_dir("a")))
+        if not need <= have:
+            raise AssertionError(f"checkpoints missing: {need - have}")
+
+        stats = []
+        try:
+            run_cli(argv("c16", CLI_C16, "resume"), stats, stop_at=(0, 1))
+            raise AssertionError("the run was not interrupted")
+        except CliInterrupt:
+            pass
+        stats, ref_stats = [], []
+        m_res = run_cli(argv("c16", CLI_C16, "resume", "--auto_resume"),
+                        stats, finals["resume"])
+        first = np.random.default_rng(FIXED_LOADER_SEED).permutation(
+            CLI_BAGS // 2)
+        m_ref = run_cli(argv("c16", CLI_C16, "resume_ref"), ref_stats,
+                        finals["resume_ref"], order_at=((0, 1), first))
+        # best-AUC weights (which an early best epoch can leave from before
+        # the cut), each fold's final weights and the resumed epochs' losses
+        d_ref = max(max(weights_diff(best_weights(out_dir("resume"), f),
+                                     best_weights(out_dir("resume_ref"), f)),
+                        weights_diff(finals["resume"][f],
+                                     finals["resume_ref"][f]))
+                    for f in (0, 1))
+        losses = [(r["fold"], r["epoch"], r["loss"]) for r in stats
+                  if r["kind"] == "train"]
+        ref_losses = {(r["fold"], r["epoch"]): r["loss"] for r in ref_stats
+                      if r["kind"] == "train"}
+        d_loss = max(abs(l - ref_losses[(f, e)]) for f, e, l in losses)
+        d_fold1 = max(weights_diff(best_weights(out_dir("resume"), 1),
+                                   best_weights(out_dir("a"), 1)),
+                      weights_diff(finals["resume"][1], finals["a"][1]))
+        d_fold0 = weights_diff(finals["resume"][0], finals["a"][0])
+        dm = metrics_diff(m_res, m_ref)
+        dm1 = max(abs(m_res[k][1] - report["c16_r50"]["metrics"][k][1])
+                  for k in ("acs", "auc", "pre", "rec", "fs"))
+        resumed_epochs = [(f, e) for f, e, _ in losses]
+        log(f"[9] resume: cut before fold 0 epoch 1, resumed epochs "
+            f"{resumed_epochs}; against the uninterrupted run handed the "
+            f"restarted order: best-AUC and final weights {d_ref:.3e}, "
+            f"epoch losses {d_loss:.3e}, metrics {dm:.3e}; fold 1 against "
+            f"(a): weights {d_fold1:.3e}, metrics {dm1:.3e}; fold 0's final "
+            f"weights against (a) {d_fold0:.3e} (another train order: must "
+            f"differ) (tol {RESUME_TOL})")
+        if resumed_epochs != [(0, 1), (1, 0), (1, 1)] or max(
+                d_ref, d_loss, dm, d_fold1, dm1) > RESUME_TOL or d_fold0 == 0:
+            raise AssertionError("the resumed run differs")
+        report["resume"] = {"weights_vs_reference": d_ref,
+                            "losses_vs_reference": d_loss,
+                            "metrics_vs_reference": dm,
+                            "fold1_weights_vs_a": d_fold1,
+                            "fold1_metrics_vs_a": dm1,
+                            "fold0_final_weights_vs_a": d_fold0,
+                            "resumed_epochs": resumed_epochs}
+
+        report["c16_r50_amp"] = run("c16_r50 --amp", "c16", CLI_C16, "amp",
+                                    C16_TRAIN, "--amp")
+        report["nsclc_plip"] = run("nsclc_plip", "nsclc", CLI_NSCLC_PLIP,
+                                   "plip", MLP_TRAIN)
+    for tag in ("c16_r50", "c16_r50_amp", "nsclc_plip"):
+        for e, name in ((0, "first"), (1, "cached")):
+            t = report[tag]["epochs"][e]
+            tr, ev = t["train"], t["eval"]
+            log(f"[9] {tag} {name} epoch: train {tr['seconds']:.3f} s "
+                f"({tr['slides_per_s']:.2f} slides/s), eval "
+                f"{ev['seconds']:.3f} s ({ev['slides_per_s']:.2f} slides/s)")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[9] phase 9: {report['seconds']:.1f} s")
+    return report
 
 
 def k5_library_call(args, mmd):
@@ -1520,10 +1834,10 @@ def phase_throughput(dev):
     return out
 
 
-def train_setup(dev, b, cfg=None):
+def train_setup(dev, b, cfg=None, x_dtype=torch.float32):
     """A seeded train engine of `cfg` (c16_r50 by default) on the card
-    (dropout on) and one batch of b 9000-patch bags, device-resident;
-    returns (engine, step, cfg)."""
+    (dropout on) and one batch of b 9000-patch bags, device-resident in
+    `x_dtype`; returns (engine, step, cfg)."""
     from rrtmil_tpu_torch.config import c16_r50
     from rrtmil_tpu_torch.data.bucketing import bucket_for
     from rrtmil_tpu_torch.models.rrt import build_model
@@ -1537,7 +1851,7 @@ def train_setup(dev, b, cfg=None):
     g = _gen(b)
     x = torch.zeros((b, spec.data_length, cfg.input_dim))
     x[:, :9000] = _randn((b, 9000, cfg.input_dim), g)
-    x = x.to(dev)
+    x = x.to(x_dtype).to(dev)
     mask = (torch.arange(spec.data_length) < 9000)[None].expand(b, -1) \
         .contiguous().to(dev)
     labels = (torch.arange(b) % 2).to(dev)
@@ -1567,6 +1881,44 @@ def phase_train_throughput(dev):
         log(f"[4] train L=9000 B={b}: {ms:.3f} ms/step, {rate:.2f} slides/s, "
             f"{rate * flops / 1e12:.2f} TFLOP/s, peak {peak:.2f} GiB")
         del eng, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_amp_throughput(dev):
+    """--amp's steady state: c16_r50 with compute_dtype bfloat16 on bags
+    that arrive in bfloat16 (the CLI's transfer dtype), L = 9000: forward
+    slides/s for B in {1, 8} and train slides/s for B in {1, 8}, beside
+    this run's float32-stream readings of the same shapes."""
+    import dataclasses
+    from rrtmil_tpu_torch.config import c16_r50
+    from rrtmil_tpu_torch.data.bucketing import bucket_for
+    from rrtmil_tpu_torch.models.rrt import build_model
+    base = c16_r50()
+    cfg = dataclasses.replace(base, encoder=dataclasses.replace(
+        base.encoder, compute_dtype="bfloat16"))
+    spec = bucket_for(9000, cfg.encoder)
+    model = build_model(cfg, device=dev, seed=0)
+    out = {"forward": {}, "train": {}}
+    for b in (1, 8):
+        x = torch.zeros((b, spec.data_length, cfg.input_dim))
+        x[:, :9000] = _randn((b, 9000, cfg.input_dim), _gen(b))
+        x = x.to(torch.bfloat16).to(dev)
+        mask = (torch.arange(spec.data_length) < 9000)[None].expand(b, -1) \
+            .contiguous().to(dev)
+        with torch.no_grad():
+            ms = time_ms(lambda: model(x, mask=mask, length=spec.repr_length),
+                         iters=10, warmup=2)
+        out["forward"][str(b)] = {"ms_per_batch": ms,
+                                  "slides_per_s": b / (ms / 1e3)}
+        eng, step, _ = train_setup(dev, b, cfg, torch.bfloat16)
+        tms = time_ms(step, iters=5, warmup=2)
+        out["train"][str(b)] = {"ms_per_step": tms,
+                                "slides_per_s": b / (tms / 1e3)}
+        log(f"[4] --amp L=9000 B={b}: forward {ms:.3f} ms/batch "
+            f"({b / (ms / 1e3):.2f} slides/s), train {tms:.3f} ms/step "
+            f"({b / (tms / 1e3):.2f} slides/s)")
+        del eng, step, x, mask
         torch.cuda.empty_cache()
     return out
 
@@ -1877,7 +2229,7 @@ def phase_ffn(dev):
     tsecs = time.perf_counter() - t0
     train_launches = launches_now()
     per_step = eng.records["train"]
-    step_losses = [float(r["out"]) for r in per_step]
+    step_losses = [float(r["out"][0]) for r in per_step]
     log(f"[7] FFN Engine.train_epoch (dropout and drop_path on): "
         f"{tsecs:.2f} s, step losses {np.round(step_losses, 6).tolist()}, "
         f"launches {train_launches}")
@@ -2283,10 +2635,12 @@ def main():
         report["unmasked"] = phase_unmasked(dev)
         report["brca"] = phase_brca(dev)
         report["canonical"] = phase_canonical(dev)
+        report["cli"] = phase_cli(dev)
         report["times"] = phase_times_products(dev, phase_times_pairs(
             dev, phase_times_slice3(dev, phase_times(dev))))
         report["throughput"] = phase_throughput(dev)
         report["train_throughput"] = phase_train_throughput(dev)
+        report["amp_throughput"] = phase_amp_throughput(dev)
         report["survival_throughput"] = phase_survival_throughput(dev)
         report["ffn_throughput"] = phase_ffn_throughput(dev)
         rows_reps = {"compress_rows_kernel", "compress_reps_kernel"}
@@ -2321,7 +2675,11 @@ def main():
                               .get("eval_launches", {})},
              "unmasked_forward": report.get("unmasked", {}),
              "brca_train_epoch": report.get("brca", {}).get("train", {}),
-             "brca_evaluate": report.get("brca", {}).get("evaluate", {})}
+             "brca_evaluate": report.get("brca", {}).get("evaluate", {}),
+             "nsclc_plip_evaluate": report.get("canonical", {}).get(
+                 "nsclc_plip", {}).get("evaluate", {})}
+    for run in ("c16_r50", "c16_r50_amp", "nsclc_plip"):
+        paths[f"cli_{run}"] = report.get("cli", {}).get(run, {})
     own = {n: "train_epoch" for n in C16_TRAIN}
     own.update({K[9]: "ffn_train_epoch", K[10]: "ffn_train_epoch",
                 K[11]: "survival_train_epoch", K[12]: "survival_train_epoch"})

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of rrtmil_tpu: the c16_r50 inference path.
+"""PyTorch/CUDA port of rrtmil_tpu: RRT-MIL, its classification CLI
+(`python -m rrtmil_tpu_torch.main`) and survival training.
 
 The JAX package `rrtmil_tpu` stays the reference; this package imports
 neither it nor JAX.  The kernels under `csrc/` are hand-written CUDA for

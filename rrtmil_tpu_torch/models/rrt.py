@@ -2,7 +2,8 @@
 
 Counterpart of `rrtmil_tpu/models/rrt.py` for what the canonical and
 survival configs use: InnerAttention with 1-D 'attn' EPEG or none,
-RegionAttention, CrossRegionAttention with phi, the fused CR-MSA attention,
+RegionAttention, CrossRegionAttention with phi or the phi MLP
+(`crmsa_mlp`), the fused CR-MSA attention,
 DropPath, Mlp, TransLayer (with the optional FFN), RRTEncoder and RRTMIL.
 Parameters keep the flax tree's names (state_dict keys are the flax paths
 joined by '.', see convert.py); tensors keep torch's layouts (Linear weight
@@ -25,7 +26,9 @@ Two structures, as in the JAX package:
   InnerAttention -> K13 -> reverse.
 
 On a CUDA tensor every route launches the hand-written kernels, whatever
-the backend: the JAX package's 'xla' backend never reaches a Pallas kernel
+the backend (`crmsa_mlp`'s phi MLP, dual softmax and einsums are torch ops
+on either device, as the JAX package runs them in XLA outside any Pallas
+kernel): the JAX package's 'xla' backend never reaches a Pallas kernel
 (rrt.py:150-151), but the port runs no eager code on the card, so there
 'xla' selects only the unfused structure, and its kernels run with float32
 products (`products_dtype`), which round nothing, as the XLA einsums.  On a
@@ -276,17 +279,47 @@ class CrossRegionAttention(nn.Module):
     (rrt.py:366-390), for every backend; backend 'xla' on the CPU runs it
     with float32 products, which is the XLA einsums of rrt.py:392-440.
     `fused` is the JAX package's `_CRMSAFusedAttn` (rrt.py:531-572) on the
-    same parameters."""
+    same parameters.
+
+    With `crmsa_mlp` the phi logits come from phi_fc1 (C -> C/4, no bias)
+    -> tanh -> phi_fc2 (C/4 -> k, no bias), and the layer always takes the
+    JAX package's XLA route (rrt.py:392-440, never fused there): the dual
+    softmax, the min-max and the compress / redistribute einsums run as
+    torch ops in float32 (flax's Dense and einsum promote a bf16 stream
+    against float32 weights to float32), around the cross-region
+    InnerAttention (K5 on the card)."""
 
     def __init__(self, cfg: CRMSAConfig):
         super().__init__()
-        if cfg.crmsa_mlp:
-            raise _todo("crmsa_mlp")
         if cfg.region.sp_shards > 1:
             raise _todo("sequence sharding (sp_shards > 1)")
         self.cfg = cfg
-        self.phi = nn.Parameter(torch.zeros(cfg.attn.dim, cfg.crmsa_k))
+        c, kk = cfg.attn.dim, cfg.crmsa_k
+        if cfg.crmsa_mlp:
+            self.phi = None
+            self.phi_fc1 = nn.Linear(c, c // 4, bias=False)
+            self.phi_fc2 = nn.Linear(c // 4, kk, bias=False)
+        else:
+            self.phi = nn.Parameter(torch.zeros(c, kk))
         self.attn = InnerAttention(cfg.attn)
+
+    def _forward_mlp(self, regions, generator):
+        """The XLA route on (B, nR, P, C) regions -> (B * nR, P, C) float32."""
+        b, nr, p, c = regions.shape
+        kk = self.cfg.crmsa_k
+        regions = regions.float()
+        t = torch.tanh(F.linear(regions, self.phi_fc1.weight))
+        logits = F.linear(t, self.phi_fc2.weight).transpose(-1, -2)
+        combine = torch.softmax(logits, dim=-1)         # over tokens
+        dispatch = torch.softmax(logits, dim=-2)        # over k
+        lmin = logits.amin(dim=-1, keepdim=True)
+        lmax = logits.amax(dim=-1, keepdim=True)
+        dispatch_mm = (logits - lmin) / (lmax - lmin + 1e-8)
+        reps = torch.einsum("brpc,brkp->bkrc", regions, combine)
+        reps = self.attn(reps.reshape(b * kk, nr, c), generator)
+        out = torch.einsum("bkrc,brkp->brpc", reps.reshape(b, kk, nr, c)
+                           .float(), dispatch_mm * dispatch)
+        return out.reshape(b * nr, p, c)
 
     def forward(self, x, length: Optional[int] = None,
                 generator: Optional[torch.Generator] = None):
@@ -296,6 +329,11 @@ class CrossRegionAttention(nn.Module):
         geom = grid_geometry(length, cfg.region)
         rs, nr, kk = geom.region_size, geom.num_regions, cfg.crmsa_k
         x = _fit_length(x, geom.padded_length).reshape(b, geom.grid, geom.grid, c)
+        if cfg.crmsa_mlp:
+            regions = region_partition(x, rs).reshape(b, nr, -1, c)
+            out = self._forward_mlp(regions, generator)
+            return _fit_length(region_reverse(out, rs, geom.grid, geom.grid),
+                               n_in)
         # the XLA einsums (rrt.py:392-440) round nothing: K12/K13 at float32
         # products are that formulation
         mmd = products_dtype(cfg.attn)
@@ -369,7 +407,7 @@ def crmsa_branch_outside(cfg: TransLayerConfig, training: bool) -> bool:
 def fused_crmsa_ok(cfg: TransLayerConfig, x, mask, length: int) -> bool:
     """Counterpart of fused_crmsa_ok (rrt.py:491-513): True when the CR-MSA
     layer runs as K3 -> K5 -> K8."""
-    if cfg.attn_mode != "crmsa" or mask is None:
+    if cfg.attn_mode != "crmsa" or mask is None or cfg.crmsa.crmsa_mlp:
         return False
     if not _fused_backend(cfg.crmsa.attn):
         return False
@@ -595,7 +633,7 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 xavier_normal_(mod.pe_weight, k, h * k, generator)
                 if mod.pe_bias is not None:
                     mod.pe_bias.zero_()
-            elif isinstance(mod, CrossRegionAttention):
+            elif isinstance(mod, CrossRegionAttention) and mod.phi is not None:
                 crmsa_phi_init_(mod.phi, mod.cfg.crmsa_k, generator)
 
 

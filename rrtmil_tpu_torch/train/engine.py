@@ -2,21 +2,31 @@
 
 Counterpart of `rrtmil_tpu/train/engine.py` for the classification path:
 `EngineConfig`, `_batched_order` (greedy bucket-aware batching that keeps
-the given order within a bucket), the Python `_assemble_host` batch
-assembly, `train_epoch` (`_train_step` and `_apply_grads`: per-step
-learning rate, global-norm clipping, gradient accumulation with the loss
-pre-scaled by 1/accumulation_steps and one update per window, the short
-tail window included), `_eval_step` and `evaluate`.  Per-step meters
-and per-batch results stay on the device and are fetched in one sync per
-epoch.  Dropout masks come from the engine's `torch.Generator` (seeded with
-`cfg.seed`, on the engine's device); the train order from
-`np.random.default_rng(cfg.seed)` or, with `fix_loader_random`, the
-reference's fixed loader seed.  The device bag cache, the native loader,
-augmentation and the aux-loss models are later slices (ROADMAP.md queue 1).
+the given order within a bucket), batch assembly (`_make_batch`: the device
+bag cache, else host assembly with the shuffle augmentations and the
+transfer dtype's cast, then the transfer), `_batch_iter` (next-batch
+assembly in threads while the device runs the current one), `train_epoch`
+(`_train_step` and `_apply_grads`: per-step learning rate, global-norm
+clipping, gradient accumulation with the loss pre-scaled by
+1/accumulation_steps and one update per window, the short tail window
+included; the iteration meters through `logger`), `_eval_step` and
+`evaluate`.  Per-step meters and per-batch results stay on the device and
+are fetched at the log points and once per epoch.
+
+Random streams, as in the JAX package: `_rng` (numpy, seeded with
+`cfg.seed`) draws the augmentations and, unless `fix_loader_random` pins it
+to the reference's fixed loader seed, the train order too: one stream,
+drawn in the JAX package's order.  Dropout masks come from the engine's
+`torch.Generator` (seeded with `cfg.seed`, on the engine's device).  The
+native loader and pinned staging buffers are a later slice (ROADMAP.md
+queue 1); host assembly is the Python route.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -24,13 +34,16 @@ import torch
 import torch.nn.functional as F
 
 from ..config import RRTEncoderConfig
+from ..data import augment
 from ..data.bucketing import bucket_for, pad_bag
+from ..data.device_cache import DeviceBagCache, cacheable
 from ..utils.device import resolve_device
 from .losses import bce_with_logits, cross_entropy
 from .optim import lr_at, make_optimizer
 
 # the reference's fixed DataLoader generator seed (main.py:125-130)
 FIXED_LOADER_SEED = 7784414403328510413
+_TRANSFER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass
@@ -47,18 +60,36 @@ class EngineConfig:
     cls_alpha: float = 1.0
     accumulation_steps: int = 1
     clip_grad: float = 0.0
+    patch_shuffle: bool = False      # train-bag augmentations (reference
+    group_shuffle: bool = False      # utils.py:26-70), drawn from `_rng`
+    shuffle_group: int = 0
     seed: int = 2021
     fix_loader_random: bool = False  # train order from the reference's fixed
-    # loader seed instead of `seed` (forced on for camelyon16, main.py:731)
+    # loader seed instead of `_rng` (forced on for camelyon16, main.py:731)
+    log_iter: int = 100  # iteration-meter period (reference main.py:476-490)
+    num_workers: int = 2  # batch assemblies run ahead of the device step (0:
+    # serial); clamped to 1 while augmentation draws from `_rng`, so the
+    # stream is drawn in the serial loop's order
+    transfer_dtype: str = "float32"  # 'bfloat16' with --amp: the host casts
+    # each bag before the transfer, halving its bytes
+    device_cache: str = "auto"  # bags kept on the device after their first
+    # transfer (data/device_cache.py): 'on' | 'off' | 'auto' (= on when the
+    # engine's device is CUDA); bypassed while augmentation is on
+    device_cache_bytes: int = 6 << 30  # its budget; bags past it stream
 
 
 class Engine:
     """Drives one model through train and eval epochs on `device` (the card
-    by default; raises when there is none unless device='cpu')."""
+    by default; raises when there is none unless device='cpu').  The
+    harness sets `logger` (utils/logger.Logger) and `fold` for the
+    iteration meters."""
 
     def __init__(self, model: torch.nn.Module, cfg: EngineConfig,
                  encoder_cfg: Optional[RRTEncoderConfig] = None,
                  device="cuda"):
+        if cfg.transfer_dtype not in _TRANSFER_DTYPES:
+            raise ValueError(f"transfer_dtype {cfg.transfer_dtype!r} is not "
+                             f"one of {sorted(_TRANSFER_DTYPES)}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
@@ -67,10 +98,30 @@ class Engine:
                                         cfg.lr, cfg.weight_decay)
         self._loss = cross_entropy if cfg.loss == "ce" else bce_with_logits
         self.global_iter = 0
-        self._order_rng = np.random.default_rng(
-            FIXED_LOADER_SEED if cfg.fix_loader_random else cfg.seed)
+        self.logger = None
+        self.fold = 0
+        self._rng = np.random.default_rng(cfg.seed)
+        self._order_rng = (np.random.default_rng(FIXED_LOADER_SEED)
+                           if cfg.fix_loader_random else self._rng)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
+        self._dcache: Optional[DeviceBagCache] = None
+        self._dcache_lock = threading.Lock()   # prefetch threads race init
+
+    def reseed(self, seed: int) -> None:
+        """Re-pin the numpy streams (fix_train_random: the reference re-runs
+        seed_torch(args.seed) right before the epoch loop, main.py:254-255,
+        so every fold draws the same augmentation and order streams)."""
+        self._rng = np.random.default_rng(seed)
+        if not self.cfg.fix_loader_random:
+            self._order_rng = self._rng
+
+    def close(self) -> None:
+        """Release the fold's device bag cache, so the next fold's bags never
+        compete with this one's for the byte budget."""
+        if self._dcache is not None:
+            self._dcache.clear()
+            self._dcache = None
 
     # -- batching ----------------------------------------------------------
 
@@ -96,14 +147,24 @@ class Engine:
                 batches.append(q)
         return batches
 
-    def _assemble_host(self, dataset, indices: Sequence[int]):
-        """(x, mask, labels, spec) numpy arrays on the host."""
+    def _augmented(self, train: bool) -> bool:
+        return train and (self.cfg.patch_shuffle or self.cfg.group_shuffle)
+
+    def _assemble_host(self, dataset, indices: Sequence[int], train: bool):
+        """(x, mask, labels, spec) numpy arrays on the host, x float32; the
+        train bags shuffled by `_rng` when augmentation is on."""
+        shuffle = None
+        if self._augmented(train):
+            shuffle = (augment.patch_shuffle if self.cfg.patch_shuffle
+                       else augment.group_shuffle)
         bags, labels, lengths = [], [], []
         for i in indices:
             bag, label = dataset[i]
             bag = np.asarray(bag, dtype=np.float32)
             if bag.ndim == 3:
                 bag = bag[0]
+            if shuffle is not None:
+                bag = shuffle(bag, self.cfg.shuffle_group, self._rng)
             bags.append(bag)
             labels.append(label)
             lengths.append(bag.shape[0])
@@ -112,11 +173,84 @@ class Engine:
         return (np.stack(xs), np.stack(masks),
                 np.asarray(labels, dtype=np.int64), spec)
 
-    def _make_batch(self, dataset, indices: Sequence[int]):
-        x, mask, labels, spec = self._assemble_host(dataset, indices)
+    def _transfer(self, x, mask, labels, spec):
+        """Host arrays -> device tensors, x cast to the transfer dtype on the
+        host first."""
         dev = self.device
-        return (torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev),
+        xt = torch.from_numpy(x).to(_TRANSFER_DTYPES[self.cfg.transfer_dtype])
+        return (xt.to(dev), torch.from_numpy(mask).to(dev),
                 torch.from_numpy(labels).to(dev), spec)
+
+    def _device_cache(self) -> Optional[DeviceBagCache]:
+        mode = self.cfg.device_cache
+        if mode == "off" or (mode == "auto" and self.device.type != "cuda"):
+            return None
+        if self._dcache is None:
+            with self._dcache_lock:
+                if self._dcache is None:
+                    self._dcache = DeviceBagCache(self.cfg.device_cache_bytes)
+        return self._dcache
+
+    def _make_batch(self, dataset, indices: Sequence[int],
+                    train: bool = False):
+        """One device batch (x, mask, labels, spec): from the device bag
+        cache (a hit costs a `torch.cat` on the device), else assembled on
+        the host and transferred."""
+        cache = None
+        if not self._augmented(train) and cacheable(dataset, train):
+            cache = self._device_cache()
+        if cache is not None:
+            return self._make_batch_cached(dataset, indices, train, cache)
+        return self._transfer(*self._assemble_host(dataset, indices, train))
+
+    def _make_batch_cached(self, dataset, indices, train: bool,
+                           cache: DeviceBagCache):
+        entries = {i: cache.get(dataset, i) for i in indices}
+        missing = [i for i in indices if entries[i] is None]
+        if missing:
+            x, mask, labels, spec = self._assemble_host(dataset, missing,
+                                                        train)
+            for j, i in enumerate(missing):
+                entries[i] = self._transfer(x[j:j + 1], mask[j:j + 1],
+                                            labels[j:j + 1], spec)
+                cache.put(dataset, i, *entries[i])
+        if len({e[3].key for e in entries.values()}) != 1:
+            # bags cached under different buckets: cannot happen with
+            # bucket-grouped batches, but a hand-built mixed batch stays right
+            return self._transfer(*self._assemble_host(dataset, indices,
+                                                       train))
+        if len(indices) == 1:
+            return entries[indices[0]]
+        parts = [entries[i] for i in indices]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]),
+                torch.cat([p[2] for p in parts]), parts[0][3])
+
+    def _batch_iter(self, dataset, batches: List[List[int]], train: bool):
+        """Yield device batches, assembling the next `num_workers` in threads
+        while the device runs the current one (one while augmentation draws
+        from `_rng`, so the stream is drawn in order)."""
+        workers = self.cfg.num_workers
+        if self._augmented(train):
+            workers = min(workers, 1)
+        if workers <= 0 or len(batches) <= 1:
+            for b in batches:
+                yield self._make_batch(dataset, b, train)
+            return
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            pending = deque()
+            nxt = 0
+            while nxt < len(batches) and len(pending) < workers:
+                pending.append(pool.submit(self._make_batch, dataset,
+                                           batches[nxt], train))
+                nxt += 1
+            while pending:
+                cur = pending.popleft().result()
+                if nxt < len(batches):
+                    pending.append(pool.submit(self._make_batch, dataset,
+                                               batches[nxt], train))
+                    nxt += 1
+                yield cur
 
     # -- train -------------------------------------------------------------
 
@@ -129,15 +263,17 @@ class Engine:
 
     def _train_step(self, x, mask, labels, length: int) -> torch.Tensor:
         """Forward and backward of one batch; the gradients add into .grad
-        (accumulation).  Returns the total loss, on the device."""
+        (accumulation).  Returns the meters (total loss, logit loss), on the
+        device."""
         cfg = self.cfg
         logits = self.model(x, mask=mask, length=length,
                             generator=self.generator)
-        total = cfg.cls_alpha * self._loss(logits, labels)
+        logit_loss = self._loss(logits, labels)
+        total = cfg.cls_alpha * logit_loss
         if cfg.accumulation_steps > 1:
             total = total / cfg.accumulation_steps
         total.backward()
-        return total.detach()
+        return torch.stack([total.detach(), logit_loss.detach()]).float()
 
     def _apply_grads(self, lr: float) -> None:
         """One optimizer update at `lr`, after clipping the global gradient
@@ -158,9 +294,9 @@ class Engine:
 
     def train_epoch(self, dataset, epoch: int,
                     order: Optional[Sequence[int]] = None) -> float:
-        """One epoch in `order` (else a permutation from the engine's order
-        RNG), bucket-batched; returns the mean total loss.  One host sync, at
-        the end."""
+        """One epoch in `order` (else a permutation from the order stream),
+        bucket-batched; returns the mean total loss.  The meters are fetched
+        at the log points and at the end."""
         cfg = self.cfg
         if order is None:
             order = self._order_rng.permutation(len(dataset))
@@ -168,9 +304,10 @@ class Engine:
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         meters: List[torch.Tensor] = []
+        synced: List[np.ndarray] = []
         acc_n = 0
-        for bi, batch in enumerate(batches):
-            x, mask, labels, spec = self._make_batch(dataset, batch)
+        for bi, (x, mask, labels, spec) in enumerate(
+                self._batch_iter(dataset, batches, True)):
             lr = self.current_lr(epoch, len(batches))
             meters.append(self._train_step(x, mask, labels, spec.repr_length))
             acc_n += 1
@@ -180,9 +317,30 @@ class Engine:
                 self._apply_grads(lr)
                 acc_n = 0
             self.global_iter += 1
-        if not meters:
+            # log_iter <= 0 logs the last iteration only
+            if self.logger is not None and (
+                    (cfg.log_iter > 0 and bi % cfg.log_iter == 0)
+                    or bi == len(batches) - 1):
+                self._log_iteration(meters, synced, bi, len(batches), lr)
+        if meters:
+            synced.append(torch.stack(meters).cpu().numpy())
+        if not synced:
             return 0.0
-        return float(torch.stack(meters).mean())
+        return float(np.concatenate(synced)[:, 0].mean())
+
+    def _log_iteration(self, meters, synced, bi: int, n_batches: int,
+                       lr: float) -> None:
+        """Iteration meters (reference main.py:471-490): the epoch-running
+        mean logit loss and the current lr, printed and logged under the
+        fold's namespace.  Fetches only the steps since the last log point."""
+        if meters:
+            synced.append(torch.stack(meters).cpu().numpy())
+            meters.clear()
+        avg = np.concatenate(synced).mean(axis=0)
+        self.logger.print(f"[{bi}/{n_batches - 1}] logit_loss:{avg[1]:.4f}, "
+                          f"lr:{lr:.3e}")
+        self.logger.log({f"{self.fold}-fold/cls_loss": float(avg[1]),
+                         f"{self.fold}-fold/lr": float(lr)}, commit=False)
 
     # -- eval --------------------------------------------------------------
 
@@ -203,9 +361,10 @@ class Engine:
         order.  One host sync, after the last batch."""
         self.model.eval()
         order = list(order if order is not None else range(len(dataset)))
+        batches = self._batched_order(dataset, order)
         probs_all, labels_all, losses_all = [], [], []
-        for batch in self._batched_order(dataset, order):
-            x, mask, labels, spec = self._make_batch(dataset, batch)
+        for x, mask, labels, spec in self._batch_iter(dataset, batches,
+                                                      False):
             probs, losses = self._eval_step(x, mask, labels, spec.repr_length)
             probs_all.append(probs)
             labels_all.append(labels)

@@ -10,5 +10,6 @@ def resolve_device(device="cuda") -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the kernels' plain PyTorch versions")
+                           "(--device cpu on the CLI) to run the kernels' "
+                           "plain PyTorch versions")
     return dev

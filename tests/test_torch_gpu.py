@@ -660,6 +660,76 @@ def test_xla_backend_on_card_matches_cpu():
     assert all(f.launches >= 2 for f in fns)
 
 
+def _write_cli_set(root, tcga, dim, n=8, seed=0):
+    """A small synthetic set in camelyon16's layout (root/pt/, label.csv of
+    slide,0|1) or TCGA's (root/pt_files/, patient,LUAD|LUSC)."""
+    rng = np.random.default_rng(seed)
+    sub = "pt_files" if tcga else "pt"
+    os.makedirs(os.path.join(root, sub))
+    rows = []
+    for i in range(n):
+        bag = rng.standard_normal((int(rng.integers(300, 1200)), dim))
+        name = f"TCGA-SM-{i:04d}" if tcga else f"slide_{i:03d}"
+        np.save(os.path.join(root, sub, name + ("-01Z" if tcga else "")
+                             + ".npy"), bag.astype(np.float32))
+        label = ("LUSC" if i % 2 else "LUAD") if tcga else i % 2
+        rows.append(f"{name},{label}\n")
+    with open(os.path.join(root, "label.csv"), "w") as f:
+        f.write("".join(rows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flags,tcga,launched", [
+    (["--crmsa_k", "1", "--all_shortcut"], False, range(9)),
+    (["--datasets", "tcga", "--epeg_k", "13", "--crmsa_k", "3",
+      "--crmsa_heads", "1", "--all_shortcut", "--crmsa_mlp"], True,
+     (0, 1, 4, 5, 6))])
+def test_cli_on_card_goes_through_its_kernels(tmp_path, flags, tcga,
+                                              launched):
+    """`python -m rrtmil_tpu_torch.main` on the card (2 folds, 2 epochs,
+    input width 64): c16_r50's flags launch K1-K9 and no other kernel,
+    nsclc_plip's (crmsa_mlp) K1, K2, K5, K6 and K7 only; the second epoch's
+    bags come from the device cache; the metrics are finite and the
+    best-AUC weights written."""
+    _cuda()
+    from rrtmil_tpu_torch import main as cli
+    from rrtmil_tpu_torch.harness import classification
+    root = str(tmp_path / "data")
+    _write_cli_set(root, tcga, 64)
+    fns = (rl.region_layer_fused, rl.region_layer_bwd, ck.crmsa_compress_grid,
+           ck.crmsa_compress_grid_bwd, rb.region_block_fused,
+           ra.region_attention_fused, rab.region_attention_bwd,
+           ck.crmsa_redistribute_grid_ln, ck.crmsa_redistribute_grid_ln_bwd,
+           ck.crmsa_redistribute_grid, ck.crmsa_redistribute_grid_bwd,
+           ck.crmsa_compress, ck.crmsa_redistribute)
+    hits = []
+
+    class Recorder(classification.Engine):
+        def train_epoch(self, dataset, epoch, order=None):
+            before = self._dcache.hits if self._dcache is not None else 0
+            loss = super().train_epoch(dataset, epoch, order)
+            hits.append((epoch, self._dcache.hits - before, len(dataset)))
+            return loss
+
+    orig = classification.Engine
+    classification.Engine = Recorder
+    for f in fns:
+        f.launches = 0
+    try:
+        metrics = cli.main(flags + [
+            "--input_dim", "64", "--cv_fold", "2", "--num_epoch", "2",
+            "--dataset_root", root, "--model_path", str(tmp_path / "out"),
+            "--title", "t"])
+    finally:
+        classification.Engine = orig
+    assert [i for i, f in enumerate(fns) if f.launches] == list(launched)
+    second = [(h, n) for epoch, h, n in hits if epoch == 1]
+    assert len(hits) == 4 and [h for h, _ in second] == [n for _, n in second]
+    assert all(np.isfinite(metrics["auc"]))
+    out = tmp_path / "out" / "mil_new_c16" / "t"
+    assert (out / "fold_1_model_best_auc.pt").exists()
+
+
 def test_kernel_libraries_build_into_an_ignored_directory():
     """The nvcc outputs land in rrtmil_tpu_torch/build/, which git ignores,
     under names that change with the sources and flags."""
