@@ -67,6 +67,21 @@ phase 9's own interruption):
    (a)'s; (c) (a) with --amp; (d) nsclc_plip's flags (TCGA layout) launch
    K1, K2, K5, K6 and K7 only; each run's per-epoch seconds, train and eval
    slides/s and cache hits printed;
+10. the survival CLI: the golden RAdam / Lookahead trajectories replayed
+   on the card (rtol 2e-5, atol 2e-6); `rrtmil_tpu_torch.survival_main` in
+   this process on a synthetic TCGA-survival set of 10 cases of {937, 1500,
+   ..., 45000, 50000} patches at width 1024 (~181 k patches, one case two
+   files joined by ';'), 5 folds x 2 epochs: (a) --model RRTMIL (Adam,
+   cosine), (b) with --amp, (c) --optimizer RAdam --scheduler plateau, (d)
+   --optimizer Lookahead: each bag launches K1 and K2, a bag whose grids
+   differ K12 and K13 (K5, K6, K7 around them), a matched one K3-K9, never
+   K10 / K11, and every second-epoch bag comes from the device cache; (e)
+   --evaluate --resume (a)'s results reproduces (a)'s best c-index and its
+   validation loss, exactly, in each fold that saved weights (a fold whose
+   best stayed 0 saves none, as in the reference); (f) --model MeanMIL
+   launches no
+   kernel; each fold's train and validation bags/s a epoch and the cache's
+   hits printed;
 6. survival: `SurvivalEngine.train_epoch` (dropout on) and `validate` on
    survival_default() at full width, bags of {937, 1500, 10000, 30000,
    45000, 50000} patches: each bag whose R-MSA grid exceeds its CR-MSA grid
@@ -111,8 +126,9 @@ phase 9's own interruption):
 Every counter is set to 0 just before each path and read just after.
 Prints the `{"kernels": [...]}` line (each kernel's launches from its own
 path: K1-K9 the c16_r50 train epoch, K10 / K11 the FFN one, K12 / K13 the
-survival one; `launches_by_path` adds every other path, phase 9's CLI runs
-among them), the card's name and power limit, and as its last line
+survival one; `launches_by_path` adds every other path, phase 9's and
+phase 10's CLI runs among them), the card's name and power limit, and as
+its last line
 `{"ok": true, "device": {...}}`.  Writes the full report to
 chiprun_out/chip_smoke.json.
 """
@@ -1654,6 +1670,313 @@ def phase_cli(dev):
     return report
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the survival CLI (rrtmil_tpu_torch.survival_main)
+# ---------------------------------------------------------------------------
+
+# `python -m rrtmil_tpu_torch.survival_main` on a synthetic TCGA-survival
+# set: bag lengths covering both CR-MSA routes up to the full 50000-patch
+# scale (grids differ at 1500, 3000, 10000, 15000, 30000 and 45000), one
+# case of two files joined by ';'
+SCLI_LENGTHS = (937, 1500, 3000, 6000, 10000, 15000, 20000, 30000, 45000,
+                50000)
+SCLI_MULTI = 3                 # the case whose bag is two .npy files
+SCLI_RUN = ["--num_epoch", "2", "--seed", "1"]
+# the golden optimizer trajectories (tests/test_optim_parity.py's limits)
+OPTIM_GOLDEN = os.path.join("tests", "goldens", "optim_trajectories.npz")
+OPTIM_RTOL, OPTIM_ATOL = 2e-5, 2e-6
+
+
+def write_survival_data(root, dim=1024, lengths=SCLI_LENGTHS, seed=0):
+    """The reference's CSV (Study, ID, Event, Status, WSI) over one .npy bag
+    a case (two for case SCLI_MULTI), a risk in [0, 1) planted on the first
+    tenth of each bag (+0.5 risk) and an event time falling with it.  In
+    each validation fold's pair the earlier case is an event and the later
+    one censored, so every fold's pair is comparable."""
+    from rrtmil_tpu_torch.data.survival import SurvivalDataset
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    risks = rng.uniform(size=len(lengths))
+    times = 2000.0 * (1.05 - risks)
+    wsi, patches = [], 0
+    for i, n in enumerate(lengths):
+        bag = rng.standard_normal((n, dim), dtype=np.float32)
+        bag[: max(4, n // 10)] += 0.5 * risks[i]
+        if i == SCLI_MULTI:
+            cut = n // 3
+            paths = [os.path.join(root, f"case_{i}_{j}.npy") for j in (0, 1)]
+            np.save(paths[0], bag[:cut])
+            np.save(paths[1], bag[cut:])
+        else:
+            paths = [os.path.join(root, f"case_{i}.npy")]
+            np.save(paths[0], bag)
+        wsi.append(";".join(paths))
+        patches += n
+    csv_file = os.path.join(root, "syn.csv")
+
+    def write(status):
+        with open(csv_file, "w") as f:
+            f.write("Study,ID,Event,Status,WSI\n" + "".join(
+                f"syn,case_{i},{times[i]:.1f},{status[i]},{wsi[i]}\n"
+                for i in range(len(lengths))))
+    status = [1] * len(lengths)
+    write(status)
+    ds = SurvivalDataset(csv_file)
+    for fold in range(5):
+        status[max(ds.get_split(fold)[1], key=lambda j: times[j])] = 0
+    write(status)
+    return csv_file, patches
+
+
+def survival_cli_engine(records):
+    """The harness's SurvivalEngine counting each step's launches (with its
+    bucket's grids), timing each train epoch and validation to its last
+    sync with the device cache's hits and misses, and keeping each fold's
+    validations and best c-index in `records` (one dict a fold, in the
+    order the harness builds the engines)."""
+    from rrtmil_tpu_torch.data.bucketing import bucket_for
+    from rrtmil_tpu_torch.train.surv_engine import SurvivalEngine
+
+    def describe(eng, x, mask, label, cens, length):
+        return {"grids": bucket_for(length, eng.encoder_cfg).key,
+                "tokens": int(x.shape[1])}
+
+    class Measured(counting(SurvivalEngine, describe)):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.fold = {"fold": len(records), "epochs": [], "val_ci": [],
+                         "records": self.records}
+            records.append(self.fold)
+            self._epoch = None
+
+        def _cache_counts(self):
+            c = self._dcache
+            return (c.hits, c.misses) if c is not None else (0, 0)
+
+        def _measure(self, kind, run, n):
+            h0, m0 = self._cache_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            h1, m1 = self._cache_counts()
+            self.fold["epochs"].append({
+                "kind": kind, "epoch": self._epoch, "bags": n,
+                "seconds": secs, "bags_per_s": n / secs,
+                "cache_hits": h1 - h0, "cache_misses": m1 - m0,
+                "loss": out[0], "c_index": out[1]})
+            return out
+
+        def train_epoch(self, dataset, indices, epoch):
+            self._epoch = epoch
+            return self._measure("train", lambda: super(
+                Measured, self).train_epoch(dataset, indices, epoch),
+                len(indices))
+
+        def validate(self, dataset, indices):
+            out = self._measure("val", lambda: super(
+                Measured, self).validate(dataset, indices), len(indices))
+            self.fold["val_ci"].append(out[1])
+            return out
+
+        def learning(self, *a, **k):
+            out = super().learning(*a, **k)
+            self.fold["best"] = (out[0], out[1])
+            return out
+    return Measured
+
+
+def run_survival_cli(argv, records):
+    """`rrtmil_tpu_torch.survival_main.main(argv)` in this process, its
+    engines measured by survival_cli_engine."""
+    from rrtmil_tpu_torch import survival_main as cli
+    from rrtmil_tpu_torch.harness import survival
+    orig = survival.SurvivalEngine
+    survival.SurvivalEngine = survival_cli_engine(records)
+    try:
+        return cli.main(argv)
+    finally:
+        survival.SurvivalEngine = orig
+
+
+def survival_epoch_summary(records, epoch, kind):
+    rows = [r for f in records for r in f["epochs"]
+            if r["kind"] == kind and r["epoch"] == epoch]
+    secs = sum(r["seconds"] for r in rows)
+    bags = sum(r["bags"] for r in rows)
+    return {"seconds": secs, "bags": bags,
+            "bags_per_s": bags / secs if secs else None,
+            "cache_hits": sum(r["cache_hits"] for r in rows),
+            "cache_misses": sum(r["cache_misses"] for r in rows)}
+
+
+def replay_optimizer_goldens(dev):
+    """The golden RAdam and Lookahead(Adam) trajectories (the reference's
+    torch optimizers, recorded by tools/make_optim_goldens.py) replayed on
+    the card with the port's optimizers: every step within rtol 2e-5, atol
+    2e-6."""
+    from rrtmil_tpu_torch.train.optim import make_optimizer
+    data = np.load(OPTIM_GOLDEN)
+    lr, wd = float(data["lr"]), float(data["wd"])
+    out = {}
+    for name in ("radam", "lookahead"):
+        params = {k: torch.nn.Parameter(torch.tensor(
+            data[f"{name}_init_{k}"], device=dev)) for k in ("b", "w")}
+        opt = make_optimizer(name, [params["b"], params["w"]], lr, wd)
+        worst = 0.0
+        for t in range(int(data["steps"])):
+            for k, p in params.items():
+                p.grad = torch.tensor(data[f"{name}_grads_{k}"][t], device=dev)
+            opt.step()
+            for k, p in params.items():
+                want = data[f"{name}_traj_{k}"][t]
+                got = p.detach().cpu().numpy()
+                worst = max(worst, float((np.abs(got - want) / (
+                    OPTIM_ATOL + OPTIM_RTOL * np.abs(want))).max()))
+        log(f"[10] {name} golden trajectory on the card, "
+            f"{int(data['steps'])} steps: worst |got - want| / (atol + rtol "
+            f"|want|) {worst:.3e} (must be <= 1)")
+        if worst > 1.0:
+            raise AssertionError(f"{name} leaves its golden trajectory")
+        out[name] = worst
+    return out
+
+
+def phase_survival_cli(dev, lengths=SCLI_LENGTHS, dim=1024):
+    """`python -m rrtmil_tpu_torch.survival_main` in this process on the
+    card, on a synthetic TCGA-survival set written to a temporary directory
+    (bags of `lengths` patches, one case of two files), 5 folds x 2 epochs:
+    (a) --model RRTMIL with Adam and the cosine schedule, (b) (a) with
+    --amp, (c) --optimizer RAdam --scheduler plateau, (d) --optimizer
+    Lookahead, (e) --evaluate --resume (a)'s results: each fold that saved
+    weights gives (a)'s best c-index and validation loss again, exactly; (f)
+    the CLI's default --model MeanMIL: no kernel.
+    Each bag launches K1 and K2, a bag whose R-MSA and CR-MSA grids differ
+    K12 and K13, a matched one K3 / K8 and K4 / K9 in its backward; K10 and
+    K11 never.  Every second-epoch bag comes from the device cache.
+    Counters set to 0 just before each run and read just after; also the
+    golden optimizer trajectories on the card."""
+    import tempfile
+    report = {"optimizer_goldens": replay_optimizer_goldens(dev)}
+    t_phase = time.perf_counter()
+    fwd = lambda rec: [n for n in _surv_expected(rec)
+                       if n in (K[0], K[2], K[4], K[7], K[11], K[12])]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        csv_file, patches = write_survival_data(os.path.join(tmp, "data"),
+                                                dim, lengths)
+        log(f"[10] wrote {len(lengths)} cases ({patches} patches, "
+            f"{patches * dim * 4 / 2 ** 30:.2f} GiB of fp32) in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def run(tag, flags, train=True, kernels=True):
+            records = []
+            out = os.path.join(tmp, tag)
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            meter = run_survival_cli(
+                SCLI_RUN + flags + ["--input_dim", str(dim), "--excel_file",
+                                    csv_file, "--results_dir", out,
+                                    "--device", str(dev)], records)
+            secs = time.perf_counter() - t0
+            launches = launches_now()
+            log(f"[10] {tag}: {secs:.1f} s, c-index by fold "
+                f"{meter.cindex[1:6]}, launches "
+                f"{ {n.split()[0]: v for n, v in launches.items() if v} }")
+            if len(records) != 5:
+                raise AssertionError(f"{tag}: {len(records)} folds ran")
+            steps = [r for f in records for r in f["records"]["train"]]
+            evals = [r for f in records for r in f["records"]["eval"]]
+            if kernels:
+                check_launches(steps, _surv_expected, f"{tag} train")
+                check_launches(evals, fwd, f"{tag} validate")
+                grids = {r["grids"][0] != r["grids"][1] for r in steps
+                         + evals}
+                if train and grids != {True, False}:
+                    raise AssertionError(f"{tag}: not both CR-MSA routes")
+            elif any(launches.values()):
+                raise AssertionError(f"{tag} launched {launches}")
+            if not all(np.isfinite(v) for v in meter.cindex[1:]):
+                raise AssertionError(f"{tag}: c-index {meter.cindex}")
+            rep = {"seconds": secs, "launches": launches,
+                   "cindex": meter.cindex[1:], "folds": [
+                       {k: f[k] for k in ("epochs", "val_ci", "best")
+                        if k in f} for f in records]}
+            if train:
+                if not os.path.exists(os.path.join(
+                        out, f"results_{flags[flags.index('--model') + 1]}"
+                        ".csv")):
+                    raise AssertionError(f"{tag}: no results csv")
+                summary = {e: {k: survival_epoch_summary(records, e, k)
+                               for k in ("train", "val")} for e in (0, 1)}
+                for f in records:
+                    for r in f["epochs"]:
+                        log(f"[10] {tag} fold {f['fold']} epoch "
+                            f"{r['epoch']} {r['kind']}: {r['bags']} bags "
+                            f"{r['seconds']:.3f} s ({r['bags_per_s']:.2f} "
+                            f"bags/s), device cache {r['cache_hits']} hits "
+                            f"/ {r['cache_misses']} misses")
+                later = summary[1]
+                if any(later[k]["cache_misses"] or later[k]["cache_hits"]
+                       != later[k]["bags"] for k in later):
+                    raise AssertionError(f"{tag}: epoch 1 not served from "
+                                         f"the device cache: {later}")
+                rep["epochs"] = summary
+            return rep, out
+
+        report["rrtmil"], out_a = run("rrtmil", ["--model", "RRTMIL"])
+        report["rrtmil_amp"], _ = run("rrtmil_amp",
+                                      ["--model", "RRTMIL", "--amp"])
+        report["radam"], _ = run("radam", ["--model", "RRTMIL",
+                                           "--optimizer", "RAdam",
+                                           "--scheduler", "plateau"])
+        report["lookahead"], _ = run("lookahead", ["--model", "RRTMIL",
+                                                   "--optimizer",
+                                                   "Lookahead"])
+        report["evaluate"], _ = run("evaluate", [
+            "--model", "RRTMIL", "--evaluate", "--resume", out_a],
+            train=False)
+        # (e) against (a): a fold whose best c-index stayed 0 saved no
+        # weights (the reference's `>` test), so evaluate ran its seeded
+        # initial weights there
+        saved = [os.path.isdir(os.path.join(out_a, f"fold_{k}")) and bool(
+            os.listdir(os.path.join(out_a, f"fold_{k}"))) for k in range(5)]
+        best = [f["best"][0] for f in report["rrtmil"]["folds"]]
+        best_loss = [[r["loss"] for r in f["epochs"] if r["kind"] == "val"
+                      and r["epoch"] == f["best"][1]][0]
+                     for f in report["rrtmil"]["folds"]]
+        got = [f["val_ci"][0] for f in report["evaluate"]["folds"]]
+        got_loss = [f["epochs"][0]["loss"] for f in report["evaluate"]["folds"]]
+        log(f"[10] evaluate --resume: c-index by fold {got}, loss "
+            f"{got_loss}, against (a)'s best {best}, its loss {best_loss} "
+            f"(weights saved for folds {[k for k in range(5) if saved[k]]}; "
+            f"the others' best stayed 0, so they ran their seeded weights)")
+        if not any(saved) or any(s and (g, gl) != (b, bl) for s, g, gl, b, bl
+                                 in zip(saved, got, got_loss, best,
+                                        best_loss)):
+            raise AssertionError("--evaluate --resume does not reproduce "
+                                 "(a)'s best c-indices and losses")
+        report["evaluate"]["matches_a"] = {
+            "saved": saved, "best_a": best, "c_index": got,
+            "loss_a": best_loss, "loss": got_loss}
+        report["meanmil"], _ = run("meanmil", ["--model", "MeanMIL"],
+                                   kernels=False)
+    for tag in ("rrtmil", "rrtmil_amp"):
+        for e, name in ((0, "first"), (1, "cached")):
+            t = report[tag]["epochs"][e]
+            tr, va = t["train"], t["val"]
+            log(f"[10] {tag} {name} epoch: train {tr['seconds']:.3f} s "
+                f"({tr['bags_per_s']:.2f} bags/s), validation "
+                f"{va['seconds']:.3f} s ({va['bags_per_s']:.2f} bags/s), "
+                f"cache {tr['cache_hits'] + va['cache_hits']} hits / "
+                f"{tr['cache_misses'] + va['cache_misses']} misses")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"[10] phase 10: {report['seconds']:.1f} s")
+    return report
+
+
 def k5_library_call(args, mmd):
     """One PyTorch call computing K5 at kk = 0: multi-head self-attention
     with in- and out-projection, on x and weights cast to the mm dtype
@@ -2523,7 +2846,8 @@ def surv_train_setup(dev, length):
     eng.model.train()
     bag = _randn((length, cfg.input_dim), _gen(length)).numpy()
     x, mask, spec = eng._prep(bag)
-    label, cens = eng._targets(1, 0)
+    label = torch.tensor([1], device=dev)
+    cens = torch.tensor([0.0], device=dev)
 
     def step():
         eng._train_step(x, mask, label, cens, spec.repr_length)
@@ -2636,6 +2960,7 @@ def main():
         report["brca"] = phase_brca(dev)
         report["canonical"] = phase_canonical(dev)
         report["cli"] = phase_cli(dev)
+        report["survival_cli"] = phase_survival_cli(dev)
         report["times"] = phase_times_products(dev, phase_times_pairs(
             dev, phase_times_slice3(dev, phase_times(dev))))
         report["throughput"] = phase_throughput(dev)
@@ -2680,6 +3005,10 @@ def main():
                  "nsclc_plip", {}).get("evaluate", {})}
     for run in ("c16_r50", "c16_r50_amp", "nsclc_plip"):
         paths[f"cli_{run}"] = report.get("cli", {}).get(run, {})
+    for run in ("rrtmil", "rrtmil_amp", "radam", "lookahead", "evaluate",
+                "meanmil"):
+        paths[f"cli_survival_{run}"] = report.get("survival_cli", {}).get(
+            run, {})
     own = {n: "train_epoch" for n in C16_TRAIN}
     own.update({K[9]: "ffn_train_epoch", K[10]: "ffn_train_epoch",
                 K[11]: "survival_train_epoch", K[12]: "survival_train_epoch"})

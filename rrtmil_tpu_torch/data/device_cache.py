@@ -10,11 +10,13 @@ assembling and transferring it again.
 
 An entry is one bag padded to its own bucket in the transfer dtype, with
 its mask row and label: the per-slide slices a bucket-grouped batch
-concatenates.  Key: the file path when the dataset has a stable on-disk
-identity and no per-access transform, so a slide shared by a fold's train
-and test sets is cached once; else (dataset identity, index).  Datasets
-whose bag is redrawn on every access (same_psize train resampling, tcga
-max_patch) are not cached at all: `cacheable(dataset, train)` is the gate.
+concatenates.  Key: the file path (a classification dataset's `slide_path`,
+a survival dataset's resolved `wsi_paths` entry) when the dataset has a
+stable on-disk identity and no per-access transform, so a slide shared by a
+fold's train and test sets is cached once; else (dataset identity, index).
+Datasets whose bag is redrawn on every access (same_psize train
+resampling, tcga max_patch) are not cached at all: `cacheable(dataset,
+train)` is the gate.
 
 A byte budget caps device memory; once it is reached, later bags stream
 uncached instead of exhausting the card.  Every mutation holds the lock:
@@ -55,9 +57,16 @@ class DeviceBagCache:
         return len(self._entries)
 
     def _key(self, dataset, index: int):
-        paths = getattr(dataset, "slide_path", None)
-        if getattr(dataset, "keep_same_psize", 0) <= 0 and paths is not None:
-            p = paths[index]
+        if getattr(dataset, "keep_same_psize", 0) <= 0:
+            # survival datasets rewrite the CSV path (feature folder, root)
+            # before loading: key on the resolved path, so two datasets with
+            # another folder or root never share an entry
+            rp = getattr(dataset, "resolved_path", None)
+            paths = getattr(dataset, "slide_path", None)
+            if paths is None:
+                paths = getattr(dataset, "wsi_paths", None)
+            p = (rp(index) if rp is not None
+                 else paths[index] if paths is not None else None)
             # in-memory bags ("mem://{i}") are not stable across datasets:
             # two synthetic datasets sharing a cache would serve each other's
             # bags, so they take the id-keyed entry

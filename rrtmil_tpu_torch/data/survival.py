@@ -88,6 +88,10 @@ class SurvivalDataset:
             out.append(p)
         return out
 
+    def resolved_path(self, idx: int) -> str:
+        """Bag `idx`'s files as read, joined by ';' (its device cache key)."""
+        return ";".join(self._resolve(self.wsi_paths[idx]))
+
     def read_wsi(self, path: str) -> np.ndarray:
         return np.concatenate([load_feature_file(p)
                                for p in self._resolve(path)], axis=0)
@@ -110,6 +114,9 @@ class ArraySurvivalDataset(SurvivalDataset):
         self.status = np.asarray(status, np.int64)
         self.labels = quantile_bins(self.events, self.status, n_bins)
         self.censorship = (self.status == 0).astype(np.int64)
+
+    def resolved_path(self, idx: int) -> str:
+        return self.wsi_paths[idx]      # mem://: keyed by the dataset's id
 
     def __getitem__(self, idx: int):
         return (self.ids[idx], self._bags[idx], float(self.events[idx]),

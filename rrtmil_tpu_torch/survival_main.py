@@ -1,0 +1,98 @@
+"""Survival prediction CLI of the PyTorch/CUDA port:
+
+    python -m rrtmil_tpu_torch.survival_main --excel_file X.csv [flags]
+
+The flag surface of the JAX package's `survival_main.py` (reference
+Survival/main.py + Survival/utils/options.py), defaults included, plus
+`--device` (default 'cuda'; 'cpu' runs the kernels' plain versions).  A
+5-fold CV (`harness/survival.run_survival_cv`) for RRTMIL, MeanMIL and
+MaxMIL; the other models, `--fold_parallel` and `--sp_shards > 1` raise
+(ROADMAP.md queue 1 items 8 and 9).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+from .harness.survival import PARALLEL_ITEM, run_survival_cv
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="configurations for survival prediction (PyTorch/CUDA "
+                    "port)")
+    parser.add_argument("--excel_file", type=str, help="path to csv file")
+    parser.add_argument("--folder", type=str, default="plip",
+                        help="feature folder name [plip, resnet50]")
+    parser.add_argument("--dataset_root", type=str, default=None,
+                        help="root for relative WSI paths in the csv")
+    parser.add_argument("--seed", type=int, default=1)
+    parser.add_argument("--log_data", action="store_true", default=True)
+    parser.add_argument("--evaluate", action="store_true")
+    parser.add_argument("--resume", type=str, default="")
+    parser.add_argument("--model", type=str, default="MeanMIL",
+                        help="[RRTMIL, MeanMIL, MaxMIL]; AttMIL, CLAM_SB, "
+                             "CLAM_MB, DSMIL, TransMIL, IBMIL, DTFD and "
+                             "MHIM-MIL are not ported yet")
+    parser.add_argument("--optimizer", type=str, default="Adam",
+                        choices=["SGD", "Adam", "AdamW", "RAdam",
+                                 "PlainRAdam", "Lookahead"])
+    parser.add_argument("--scheduler", type=str, default="cosine",
+                        choices=["None", "exp", "step", "plateau", "cosine"])
+    parser.add_argument("--batch_size", type=int, default=1)
+    parser.add_argument("--num_epoch", type=int, default=30)
+    parser.add_argument("--lr", type=float, default=2e-4)
+    parser.add_argument("--weight_decay", type=float, default=1e-5)
+    parser.add_argument("--loss", type=str, default="nll_surv")
+    parser.add_argument("--input_dim", type=int, default=None,
+                        help="feature dim override (default: 512 for plip, "
+                             "1024 otherwise)")
+    parser.add_argument("--epeg_k", type=int, default=15)
+    parser.add_argument("--crmsa_k", type=int, default=3)
+    parser.add_argument("--no_log", action="store_true")
+    parser.add_argument("--amp", action="store_true",
+                        help="bfloat16 encoder compute + bag transfer "
+                             "(params, norms, softmax, loss stay fp32)")
+    # no reference analog: the device bag cache (data/device_cache.py)
+    parser.add_argument("--device_cache", default="auto", type=str,
+                        choices=["auto", "on", "off"])
+    parser.add_argument("--device_cache_gb", default=6.0, type=float)
+    parser.add_argument("--fold_parallel", action="store_true",
+                        help="train all 5 folds simultaneously: not ported "
+                             f"yet ({PARALLEL_ITEM})")
+    parser.add_argument("--results_dir", type=str, default=None)
+    parser.add_argument("--sp_shards", type=int, default=1,
+                        help="sequence-parallel shards for long bags: only 1 "
+                             f"is ported ({PARALLEL_ITEM})")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="'cuda' (the card; raises when there is none) or "
+                             "'cpu' (the kernels' plain PyTorch versions)")
+    return parser
+
+
+def parse_args(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.results_dir is None:
+        dataset = os.path.basename(args.excel_file).split(".")[0] \
+            if args.excel_file else "dataset"
+        stamp = time.strftime("%Y-%m-%d]-[%H-%M-%S")
+        args.results_dir = (f"./results/{dataset}/[{args.model}]-"
+                            f"[{args.epeg_k}]-[{args.crmsa_k}]-"
+                            f"[{args.folder}]-[{stamp}]")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    print(args)
+    if args.fold_parallel:
+        raise ValueError(f"--fold_parallel is not ported yet: see "
+                         f"{PARALLEL_ITEM}")
+    meter = run_survival_cv(args)
+    print("finished!")
+    return meter
+
+
+if __name__ == "__main__":
+    main()

@@ -12,7 +12,11 @@ stopped.  Two families, as in the reference:
   * the per-fold best-AUC weights `fold_{k}_model_best_auc.pt`
     (main.py:330-344), reloaded for the fold's final test.
 
-The JAX package's `.msgpack` checkpoints are not read (ROADMAP.md).
+The survival harness keeps weights only (`save_params` / `load_params`, the
+JAX package's `train/checkpoint.py:38-46`): a `state_dict` through
+`torch.save`, read back with `weights_only=True`.  The port's files are
+`.pt`; the JAX package's `.msgpack` checkpoints are not read (ROADMAP.md
+queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -21,6 +25,15 @@ import pickle
 from typing import Any, Dict
 
 import torch
+
+
+def save_params(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+
+
+def load_params(path: str) -> Dict[str, torch.Tensor]:
+    """A `state_dict` written by `save_params`, on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load_host_state(path: str) -> Dict[str, Any]:

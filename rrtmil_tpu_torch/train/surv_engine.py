@@ -8,8 +8,11 @@ gamma 0.1, ReduceLROnPlateau on the validation loss), batch-1 bags of up to
 per bag in the order `np.random.default_rng(seed).shuffle` gives (the JAX
 engine's order), losses and risks kept on the device with one host sync per
 epoch.  Dropout masks come from the engine's `torch.Generator` (seeded with
-`cfg.seed`, on the engine's device).  The device bag cache and the
-sequence-sharded engine are later slices (ROADMAP.md queue 1).
+`cfg.seed`, on the engine's device).  Bags stay on the card after their
+first transfer (`data/device_cache.py`, keyed by the bag's file path), so
+later epochs skip the disk read, the pad and the copy; each epoch's
+targets go to the device in one copy.  The sequence-sharded engine is a
+later slice (ROADMAP.md queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from ..config import RRTEncoderConfig
 from ..data.bucketing import bucket_for, pad_bag
+from ..data.device_cache import DeviceBagCache, cacheable
 from ..models.survival import risk_score
 from ..utils.device import resolve_device
 from .losses import ce_surv_loss, nll_surv_loss
@@ -41,6 +45,11 @@ class SurvivalEngineConfig:
     n_bins: int = 4
     seed: int = 1
     transfer_dtype: str = "float32"  # 'bfloat16' with the --amp configs
+    device_cache: str = "auto"       # bags kept on the device after their
+    # first transfer: 'on' | 'off' | 'auto' (= on when the device is CUDA);
+    # survival bags (up to 50k+ patches, ~200 MB in fp32) are revisited
+    # every epoch
+    device_cache_bytes: int = 6 << 30  # its budget; bags past it stream
 
 
 class SurvivalEngine:
@@ -66,6 +75,25 @@ class SurvivalEngine:
                          if cfg.lr_schedule == "plateau" else None)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
+        self._dcache: Optional[DeviceBagCache] = None
+
+    def _device_cache(self) -> Optional[DeviceBagCache]:
+        mode = self.cfg.device_cache
+        if mode == "off" or (mode == "auto" and self.device.type != "cuda"):
+            return None
+        if self._dcache is None:
+            self._dcache = DeviceBagCache(self.cfg.device_cache_bytes)
+        return self._dcache
+
+    def close(self) -> None:
+        """Release the fold's device bag cache before the next fold."""
+        if self._dcache is not None:
+            self._dcache.clear()
+            self._dcache = None
+
+    def load_state_dict(self, state) -> None:
+        """The model's weights from a `state_dict` (--resume)."""
+        self.model.load_state_dict(state)
 
     def epoch_lr(self, epoch: int) -> float:
         """This epoch's lr: the survival zoo's schedules (step gamma 0.1,
@@ -87,16 +115,33 @@ class SurvivalEngine:
                 spec)
 
     def _prep_indexed(self, dataset, idx: int):
-        """(x, mask, spec, event, censorship, label) of bag `idx`; the
-        metadata comes from the dataset's column arrays."""
+        """(x, mask, spec, event, censorship, label) of bag `idx`: x and
+        mask from the device bag cache when it holds them (no disk read, no
+        copy), the metadata from the dataset's column arrays."""
+        event = float(dataset.events[idx])
+        censorship = int(dataset.censorship[idx])
+        label = int(dataset.labels[idx])
+        cache = self._device_cache() if cacheable(dataset, True) else None
+        if cache is not None:
+            hit = cache.get(dataset, idx)
+            if hit is not None:
+                x, mask, _, spec = hit
+                return x, mask, spec, event, censorship, label
         x, mask, spec = self._prep(np.asarray(dataset[idx][1]))
-        return (x, mask, spec, float(dataset.events[idx]),
-                int(dataset.censorship[idx]), int(dataset.labels[idx]))
+        if cache is not None:
+            cache.put(dataset, idx, x, mask,
+                      torch.tensor([label], device=self.device), spec)
+        return x, mask, spec, event, censorship, label
 
-    def _targets(self, label: int, censorship: int):
-        return (torch.tensor([label], dtype=torch.long, device=self.device),
-                torch.tensor([censorship], dtype=torch.float32,
-                             device=self.device))
+    def _epoch_targets(self, dataset, order: Sequence[int]):
+        """Every bag's (label (1,), censorship (1,)) of an epoch, as views of
+        two tensors sent to the device in one copy each."""
+        order = np.asarray(order, dtype=np.int64)
+        labels = torch.from_numpy(
+            np.asarray(dataset.labels, np.int64)[order]).to(self.device)
+        cens = torch.from_numpy(np.asarray(
+            dataset.censorship, np.float32)[order]).to(self.device)
+        return [(labels[j:j + 1], cens[j:j + 1]) for j in range(len(order))]
 
     def _train_step(self, x, mask, label, censorship, length: int):
         """Forward, backward and one optimizer update; (loss, risk (1,)) on
@@ -125,11 +170,10 @@ class SurvivalEngine:
 
     def _run(self, step, dataset, order: Sequence[int]):
         losses, risks, censors, times = [], [], [], []
-        for idx in order:
+        for idx, targets in zip(order, self._epoch_targets(dataset, order)):
             x, mask, spec, event, censorship, label = self._prep_indexed(
                 dataset, idx)
-            loss, risk = step(x, mask, *self._targets(label, censorship),
-                              spec.repr_length)
+            loss, risk = step(x, mask, *targets, spec.repr_length)
             losses.append(loss)
             risks.append(risk)
             censors.append(censorship)
