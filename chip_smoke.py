@@ -82,6 +82,25 @@ phase 9's own interruption):
    launches no
    kernel; each fold's train and validation bags/s a epoch and the cache's
    hits printed;
+11. the attention-MIL zoo with the R2T encoder injected (`--only_rrt_enc`,
+   c16_r50's encoder, input 1024): (a) attmil, gattmil, clam_sb, clam_mb
+   and dsmil (subtyping on) at batch 1 through `Engine.evaluate` on bags
+   of {937, 2213, 9000} patches (every batch through K1, K3, K5, K8 and no
+   other kernel; probabilities against the CPU) and `Engine.train_epoch`
+   with dropout on (every step through K1-K9), two dropout-off steps on
+   {937, 2213} against the CPU in f32 and with bf16 products, and a second
+   forward and backward that must give the same bits; (b)
+   `rrtmil_tpu_torch.main --model {each} --only_rrt_enc` in this process on
+   phase 9's 12 bags, 2 folds x 2 epochs, and dsmil with --ds_average:
+   K1-K9 and no other kernel, the second epoch all from the device cache,
+   train and eval slides/s of the first and the cached epoch printed; (c)
+   clam_sb on camelyon16's layout (subtyping off): each instance
+   classifier's Adam step equals the count of its fold's steps whose label
+   selected it, and one never selected has no optimizer state; (d)
+   --dsmil_init from a checkpoint written here changes b_classifier.q
+   alone; the CLI (clam_sb --only_rrt_enc) as a process of its own, its
+   exit code and seconds; (e) the survival CLI's AttMIL, CLAM_SB and DSMIL
+   on phase 10's set, 5 folds x 1 epoch: no kernel, bags/s printed;
 6. survival: `SurvivalEngine.train_epoch` (dropout on) and `validate` on
    survival_default() at full width, bags of {937, 1500, 10000, 30000,
    45000, 50000} patches: each bag whose R-MSA grid exceeds its CR-MSA grid
@@ -127,7 +146,8 @@ Every counter is set to 0 just before each path and read just after.
 Prints the `{"kernels": [...]}` line (each kernel's launches from its own
 path: K1-K9 the c16_r50 train epoch, K10 / K11 the FFN one, K12 / K13 the
 survival one; `launches_by_path` adds every other path, phase 9's and
-phase 10's CLI runs among them), the card's name and power limit, and as
+phase 10's and 11's runs among them), the card's name and power limit,
+and as
 its last line
 `{"ok": true, "device": {...}}`.  Writes the full report to
 chiprun_out/chip_smoke.json.
@@ -1482,13 +1502,13 @@ def cli_engine(stats, finals=None, stop_at=None, order_at=None):
     return Measured
 
 
-def run_cli(argv, stats, finals=None, **engine_kw):
+def run_cli(argv, stats, finals=None, engine=None, **engine_kw):
     """`rrtmil_tpu_torch.main.main(argv)` in this process, its engine
-    measured by cli_engine."""
+    measured by cli_engine (or the given `engine` class)."""
     from rrtmil_tpu_torch import main as cli
     from rrtmil_tpu_torch.harness import classification
     orig = classification.Engine
-    classification.Engine = cli_engine(stats, finals, **engine_kw)
+    classification.Engine = engine or cli_engine(stats, finals, **engine_kw)
     try:
         return cli.main(argv)
     finally:
@@ -1974,6 +1994,474 @@ def phase_survival_cli(dev, lengths=SCLI_LENGTHS, dim=1024):
                 f"{tr['cache_misses'] + va['cache_misses']} misses")
     report["seconds"] = time.perf_counter() - t_phase
     log(f"[10] phase 10: {report['seconds']:.1f} s")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# slice 11: the attention-MIL zoo with the R2T encoder injected
+# ---------------------------------------------------------------------------
+
+ZOO_MODELS = ("attmil", "gattmil", "clam_sb", "clam_mb", "dsmil")
+ZOO_BAGS = (937, 2213, 9000)
+ZOO_CPU_BAGS = (937, 2213)
+# the last layer's bias of each attention scorer shifts a whole softmax row:
+# its gradient is zero in exact arithmetic, rounding noise on both sides,
+# which Adam's first steps turn into lr-sized steps of either sign
+ZOO_NOISE_PARAMS = ("attn_fc2.bias", "attn_net.attention_c.bias")
+# the stem's Linear (feature.fc, CLAM's fc, DSMIL's patch_to_emb): its
+# gradient passes the relu at pre-activations within the two sides' GEMM
+# rounding of zero (cuBLAS and the CPU's f32 sums over 1024 inputs differ
+# by up to ~7e-6 on an H100), where a sign flip moves one row of the
+# gradient by dh x (1.2e-3 at attmil's 937-patch bag: pre 259, feature 488,
+# in a run with every kernel swapped for its plain version too); held by
+# the parameters' drift bound after the steps
+ZOO_STEM = ("feature.fc.", "fc.", "patch_to_emb.")
+# the survival CLI's zoo backbones (no encoder, as the JAX package builds
+# them), 5 folds x 1 epoch on phase 10's set
+ZOO_SURVIVAL = ("AttMIL", "CLAM_SB", "DSMIL")
+
+
+def zoo_model(name, dev, dropout=True, mm_dtype=None):
+    """(model, encoder config): a zoo model at full width (input 1024) with
+    c16_r50's encoder injected (the CLI's --only_rrt_enc with c16_r50's
+    flags), seed 0, subtyping on (TCGA's setting: every instance classifier
+    trains); `dropout=False` turns every dropout off, GatedABMIL's fixed
+    stem dropout included."""
+    import dataclasses
+    from rrtmil_tpu_torch.config import c16_r50
+    from rrtmil_tpu_torch.models import zoo
+    enc = c16_r50().encoder
+    if not dropout:
+        enc = dataclasses.replace(enc, dropout=0.0)
+    if mm_dtype is not None:
+        enc = dataclasses.replace(enc, mm_dtype=mm_dtype)
+    model = zoo.build_model(name, input_dim=1024,
+                            dropout=0.25 if dropout else 0.0, rrt_cfg=enc,
+                            subtyping=True, device=dev, seed=0)
+    if not dropout and name == "gattmil":
+        model.feature.p = 0.0      # its stem's dropout is fixed at 0.25
+    return model, enc
+
+
+def _zoo_engine_cfg(name, **kw):
+    from rrtmil_tpu_torch.models import zoo
+    from rrtmil_tpu_torch.train.engine import EngineConfig
+    cls_a, aux_a = zoo.LOSS_WEIGHT_OVERRIDES.get(name, (1.0, 1.0))
+    return EngineConfig(batch_size=1, cls_alpha=cls_a, aux_alpha=aux_a,
+                        aux_mode=zoo.aux_mode(name), **kw)
+
+
+def _zoo_params_close(got, want, lr, steps, frac):
+    """Parameters after `steps` Adam steps: every tensor within Adam's drift
+    bound (2 steps lr ADAM_STEP); at most `frac` of a tensor's elements
+    past 1e-5 (scaled), but the encoder's and the scorers' noise-gradient
+    parameters (pe_bias, the key qkv biases, ZOO_NOISE_PARAMS), held to the
+    bound alone."""
+    noisy = {n: v for n, v in got.items()
+             if n.endswith(ZOO_NOISE_PARAMS)}
+    ok, worst, worst_frac = _adam_params_close(
+        {n: v for n, v in got.items() if n not in noisy}, want, lr, steps,
+        frac)
+    for n, v in noisy.items():
+        worst = max(worst, (v - want[n]).abs().max().item())
+    return ok and worst <= 2 * steps * lr * ADAM_STEP, worst, worst_frac
+
+
+def _zoo_step_bits(name, model, ds, dev, enc):
+    """One dropout-off forward and backward of bag 1 of `ds` on the card,
+    twice: (loss, every gradient) of the two runs must be the same bits
+    (every kernel of the path deterministic at the zoo's shapes)."""
+    from rrtmil_tpu_torch.data.bucketing import bucket_for, pad_bag
+    from rrtmil_tpu_torch.models import zoo
+    bag, label = ds[1]
+    spec = bucket_for(bag.shape[0], enc)
+    x, mask = pad_bag(bag, spec.data_length)
+    x, mask = torch.from_numpy(x[None]).to(dev), \
+        torch.from_numpy(mask[None]).to(dev)
+    lab = torch.tensor([label], device=dev)
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        kw = {"label": label} if name.startswith("clam") else {}
+        out = model(x, mask=mask, length=spec.repr_length, **kw)
+        ce = torch.nn.functional.cross_entropy
+        if isinstance(out, tuple):
+            aux = out[1] if kw else ce(out[1], lab)
+            loss = ce(out[0], lab) + aux
+        else:
+            loss = ce(out, lab)
+        loss.backward()
+        runs.append([loss.detach().clone()] + [
+            p.grad.detach().clone() for p in model.parameters()
+            if p.grad is not None])
+    model.zero_grad(set_to_none=True)
+    same = len(runs[0]) == len(runs[1]) and all(
+        torch.equal(a, b) for a, b in zip(*runs))
+    if not same:
+        raise AssertionError(f"{name}: a second forward and backward gave "
+                             f"other bits")
+    return len(runs[0]) - 1
+
+
+def phase_zoo_models(dev):
+    """Phase 11 (a): each zoo model with c16_r50's encoder injected, at
+    full width, batch 1: Engine.evaluate on bags of ZOO_BAGS patches (every
+    batch through K1, K3, K5, K8 and no other kernel; probabilities against
+    the CPU), Engine.train_epoch with dropout on (every step through K1-K9
+    and no other), two dropout-off steps against the CPU in f32 and with
+    bf16 products (losses, first-step gradients, parameters within Adam's
+    drift bound; every card step through K1-K9), and the same bits from a
+    second forward and backward."""
+    import dataclasses
+    from rrtmil_tpu_torch.data.datasets import ArrayDataset
+    from rrtmil_tpu_torch.train.engine import Engine
+    rng = np.random.default_rng(11)
+    bags = [rng.standard_normal((n, 1024), dtype=np.float32)
+            for n in ZOO_BAGS]
+    ds = ArrayDataset(bags, [i % 2 for i in range(len(bags))])
+    cpu_ds = ArrayDataset(bags[:len(ZOO_CPU_BAGS)], [1, 0])
+    assert tuple(b.shape[0] for b in cpu_ds._bags) == ZOO_CPU_BAGS
+    report = {}
+    for name in ZOO_MODELS:
+        t0 = time.perf_counter()
+        rec = report[name] = {}
+        model, enc = zoo_model(name, dev)
+        engine = counting(Engine)(model, _zoo_engine_cfg(name), enc,
+                                  device=dev)
+        reset_counters()
+        torch.cuda.synchronize()
+        probs, labs, loss = engine.evaluate(ds)
+        rec["eval_launches"] = launches_now()
+        check_launches(engine.records["eval"], C16_EVAL, f"{name} evaluate",
+                       len(ds))
+        cpu = zoo_model(name, "cpu")[0]
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             model.state_dict().items()})
+        probs_c, labs_c, loss_c = Engine(cpu, _zoo_engine_cfg(name), enc,
+                                         device="cpu").evaluate(ds)
+        diff = float(np.abs(probs - probs_c).max())
+        if not (np.isfinite(probs).all() and probs.shape == (len(ds),)) or \
+                diff > PROB_TOL or abs(loss - loss_c) > PROB_TOL or \
+                not np.array_equal(labs, labs_c):
+            raise AssertionError(f"{name}: card and CPU evaluate disagree "
+                                 f"({diff:.3e})")
+        rec.update(max_prob_diff=diff, loss=loss, loss_cpu=loss_c)
+
+        reset_counters()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        train_loss = engine.train_epoch(ds, 0, order=list(range(len(ds))))
+        torch.cuda.synchronize()
+        rec["train_seconds"] = time.perf_counter() - t1
+        rec["launches"] = launches_now()
+        check_launches(engine.records["train"], C16_TRAIN, f"{name} train",
+                       len(ds))
+        if not np.isfinite(train_loss) or not all(
+                torch.isfinite(p).all() for p in model.parameters()):
+            raise AssertionError(f"{name}: the train epoch is not finite")
+        rec["train_loss"] = train_loss
+        rec["bits_checked_tensors"] = _zoo_step_bits(
+            name, model.eval(), cpu_ds, dev, enc)
+        del engine, model, cpu
+        rec["vs_cpu"] = _zoo_train_vs_cpu(name, dev, cpu_ds)
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"[11] {name}: evaluate on {ZOO_BAGS} max |probs card - cpu| "
+            f"{diff:.3e}, train epoch (dropout on) loss {train_loss:.6f} in "
+            f"{rec['train_seconds']:.2f} s, second forward and backward the "
+            f"same bits ({rec['bits_checked_tensors']} gradients), "
+            f"{rec['seconds']:.1f} s")
+        torch.cuda.empty_cache()
+    return report
+
+
+def _zoo_train_vs_cpu(name, dev, ds):
+    """Two dropout-off steps of `name` on `ds` (batch 1) on the card and
+    on the CPU from the same weights, f32 products (TF32 off) and bf16:
+    the losses, the first step's gradients (but the stem's, ZOO_STEM) and
+    every parameter after both steps within Adam's drift bound."""
+    from rrtmil_tpu_torch.train.engine import Engine
+    out = {}
+    for mm in ("float32", "bfloat16"):
+        tol = TOL[torch.float32 if mm == "float32" else torch.bfloat16]
+        runs = {}
+        state = None
+        for key, d in (("card", dev), ("cpu", "cpu")):
+            rec = {"losses": [], "grads": None, "steps": []}
+
+            class Recording(Engine):
+                def _train_step(self, *a, **k):
+                    before = launches_now()
+                    meters = super()._train_step(*a, **k)
+                    rec["losses"].append(float(meters[0]))
+                    rec["steps"].append({"launches": {
+                        n: v - before[n] for n, v in launches_now().items()}})
+                    return meters
+
+                def _apply_grads(self, lr):
+                    if rec["grads"] is None:
+                        rec["grads"] = {n: p.grad.detach().float().cpu()
+                                        for n, p in
+                                        self.model.named_parameters()
+                                        if p.grad is not None}
+                    super()._apply_grads(lr)
+
+            model, enc = zoo_model(name, d, dropout=False, mm_dtype=mm)
+            if state is None:
+                state = {k: v.detach().cpu().clone()
+                         for k, v in model.state_dict().items()}
+            model.load_state_dict(state)
+            ecfg = _zoo_engine_cfg(name)
+            Recording(model, ecfg, enc, device=d).train_epoch(
+                ds, 0, order=[0, 1])
+            rec["params"] = {n: p.detach().float().cpu()
+                             for n, p in model.named_parameters()}
+            runs[key] = rec
+        card, cpu = runs["card"], runs["cpu"]
+        check_launches(card["steps"], C16_TRAIN, f"{name} train ({mm})", 2)
+        dloss = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
+        if card["grads"].keys() != cpu["grads"].keys():
+            raise AssertionError(f"{name}: other parameters have gradients")
+        dgrad = max((card["grads"][n] - g).abs().max().item()
+                    / max(1.0, g.abs().max().item())
+                    for n, g in cpu["grads"].items()
+                    if not n.endswith(ZOO_NOISE_PARAMS)
+                    and not n.startswith(ZOO_STEM))
+        ok_p, dparam, frac = _zoo_params_close(
+            card["params"], cpu["params"], ecfg.lr, 2,
+            1e-3 if mm == "float32" else None)
+        ok = dloss <= tol * max(1.0, max(map(abs, cpu["losses"]))) \
+            and dgrad <= tol and ok_p
+        log(f"[11] {name} train card vs CPU, dropout off, {mm} products: "
+            f"losses {np.round(card['losses'], 6).tolist()} vs "
+            f"{np.round(cpu['losses'], 6).tolist()} (max diff {dloss:.3e}); "
+            f"first-step grads scaled {dgrad:.3e} (tol {tol:.0e}); params "
+            f"after 2 steps max diff {dparam:.3e}, share past 1e-5 "
+            f"{frac:.2e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} train steps on the card and the "
+                                 f"CPU disagree ({mm} products)")
+        out[mm] = {"loss_diff": dloss, "grad_scaled_err": dgrad,
+                   "param_max_diff": dparam, "param_share_past": frac,
+                   "card_losses": card["losses"], "cpu_losses": cpu["losses"]}
+    return out
+
+
+def zoo_cli_engine(stats, labels_seen, clf_steps, first_state):
+    """cli_engine's measured Engine that also records each train step's
+    (fold, host label), the Adam step of each instance classifier after
+    every train epoch (None: no state), and the model's weights when a fold
+    starts training."""
+    base = cli_engine(stats)
+
+    class ZooMeasured(base):
+        def _train_step(self, x, mask, labels, length, label=None):
+            labels_seen.append((self.fold, label))
+            return super()._train_step(x, mask, labels, length, label=label)
+
+        def train_epoch(self, dataset, epoch, order=None):
+            if self.fold not in first_state:
+                first_state[self.fold] = {
+                    k: v.detach().cpu().clone()
+                    for k, v in self.model.state_dict().items()}
+            loss = super().train_epoch(dataset, epoch, order)
+            clf_steps[self.fold] = {
+                n: (int(self.optimizer.state[p]["step"])
+                    if p in self.optimizer.state else None)
+                for n, p in self.model.named_parameters()
+                if n.startswith("instance_classifier_") and
+                n.endswith(".weight")}
+            return loss
+    return ZooMeasured
+
+
+def phase_zoo_cli(dev):
+    """Phase 11 (b)-(e) and the CLI as its own command.  (b) `python -m
+    rrtmil_tpu_torch.main --model {attmil, gattmil, clam_sb, clam_mb, dsmil}
+    --only_rrt_enc` (c16_r50's flags) in this process on phase 9's 12
+    synthetic bags, 2 folds x 2 epochs, and dsmil with --ds_average: each
+    run launches K1-K9 and no other kernel, the second epoch's train and
+    eval bags all come from the device cache; (c) clam_sb on the
+    camelyon16 layout (subtyping off): after each fold, each
+    instance_classifier's Adam step equals the number of that fold's steps
+    whose label selected it (no state when none did), and an epoch of
+    class-1 bags alone leaves instance_classifier_0 without state; (d)
+    --dsmil_init from a checkpoint written here changes b_classifier.q and
+    nothing else of the seeded model; (e) the survival CLI's AttMIL,
+    CLAM_SB and DSMIL on phase 10's set, 5 folds x 1 epoch, launch no
+    kernel; then `python -m rrtmil_tpu_torch.main --model clam_sb
+    --only_rrt_enc` as a process of its own (exit code and seconds)."""
+    import tempfile
+    from rrtmil_tpu_torch import main as cli
+    from rrtmil_tpu_torch.data.datasets import ArrayDataset
+    from rrtmil_tpu_torch.harness import classification
+    from rrtmil_tpu_torch.train.engine import Engine
+    report = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "c16")
+        patches = write_cli_data(root, False, 1024, 0)
+        outs = os.path.join(tmp, "out")
+        log(f"[11] wrote {CLI_BAGS} bags ({patches} patches)")
+
+        def argv(name, title, *extra):
+            return (["--model", name, "--only_rrt_enc"] + CLI_RUN + CLI_C16
+                    + list(extra) + ["--dataset_root", root, "--model_path",
+                                     outs, "--title", title])
+
+        def run(tag, args):
+            stats, labels_seen, clf_steps, first = [], [], {}, {}
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = run_cli(args, stats, engine=zoo_cli_engine(
+                stats, labels_seen, clf_steps, first))
+            secs = time.perf_counter() - t0
+            launches = launches_now()
+            ran = [n for n, v in launches.items() if v]
+            summary = {e: epoch_summary(stats, e) for e in (0, 1)
+                       if any(r["epoch"] == e for r in stats)}
+            log(f"[11] {tag}: {secs:.1f} s, test AUC {metrics['auc']}, "
+                f"launches {launches}")
+            if ran != C16_TRAIN:
+                raise AssertionError(f"{tag} ran {ran}, not K1-K9")
+            later = summary.get(1)
+            if later is not None and any(
+                    later[k]["cache_misses"] or later[k]["cache_hits"]
+                    != later[k]["bags"] for k in later):
+                raise AssertionError(f"{tag}: epoch 1 not served from the "
+                                     f"device cache: {later}")
+            if not all(np.isfinite(metrics[k]).all() for k in metrics):
+                raise AssertionError(f"{tag}: metrics {metrics}")
+            return {"seconds": secs, "launches": launches, "metrics": metrics,
+                    "epochs": summary, "stats": stats}, labels_seen, \
+                clf_steps, first
+
+        cli_runs = report["cli"] = {}
+        for name in ZOO_MODELS:
+            cli_runs[name], labels_seen, clf_steps, _ = run(
+                name, argv(name, name))
+            if name == "clam_sb":
+                # (c) the absent-parameter rule: camelyon16, subtyping off
+                want = {f: {f"instance_classifier_{c}.weight": sum(
+                    1 for ff, lab in labels_seen if ff == f and lab == c)
+                    or None for c in (0, 1)} for f in clf_steps}
+                log(f"[11] clam_sb instance classifiers' Adam steps by fold "
+                    f"{clf_steps}, steps whose label selected each {want}")
+                if clf_steps != want or None in [
+                        lab for _, lab in labels_seen]:
+                    raise AssertionError("CLAM's instance classifiers' Adam "
+                                         "steps differ from their branch's")
+                cli_runs[name]["instance_classifier_steps"] = clf_steps
+        cli_runs["dsmil_ds_average"], _, _, _ = run(
+            "dsmil --ds_average", argv("dsmil", "dsa", "--ds_average"))
+
+        # (c) a classifier no label selects keeps no optimizer state
+        from rrtmil_tpu_torch.models import zoo
+        model = zoo.build_model("clam_sb", input_dim=1024, device=dev)
+        eng = Engine(model, _zoo_engine_cfg("clam_sb"), device=dev)
+        rng = np.random.default_rng(3)
+        eng.train_epoch(ArrayDataset(
+            [rng.standard_normal((n, 1024), dtype=np.float32)
+             for n in (937, 2213)], [1, 1]), 0, order=[0, 1])
+        p0, p1 = model.instance_classifier_0.weight, \
+            model.instance_classifier_1.weight
+        if p0 in eng.optimizer.state or p0.grad is not None or \
+                int(eng.optimizer.state[p1]["step"]) != 2:
+            raise AssertionError("an unselected instance classifier took "
+                                 "an optimizer step")
+        report["unselected_classifier_state"] = None
+
+        # (d) --dsmil_init
+        gen = torch.Generator().manual_seed(4)
+        q = {"b_classifier.q.weight": torch.randn((128, 512), generator=gen),
+             "b_classifier.q.bias": torch.randn((128,), generator=gen),
+             "b_classifier.v.1.weight": torch.randn((4, 4), generator=gen)}
+        init_path = os.path.join(tmp, "dsmil_init.pth")
+        torch.save(q, init_path)
+        dargs = argv("dsmil", "init", "--dsmil_init", init_path)
+        dargs[dargs.index("--num_epoch") + 1] = "1"
+        d_rep, _, _, first = run("dsmil --dsmil_init", dargs)
+        ref = classification.build_model_from_args(
+            cli.postprocess_args(cli.build_parser().parse_args(dargs)),
+            device="cpu")[0].state_dict()
+        changed = sorted({k for f in first for k, v in first[f].items()
+                          if not torch.equal(v, ref[k])})
+        loaded = all(torch.equal(first[f][k], q[k]) for f in first
+                     for k in ("b_classifier.q.weight",
+                               "b_classifier.q.bias"))
+        log(f"[11] --dsmil_init: weights that differ from the seeded model "
+            f"{changed}, q from the file {loaded}")
+        if changed != ["b_classifier.q.bias", "b_classifier.q.weight"] or \
+                not loaded or len(first) != 2:
+            raise AssertionError("--dsmil_init changed other weights")
+        report["dsmil_init"] = {"changed": changed, **{
+            k: d_rep[k] for k in ("seconds", "launches")}}
+
+        # the CLI as its own process
+        cmd = [sys.executable, "-m", "rrtmil_tpu_torch.main"] + argv(
+            "clam_sb", "process")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, cwd=os.path.dirname(
+                                  os.path.abspath(__file__)))
+        secs = time.perf_counter() - t0
+        tail = proc.stdout.strip().splitlines()[-3:]
+        log(f"[11] `python -m rrtmil_tpu_torch.main --model clam_sb "
+            f"--only_rrt_enc ...` as its own process: exit code "
+            f"{proc.returncode}, {secs:.1f} s; last lines {tail}")
+        if proc.returncode != 0 or \
+                "Cross validation auc mean" not in proc.stdout:
+            raise AssertionError(f"the CLI process failed: "
+                                 f"{proc.stderr[-2000:]}")
+        report["process"] = {"returncode": proc.returncode, "seconds": secs,
+                             "tail": tail}
+
+        # (e) the survival CLI's zoo backbones on phase 10's set
+        csv_file, spatches = write_survival_data(os.path.join(tmp, "surv"))
+        surv = report["survival_cli"] = {}
+        for name in ZOO_SURVIVAL:
+            records = []
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            meter = run_survival_cli(
+                ["--num_epoch", "1", "--seed", "1", "--model", name,
+                 "--input_dim", "1024", "--excel_file", csv_file,
+                 "--results_dir", os.path.join(tmp, f"s_{name}"),
+                 "--device", str(dev)], records)
+            secs = time.perf_counter() - t0
+            launches = launches_now()
+            tr = survival_epoch_summary(records, 0, "train")
+            va = survival_epoch_summary(records, 0, "val")
+            log(f"[11] survival {name}: {secs:.1f} s, c-index by fold "
+                f"{meter.cindex[1:6]}, train {tr['bags_per_s']:.2f} bags/s, "
+                f"validation {va['bags_per_s']:.2f} bags/s (first epoch: "
+                f"bags read and transferred), launches "
+                f"{sum(launches.values())}")
+            if any(launches.values()) or len(records) != 5 or not all(
+                    np.isfinite(v) for v in meter.cindex[1:]):
+                raise AssertionError(f"survival {name}: launches {launches},"
+                                     f" c-index {meter.cindex}")
+            surv[name] = {"seconds": secs, "launches": launches,
+                          "cindex": meter.cindex[1:], "train": tr, "val": va}
+    for tag, r in report["cli"].items():
+        for e, what in ((0, "first"), (1, "cached")):
+            tr, ev = r["epochs"][e]["train"], r["epochs"][e]["eval"]
+            log(f"[11] {tag} --only_rrt_enc {what} epoch: train "
+                f"{tr['seconds']:.3f} s ({tr['slides_per_s']:.2f} slides/s), "
+                f"eval {ev['seconds']:.3f} s ({ev['slides_per_s']:.2f} "
+                f"slides/s)")
+    report["seconds"] = time.perf_counter() - t_phase
+    return report
+
+
+def phase_zoo(dev):
+    """Phase 11: the attention-MIL zoo with the R2T encoder injected."""
+    t0 = time.perf_counter()
+    report = {"models": phase_zoo_models(dev)}
+    report.update(phase_zoo_cli(dev))
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[11] phase 11: {report['seconds']:.1f} s")
     return report
 
 
@@ -2961,6 +3449,7 @@ def main():
         report["canonical"] = phase_canonical(dev)
         report["cli"] = phase_cli(dev)
         report["survival_cli"] = phase_survival_cli(dev)
+        report["zoo"] = phase_zoo(dev)
         report["times"] = phase_times_products(dev, phase_times_pairs(
             dev, phase_times_slice3(dev, phase_times(dev))))
         report["throughput"] = phase_throughput(dev)
@@ -3009,6 +3498,18 @@ def main():
                 "meanmil"):
         paths[f"cli_survival_{run}"] = report.get("survival_cli", {}).get(
             run, {})
+    zoo_rep = report.get("zoo", {})
+    for name in ZOO_MODELS:
+        rec = zoo_rep.get("models", {}).get(name, {})
+        paths[f"zoo_{name}_train_epoch"] = rec
+        paths[f"zoo_{name}_evaluate"] = {"launches": rec.get(
+            "eval_launches", {})}
+    for run in ZOO_MODELS + ("dsmil_ds_average",):
+        paths[f"cli_zoo_{run}"] = zoo_rep.get("cli", {}).get(run, {})
+    paths["cli_zoo_dsmil_init"] = zoo_rep.get("dsmil_init", {})
+    for name in ZOO_SURVIVAL:
+        paths[f"cli_survival_zoo_{name}"] = zoo_rep.get(
+            "survival_cli", {}).get(name, {})
     own = {n: "train_epoch" for n in C16_TRAIN}
     own.update({K[9]: "ffn_train_epoch", K[10]: "ffn_train_epoch",
                 K[11]: "survival_train_epoch", K[12]: "survival_train_epoch"})

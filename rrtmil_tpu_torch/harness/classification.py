@@ -4,8 +4,12 @@ Counterpart of `rrtmil_tpu/harness/classification.py` (reference
 main.py:23-413): seeded patient shuffle and stratified k-fold, per-fold
 training with validation, early stopping on -AUC, the optional per-epoch
 test (`always_test`), best-AUC weights, the rolling full-resume checkpoint
-(every RNG stream included) and the cross-validation summary.  Only
-`--model rrtmil` is ported.
+(every RNG stream included) and the cross-validation summary.  Models:
+rrtmil and the zoo's attmil, gattmil, clam_sb, clam_mb, dsmil, meanmil and
+maxmil, with `--only_rrt_enc` injecting the RRT encoder into the zoo's
+(classification.py:68-81; CLAM's subtyping is on unless the dataset is
+camelyon16), the loss weights and batch size 1 the reference forces on
+CLAM and DSMIL, DSMIL's `--ds_average` and `--dsmil_init` warm start.
 
 Random streams, as in the JAX package: every fold initialises the model
 from `args.seed`; the engine's numpy `_rng` starts from `args.seed` and
@@ -30,6 +34,8 @@ import numpy as np
 from ..config import PoolConfig, PosEmbedConfig, RRTEncoderConfig, RRTMILConfig
 from ..data.datasets import (C16Dataset, TCGADataset, get_kfold,
                              read_label_csv)
+from ..models import zoo
+from ..models.dsmil import load_warm_start
 from ..models.rrt import build_model
 from ..train.checkpoint import FoldCheckpointer, load_host_state
 from ..train.earlystop import EarlyStopping
@@ -41,10 +47,11 @@ from ..utils.logger import Logger
 
 def check_args(args) -> None:
     """Refuse what the port does not run yet, before any work."""
-    if args.model != "rrtmil":
-        raise ValueError(f"--model {args.model} is not ported yet (only "
-                         f"rrtmil; the zoo with the dtfd, ibmil and dsmil "
-                         f"warm starts is ROADMAP.md queue 1 item 8)")
+    name = args.model.lower()
+    if name not in zoo.model_names():
+        raise ValueError(f"--model {args.model}: " + (
+            zoo.not_ported(name) if name in zoo.NOT_PORTED else
+            f"unknown; choose from {zoo.model_names()}"))
     if getattr(args, "fold_parallel", False):
         raise ValueError("--fold_parallel is not ported yet: see ROADMAP.md "
                          "queue 1 item 9")
@@ -92,14 +99,43 @@ def model_config_from_args(args) -> RRTMILConfig:
         pool=PoolConfig(kind=args.pool, act=args.da_act))
 
 
+def build_model_from_args(args, device="cuda"):
+    """(model, the encoder config that buckets the bags)
+    (classification.py:68-81): rrtmil from its config; a zoo model with
+    the encoder injected under --only_rrt_enc, CLAM's subtyping on unless
+    the dataset is camelyon16; seeded from `args.seed` on every fold."""
+    if args.model == "rrtmil":
+        cfg = model_config_from_args(args)
+        return build_model(cfg, device=device, seed=args.seed), cfg.encoder
+    enc = encoder_config_from_args(args)
+    model = zoo.build_model(
+        args.model, input_dim=args.input_dim, n_classes=args.n_classes,
+        dropout=args.dropout, act=args.act,
+        rrt_cfg=enc if args.only_rrt_enc else None,
+        subtyping=args.datasets.lower() != "camelyon16", device=device,
+        seed=args.seed)
+    return model, enc
+
+
 def engine_config_from_args(args) -> EngineConfig:
-    """--amp -> bags cast to bfloat16 on the host before the transfer."""
+    """--amp -> bags cast to bfloat16 on the host before the transfer; the
+    loss weights the reference forces on CLAM (0.7 / 0.3) and DSMIL (0.5 /
+    0.5), and batch size 1 for those single-bag models
+    (classification.py:84-114)."""
+    cls_alpha, aux_alpha = zoo.LOSS_WEIGHT_OVERRIDES.get(
+        args.model, (args.cls_alpha, args.aux_alpha))
+    # the aux models (CLAM's instance sampler, DSMIL's critical-instance
+    # queries) take one bag at a time
+    aux_mode = zoo.aux_mode(args.model)
     return EngineConfig(
         loss=args.loss, opt=args.opt, lr=args.lr,
         weight_decay=args.weight_decay, lr_schedule=args.lr_sche,
         lr_supi=args.lr_supi, num_epochs=args.num_epoch,
-        batch_size=args.batch_size, n_classes=args.n_classes,
-        cls_alpha=args.cls_alpha, accumulation_steps=args.accumulation_steps,
+        batch_size=1 if aux_mode else args.batch_size,
+        n_classes=args.n_classes, cls_alpha=cls_alpha, aux_alpha=aux_alpha,
+        aux_mode=aux_mode,
+        ds_average=args.model == "dsmil" and args.ds_average,
+        accumulation_steps=args.accumulation_steps,
         clip_grad=args.clip_grad, patch_shuffle=args.patch_shuffle,
         group_shuffle=args.group_shuffle, shuffle_group=args.shuffle_group,
         seed=args.seed, fix_loader_random=args.fix_loader_random,
@@ -134,12 +170,16 @@ def one_fold(args, fold: int, splits, metrics: Dict[str, List[float]],
              logger: Logger, resume_payload: Optional[Dict] = None):
     """Train, validate and test one fold (reference main.py:98-413)."""
     train_set, val_set, test_set = _make_datasets(args, fold, splits)
-    cfg = model_config_from_args(args)
-    model = build_model(cfg, device=args.device, seed=args.seed)
-    engine = Engine(model, engine_config_from_args(args), cfg.encoder,
+    model, enc = build_model_from_args(args, device=args.device)
+    engine = Engine(model, engine_config_from_args(args), enc,
                     device=args.device)
     engine.logger = logger
     engine.fold = fold
+    if args.model == "dsmil" and args.dsmil_init:
+        # the reference's warm start, non-strict (main.py:215-218), from a
+        # flag rather than its mistyped fixed path
+        load_warm_start(engine.model, args.dsmil_init)
+        logger.print(f"dsmil warm-start loaded from {args.dsmil_init}")
 
     sub_typing = args.datasets.lower() != "camelyon16"
     is_c16 = not sub_typing

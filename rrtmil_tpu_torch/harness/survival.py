@@ -10,7 +10,10 @@ or a directory of `fold_{k}/` whose last file in sorted order is taken),
 Every fold builds its model from `args.seed` (the JAX package initialises
 each fold from PRNGKey(seed)); the engine's numpy order stream and its
 torch.Generator (the dropout masks) start from the same seed.  Ported
-models: RRTMIL (wrapped in `SurvivalHead`), MeanMIL and MaxMIL.
+models, each wrapped in `SurvivalHead`: RRTMIL, MeanMIL, MaxMIL, AttMIL,
+CLAM_SB, CLAM_MB and DSMIL (the zoo's without an encoder, at dropout 0.25,
+as the JAX package builds them; CLAM without subtyping or instance loss,
+DSMIL's bag logits).
 """
 from __future__ import annotations
 
@@ -91,7 +94,7 @@ def build_survival_model(name: str, n_features: int, n_classes: int = 4,
                                    seed=seed)
     else:
         # the zoo raises for the models it does not have, naming the
-        # ROADMAP item that holds them (with the DTFD and MHIM engines)
+        # ROADMAP item that holds each
         backbone = zoo.build_model(name_l, input_dim=n_features,
                                    n_classes=n_classes, device=device,
                                    seed=seed)
@@ -106,8 +109,8 @@ def make_survival_engine(name: str, model, cfg: SurvivalEngineConfig,
                          f"survival engine is not ported yet "
                          f"({PARALLEL_ITEM})")
     if _name(name) in ("dtfd", "mhim"):
-        raise ValueError(f"the {name} survival engine is not ported yet "
-                         f"({zoo.ZOO_ITEM})")
+        raise ValueError(f"the {name} survival engine: "
+                         f"{zoo.not_ported(_name(name))}")
     return SurvivalEngine(model, cfg, encoder_cfg, device=device)
 
 

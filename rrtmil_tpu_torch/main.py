@@ -6,8 +6,10 @@ The flag surface of the JAX package's `main.py` (reference main.py:614-750),
 defaults included, plus `--device` (default 'cuda'; 'cpu' runs the kernels'
 plain versions).  The reference's inverted `store_false` booleans (--epeg,
 --cr_msa, --qkv_bias, --epeg_bias, --early_stopping default ON; passing the
-flag turns them OFF) are kept, so commands port unchanged.  Only `--model
-rrtmil` trains; the others, and `--fold_parallel`, raise (ROADMAP.md).
+flag turns them OFF) are kept, so commands port unchanged.  `--model`
+takes rrtmil, attmil, gattmil, clam_sb, clam_mb, dsmil, meanmil and maxmil
+(`--only_rrt_enc` puts the RRT encoder into the zoo's); transmil, ibmil,
+dtfd, mhim and `--fold_parallel` raise, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 

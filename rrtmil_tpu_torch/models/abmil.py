@@ -1,12 +1,15 @@
-"""The AB-MIL family's shared stem.
+"""AB-MIL baselines and the zoo's shared stem.
 
-Counterpart of `rrtmil_tpu/models/abmil.py:23-51` (reference
-modules/attmil.py): `FeatureHead`, Linear(input_dim -> 512), the activation
-(relu, exact-erf gelu or tanh), dropout, the bag mask and an optional
-injected `RRTEncoder` (reference main.py:138-155, `--only_rrt_enc`).  Only
-the stem is ported; ABMIL itself comes with the zoo (ROADMAP.md queue 1
-item 8).  Submodule names follow the flax tree (`fc`, `rrt`), so
-`convert.flax_to_torch` maps the JAX parameters as they are.
+Counterpart of `rrtmil_tpu/models/abmil.py` (reference modules/attmil.py):
+`FeatureHead`, Linear(input_dim -> 512), the activation (relu, exact-erf
+gelu or tanh), dropout, the bag mask and an optional injected `RRTEncoder`
+(reference main.py:138-155, `--only_rrt_enc`); `ABMIL` (tanh attention
+with biases) and `GatedABMIL` (gated attention without biases, whose stem
+keeps relu and dropout 0.25 whatever `act` / `dropout` say, attmil.py:
+55-110).  Every zoo model takes (x, mask, length, generator) and returns
+logits (B, C); submodule names follow the flax tree (`feature.fc`,
+`feature.rrt`, `attn_fc1`, ...), so `convert.flax_to_torch` maps the JAX
+parameters as they are.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import RRTEncoderConfig
+from .pool import masked_softmax
 from .rrt import RRTEncoder, dropout
 
 
@@ -52,3 +56,58 @@ class FeatureHead(nn.Module):
         if self.rrt is not None:
             x = self.rrt(x, mask=mask, length=length, generator=generator)
         return x
+
+
+def _bag(x):
+    return x[None] if x.dim() == 2 else x
+
+
+class ABMIL(nn.Module):
+    """attmil.DAttention (attmil.py:112-158): stem -> tanh attention (with
+    biases) -> masked softmax pooling -> classifier."""
+
+    def __init__(self, input_dim: int = 1024, n_classes: int = 2,
+                 act: str = "relu", dropout: float = 0.25,
+                 rrt: Optional[RRTEncoderConfig] = None):
+        super().__init__()
+        self.feature = FeatureHead(input_dim, act, dropout, rrt)
+        self.attn_fc1 = nn.Linear(512, 128)
+        self.attn_fc2 = nn.Linear(128, 1)
+        self.classifier = nn.Linear(512, n_classes)
+
+    def forward(self, x, mask=None, length: Optional[int] = None,
+                generator: Optional[torch.Generator] = None):
+        feat = self.feature(_bag(x), mask, length, generator).float()
+        a = self.attn_fc2(torch.tanh(self.attn_fc1(feat))).transpose(-1, -2)
+        a = masked_softmax(a, None if mask is None else mask[:, None, :])
+        return self.classifier((a @ feat)[:, 0])
+
+
+class GatedABMIL(nn.Module):
+    """attmil.AttentionGated (attmil.py:55-110): relu stem at dropout 0.25,
+    gated attention without biases (act on the first branch, scorer
+    dropout 0.25 when `dropout` is set), classifier."""
+
+    def __init__(self, input_dim: int = 1024, n_classes: int = 2,
+                 act: str = "relu", dropout: float = 0.25,
+                 rrt: Optional[RRTEncoderConfig] = None):
+        super().__init__()
+        self.act = act
+        self.scorer_dropout = bool(dropout)
+        self.feature = FeatureHead(input_dim, "relu", 0.25, rrt)
+        self.attention_a = nn.Linear(512, 128, bias=False)
+        self.attention_b = nn.Linear(512, 128, bias=False)
+        self.attention_c = nn.Linear(128, 1, bias=False)
+        self.classifier = nn.Linear(512, n_classes)
+
+    def forward(self, x, mask=None, length: Optional[int] = None,
+                generator: Optional[torch.Generator] = None):
+        feat = self.feature(_bag(x), mask, length, generator).float()
+        p = 0.25 if self.scorer_dropout else 0.0
+        a = dropout(activation(self.act, self.attention_a(feat)), p,
+                    generator, self.training)
+        b = dropout(torch.sigmoid(self.attention_b(feat)), p, generator,
+                    self.training)
+        g = self.attention_c(a * b).transpose(-1, -2)
+        g = masked_softmax(g, None if mask is None else mask[:, None, :])
+        return self.classifier((g @ feat)[:, 0])

@@ -1,9 +1,13 @@
-"""MIL aggregation heads: AB-MIL attention pooling and masked mean.
+"""MIL aggregation heads: AB-MIL attention pooling (ungated and gated) and
+masked mean; flax's dropout, which every model of the port draws from its
+caller's `torch.Generator`.
 
-Counterpart of `rrtmil_tpu/models/pool.py` (reference modules/datten.py:5-101)
-for the ungated head.  Bags arrive padded to a bucket length, so the softmax
-over instances takes the boolean mask of true tokens; masked places are
-filled with finfo(float32).min, not -inf (pool.py:26-30).
+Counterpart of `rrtmil_tpu/models/pool.py` (reference modules/datten.py:
+5-101).  Bags arrive padded to a bucket length, so the softmax over
+instances takes the boolean mask of true tokens; masked places are filled
+with finfo(float32).min, not -inf (pool.py:26-30).  The scorers' dropout
+(`dropout=True`) is flax's fixed p = 0.25 on the hidden activations, drawn
+from the caller's `torch.Generator` in train mode.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from torch import nn
 
 _ACTS = {"relu": F.relu, "gelu": lambda x: F.gelu(x, approximate="none"),
          "tanh": torch.tanh}
+SCORER_DROPOUT = 0.25
 
 
 def masked_softmax(logits: torch.Tensor, mask: Optional[torch.Tensor],
@@ -25,43 +30,77 @@ def masked_softmax(logits: torch.Tensor, mask: Optional[torch.Tensor],
     return torch.softmax(logits, dim=dim)
 
 
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
+            training: bool) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - p and scale by 1 / (1 - p);
+    the mask is drawn from `generator` (on x's device)."""
+    if not training or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode draws its masks from a "
+                         "torch.Generator: pass generator=")
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
+
+
+def _dropout(x, on: bool, generator, training: bool):
+    return dropout(x, SCORER_DROPOUT if on else 0.0, generator, training)
+
+
 class Attention(nn.Module):
     """2-layer attention scorer L=512 -> D=128 -> K=1 (datten.py:5-38)."""
 
     def __init__(self, input_dim: int = 512, act: str = "relu",
-                 bias: bool = False):
+                 bias: bool = False, dropout: bool = False):
         super().__init__()
         self.fc1 = nn.Linear(input_dim, 128, bias=bias)
         self.fc2 = nn.Linear(128, 1, bias=bias)
         self.act = _ACTS[act]
+        self.dropout = dropout
 
-    def forward(self, x, mask=None):
-        a = self.fc2(self.act(self.fc1(x))).transpose(-1, -2)   # (B, 1, N)
+    def forward(self, x, mask=None, generator=None):
+        a = _dropout(self.act(self.fc1(x)), self.dropout, generator,
+                     self.training)
+        a = self.fc2(a).transpose(-1, -2)                        # (B, 1, N)
         a = masked_softmax(a, None if mask is None else mask[:, None, :])
         return a @ x                                             # (B, 1, C)
 
 
+class AttentionGated(nn.Module):
+    """Gated attention scorer (datten.py:40-83): act(a(x)) * sigmoid(b(x))
+    -> c."""
+
+    def __init__(self, input_dim: int = 512, act: str = "relu",
+                 bias: bool = False, dropout: bool = False):
+        super().__init__()
+        self.attention_a = nn.Linear(input_dim, 128, bias=bias)
+        self.attention_b = nn.Linear(input_dim, 128, bias=bias)
+        self.attention_c = nn.Linear(128, 1, bias=bias)
+        self.act = _ACTS[act]
+        self.dropout = dropout
+
+    def forward(self, x, mask=None, generator=None):
+        a = self.act(self.attention_a(x))
+        b = torch.sigmoid(self.attention_b(x))
+        a = _dropout(a, self.dropout, generator, self.training)
+        b = _dropout(b, self.dropout, generator, self.training)
+        g = self.attention_c(a * b).transpose(-1, -2)            # (B, 1, N)
+        g = masked_softmax(g, None if mask is None else mask[:, None, :])
+        return g @ x                                             # (B, 1, C)
+
+
 class DAttention(nn.Module):
-    """Dispatch wrapper (datten.py:85-101): returns pooled (B, C).  The
-    scorer's dropout (PoolConfig.dropout, off in every canonical config) is
-    not ported: train mode with it on raises."""
+    """Dispatch wrapper (datten.py:85-101): returns pooled (B, C)."""
 
     def __init__(self, input_dim: int = 512, act: str = "relu",
                  gated: bool = False, bias: bool = False,
                  dropout: bool = False):
         super().__init__()
-        if gated:
-            raise NotImplementedError(
-                "gated attention pooling is not ported yet (ROADMAP.md "
-                "queue 1)")
-        self.dropout = dropout
-        self.attention = Attention(input_dim, act, bias)
+        cls = AttentionGated if gated else Attention
+        self.attention = cls(input_dim, act, bias, dropout)
 
-    def forward(self, x, mask=None):
-        if self.training and self.dropout:
-            raise NotImplementedError("the pooling scorer's dropout is not "
-                                      "ported yet (ROADMAP.md queue 1)")
-        return self.attention(x, mask).squeeze(1)
+    def forward(self, x, mask=None, generator=None):
+        return self.attention(x, mask, generator).squeeze(1)
 
 
 class MeanPool(nn.Module):

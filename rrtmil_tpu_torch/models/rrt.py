@@ -71,7 +71,7 @@ from ..ops.kernels.region_layer import region_layer_fused
 from ..ops.regions import grid_geometry, region_partition, region_reverse
 from ..utils.device import resolve_device
 from ..utils.inits import crmsa_phi_init_, xavier_normal_
-from .pool import DAttention, MeanPool
+from .pool import DAttention, MeanPool, dropout
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -83,19 +83,6 @@ def _dtype(name: str) -> torch.dtype:
 def _todo(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md "
                                f"queue 1 item 8")
-
-
-def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
-            training: bool) -> torch.Tensor:
-    """flax nn.Dropout: keep with probability 1 - p and scale by 1 / (1 - p);
-    the mask is drawn from `generator` (on x's device)."""
-    if not training or p == 0.0:
-        return x
-    if generator is None:
-        raise ValueError("dropout in train mode draws its masks from a "
-                         "torch.Generator: pass generator=")
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
-    return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
 
 
 def drop_path(x: torch.Tensor, rate: float,
@@ -609,15 +596,16 @@ class RRTMIL(nn.Module):
             x = x * mask[..., None].to(x.dtype)
         x = self.online_encoder(x, mask=mask, length=length,
                                 generator=generator).float()
-        feat = self.pool_fn(x, mask=mask)
+        feat = self.pool_fn(x, mask=mask, generator=generator)
         return self.predictor(feat)
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Fresh init with the JAX package's distributions (utils/inits.py):
     xavier_normal kernels with flax's fans, zero biases, LayerNorm ones and
-    zeros, EPEG taps with the fans of flax's (k, 1, 1, H) kernel, and
-    U(+-1/sqrt(k)) for phi."""
+    zeros, EPEG taps with the fans of flax's (k, 1, 1, H) kernel,
+    U(+-1/sqrt(k)) for phi, and a module's `init_own_parameters(generator)`
+    for its raw parameters; drawn in module order."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
@@ -635,6 +623,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                     mod.pe_bias.zero_()
             elif isinstance(mod, CrossRegionAttention) and mod.phi is not None:
                 crmsa_phi_init_(mod.phi, mod.cfg.crmsa_k, generator)
+            elif hasattr(mod, "init_own_parameters"):
+                # a module's own raw parameters (DSMIL's Conv1d head)
+                mod.init_own_parameters(generator)
 
 
 def build_model(cfg: RRTMILConfig, device="cuda", seed: int = 0) -> RRTMIL:

@@ -1,10 +1,12 @@
 """Model factory by the reference's CLI names.
 
-Counterpart of `rrtmil_tpu/models/zoo.py:26-88` (reference
-main.py:138-222): `build_model(name, ...)` for the models the port has,
-RRT-MIL and the Mean / Max MIL baselines, with seeded weights drawn from
-the JAX package's distributions (`models/rrt.init_parameters`).  Every other
-name of the JAX package's registry raises.
+Counterpart of `rrtmil_tpu/models/zoo.py:22-91` (reference main.py:
+138-222): `build_model(name, ...)` with seeded weights drawn from the JAX
+package's distributions (`models/rrt.init_parameters`), `aux_mode(name)`
+(how the engine reads a model's train forward) and the harness's forced
+loss weights.  Every zoo model but TransMIL takes an optional injected
+RRT encoder config (`rrt=`, the `--only_rrt_enc` path).  The names the port
+does not have yet raise, each naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -16,31 +18,66 @@ from torch import nn
 from ..config import PoolConfig, RRTEncoderConfig, RRTMILConfig
 from ..utils.device import resolve_device
 from . import rrt
+from .abmil import ABMIL, GatedABMIL
+from .clam import CLAM_MB, CLAM_SB
+from .dsmil import DSMIL
 from .mean_max import MaxMIL, MeanMIL
 
-_PORTED = {"rrtmil": None, "meanmil": MeanMIL, "maxmil": MaxMIL}
-# the JAX package's other names: the zoo is a later slice
-_NOT_PORTED = ("attmil", "gattmil", "clam_sb", "clam_mb", "dsmil",
-               "transmil", "ibmil", "dtfd", "mhim")
-ZOO_ITEM = "ROADMAP.md queue 1 item 8"
+# model name -> (class, aux_mode)
+#   aux_mode: None     - the forward returns logits
+#             'loss'   - with a label, (logits, aux loss, ps) (CLAM)
+#             'logits' - (logits, aux logits, ps); the engine applies the
+#                        criterion to the aux logits (DSMIL)
+_REGISTRY = {
+    "rrtmil": (None, None),
+    "attmil": (ABMIL, None),
+    "gattmil": (GatedABMIL, None),
+    "clam_sb": (CLAM_SB, "loss"),
+    "clam_mb": (CLAM_MB, "loss"),
+    "dsmil": (DSMIL, "logits"),
+    "meanmil": (MeanMIL, None),
+    "maxmil": (MaxMIL, None),
+}
+# the JAX package's other names, by the ROADMAP.md item that ports them
+NOT_PORTED = {"transmil": "8(b)", "ibmil": "8(e)", "dtfd": "8(f)",
+              "mhim": "8(g)"}
+
+# loss weights forced by the reference harness (main.py:213-214,719-726)
+LOSS_WEIGHT_OVERRIDES = {
+    "clam_sb": (0.7, 0.3),
+    "clam_mb": (0.7, 0.3),
+    "dsmil": (0.5, 0.5),
+}
+
+
+def not_ported(name: str) -> str:
+    """The refusal of a name the port does not have yet."""
+    return (f"model {name!r} is not ported yet: see ROADMAP.md queue 1 item "
+            f"{NOT_PORTED[name]}")
 
 
 def model_names():
-    return sorted(_PORTED)
+    return sorted(_REGISTRY)
+
+
+def aux_mode(name: str) -> Optional[str]:
+    entry = _REGISTRY.get(name.lower())
+    return entry[1] if entry else None
 
 
 def build_model(name: str, input_dim: int = 1024, n_classes: int = 2,
                 dropout: float = 0.25, act: str = "relu",
                 rrt_cfg: Optional[RRTEncoderConfig] = None,
                 rrtmil_cfg: Optional[RRTMILConfig] = None,
-                device="cuda", seed: int = 0) -> nn.Module:
+                subtyping: bool = False, device="cuda",
+                seed: int = 0) -> nn.Module:
     """A zoo model in eval mode with weights seeded by `seed`, on `device`
-    (the card by default; raises when there is none unless device='cpu')."""
+    (the card by default; raises when there is none unless device='cpu').
+    `subtyping` is CLAM's out-of-class instance loss."""
     name = name.lower()
-    if name in _NOT_PORTED:
-        raise ValueError(f"model {name!r} is not ported yet: the zoo is "
-                         f"{ZOO_ITEM}")
-    if name not in _PORTED:
+    if name in NOT_PORTED:
+        raise ValueError(not_ported(name))
+    if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; choose from "
                          f"{model_names()}")
     if name == "rrtmil":
@@ -50,7 +87,9 @@ def build_model(name: str, input_dim: int = 1024, n_classes: int = 2,
             pool=PoolConfig())
         return rrt.build_model(cfg, device=device, seed=seed)
     dev = resolve_device(device)
-    model = _PORTED[name](input_dim=input_dim, n_classes=n_classes, act=act,
-                          dropout=dropout, rrt=rrt_cfg)
+    kwargs = {"subtyping": subtyping} if aux_mode(name) == "loss" else {}
+    model = _REGISTRY[name][0](input_dim=input_dim, n_classes=n_classes,
+                               act=act, dropout=dropout, rrt=rrt_cfg,
+                               **kwargs)
     rrt.init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -13,6 +13,18 @@ included; the iteration meters through `logger`), `_eval_step` and
 `evaluate`.  Per-step meters and per-batch results stay on the device and
 are fetched at the log points and once per epoch.
 
+Aux models (engine.py:176-200, `EngineConfig.aux_mode`): the train
+forward gives (logits, aux, ps) and the loss is cls_alpha * loss(logits) +
+aux_alpha * aux.  CLAM ('loss') takes the bag's label as a host int, read
+from the dataset's `slide_label` beside the batch (no device sync), and
+returns its instance loss; DSMIL ('logits') returns its max-instance
+logits, which take the criterion.  ps, the bag's padded patch count, joins
+the iteration meters.  `ds_average` evaluates DSMIL on the mean of the bag
+and max-instance softmaxes.  A parameter the step's graph did not reach
+gets a zero gradient before the update, as JAX's gradients are never
+absent, except CLAM's instance classifiers, which keep `grad=None` and so
+take no optimizer step (`optim.fill_unreached_grads`).
+
 Random streams, as in the JAX package: `_rng` (numpy, seeded with
 `cfg.seed`) draws the augmentations and, unless `fix_loader_random` pins it
 to the reference's fixed loader seed, the train order too: one stream,
@@ -39,7 +51,7 @@ from ..data.bucketing import bucket_for, pad_bag
 from ..data.device_cache import DeviceBagCache, cacheable
 from ..utils.device import resolve_device
 from .losses import bce_with_logits, cross_entropy
-from .optim import lr_at, make_optimizer
+from .optim import fill_unreached_grads, lr_at, make_optimizer
 
 # the reference's fixed DataLoader generator seed (main.py:125-130)
 FIXED_LOADER_SEED = 7784414403328510413
@@ -58,6 +70,7 @@ class EngineConfig:
     batch_size: int = 1
     n_classes: int = 2
     cls_alpha: float = 1.0
+    aux_alpha: float = 1.0
     accumulation_steps: int = 1
     clip_grad: float = 0.0
     patch_shuffle: bool = False      # train-bag augmentations (reference
@@ -76,6 +89,10 @@ class EngineConfig:
     # transfer (data/device_cache.py): 'on' | 'off' | 'auto' (= on when the
     # engine's device is CUDA); bypassed while augmentation is on
     device_cache_bytes: int = 6 << 30  # its budget; bags past it stream
+    aux_mode: Optional[str] = None  # None | 'loss' (CLAM) | 'logits' (DSMIL)
+    ds_average: bool = False  # DSMIL evaluation: probabilities are the mean
+    # of the bag and max-instance softmaxes (the reference's intended
+    # --ds_average, main.py:526,531-541); needs aux_mode='logits'
 
 
 class Engine:
@@ -90,6 +107,12 @@ class Engine:
         if cfg.transfer_dtype not in _TRANSFER_DTYPES:
             raise ValueError(f"transfer_dtype {cfg.transfer_dtype!r} is not "
                              f"one of {sorted(_TRANSFER_DTYPES)}")
+        if cfg.ds_average and cfg.aux_mode != "logits":
+            raise ValueError("ds_average requires a model that returns "
+                             "max-instance logits (aux_mode='logits')")
+        if cfg.aux_mode is not None and cfg.batch_size != 1:
+            raise ValueError(f"aux_mode {cfg.aux_mode!r} models take one bag "
+                             f"at a time: batch_size must be 1")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
@@ -98,6 +121,7 @@ class Engine:
                                         cfg.lr, cfg.weight_decay)
         self._loss = cross_entropy if cfg.loss == "ce" else bce_with_logits
         self.global_iter = 0
+        self.last_ps = 0
         self.logger = None
         self.fold = 0
         self._rng = np.random.default_rng(cfg.seed)
@@ -261,19 +285,50 @@ class Engine:
                          cfg.num_epochs * iters_per_epoch)
         return lr_at(cfg.lr_schedule, cfg.lr, epoch, cfg.num_epochs)
 
-    def _train_step(self, x, mask, labels, length: int) -> torch.Tensor:
+    def _forward_train(self, x, mask, labels, length: int,
+                       label: Optional[int]):
+        """(logits, aux loss or None, ps) of the train forward
+        (engine.py:176-200)."""
+        mode = self.cfg.aux_mode
+        kwargs = {"label": label} if mode == "loss" else {}
+        out = self.model(x, mask=mask, length=length,
+                         generator=self.generator, **kwargs)
+        if not isinstance(out, tuple):
+            return out, None, 0
+        ps = out[2] if len(out) > 2 else 0
+        if mode == "loss":
+            return out[0], out[1], ps
+        if mode == "logits":
+            return out[0], self._loss(out[1], labels), ps
+        return out[0], None, 0
+
+    def _train_step(self, x, mask, labels, length: int,
+                    label: Optional[int] = None) -> torch.Tensor:
         """Forward and backward of one batch; the gradients add into .grad
-        (accumulation).  Returns the meters (total loss, logit loss), on the
-        device."""
+        (accumulation).  `label` is the bag's label as a host int (CLAM's
+        branch).  Returns the meters (total loss, logit loss[, aux loss]),
+        on the device; the step's ps is kept in `last_ps`."""
         cfg = self.cfg
-        logits = self.model(x, mask=mask, length=length,
-                            generator=self.generator)
+        logits, aux, self.last_ps = self._forward_train(x, mask, labels,
+                                                        length, label)
         logit_loss = self._loss(logits, labels)
         total = cfg.cls_alpha * logit_loss
+        if aux is not None:
+            total = total + cfg.aux_alpha * aux
         if cfg.accumulation_steps > 1:
             total = total / cfg.accumulation_steps
         total.backward()
-        return torch.stack([total.detach(), logit_loss.detach()]).float()
+        meters = [total.detach(), logit_loss.detach()]
+        if aux is not None:
+            meters.append(aux.detach())
+        return torch.stack(meters).float()
+
+    def _host_label(self, dataset, indices) -> Optional[int]:
+        """The bag's label as a host int for CLAM's branch, from the
+        dataset's label list (no device sync)."""
+        if self.cfg.aux_mode != "loss":
+            return None
+        return int(dataset.slide_label[indices[0]])
 
     def _apply_grads(self, lr: float) -> None:
         """One optimizer update at `lr`, after clipping the global gradient
@@ -281,6 +336,7 @@ class Engine:
         cfg = self.cfg
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+        fill_unreached_grads(self.model)
         if cfg.clip_grad > 0:
             grads = [p.grad for p in self.model.parameters()
                      if p.grad is not None]
@@ -305,11 +361,15 @@ class Engine:
         self.optimizer.zero_grad(set_to_none=True)
         meters: List[torch.Tensor] = []
         synced: List[np.ndarray] = []
+        ps: List[float] = []
         acc_n = 0
         for bi, (x, mask, labels, spec) in enumerate(
                 self._batch_iter(dataset, batches, True)):
             lr = self.current_lr(epoch, len(batches))
-            meters.append(self._train_step(x, mask, labels, spec.repr_length))
+            meters.append(self._train_step(
+                x, mask, labels, spec.repr_length,
+                label=self._host_label(dataset, batches[bi])))
+            ps.append(float(self.last_ps))
             acc_n += 1
             # a short tail window gets its update too: its grads were
             # pre-scaled by 1/acc, so its bags weigh as loss/acc dictates
@@ -321,32 +381,48 @@ class Engine:
             if self.logger is not None and (
                     (cfg.log_iter > 0 and bi % cfg.log_iter == 0)
                     or bi == len(batches) - 1):
-                self._log_iteration(meters, synced, bi, len(batches), lr)
+                self._log_iteration(meters, synced, ps, bi, len(batches),
+                                    lr)
         if meters:
             synced.append(torch.stack(meters).cpu().numpy())
         if not synced:
             return 0.0
         return float(np.concatenate(synced)[:, 0].mean())
 
-    def _log_iteration(self, meters, synced, bi: int, n_batches: int,
+    def _log_iteration(self, meters, synced, ps, bi: int, n_batches: int,
                        lr: float) -> None:
         """Iteration meters (reference main.py:471-490): the epoch-running
-        mean logit loss and the current lr, printed and logged under the
-        fold's namespace.  Fetches only the steps since the last log point."""
+        means of the logit loss, the aux loss and the patch count, and the
+        current lr, printed and logged under the fold's namespace.  Fetches
+        only the steps since the last log point."""
         if meters:
             synced.append(torch.stack(meters).cpu().numpy())
             meters.clear()
         avg = np.concatenate(synced).mean(axis=0)
+        aux = float(avg[2]) if avg.shape[0] > 2 else 0.0
+        pn = float(np.mean(ps)) if ps else 0.0
         self.logger.print(f"[{bi}/{n_batches - 1}] logit_loss:{avg[1]:.4f}, "
-                          f"lr:{lr:.3e}")
-        self.logger.log({f"{self.fold}-fold/cls_loss": float(avg[1]),
-                         f"{self.fold}-fold/lr": float(lr)}, commit=False)
+                          f"cls_loss:{aux:.4f},  patch_num:{pn:.1f}, "
+                          f"keep_num:{pn:.1f}, lr:{lr:.3e}")
+        f = f"{self.fold}-fold"
+        self.logger.log({f"{f}/cls_loss": float(avg[1]), f"{f}/lr": float(lr),
+                         f"{f}/cl_loss": aux, f"{f}/patch_num": pn,
+                         f"{f}/keep_num": pn}, commit=False)
 
     # -- eval --------------------------------------------------------------
 
     @torch.no_grad()
     def _eval_step(self, x, mask, labels, length: int):
-        logits = self.model(x, mask=mask, length=length).float()
+        out = self.model(x, mask=mask, length=length)
+        logits = (out[0] if isinstance(out, tuple) else out).float()
+        if self.cfg.ds_average:
+            # loss on the bag logits; the probability averages the bag and
+            # max-instance softmaxes (engine.py:305-318)
+            losses = -F.log_softmax(logits, dim=-1).gather(
+                1, labels[:, None])[:, 0]
+            probs = 0.5 * torch.softmax(logits, dim=-1)[:, 1] + \
+                0.5 * torch.softmax(out[1].float(), dim=-1)[:, 1]
+            return probs, losses
         if self.cfg.loss == "ce":
             losses = -F.log_softmax(logits, dim=-1).gather(
                 1, labels[:, None])[:, 0]

@@ -44,6 +44,21 @@ def make_optimizer(name: str, params: Iterable[torch.nn.Parameter],
     raise ValueError(f"unknown optimizer {name!r}")
 
 
+def fill_unreached_grads(model: torch.nn.Module) -> None:
+    """A zero gradient for every trainable parameter the step's graph did
+    not reach: JAX differentiates every leaf, so such a parameter still
+    takes its optimizer step (weight decay, moments, step count), e.g.
+    DSMIL's instance classifier under a loss on its bag logits alone, which
+    reach it only through the critical instance's argmax.  CLAM's instance
+    classifiers outside the bag's branch keep `grad=None`, so torch's
+    optimizers skip them as the reference's do (clam.py:196-198; JAX's
+    `_maybe_absent`)."""
+    for name, p in model.named_parameters():
+        if p.grad is None and p.requires_grad and \
+                "instance_classifier" not in name:
+            p.grad = torch.zeros_like(p)
+
+
 class RAdam(torch.optim.Optimizer):
     """The reference's RAdam (Survival/utils/optimizer.py:26-170) as the JAX
     package computes it (`scale_by_ref_radam`), which differs from

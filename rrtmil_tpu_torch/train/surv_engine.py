@@ -30,7 +30,7 @@ from ..models.survival import risk_score
 from ..utils.device import resolve_device
 from .losses import ce_surv_loss, nll_surv_loss
 from .metrics import concordance_index_censored
-from .optim import PlateauLR, lr_at, make_optimizer
+from .optim import PlateauLR, fill_unreached_grads, lr_at, make_optimizer
 
 
 @dataclasses.dataclass
@@ -150,6 +150,7 @@ class SurvivalEngine:
                                        generator=self.generator)
         loss = self._loss(hazards, survival, label, censorship)
         loss.backward()
+        fill_unreached_grads(self.model)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         return loss.detach(), risk_score(survival).detach()

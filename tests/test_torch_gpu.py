@@ -871,3 +871,106 @@ def test_survival_cli_on_card_goes_through_its_kernels(tmp_path):
         assert launched == []
     finally:
         survival.SurvivalEngine = orig
+
+
+ZOO = ("attmil", "gattmil", "clam_sb", "clam_mb", "dsmil")
+_ALL_KERNELS = lambda: (
+    rl.region_layer_fused, rl.region_layer_bwd, ck.crmsa_compress_grid,
+    ck.crmsa_compress_grid_bwd, rb.region_block_fused,
+    ra.region_attention_fused, rab.region_attention_bwd,
+    ck.crmsa_redistribute_grid_ln, ck.crmsa_redistribute_grid_ln_bwd,
+    ck.crmsa_redistribute_grid, ck.crmsa_redistribute_grid_bwd,
+    ck.crmsa_compress, ck.crmsa_redistribute)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_with_encoder_on_card_matches_cpu(name):
+    """Each zoo model with c16_r50's encoder injected (input 64, dropout
+    0), one bag of 2213 patches in its bucket: the card's logits, loss and
+    every gradient against the CPU's plain versions from the same weights
+    (1e-4, f32 products, TF32 off); the forward launches K1, K3, K5 and K8,
+    forward and backward K1-K9, and no other kernel."""
+    from rrtmil_tpu_torch.data.bucketing import bucket_for
+    from rrtmil_tpu_torch.models import zoo
+    dev = _cuda()
+    enc = dataclasses.replace(c16_r50().encoder, mm_dtype="float32",
+                              dropout=0.0)
+    kw = dict(input_dim=64, dropout=0.0, rrt_cfg=enc, subtyping=True, seed=0)
+    card = zoo.build_model(name, **kw)
+    cpu = zoo.build_model(name, device="cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    spec = bucket_for(2213, enc)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.zeros((1, spec.data_length, 64))
+    x[0, :2213] = torch.randn((2213, 64), generator=gen)
+    mask = torch.arange(spec.data_length)[None] < 2213
+    label = torch.tensor([1])
+    fns = _ALL_KERNELS()
+
+    def step(model, d):
+        for f in fns:
+            f.launches = 0
+        with torch.no_grad():
+            out = model(x.to(d), mask=mask.to(d), length=spec.repr_length)
+        fwd = [i for i, f in enumerate(fns) if f.launches]
+        kw = {"label": 1} if name.startswith("clam") else {}
+        out = model(x.to(d), mask=mask.to(d), length=spec.repr_length, **kw)
+        ce = torch.nn.functional.cross_entropy
+        if isinstance(out, tuple):
+            aux = out[1] if name.startswith("clam") else ce(out[1],
+                                                            label.to(d))
+            loss = ce(out[0], label.to(d)) + aux
+        else:
+            loss = ce(out, label.to(d))
+        loss.backward()
+        return fwd, [i for i, f in enumerate(fns) if f.launches], loss
+    fwd, both, loss = step(card, dev)
+    assert fwd == [0, 2, 4, 7] and both == list(range(9))
+    _, _, want = step(cpu, "cpu")
+    assert abs(loss.item() - want.item()) <= 1e-4 * max(1.0, abs(want.item()))
+    grads = {n: p.grad for n, p in cpu.named_parameters()}
+    for n, p in card.named_parameters():
+        if grads[n] is None:
+            assert p.grad is None, n
+            continue
+        _close(p.grad.cpu(), grads[n], torch.float32, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_cli_on_card_goes_through_k1_to_k9(tmp_path, name):
+    """`python -m rrtmil_tpu_torch.main --model {name} --only_rrt_enc` on
+    the card (2 folds, 1 epoch, input width 64): K1-K9 and no other kernel,
+    finite metrics."""
+    _cuda()
+    from rrtmil_tpu_torch import main as cli
+    root = str(tmp_path / "data")
+    _write_cli_set(root, False, 64)
+    fns = _ALL_KERNELS()
+    for f in fns:
+        f.launches = 0
+    metrics = cli.main(["--model", name, "--only_rrt_enc", "--crmsa_k", "1",
+                        "--all_shortcut", "--input_dim", "64", "--cv_fold",
+                        "2", "--num_epoch", "1", "--dataset_root", root,
+                        "--model_path", str(tmp_path / "out")])
+    assert [i for i, f in enumerate(fns) if f.launches] == list(range(9))
+    assert all(np.isfinite(metrics["auc"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["AttMIL", "CLAM_SB", "CLAM_MB", "DSMIL"])
+def test_survival_zoo_on_card_launches_no_kernel(tmp_path, name):
+    """The survival CLI's zoo backbones (no encoder) on the card: 5 folds x
+    1 epoch, finite c-indices, no kernel launched."""
+    _cuda()
+    from rrtmil_tpu_torch import survival_main as cli
+    csv_file = _write_survival_set(str(tmp_path / "data"), 64)
+    fns = _ALL_KERNELS()
+    for f in fns:
+        f.launches = 0
+    meter = cli.main(["--model", name, "--input_dim", "64", "--num_epoch",
+                      "1", "--excel_file", csv_file, "--results_dir",
+                      str(tmp_path / "out")])
+    assert not any(f.launches for f in fns)
+    assert all(np.isfinite(meter.cindex[1:]))

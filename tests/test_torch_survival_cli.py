@@ -136,16 +136,37 @@ def test_flag_surface_is_survival_main_pys_plus_device(monkeypatch):
     assert got == want
 
 
-@pytest.mark.parametrize("name", ["AttMIL", "CLAM_SB", "CLAM_MB", "DSMIL",
-                                  "TransMIL", "IBMIL", "DTFD", "MHIM-MIL"])
-def test_unported_models_name_their_roadmap_item(name):
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 8"):
+@pytest.mark.parametrize("name,item", [("TransMIL", "b"), ("IBMIL", "e"),
+                                       ("DTFD", "f"), ("MHIM-MIL", "g")])
+def test_unported_models_name_their_roadmap_item(name, item):
+    with pytest.raises(ValueError,
+                       match=f"ROADMAP.md queue 1 item 8\\({item}\\)"):
         survival.build_survival_model(name, D_IN, device="cpu")
+
+
+@pytest.mark.parametrize("name,cls", [("AttMIL", "ABMIL"),
+                                      ("CLAM_SB", "CLAM_SB"),
+                                      ("CLAM_MB", "CLAM_MB"),
+                                      ("DSMIL", "DSMIL")])
+def test_zoo_backbones_build_and_run_on_the_cpu(name, cls):
+    """The zoo's survival backbones (no encoder, as the JAX package builds
+    them) under SurvivalHead: four hazards and survivals in (0, 1] for a
+    masked bag, seeded weights."""
+    model, enc = survival.build_survival_model(name, D_IN, device="cpu",
+                                               seed=1)
+    assert type(model.backbone).__name__ == cls and enc.region_num == 16
+    x = torch.randn(1, 50, D_IN)
+    mask = torch.arange(50)[None] < 41
+    with torch.no_grad():
+        hazards, surv = model(x, mask=mask)
+    assert hazards.shape == surv.shape == (1, 4)
+    assert torch.all((surv > 0) & (surv <= 1)) and torch.isfinite(
+        hazards).all()
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
     with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 8"):
-        zoo.build_model("attmil", device="cpu")
+        zoo.build_model("transmil", device="cpu")
     with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 8"):
         survival.make_survival_engine("DTFD", torch.nn.Linear(2, 2),
                                       SurvivalEngineConfig(), device="cpu")
