@@ -101,6 +101,29 @@ phase 9's own interruption):
    alone; the CLI (clam_sb --only_rrt_enc) as a process of its own, its
    exit code and seconds; (e) the survival CLI's AttMIL, CLAM_SB and DSMIL
    on phase 10's set, 5 folds x 1 epoch: no kernel, bags/s printed;
+12. TransMIL, IBMIL and the encoder's variants: (a) TransMIL (input 1024)
+   through the engine's exact mode (batch 1, each bag at its true length)
+   `Engine.evaluate` on bags of {937, 2213, 9000, 30000} patches and a
+   dropout-on `train_epoch`, launching no kernel, the probabilities against
+   the CPU, two dropout-off steps against the CPU (f32, TF32 off,
+   TRANSMIL_TOL), a second forward of the same bits, its forward and train
+   ms at L = 9000 and its survival step at L = 50000; (d) the CLI on phase
+   9's 12 bags, 2 folds x 2 epochs: `--model transmil` launches no kernel
+   and never touches the device cache, `python -m
+   rrtmil_tpu_torch.build_confounders` writes each fold's prototypes (no
+   kernel); (b) IBMIL with c16_r50's encoder and those prototypes, phase
+   11 (a)'s checks (K1, K3, K5, K8 a batch, K1-K9 a step, the CPU, the same
+   bits); `--model ibmil --only_rrt_enc --confounder_path` launches K1-K9
+   and its second epoch comes from the cache, slides/s of each epoch
+   printed; (c) c16_r50 with `--pos` ppeg / peg / sincos / ape at
+   `--pos_pos -1`, ppeg with 3 layers (K1-K9), `--region_attn ntrans` and
+   `--attn ntrans` (only the CR-MSA layer's kernels: K3, K5, K8 in
+   evaluate, K3-K9 in training), each with phase 3's three checks; (e) the
+   survival CLI's TransMIL and IBMIL on phase 10's set, 5 folds x 1 epoch,
+   no kernel; (f) RRTMIL and TransMIL, 5 folds x 2 epochs on 20 cases of
+   937-9000 patches, then `--evaluate --resume`: every fold that saved
+   weights (at least two) reproduces its best c-index and validation loss
+   exactly;
 6. survival: `SurvivalEngine.train_epoch` (dropout on) and `validate` on
    survival_default() at full width, bags of {937, 1500, 10000, 30000,
    45000, 50000} patches: each bag whose R-MSA grid exceeds its CR-MSA grid
@@ -145,8 +168,8 @@ phase 9's own interruption):
 Every counter is set to 0 just before each path and read just after.
 Prints the `{"kernels": [...]}` line (each kernel's launches from its own
 path: K1-K9 the c16_r50 train epoch, K10 / K11 the FFN one, K12 / K13 the
-survival one; `launches_by_path` adds every other path, phase 9's and
-phase 10's and 11's runs among them), the card's name and power limit,
+survival one; `launches_by_path` adds every other path, phase 9's to
+12's runs among them), the card's name and power limit,
 and as
 its last line
 `{"ok": true, "device": {...}}`.  Writes the full report to
@@ -161,6 +184,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -1221,10 +1245,12 @@ def phase_main_path(dev, cfg=None, lengths=BAG_LENGTHS, tag="c16_r50",
             "probs": probs.tolist()}
 
 
-def phase_train(dev, cfg=None, lengths=TRAIN_BAGS, tag="c16_r50", ph="3"):
+def phase_train(dev, cfg=None, lengths=TRAIN_BAGS, tag="c16_r50", ph="3",
+                expect=C16_TRAIN):
     """Engine.train_epoch on `cfg` (c16_r50 by default) at full width,
     dropout on, batch size 2: every kernel's counter set to 0 just before
-    the epoch and read just after, each step required to launch all nine."""
+    the epoch and read just after, each step required to launch every
+    kernel of `expect` (all nine by default) and no other."""
     from rrtmil_tpu_torch.config import c16_r50
     from rrtmil_tpu_torch.data.datasets import ArrayDataset
     from rrtmil_tpu_torch.models.rrt import build_model
@@ -1253,7 +1279,7 @@ def phase_train(dev, cfg=None, lengths=TRAIN_BAGS, tag="c16_r50", ph="3"):
         f"steps (dropout on): {secs:.2f} s, mean loss {loss:.6f}, step "
         f"losses {np.round(step_losses, 6).tolist()}")
     log(f"[{ph}] train launches {launches}")
-    check_launches(per_step, C16_TRAIN, f"{tag} train", n_steps)
+    check_launches(per_step, expect, f"{tag} train", n_steps)
     if not (np.isfinite(loss) and np.isfinite(step_losses).all()):
         raise AssertionError(f"the train loss is not finite: {step_losses}")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
@@ -1288,13 +1314,13 @@ def _adam_params_close(got, want, lr, steps, frac):
 
 
 def phase_train_vs_cpu(dev, base=None, tag="c16_r50", ph="3",
-                       expect=C16_TRAIN):
+                       expect=C16_TRAIN, dtypes=("float32", "bfloat16")):
     """Two train steps of `base` (c16_r50 by default) with dropout off on
     small bags, on the card and on the CPU from the same weights: each card
     step through the kernels of `expect` (K1-K9, counted), the step losses,
     the first step's
     gradients and the parameters after both updates, in f32/f32 (TF32 off)
-    and with bf16 products."""
+    and with bf16 products (the products dtypes of `dtypes`)."""
     import dataclasses
     from rrtmil_tpu_torch.config import c16_r50
     from rrtmil_tpu_torch.data.datasets import ArrayDataset
@@ -1308,7 +1334,7 @@ def phase_train_vs_cpu(dev, base=None, tag="c16_r50", ph="3",
                        for n in (937, 2213)], [0, 1])
     ecfg = EngineConfig(batch_size=2)
     out = {}
-    for mm in ("float32", "bfloat16"):
+    for mm in dtypes:
         tol = TOL[torch.float32 if mm == "float32" else torch.bfloat16]
         cfg = dataclasses.replace(base, dropout=0.0, encoder=dataclasses
                                   .replace(base.encoder, dropout=0.0,
@@ -2007,7 +2033,8 @@ ZOO_CPU_BAGS = (937, 2213)
 # the last layer's bias of each attention scorer shifts a whole softmax row:
 # its gradient is zero in exact arithmetic, rounding noise on both sides,
 # which Adam's first steps turn into lr-sized steps of either sign
-ZOO_NOISE_PARAMS = ("attn_fc2.bias", "attn_net.attention_c.bias")
+ZOO_NOISE_PARAMS = ("attn_fc2.bias", "attn_net.attention_c.bias",
+                    "W_k.bias")
 # the stem's Linear (feature.fc, CLAM's fc, DSMIL's patch_to_emb): its
 # gradient passes the relu at pre-activations within the two sides' GEMM
 # rounding of zero (cuBLAS and the CPU's f32 sums over 1024 inputs differ
@@ -2015,18 +2042,18 @@ ZOO_NOISE_PARAMS = ("attn_fc2.bias", "attn_net.attention_c.bias")
 # gradient by dh x (1.2e-3 at attmil's 937-patch bag: pre 259, feature 488,
 # in a run with every kernel swapped for its plain version too); held by
 # the parameters' drift bound after the steps
-ZOO_STEM = ("feature.fc.", "fc.", "patch_to_emb.")
+ZOO_STEM = ("feature.fc.", "fc.", "patch_to_emb.", "embedding.fc.")
 # the survival CLI's zoo backbones (no encoder, as the JAX package builds
 # them), 5 folds x 1 epoch on phase 10's set
 ZOO_SURVIVAL = ("AttMIL", "CLAM_SB", "DSMIL")
 
 
-def zoo_model(name, dev, dropout=True, mm_dtype=None):
+def zoo_model(name, dev, dropout=True, mm_dtype=None, confounders=None):
     """(model, encoder config): a zoo model at full width (input 1024) with
     c16_r50's encoder injected (the CLI's --only_rrt_enc with c16_r50's
     flags), seed 0, subtyping on (TCGA's setting: every instance classifier
-    trains); `dropout=False` turns every dropout off, GatedABMIL's fixed
-    stem dropout included."""
+    trains), IBMIL's `confounders`; `dropout=False` turns every dropout
+    off, GatedABMIL's fixed stem dropout included."""
     import dataclasses
     from rrtmil_tpu_torch.config import c16_r50
     from rrtmil_tpu_torch.models import zoo
@@ -2037,7 +2064,8 @@ def zoo_model(name, dev, dropout=True, mm_dtype=None):
         enc = dataclasses.replace(enc, mm_dtype=mm_dtype)
     model = zoo.build_model(name, input_dim=1024,
                             dropout=0.25 if dropout else 0.0, rrt_cfg=enc,
-                            subtyping=True, device=dev, seed=0)
+                            subtyping=True, confounders=confounders,
+                            device=dev, seed=0)
     if not dropout and name == "gattmil":
         model.feature.p = 0.0      # its stem's dropout is fixed at 0.25
     return model, enc
@@ -2103,86 +2131,108 @@ def _zoo_step_bits(name, model, ds, dev, enc):
     return len(runs[0]) - 1
 
 
-def phase_zoo_models(dev):
-    """Phase 11 (a): each zoo model with c16_r50's encoder injected, at
-    full width, batch 1: Engine.evaluate on bags of ZOO_BAGS patches (every
-    batch through K1, K3, K5, K8 and no other kernel; probabilities against
-    the CPU), Engine.train_epoch with dropout on (every step through K1-K9
-    and no other), two dropout-off steps against the CPU in f32 and with
-    bf16 products (losses, first-step gradients, parameters within Adam's
-    drift bound; every card step through K1-K9), and the same bits from a
-    second forward and backward."""
-    import dataclasses
+def zoo_datasets():
+    """(ds, cpu_ds): bags of ZOO_BAGS patches (labels alternating) and the
+    first two of them (labels 1, 0), at input width 1024."""
     from rrtmil_tpu_torch.data.datasets import ArrayDataset
-    from rrtmil_tpu_torch.train.engine import Engine
     rng = np.random.default_rng(11)
     bags = [rng.standard_normal((n, 1024), dtype=np.float32)
             for n in ZOO_BAGS]
     ds = ArrayDataset(bags, [i % 2 for i in range(len(bags))])
     cpu_ds = ArrayDataset(bags[:len(ZOO_CPU_BAGS)], [1, 0])
     assert tuple(b.shape[0] for b in cpu_ds._bags) == ZOO_CPU_BAGS
-    report = {}
-    for name in ZOO_MODELS:
-        t0 = time.perf_counter()
-        rec = report[name] = {}
-        model, enc = zoo_model(name, dev)
-        engine = counting(Engine)(model, _zoo_engine_cfg(name), enc,
-                                  device=dev)
-        reset_counters()
-        torch.cuda.synchronize()
-        probs, labs, loss = engine.evaluate(ds)
-        rec["eval_launches"] = launches_now()
-        check_launches(engine.records["eval"], C16_EVAL, f"{name} evaluate",
-                       len(ds))
-        cpu = zoo_model(name, "cpu")[0]
-        cpu.load_state_dict({k: v.cpu() for k, v in
-                             model.state_dict().items()})
-        probs_c, labs_c, loss_c = Engine(cpu, _zoo_engine_cfg(name), enc,
-                                         device="cpu").evaluate(ds)
-        diff = float(np.abs(probs - probs_c).max())
-        if not (np.isfinite(probs).all() and probs.shape == (len(ds),)) or \
-                diff > PROB_TOL or abs(loss - loss_c) > PROB_TOL or \
-                not np.array_equal(labs, labs_c):
-            raise AssertionError(f"{name}: card and CPU evaluate disagree "
-                                 f"({diff:.3e})")
-        rec.update(max_prob_diff=diff, loss=loss, loss_cpu=loss_c)
-
-        reset_counters()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        train_loss = engine.train_epoch(ds, 0, order=list(range(len(ds))))
-        torch.cuda.synchronize()
-        rec["train_seconds"] = time.perf_counter() - t1
-        rec["launches"] = launches_now()
-        check_launches(engine.records["train"], C16_TRAIN, f"{name} train",
-                       len(ds))
-        if not np.isfinite(train_loss) or not all(
-                torch.isfinite(p).all() for p in model.parameters()):
-            raise AssertionError(f"{name}: the train epoch is not finite")
-        rec["train_loss"] = train_loss
-        rec["bits_checked_tensors"] = _zoo_step_bits(
-            name, model.eval(), cpu_ds, dev, enc)
-        del engine, model, cpu
-        rec["vs_cpu"] = _zoo_train_vs_cpu(name, dev, cpu_ds)
-        rec["seconds"] = time.perf_counter() - t0
-        log(f"[11] {name}: evaluate on {ZOO_BAGS} max |probs card - cpu| "
-            f"{diff:.3e}, train epoch (dropout on) loss {train_loss:.6f} in "
-            f"{rec['train_seconds']:.2f} s, second forward and backward the "
-            f"same bits ({rec['bits_checked_tensors']} gradients), "
-            f"{rec['seconds']:.1f} s")
-        torch.cuda.empty_cache()
-    return report
+    return ds, cpu_ds
 
 
-def _zoo_train_vs_cpu(name, dev, ds):
-    """Two dropout-off steps of `name` on `ds` (batch 1) on the card and
-    on the CPU from the same weights, f32 products (TF32 off) and bf16:
-    the losses, the first step's gradients (but the stem's, ZOO_STEM) and
-    every parameter after both steps within Adam's drift bound."""
+def zoo_model_checks(name, dev, ds, cpu_ds, confounders=None, ph="11"):
+    """One zoo model with c16_r50's encoder injected (and IBMIL's
+    `confounders`), at full width, batch 1: Engine.evaluate on `ds` (every
+    batch through K1, K3, K5, K8 and no other kernel; probabilities against
+    the CPU), Engine.train_epoch with dropout on (every step through K1-K9
+    and no other), two dropout-off steps on `cpu_ds` against the CPU in f32
+    and with bf16 products (losses, first-step gradients, parameters within
+    Adam's drift bound; every card step through K1-K9), and the same bits
+    from a second forward and backward."""
+    from rrtmil_tpu_torch.train.engine import Engine
+    t0 = time.perf_counter()
+    rec = {}
+    model, enc = zoo_model(name, dev, confounders=confounders)
+    engine = counting(Engine)(model, _zoo_engine_cfg(name), enc, device=dev)
+    reset_counters()
+    torch.cuda.synchronize()
+    probs, labs, loss = engine.evaluate(ds)
+    rec["eval_launches"] = launches_now()
+    check_launches(engine.records["eval"], C16_EVAL, f"{name} evaluate",
+                   len(ds))
+    cpu = zoo_model(name, "cpu", confounders=confounders)[0]
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    probs_c, labs_c, loss_c = Engine(cpu, _zoo_engine_cfg(name), enc,
+                                     device="cpu").evaluate(ds)
+    diff = float(np.abs(probs - probs_c).max())
+    if not (np.isfinite(probs).all() and probs.shape == (len(ds),)) or \
+            diff > PROB_TOL or abs(loss - loss_c) > PROB_TOL or \
+            not np.array_equal(labs, labs_c):
+        raise AssertionError(f"{name}: card and CPU evaluate disagree "
+                             f"({diff:.3e})")
+    rec.update(max_prob_diff=diff, loss=loss, loss_cpu=loss_c)
+
+    reset_counters()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    train_loss = engine.train_epoch(ds, 0, order=list(range(len(ds))))
+    torch.cuda.synchronize()
+    rec["train_seconds"] = time.perf_counter() - t1
+    rec["launches"] = launches_now()
+    check_launches(engine.records["train"], C16_TRAIN, f"{name} train",
+                   len(ds))
+    if not np.isfinite(train_loss) or not all(
+            torch.isfinite(p).all() for p in model.parameters()):
+        raise AssertionError(f"{name}: the train epoch is not finite")
+    rec["train_loss"] = train_loss
+    rec["bits_checked_tensors"] = _zoo_step_bits(
+        name, model.eval(), cpu_ds, dev, enc)
+    del engine, model, cpu
+    rec["vs_cpu"] = _zoo_train_vs_cpu(name, dev, cpu_ds, confounders, ph)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[{ph}] {name}: evaluate on {ZOO_BAGS} max |probs card - cpu| "
+        f"{diff:.3e}, train epoch (dropout on) loss {train_loss:.6f} in "
+        f"{rec['train_seconds']:.2f} s, second forward and backward the "
+        f"same bits ({rec['bits_checked_tensors']} gradients), "
+        f"{rec['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_zoo_models(dev):
+    """Phase 11 (a): zoo_model_checks for each of ZOO_MODELS."""
+    ds, cpu_ds = zoo_datasets()
+    return {name: zoo_model_checks(name, dev, ds, cpu_ds)
+            for name in ZOO_MODELS}
+
+
+def _zoo_train_vs_cpu(name, dev, ds, confounders=None, ph="11"):
+    """train_steps_vs_cpu of zoo model `name` (c16_r50's encoder, IBMIL's
+    `confounders`): every card step through K1-K9."""
+    return train_steps_vs_cpu(
+        lambda d, mm: zoo_model(name, d, dropout=False, mm_dtype=mm,
+                                confounders=confounders),
+        _zoo_engine_cfg(name), ds, dev, name, ph, C16_TRAIN)
+
+
+def train_steps_vs_cpu(make, ecfg, ds, dev, tag, ph, expect,
+                       tols=(("float32", TOL[torch.float32]),
+                             ("bfloat16", TOL[torch.bfloat16]))):
+    """Two dropout-off steps on `ds` (its bags 0 and 1, batch 1) of the
+    model `make(device, mm_dtype)` returns (with its encoder config) on the
+    card and on the CPU from the same weights, for each (products dtype,
+    tolerance) of `tols` (TF32 off): every card step through the kernels
+    of `expect` and no other, the losses and the first step's gradients
+    (but the stem's, ZOO_STEM, and the noise-only ZOO_NOISE_PARAMS) within
+    the tolerance, every parameter after both steps within Adam's drift
+    bound."""
     from rrtmil_tpu_torch.train.engine import Engine
     out = {}
-    for mm in ("float32", "bfloat16"):
-        tol = TOL[torch.float32 if mm == "float32" else torch.bfloat16]
+    for mm, tol in tols:
         runs = {}
         state = None
         for key, d in (("card", dev), ("cpu", "cpu")):
@@ -2205,22 +2255,21 @@ def _zoo_train_vs_cpu(name, dev, ds):
                                         if p.grad is not None}
                     super()._apply_grads(lr)
 
-            model, enc = zoo_model(name, d, dropout=False, mm_dtype=mm)
+            model, enc = make(d, mm)
             if state is None:
                 state = {k: v.detach().cpu().clone()
                          for k, v in model.state_dict().items()}
             model.load_state_dict(state)
-            ecfg = _zoo_engine_cfg(name)
             Recording(model, ecfg, enc, device=d).train_epoch(
                 ds, 0, order=[0, 1])
             rec["params"] = {n: p.detach().float().cpu()
                              for n, p in model.named_parameters()}
             runs[key] = rec
         card, cpu = runs["card"], runs["cpu"]
-        check_launches(card["steps"], C16_TRAIN, f"{name} train ({mm})", 2)
+        check_launches(card["steps"], expect, f"{tag} train ({mm})", 2)
         dloss = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
         if card["grads"].keys() != cpu["grads"].keys():
-            raise AssertionError(f"{name}: other parameters have gradients")
+            raise AssertionError(f"{tag}: other parameters have gradients")
         dgrad = max((card["grads"][n] - g).abs().max().item()
                     / max(1.0, g.abs().max().item())
                     for n, g in cpu["grads"].items()
@@ -2231,14 +2280,14 @@ def _zoo_train_vs_cpu(name, dev, ds):
             1e-3 if mm == "float32" else None)
         ok = dloss <= tol * max(1.0, max(map(abs, cpu["losses"]))) \
             and dgrad <= tol and ok_p
-        log(f"[11] {name} train card vs CPU, dropout off, {mm} products: "
+        log(f"[{ph}] {tag} train card vs CPU, dropout off, {mm} products: "
             f"losses {np.round(card['losses'], 6).tolist()} vs "
             f"{np.round(cpu['losses'], 6).tolist()} (max diff {dloss:.3e}); "
             f"first-step grads scaled {dgrad:.3e} (tol {tol:.0e}); params "
             f"after 2 steps max diff {dparam:.3e}, share past 1e-5 "
             f"{frac:.2e} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"{name} train steps on the card and the "
+            raise AssertionError(f"{tag} train steps on the card and the "
                                  f"CPU disagree ({mm} products)")
         out[mm] = {"loss_diff": dloss, "grad_scaled_err": dgrad,
                    "param_max_diff": dparam, "param_share_past": frac,
@@ -2462,6 +2511,386 @@ def phase_zoo(dev):
     report.update(phase_zoo_cli(dev))
     report["seconds"] = time.perf_counter() - t0
     log(f"[11] phase 11: {report['seconds']:.1f} s")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# slice 12: TransMIL, IBMIL and the encoder's variants
+# ---------------------------------------------------------------------------
+
+TRANSMIL_BAGS = (937, 2213, 9000, 30000)
+TRANSMIL_TIMED = (9000, 50000)   # forward / train step, survival step
+# TransMIL card vs CPU, float32 with TF32 off: six Newton iterations of the
+# pseudo-inverse in each Nystrom layer amplify the two sides' rounding, yet
+# on an H100 the two dropout-off steps' losses differed by 4.8e-7 and the
+# first step's gradients by 4.9e-7 (scaled), so f32's 1e-4 holds
+TRANSMIL_TOL = 1e-4
+NO_KERNEL = []
+# Nystrom in the R-MSA layers (`--region_attn ntrans`, `--attn ntrans`):
+# torch ops there, so only the CR-MSA layer's kernels run
+NTRANS_EVAL = [K[2], K[4], K[7]]          # K3, K5, K8
+NTRANS_TRAIN = K[2:9]                     # K3-K9
+# phase 12 (c): c16_r50 with each encoder variant: (tag, encoder fields,
+# evaluate kernels, train kernels); a `pos` is (kind, pos_pos)
+ENC_VARIANTS = (
+    ("pos_ppeg", {"pos": ("ppeg", -1)}, C16_EVAL, C16_TRAIN),
+    ("pos_peg", {"pos": ("peg", -1)}, C16_EVAL, C16_TRAIN),
+    ("pos_sincos", {"pos": ("sincos", -1)}, C16_EVAL, C16_TRAIN),
+    ("pos_ape", {"pos": ("ape", -1)}, C16_EVAL, C16_TRAIN),
+    ("pos_ppeg_3_layers", {"pos": ("ppeg", 0), "n_layers": 3}, C16_EVAL,
+     C16_TRAIN),
+    ("region_ntrans", {"region_attn": "ntrans"}, NTRANS_EVAL, NTRANS_TRAIN),
+    ("attn_ntrans", {"attn_mode": "ntrans"}, NTRANS_EVAL, NTRANS_TRAIN),
+)
+VARIANT_BAGS = (937, 9000)
+VARIANT_TRAIN_BAGS = (937, 2213, 9000, 9000)
+# phase 12 (f): a survival set on which most folds save weights (four
+# validation cases a fold), 20 cases of 937-9000 patches
+RESUME_LENGTHS = tuple(int(v) for v in np.linspace(937, 9000, 20))
+CONFOUNDER_K = 4
+
+
+def transmil_model(dev, dropout=True, seed=0):
+    """TransMIL at full width (input 1024), seeded; `dropout=False` turns
+    off fc1's dropout and the Nystrom layers' fixed 0.1."""
+    from rrtmil_tpu_torch.models import zoo
+    from rrtmil_tpu_torch.models.nystrom import NystromAttention
+    model = zoo.build_model("transmil", input_dim=1024,
+                            dropout=0.25 if dropout else 0.0, device=dev,
+                            seed=seed)
+    if not dropout:
+        for m in model.modules():
+            if isinstance(m, NystromAttention):
+                m.p = 0.0
+    return model
+
+
+def phase_transmil(dev):
+    """Phase 12 (a): TransMIL at full width through the engine's exact mode
+    (batch 1, each bag at its true length): Engine.evaluate on bags of
+    TRANSMIL_BAGS patches and a dropout-on train_epoch, launching no kernel
+    (every counter stays 0); the probabilities against the CPU; two
+    dropout-off steps against the CPU (float32, TF32 off, TRANSMIL_TOL); a
+    second forward of the same bits; forward and train ms at L = 9000 and a
+    survival step (TransMIL under SurvivalHead, the bucket's repr_length as
+    the JAX package passes it) at L = 50000, B = 1."""
+    from rrtmil_tpu_torch.data.datasets import ArrayDataset
+    from rrtmil_tpu_torch.harness.survival import build_survival_model
+    from rrtmil_tpu_torch.train.engine import Engine, EngineConfig
+    from rrtmil_tpu_torch.train.surv_engine import (SurvivalEngine,
+                                                    SurvivalEngineConfig)
+    rng = np.random.default_rng(12)
+    bags = [rng.standard_normal((n, 1024), dtype=np.float32)
+            for n in TRANSMIL_BAGS]
+    ds = ArrayDataset(bags, [i % 2 for i in range(len(bags))])
+    ecfg = EngineConfig(exact=True)
+    rep = {}
+    model = transmil_model(dev)
+
+    def tokens(eng, x, *a):
+        return {"tokens": int(x.shape[1])}
+    engine = counting(Engine, tokens)(model, ecfg, device=dev)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probs, labs, loss = engine.evaluate(ds)
+    rep["eval_seconds"] = time.perf_counter() - t0
+    rep["eval_launches"] = launches_now()
+    check_launches(engine.records["eval"], NO_KERNEL, "transmil evaluate",
+                   len(ds))
+    if [r["tokens"] for r in engine.records["eval"]] != list(TRANSMIL_BAGS):
+        raise AssertionError("transmil evaluate: bags not at their length")
+    cpu = transmil_model("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    probs_c, labs_c, loss_c = Engine(cpu, ecfg, device="cpu").evaluate(ds)
+    cpu_secs = time.perf_counter() - t0
+    diff = float(np.abs(probs - probs_c).max())
+    log(f"[12] transmil Engine.evaluate (exact mode) on {TRANSMIL_BAGS}: "
+        f"{rep['eval_seconds']:.2f} s (CPU {cpu_secs:.1f} s), launches "
+        f"{sum(rep['eval_launches'].values())}, max |probs card - cpu| "
+        f"{diff:.3e}, mean loss {loss:.6f} vs {loss_c:.6f}")
+    if not (np.isfinite(probs).all() and probs.shape == (len(ds),)) or \
+            diff > PROB_TOL or abs(loss - loss_c) > PROB_TOL or \
+            not np.array_equal(labs, labs_c):
+        raise AssertionError("transmil: card and CPU evaluate disagree")
+    rep.update(max_prob_diff=diff, loss=loss, loss_cpu=loss_c)
+
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_loss = engine.train_epoch(ds, 0, order=list(range(len(ds))))
+    torch.cuda.synchronize()
+    rep["train_seconds"] = time.perf_counter() - t0
+    rep["launches"] = launches_now()
+    check_launches(engine.records["train"], NO_KERNEL, "transmil train",
+                   len(ds))
+    if not np.isfinite(train_loss) or not all(
+            torch.isfinite(p).all() for p in model.parameters()):
+        raise AssertionError("transmil: the train epoch is not finite")
+    rep["train_loss"] = train_loss
+    model.eval()
+    x = torch.from_numpy(bags[2][None]).to(dev)
+    with torch.no_grad():
+        a, b = model(x), model(x)
+    if not torch.equal(a, b):
+        raise AssertionError("transmil: a second forward gave other bits")
+    log(f"[12] transmil train epoch (dropout on): loss {train_loss:.6f} in "
+        f"{rep['train_seconds']:.2f} s, launches "
+        f"{sum(rep['launches'].values())}; a second forward the same bits")
+    del engine, cpu
+    rep["vs_cpu"] = train_steps_vs_cpu(
+        lambda d, mm: (transmil_model(d, dropout=False), None), ecfg,
+        ArrayDataset(bags[:2], [1, 0]), dev, "transmil", "12", NO_KERNEL,
+        tols=(("float32", TRANSMIL_TOL),))
+
+    # times: forward and train step at L = 9000, a survival step at 50000
+    n, n_surv = TRANSMIL_TIMED
+    x = torch.from_numpy(rng.standard_normal((1, n, 1024),
+                                             dtype=np.float32)).to(dev)
+    mask = torch.ones((1, n), dtype=torch.bool, device=dev)
+    labels = torch.tensor([1], device=dev)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: model(x, length=n), iters=10, warmup=2)
+    eng = Engine(model, EngineConfig(exact=True), device=dev)
+    eng.model.train()
+
+    def step():
+        eng._train_step(x, mask, labels, n)
+        eng._apply_grads(eng.cfg.lr)
+    train_ms = time_ms(step, iters=5, warmup=2)
+    del eng, model
+    torch.cuda.empty_cache()
+    head, enc16 = build_survival_model("TransMIL", 1024, device=dev)
+    surv = SurvivalEngine(head, SurvivalEngineConfig(), enc16, device=dev)
+    surv.model.train()
+    bag = _randn((n_surv, 1024), _gen(n_surv)).numpy()
+    sx, smask, spec = surv._prep(bag)
+    label, cens = torch.tensor([1], device=dev), torch.tensor([0.0],
+                                                              device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    surv_ms = time_ms(lambda: surv._train_step(sx, smask, label, cens,
+                                               spec.repr_length),
+                      iters=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rep["times"] = {"length": n, "forward_ms": fwd_ms, "train_ms": train_ms,
+                    "survival_length": n_surv, "survival_step_ms": surv_ms,
+                    "survival_tokens": spec.repr_length,
+                    "survival_peak_mem_gib": peak}
+    log(f"[12] transmil L={n} B=1: forward {fwd_ms:.3f} ms "
+        f"({1e3 / fwd_ms:.2f} slides/s), train step {train_ms:.3f} ms; "
+        f"survival train step at L={n_surv} ({spec.repr_length} rows: the "
+        f"bucket's repr_length) {surv_ms:.3f} ms, peak {peak:.2f} GiB "
+        f"({nvidia_smi_line()})")
+    del surv
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_transmil_ibmil_cli(dev, tmp):
+    """Phase 12 (d) and (b): on phase 9's 12 synthetic bags in `tmp`, 2
+    folds x 2 epochs: `rrtmil_tpu_torch.main --model transmil` launches no
+    kernel and never touches the device cache; `python -m
+    rrtmil_tpu_torch.build_confounders` (in this process, AB-MIL: no
+    kernel) writes each fold's prototypes on the card; (b) IBMIL with
+    c16_r50's encoder and fold 0's prototypes through zoo_model_checks;
+    `--model ibmil --only_rrt_enc --confounder_path` launches K1-K9 and no
+    other kernel, the second epoch all from the device cache."""
+    from rrtmil_tpu_torch import build_confounders
+    from rrtmil_tpu_torch.harness import classification
+    report = {}
+    root = os.path.join(tmp, "c16")
+    patches = write_cli_data(root, False, 1024, 0)
+    log(f"[12] wrote {CLI_BAGS} bags ({patches} patches)")
+
+    def run(tag, args, expect, cached):
+        stats = []
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = run_cli(args + CLI_RUN + CLI_C16 + [
+            "--dataset_root", root, "--model_path", os.path.join(tmp, "out"),
+            "--title", tag], stats)
+        secs = time.perf_counter() - t0
+        launches = launches_now()
+        ran = [n for n, v in launches.items() if v]
+        summary = {e: epoch_summary(stats, e) for e in (0, 1)}
+        log(f"[12] {tag}: {secs:.1f} s, test AUC {metrics['auc']}, "
+            f"launches {launches}")
+        if ran != expect:
+            raise AssertionError(f"{tag} ran {ran}, not {expect}")
+        for e, summ in summary.items():
+            for k, r in summ.items():
+                hits = r["cache_hits"] + r["cache_misses"]
+                if (cached and e == 1 and (r["cache_misses"] or
+                                           r["cache_hits"] != r["bags"])) \
+                        or (not cached and hits):
+                    raise AssertionError(f"{tag}: epoch {e} {k} cache "
+                                         f"{r}")
+        if not all(np.isfinite(metrics[k]).all() for k in metrics):
+            raise AssertionError(f"{tag}: metrics {metrics}")
+        for e, what in ((0, "first"), (1, "cached" if cached else "second")):
+            tr, ev = summary[e]["train"], summary[e]["eval"]
+            log(f"[12] {tag} {what} epoch: train {tr['seconds']:.3f} s "
+                f"({tr['slides_per_s']:.2f} slides/s), eval "
+                f"{ev['seconds']:.3f} s ({ev['slides_per_s']:.2f} slides/s)"
+                f", cache {tr['cache_hits'] + ev['cache_hits']} hits")
+        return {"seconds": secs, "launches": launches, "metrics": metrics,
+                "epochs": summary}
+
+    report["transmil"] = run("transmil", ["--model", "transmil"], NO_KERNEL,
+                             False)
+    conf_dir = os.path.join(tmp, "conf")
+    reset_counters()
+    t0 = time.perf_counter()
+    paths = build_confounders.main(CLI_RUN + CLI_C16 + [
+        "--dataset_root", root, "--model_path", os.path.join(tmp, "out"),
+        "--title", "confounders", "--confounder_out", conf_dir,
+        "--confounder_epochs", "2", "--confounder_k", str(CONFOUNDER_K)])
+    secs = time.perf_counter() - t0
+    protos = [np.load(p) for p in paths]
+    args = types.SimpleNamespace(confounder_path=conf_dir,
+                                 confounder_k=CONFOUNDER_K)
+    log(f"[12] python -m rrtmil_tpu_torch.build_confounders: {secs:.1f} s, "
+        f"wrote {paths}, launches {sum(launches_now().values())}")
+    if any(launches_now().values()) or paths != [
+            classification.confounder_file(args, f) for f in range(2)] or \
+            not all(p.shape == (CONFOUNDER_K, 512) and np.isfinite(p).all()
+                    for p in protos):
+        raise AssertionError("build_confounders failed")
+    report["build_confounders"] = {"seconds": secs, "paths": paths}
+
+    ds, cpu_ds = zoo_datasets()
+    report["ibmil_models"] = zoo_model_checks("ibmil", dev, ds, cpu_ds,
+                                              protos[0], ph="12")
+    report["ibmil"] = run("ibmil", [
+        "--model", "ibmil", "--only_rrt_enc", "--confounder_path", conf_dir,
+        "--confounder_k", str(CONFOUNDER_K)], C16_TRAIN, True)
+    return report
+
+
+def phase_variants(dev):
+    """Phase 12 (c): c16_r50 with each encoder variant of ENC_VARIANTS, the
+    three checks of phase 3: Engine.evaluate on VARIANT_BAGS against the
+    CPU, a dropout-on train_epoch on VARIANT_TRAIN_BAGS, two dropout-off
+    steps against the CPU (f32 and bf16 products; Nystrom inside the
+    regions in f32 alone, its CPU side taking ~12 s a step), each batch and
+    step through its kernels and no other."""
+    import dataclasses
+    from rrtmil_tpu_torch.config import PosEmbedConfig, c16_r50
+    out = {}
+    base = c16_r50()
+    for tag, fields, ev, tr in ENC_VARIANTS:
+        t0 = time.perf_counter()
+        fields = dict(fields)
+        if "pos" in fields:
+            kind, pos_pos = fields["pos"]
+            fields["pos"] = PosEmbedConfig(kind=kind, pos_pos=pos_pos)
+        cfg = dataclasses.replace(base, encoder=dataclasses.replace(
+            base.encoder, **fields))
+        out[tag] = {
+            "evaluate": phase_main_path(dev, cfg, VARIANT_BAGS, tag, "12",
+                                        ev),
+            "train": phase_train(dev, cfg, VARIANT_TRAIN_BAGS, tag, "12", tr),
+            "train_vs_cpu": phase_train_vs_cpu(
+                dev, cfg, tag, "12", tr,
+                ("float32",) if tag == "region_ntrans"
+                else ("float32", "bfloat16"))}
+        out[tag]["seconds"] = time.perf_counter() - t0
+        log(f"[12] {tag}: {out[tag]['seconds']:.1f} s")
+    return out
+
+
+def phase_survival_transmil_ibmil(dev, tmp):
+    """Phase 12 (e) and (f): (e) the survival CLI's TransMIL and IBMIL on
+    phase 10's set (up to 50000 patches), 5 folds x 1 epoch, launching no
+    kernel; (f) RRTMIL and TransMIL, 5 folds x 2 epochs, on RESUME_LENGTHS'
+    20 cases, then --evaluate --resume: every fold that saved weights (at
+    least two) reproduces its best c-index and validation loss exactly."""
+    report = {}
+    t0 = time.perf_counter()
+    csv_file, patches = write_survival_data(os.path.join(tmp, "surv"))
+    log(f"[12] wrote phase 10's survival set ({patches} patches) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def run(tag, flags, csv, epochs):
+        records = []
+        out = os.path.join(tmp, "s_" + tag)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meter = run_survival_cli(
+            ["--num_epoch", str(epochs), "--seed", "1", "--input_dim",
+             "1024", "--excel_file", csv, "--results_dir", out, "--device",
+             str(dev)] + flags, records)
+        secs = time.perf_counter() - t0
+        launches = launches_now()
+        if len(records) != 5 or not all(np.isfinite(v)
+                                        for v in meter.cindex[1:]):
+            raise AssertionError(f"survival {tag}: c-index {meter.cindex}")
+        log(f"[12] survival {tag}: {secs:.1f} s")
+        return {"seconds": secs, "launches": launches,
+                "cindex": meter.cindex[1:], "records": records}, out
+
+    for name in ("TransMIL", "IBMIL"):
+        rep, _ = run(name, ["--model", name], csv_file, 1)
+        tr = survival_epoch_summary(rep["records"], 0, "train")
+        va = survival_epoch_summary(rep["records"], 0, "val")
+        log(f"[12] survival {name}: {rep['seconds']:.1f} s, c-index by fold "
+            f"{rep['cindex'][:5]}, train {tr['bags_per_s']:.2f} bags/s, "
+            f"validation {va['bags_per_s']:.2f} bags/s (first epoch), "
+            f"launches {sum(rep['launches'].values())}")
+        if any(rep["launches"].values()):
+            raise AssertionError(f"survival {name} launched "
+                                 f"{rep['launches']}")
+        report[name] = {"seconds": rep["seconds"], "cindex": rep["cindex"],
+                        "train": tr, "val": va, "launches": rep["launches"]}
+
+    t0 = time.perf_counter()
+    csv20, patches = write_survival_data(os.path.join(tmp, "surv20"),
+                                         lengths=RESUME_LENGTHS, seed=5)
+    log(f"[12] wrote {len(RESUME_LENGTHS)} survival cases ({patches} "
+        f"patches) in {time.perf_counter() - t0:.1f} s")
+    for name in ("RRTMIL", "TransMIL"):
+        rep, out = run(name + "_resume", ["--model", name], csv20, 2)
+        ev, _ = run(name + "_evaluate", ["--model", name, "--evaluate",
+                                         "--resume", out], csv20, 1)
+        saved = [bool(os.listdir(os.path.join(out, f"fold_{k}")))
+                 for k in range(5)]
+        best = [f["best"] for f in rep["records"]]
+        best_loss = [[r["loss"] for r in f["epochs"] if r["kind"] == "val"
+                      and r["epoch"] == f["best"][1]][0]
+                     for f in rep["records"]]
+        got = [(f["val_ci"][0], f["epochs"][0]["loss"])
+               for f in ev["records"]]
+        log(f"[12] {name} --evaluate --resume: (c-index, loss) by fold "
+            f"{got} against the run's best {[b[0] for b in best]} and "
+            f"losses {best_loss}; weights saved for folds "
+            f"{[k for k in range(5) if saved[k]]}")
+        if sum(saved) < 2 or any(
+                s and g != (b[0], bl)
+                for s, g, b, bl in zip(saved, got, best, best_loss)):
+            raise AssertionError(f"{name}: --evaluate --resume does not "
+                                 f"reproduce every saved fold")
+        report[name + "_evaluate_resume"] = {
+            "saved": saved, "best": best, "best_loss": best_loss,
+            "evaluate": got, "train_launches": rep["launches"],
+            "launches": ev["launches"]}
+    return report
+
+
+def phase_slice12(dev):
+    """Phase 12: TransMIL, IBMIL and the encoder's variants."""
+    import tempfile
+    t0 = time.perf_counter()
+    report = {"transmil": phase_transmil(dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        report["cli"] = phase_transmil_ibmil_cli(dev, tmp)
+    report["variants"] = phase_variants(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        report["survival"] = phase_survival_transmil_ibmil(dev, tmp)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[12] phase 12: {report['seconds']:.1f} s")
     return report
 
 
@@ -3450,6 +3879,7 @@ def main():
         report["cli"] = phase_cli(dev)
         report["survival_cli"] = phase_survival_cli(dev)
         report["zoo"] = phase_zoo(dev)
+        report["slice12"] = phase_slice12(dev)
         report["times"] = phase_times_products(dev, phase_times_pairs(
             dev, phase_times_slice3(dev, phase_times(dev))))
         report["throughput"] = phase_throughput(dev)
@@ -3510,6 +3940,24 @@ def main():
     for name in ZOO_SURVIVAL:
         paths[f"cli_survival_zoo_{name}"] = zoo_rep.get(
             "survival_cli", {}).get(name, {})
+    s12 = report.get("slice12", {})
+    tm = s12.get("transmil", {})
+    paths["transmil_evaluate"] = {"launches": tm.get("eval_launches", {})}
+    paths["transmil_train_epoch"] = tm
+    ib = s12.get("cli", {}).get("ibmil_models", {})
+    paths["ibmil_evaluate"] = {"launches": ib.get("eval_launches", {})}
+    paths["ibmil_train_epoch"] = ib
+    for run in ("transmil", "ibmil"):
+        paths[f"cli_{run}"] = s12.get("cli", {}).get(run, {})
+    for tag, *_ in ENC_VARIANTS:
+        rec = s12.get("variants", {}).get(tag, {})
+        paths[f"{tag}_evaluate"] = rec.get("evaluate", {})
+        paths[f"{tag}_train_epoch"] = rec.get("train", {})
+    for name in ("TransMIL", "IBMIL"):
+        paths[f"cli_survival_{name}"] = s12.get("survival", {}).get(name, {})
+    for name in ("RRTMIL", "TransMIL"):
+        paths[f"cli_survival_{name}_evaluate_resume"] = s12.get(
+            "survival", {}).get(f"{name}_evaluate_resume", {})
     own = {n: "train_epoch" for n in C16_TRAIN}
     own.update({K[9]: "ffn_train_epoch", K[10]: "ffn_train_epoch",
                 K[11]: "survival_train_epoch", K[12]: "survival_train_epoch"})

@@ -5,11 +5,15 @@ main.py:23-413): seeded patient shuffle and stratified k-fold, per-fold
 training with validation, early stopping on -AUC, the optional per-epoch
 test (`always_test`), best-AUC weights, the rolling full-resume checkpoint
 (every RNG stream included) and the cross-validation summary.  Models:
-rrtmil and the zoo's attmil, gattmil, clam_sb, clam_mb, dsmil, meanmil and
-maxmil, with `--only_rrt_enc` injecting the RRT encoder into the zoo's
-(classification.py:68-81; CLAM's subtyping is on unless the dataset is
-camelyon16), the loss weights and batch size 1 the reference forces on
-CLAM and DSMIL, DSMIL's `--ds_average` and `--dsmil_init` warm start.
+rrtmil and the zoo's attmil, gattmil, clam_sb, clam_mb, dsmil, transmil,
+meanmil, maxmil and ibmil, with `--only_rrt_enc` injecting the RRT encoder
+into the zoo's but TransMIL's (classification.py:68-81; CLAM's subtyping
+is on unless the dataset is camelyon16), the loss weights and batch size 1
+the reference forces on CLAM and DSMIL, DSMIL's `--ds_average` and
+`--dsmil_init` warm start, TransMIL on the engine's exact mode
+(classification.py:103) and IBMIL's per-fold confounder prototypes from
+`--confounder_path` (classification.py:155-171; written by `python -m
+rrtmil_tpu_torch.build_confounders`).
 
 Random streams, as in the JAX package: every fold initialises the model
 from `args.seed`; the engine's numpy `_rng` starts from `args.seed` and
@@ -99,11 +103,12 @@ def model_config_from_args(args) -> RRTMILConfig:
         pool=PoolConfig(kind=args.pool, act=args.da_act))
 
 
-def build_model_from_args(args, device="cuda"):
+def build_model_from_args(args, device="cuda", confounders=None):
     """(model, the encoder config that buckets the bags)
     (classification.py:68-81): rrtmil from its config; a zoo model with
     the encoder injected under --only_rrt_enc, CLAM's subtyping on unless
-    the dataset is camelyon16; seeded from `args.seed` on every fold."""
+    the dataset is camelyon16, IBMIL's `confounders`; seeded from
+    `args.seed` on every fold."""
     if args.model == "rrtmil":
         cfg = model_config_from_args(args)
         return build_model(cfg, device=device, seed=args.seed), cfg.encoder
@@ -112,9 +117,20 @@ def build_model_from_args(args, device="cuda"):
         args.model, input_dim=args.input_dim, n_classes=args.n_classes,
         dropout=args.dropout, act=args.act,
         rrt_cfg=enc if args.only_rrt_enc else None,
-        subtyping=args.datasets.lower() != "camelyon16", device=device,
-        seed=args.seed)
+        subtyping=args.datasets.lower() != "camelyon16",
+        confounders=confounders, device=device, seed=args.seed)
     return model, enc
+
+
+def confounder_file(args, fold: int) -> str:
+    """IBMIL's prototypes for `fold` (classification.py:155-171, reference
+    main.py:197-202): `--confounder_path` itself when it names a .npy, else
+    {path}/{fold}/train_bag_cls_agnostic_feats_proto_{k}.npy."""
+    path = args.confounder_path
+    if path.endswith(".npy"):
+        return path
+    return os.path.join(path, str(fold), f"train_bag_cls_agnostic_feats_"
+                                         f"proto_{args.confounder_k}.npy")
 
 
 def engine_config_from_args(args) -> EngineConfig:
@@ -135,6 +151,7 @@ def engine_config_from_args(args) -> EngineConfig:
         n_classes=args.n_classes, cls_alpha=cls_alpha, aux_alpha=aux_alpha,
         aux_mode=aux_mode,
         ds_average=args.model == "dsmil" and args.ds_average,
+        exact=args.model == "transmil",
         accumulation_steps=args.accumulation_steps,
         clip_grad=args.clip_grad, patch_shuffle=args.patch_shuffle,
         group_shuffle=args.group_shuffle, shuffle_group=args.shuffle_group,
@@ -170,7 +187,13 @@ def one_fold(args, fold: int, splits, metrics: Dict[str, List[float]],
              logger: Logger, resume_payload: Optional[Dict] = None):
     """Train, validate and test one fold (reference main.py:98-413)."""
     train_set, val_set, test_set = _make_datasets(args, fold, splits)
-    model, enc = build_model_from_args(args, device=args.device)
+    if args.model == "ibmil" and args.confounder_path:
+        path = confounder_file(args, fold)
+        model, enc = build_model_from_args(args, device=args.device,
+                                           confounders=np.load(path))
+        logger.print(f"ibmil confounders loaded from {path}")
+    else:
+        model, enc = build_model_from_args(args, device=args.device)
     engine = Engine(model, engine_config_from_args(args), enc,
                     device=args.device)
     engine.logger = logger

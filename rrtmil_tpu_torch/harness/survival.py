@@ -11,9 +11,12 @@ Every fold builds its model from `args.seed` (the JAX package initialises
 each fold from PRNGKey(seed)); the engine's numpy order stream and its
 torch.Generator (the dropout masks) start from the same seed.  Ported
 models, each wrapped in `SurvivalHead`: RRTMIL, MeanMIL, MaxMIL, AttMIL,
-CLAM_SB, CLAM_MB and DSMIL (the zoo's without an encoder, at dropout 0.25,
-as the JAX package builds them; CLAM without subtyping or instance loss,
-DSMIL's bag logits).
+CLAM_SB, CLAM_MB, DSMIL, TransMIL and IBMIL (the zoo's without an encoder,
+at dropout 0.25, as the JAX package builds them; CLAM without subtyping or
+instance loss, DSMIL's bag logits, TransMIL's cls token at std 1e-6,
+IBMIL without confounders).  TransMIL sees the bucket's `repr_length`
+rows, zero rows included, not the bag's true length: the JAX survival
+engine passes it so (surv_engine.py:181,206), and the port keeps it.
 """
 from __future__ import annotations
 
@@ -94,10 +97,12 @@ def build_survival_model(name: str, n_features: int, n_classes: int = 4,
                                    seed=seed)
     else:
         # the zoo raises for the models it does not have, naming the
-        # ROADMAP item that holds each
-        backbone = zoo.build_model(name_l, input_dim=n_features,
-                                   n_classes=n_classes, device=device,
-                                   seed=seed)
+        # ROADMAP item that holds each; the survival TransMIL re-inits its
+        # cls token to std 1e-6 (Survival/models/TransMIL/network.py:75-76)
+        backbone = zoo.build_model(
+            name_l, input_dim=n_features, n_classes=n_classes,
+            cls_token_std=1e-6 if name_l == "transmil" else 1.0,
+            device=device, seed=seed)
     return SurvivalHead(backbone), enc16
 
 

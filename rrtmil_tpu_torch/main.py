@@ -7,9 +7,11 @@ defaults included, plus `--device` (default 'cuda'; 'cpu' runs the kernels'
 plain versions).  The reference's inverted `store_false` booleans (--epeg,
 --cr_msa, --qkv_bias, --epeg_bias, --early_stopping default ON; passing the
 flag turns them OFF) are kept, so commands port unchanged.  `--model`
-takes rrtmil, attmil, gattmil, clam_sb, clam_mb, dsmil, meanmil and maxmil
-(`--only_rrt_enc` puts the RRT encoder into the zoo's); transmil, ibmil,
-dtfd, mhim and `--fold_parallel` raise, naming their ROADMAP.md item.
+takes rrtmil, attmil, gattmil, clam_sb, clam_mb, dsmil, transmil, meanmil,
+maxmil and ibmil (`--only_rrt_enc` puts the RRT encoder into the zoo's but
+TransMIL's; ibmil reads `--confounder_path` / `--confounder_k`, the
+prototypes `python -m rrtmil_tpu_torch.build_confounders` writes); dtfd,
+mhim and `--fold_parallel` raise, naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -73,8 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--confounder_path", default="", type=str,
                         help="ibmil confounder prototypes: a directory laid "
                              "out as {path}/{fold}/train_bag_cls_agnostic_"
-                             "feats_proto_{k}.npy (tools/build_confounders"
-                             ".py) or a single .npy (reference "
+                             "feats_proto_{k}.npy (python -m "
+                             "rrtmil_tpu_torch.build_confounders) or a "
+                             "single .npy (reference "
                              "main.py:197-202; NB the reference never "
                              "registers this flag, so its --model ibmil "
                              "crashes as shipped)")

@@ -64,7 +64,9 @@ def _bag(x):
 
 class ABMIL(nn.Module):
     """attmil.DAttention (attmil.py:112-158): stem -> tanh attention (with
-    biases) -> masked softmax pooling -> classifier."""
+    biases) -> masked softmax pooling -> classifier; `return_pooled=True`
+    also returns the pooled bag embedding (B, 512), which IBMIL's
+    confounder pipeline clusters (data/confounders.py)."""
 
     def __init__(self, input_dim: int = 1024, n_classes: int = 2,
                  act: str = "relu", dropout: float = 0.25,
@@ -76,11 +78,14 @@ class ABMIL(nn.Module):
         self.classifier = nn.Linear(512, n_classes)
 
     def forward(self, x, mask=None, length: Optional[int] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                return_pooled: bool = False):
         feat = self.feature(_bag(x), mask, length, generator).float()
         a = self.attn_fc2(torch.tanh(self.attn_fc1(feat))).transpose(-1, -2)
         a = masked_softmax(a, None if mask is None else mask[:, None, :])
-        return self.classifier((a @ feat)[:, 0])
+        m = (a @ feat)[:, 0]
+        logits = self.classifier(m)
+        return (logits, m) if return_pooled else logits
 
 
 class GatedABMIL(nn.Module):

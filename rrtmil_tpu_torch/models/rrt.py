@@ -4,7 +4,11 @@ Counterpart of `rrtmil_tpu/models/rrt.py` for what the canonical and
 survival configs use: InnerAttention with 1-D 'attn' EPEG or none,
 RegionAttention, CrossRegionAttention with phi or the phi MLP
 (`crmsa_mlp`), the fused CR-MSA attention,
-DropPath, Mlp, TransLayer (with the optional FFN), RRTEncoder and RRTMIL.
+DropPath, Mlp, TransLayer (with the optional FFN), RRTEncoder and RRTMIL;
+the Nystrom variants (`region_attn='ntrans'` inside each region,
+`attn_mode='ntrans'` over the stream, models/nystrom.py) and the position
+embeddings (`pos`, models/posemb.py), which the JAX package computes in
+plain XLA and the port as torch ops on either device.
 Parameters keep the flax tree's names (state_dict keys are the flax paths
 joined by '.', see convert.py); tensors keep torch's layouts (Linear weight
 (out, in)); the EPEG taps are stored as `pe_weight` (H, k), the layout the
@@ -71,7 +75,9 @@ from ..ops.kernels.region_layer import region_layer_fused
 from ..ops.regions import grid_geometry, region_partition, region_reverse
 from ..utils.device import resolve_device
 from ..utils.inits import crmsa_phi_init_, xavier_normal_
+from .nystrom import NystromAttention
 from .pool import DAttention, MeanPool, dropout
+from .posemb import build_pos_embedding
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -234,18 +240,24 @@ def products_dtype(cfg: InnerAttentionConfig) -> torch.dtype:
 
 
 class RegionAttention(nn.Module):
-    """R-MSA: square-grid partition -> per-region MHSA -> merge
-    (reference modules/rmsa.py:152-230).  `length` is the true bag length;
-    the output has the input's length."""
+    """R-MSA: square-grid partition -> per-region MHSA (or Nystrom
+    attention, `region_attn='ntrans'`) -> merge (reference
+    modules/rmsa.py:152-230).  `length` is the true bag length; the output
+    has the input's length."""
 
     def __init__(self, cfg: RMSAConfig):
         super().__init__()
-        if cfg.region_attn != "native":
-            raise _todo(f"region_attn='{cfg.region_attn}'")
+        if cfg.region_attn not in ("native", "ntrans"):
+            raise ValueError(f"region_attn={cfg.region_attn!r} is not one of "
+                             f"'native', 'ntrans'")
         if cfg.region.sp_shards > 1:
             raise _todo("sequence sharding (sp_shards > 1)")
         self.cfg = cfg
-        self.attn = InnerAttention(cfg.attn)
+        # 'ntrans': Nystrom attention inside each region (rrt.py:314-316),
+        # torch ops on either device as the JAX package's XLA
+        self.attn = (NystromAttention(cfg.nystrom)
+                     if cfg.region_attn == "ntrans"
+                     else InnerAttention(cfg.attn))
 
     def forward(self, x, length: Optional[int] = None,
                 generator: Optional[torch.Generator] = None):
@@ -366,8 +378,10 @@ def _fused_backend(attn_cfg: InnerAttentionConfig) -> bool:
 
 def fused_layer_ok(cfg: TransLayerConfig, x, mask, length: int) -> bool:
     """Counterpart of TransLayer._fused_layer_ok (rrt.py:603-628): True when
-    the R-MSA layer runs as one K1 call."""
+    the R-MSA layer runs as one K1 call (never with Nystrom regions)."""
     if cfg.attn_mode != "rmsa" or mask is None:
+        return False
+    if cfg.rmsa.region_attn == "ntrans":
         return False
     a = cfg.rmsa.attn
     if a.attn_dropout != 0.0 or not _fused_backend(a):
@@ -422,8 +436,12 @@ class TransLayer(nn.Module):
             self.attn = RegionAttention(cfg.rmsa)
         elif cfg.attn_mode == "crmsa":
             self.attn = CrossRegionAttention(cfg.crmsa)
+        elif cfg.attn_mode == "ntrans":
+            # Nystrom attention over the whole stream (rrt.py:732-734)
+            self.attn = NystromAttention(cfg.nystrom)
         else:
-            raise _todo(f"attn_mode='{cfg.attn_mode}'")
+            raise ValueError(f"attn_mode={cfg.attn_mode!r} is not one of "
+                             f"'rmsa', 'crmsa', 'ntrans'")
         if cfg.ffn:
             self.norm2 = LayerNorm(cfg.dim)
             self.mlp = Mlp(cfg.dim, int(cfg.dim * cfg.mlp_ratio), cfg.ffn_act,
@@ -431,6 +449,8 @@ class TransLayer(nn.Module):
 
     def _compute_dtype(self) -> torch.dtype:
         cfg = self.cfg
+        if cfg.attn_mode == "ntrans":
+            return torch.float32
         a = cfg.rmsa.attn if cfg.attn_mode == "rmsa" else cfg.crmsa.attn
         return _dtype(a.compute_dtype)
 
@@ -499,7 +519,10 @@ class TransLayer(nn.Module):
         z = self.norm(x).to(self._compute_dtype())
         if m is not None:
             z = z * m
-        z = self.attn(z, length=length, generator=generator)
+        if cfg.attn_mode == "ntrans":
+            z = self.attn(z, generator)
+        else:
+            z = self.attn(z, length=length, generator=generator)
         if m is not None:
             z = z * m
         x = x + drop_path(z, cfg.drop_path, generator, self.training)
@@ -513,21 +536,34 @@ class TransLayer(nn.Module):
 
 
 class RRTEncoder(nn.Module):
-    """(n_layers-1) R-MSA TransLayers -> 1 CR-MSA TransLayer -> optional
-    global shortcut -> LayerNorm (reference modules/rrt.py:133-202)."""
+    """(n_layers-1) R-MSA (or Nystrom, `attn_mode='ntrans'`) TransLayers ->
+    1 CR-MSA TransLayer -> optional global shortcut -> LayerNorm (reference
+    modules/rrt.py:133-202), with the optional position embedding
+    (`pos_embedding`, models/posemb.py) before layer 0 at `pos_pos = -1`
+    and before layer 1 at `pos_pos = 0` (rrt.py:776-786), the rows masked
+    after it.  Where it applies nowhere (`pos_pos = 0` with n_layers = 2,
+    the default depth) the module is not built, as flax makes no params
+    for a module never called."""
 
     def __init__(self, cfg: RRTEncoderConfig):
         super().__init__()
-        if cfg.pos.kind != "none":
-            raise _todo(f"position embedding '{cfg.pos.kind}'")
-        if cfg.attn_mode != "rmsa":
-            raise _todo(f"attn_mode='{cfg.attn_mode}'")
+        if cfg.attn_mode not in ("rmsa", "ntrans"):
+            raise ValueError(f"attn_mode={cfg.attn_mode!r} is not one of "
+                             f"'rmsa', 'ntrans'")
         self.cfg = cfg
         self.n_rmsa = cfg.n_layers - 1
+        p = cfg.pos
+        applies = p.pos_pos == -1 or (p.pos_pos == 0 and self.n_rmsa > 1)
+        self.pos_embedding = build_pos_embedding(
+            p.kind, cfg.dim, p.k, p.bias, p.conv_1d) if applies else None
         for i in range(self.n_rmsa):
             self.add_module(f"layer{i}", TransLayer(cfg.rmsa_layer()))
         self.cr_msa = TransLayer(cfg.crmsa_layer()) if cfg.cr_msa else None
         self.norm = LayerNorm(cfg.dim)
+
+    def _pos(self, x, mask, length: int):
+        x = self.pos_embedding(x, length=length)
+        return x if mask is None else x * mask[..., None].to(x.dtype)
 
     def forward(self, x, mask=None, length: Optional[int] = None,
                 generator: Optional[torch.Generator] = None):
@@ -537,7 +573,12 @@ class RRTEncoder(nn.Module):
             x = x[None]
         length = x.shape[1] if length is None else length
         x_shortcut = x
+        pos_pos = cfg.pos.pos_pos if self.pos_embedding is not None else None
+        if pos_pos == -1:
+            x = self._pos(x, mask, length)
         for i in range(self.n_rmsa):
+            if i == 1 and pos_pos == 0:
+                x = self._pos(x, mask, length)
             x = getattr(self, f"layer{i}")(x, mask=mask, length=length,
                                            generator=generator)
         if self.cr_msa is not None:

@@ -5,8 +5,11 @@ Counterpart of `rrtmil_tpu/models/zoo.py:22-91` (reference main.py:
 package's distributions (`models/rrt.init_parameters`), `aux_mode(name)`
 (how the engine reads a model's train forward) and the harness's forced
 loss weights.  Every zoo model but TransMIL takes an optional injected
-RRT encoder config (`rrt=`, the `--only_rrt_enc` path).  The names the port
-does not have yet raise, each naming its ROADMAP item.
+RRT encoder config (`rrt=`, the `--only_rrt_enc` path); IBMIL takes its
+confounder prototypes (`confounders=`), TransMIL its cls token's init std
+(`cls_token_std=`, 1e-6 in survival).  The names
+the port does not have yet (DTFD, MHIM, which train through engines of
+their own) raise, each naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,7 +24,9 @@ from . import rrt
 from .abmil import ABMIL, GatedABMIL
 from .clam import CLAM_MB, CLAM_SB
 from .dsmil import DSMIL
+from .ibmil import IBMIL
 from .mean_max import MaxMIL, MeanMIL
+from .transmil import TransMIL
 
 # model name -> (class, aux_mode)
 #   aux_mode: None     - the forward returns logits
@@ -35,12 +40,13 @@ _REGISTRY = {
     "clam_sb": (CLAM_SB, "loss"),
     "clam_mb": (CLAM_MB, "loss"),
     "dsmil": (DSMIL, "logits"),
+    "transmil": (TransMIL, None),
     "meanmil": (MeanMIL, None),
     "maxmil": (MaxMIL, None),
+    "ibmil": (IBMIL, None),
 }
 # the JAX package's other names, by the ROADMAP.md item that ports them
-NOT_PORTED = {"transmil": "8(b)", "ibmil": "8(e)", "dtfd": "8(f)",
-              "mhim": "8(g)"}
+NOT_PORTED = {"dtfd": "8(f)", "mhim": "8(g)"}
 
 # loss weights forced by the reference harness (main.py:213-214,719-726)
 LOSS_WEIGHT_OVERRIDES = {
@@ -69,11 +75,15 @@ def build_model(name: str, input_dim: int = 1024, n_classes: int = 2,
                 dropout: float = 0.25, act: str = "relu",
                 rrt_cfg: Optional[RRTEncoderConfig] = None,
                 rrtmil_cfg: Optional[RRTMILConfig] = None,
-                subtyping: bool = False, device="cuda",
+                subtyping: bool = False, confounders=None,
+                cls_token_std: float = 1.0, device="cuda",
                 seed: int = 0) -> nn.Module:
     """A zoo model in eval mode with weights seeded by `seed`, on `device`
     (the card by default; raises when there is none unless device='cpu').
-    `subtyping` is CLAM's out-of-class instance loss."""
+    `subtyping` is CLAM's out-of-class instance loss; `confounders` IBMIL's
+    (P, 512) prototypes; `cls_token_std` TransMIL's cls-token init.
+    TransMIL takes no injected encoder (`rrt_cfg` is ignored, as in the
+    JAX package)."""
     name = name.lower()
     if name in NOT_PORTED:
         raise ValueError(not_ported(name))
@@ -87,9 +97,14 @@ def build_model(name: str, input_dim: int = 1024, n_classes: int = 2,
             pool=PoolConfig())
         return rrt.build_model(cfg, device=device, seed=seed)
     dev = resolve_device(device)
-    kwargs = {"subtyping": subtyping} if aux_mode(name) == "loss" else {}
+    kwargs = {"rrt": rrt_cfg}
+    if aux_mode(name) == "loss":
+        kwargs["subtyping"] = subtyping
+    elif name == "ibmil":
+        kwargs["confounders"] = confounders
+    elif name == "transmil":
+        kwargs = {"cls_token_std": cls_token_std}
     model = _REGISTRY[name][0](input_dim=input_dim, n_classes=n_classes,
-                               act=act, dropout=dropout, rrt=rrt_cfg,
-                               **kwargs)
+                               act=act, dropout=dropout, **kwargs)
     rrt.init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

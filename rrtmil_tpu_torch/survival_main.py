@@ -5,9 +5,10 @@
 The flag surface of the JAX package's `survival_main.py` (reference
 Survival/main.py + Survival/utils/options.py), defaults included, plus
 `--device` (default 'cuda'; 'cpu' runs the kernels' plain versions).  A
-5-fold CV (`harness/survival.run_survival_cv`) for RRTMIL, MeanMIL and
-MaxMIL; the other models, `--fold_parallel` and `--sp_shards > 1` raise
-(ROADMAP.md queue 1 items 8 and 9).
+5-fold CV (`harness/survival.run_survival_cv`) for RRTMIL, MeanMIL,
+MaxMIL, AttMIL, CLAM_SB, CLAM_MB, DSMIL, TransMIL and IBMIL; DTFD, MHIM-MIL,
+`--fold_parallel` and `--sp_shards > 1` raise (ROADMAP.md queue 1 items 8
+and 9).
 """
 from __future__ import annotations
 
@@ -32,8 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--evaluate", action="store_true")
     parser.add_argument("--resume", type=str, default="")
     parser.add_argument("--model", type=str, default="MeanMIL",
-                        help="[RRTMIL, MeanMIL, MaxMIL]; AttMIL, CLAM_SB, "
-                             "CLAM_MB, DSMIL, TransMIL, IBMIL, DTFD and "
+                        help="[RRTMIL, MeanMIL, MaxMIL, AttMIL, CLAM_SB, "
+                             "CLAM_MB, DSMIL, TransMIL, IBMIL]; DTFD and "
                              "MHIM-MIL are not ported yet")
     parser.add_argument("--optimizer", type=str, default="Adam",
                         choices=["SGD", "Adam", "AdamW", "RAdam",

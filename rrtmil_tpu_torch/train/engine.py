@@ -25,6 +25,12 @@ gets a zero gradient before the update, as JAX's gradients are never
 absent, except CLAM's instance classifiers, which keep `grad=None` and so
 take no optimizer step (`optim.fill_unreached_grads`).
 
+Exact mode (`EngineConfig.exact`, rrtmil_tpu/train/engine.py:73-74,347,
+428-447,548; the
+harness sets it for TransMIL, whose wrap-padding copies real tokens): one
+bag a batch, padded to its true length with no bucketing, and the device
+bag cache bypassed, as in the JAX package.
+
 Random streams, as in the JAX package: `_rng` (numpy, seeded with
 `cfg.seed`) draws the augmentations and, unless `fix_loader_random` pins it
 to the reference's fixed loader seed, the train order too: one stream,
@@ -47,7 +53,7 @@ import torch.nn.functional as F
 
 from ..config import RRTEncoderConfig
 from ..data import augment
-from ..data.bucketing import bucket_for, pad_bag
+from ..data.bucketing import BucketSpec, bucket_for, pad_bag
 from ..data.device_cache import DeviceBagCache, cacheable
 from ..utils.device import resolve_device
 from .losses import bce_with_logits, cross_entropy
@@ -93,6 +99,8 @@ class EngineConfig:
     ds_average: bool = False  # DSMIL evaluation: probabilities are the mean
     # of the bag and max-instance softmaxes (the reference's intended
     # --ds_average, main.py:526,531-541); needs aux_mode='logits'
+    exact: bool = False  # pad each bag to its true length (no bucketing),
+    # one bag a batch, no device cache: TransMIL's wrap-padding
 
 
 class Engine:
@@ -151,8 +159,9 @@ class Engine:
 
     def _batched_order(self, dataset, order: Sequence[int]) -> List[List[int]]:
         """Greedy bucket-aware batching that preserves the given order within
-        each bucket.  batch_size=1 degenerates to the reference's order."""
-        bsz = self.cfg.batch_size
+        each bucket.  batch_size=1 (forced in exact mode) degenerates to the
+        reference's order."""
+        bsz = 1 if self.cfg.exact else self.cfg.batch_size
         if bsz <= 1:
             return [[i] for i in order]
         length_of = getattr(dataset, "length",
@@ -176,7 +185,8 @@ class Engine:
 
     def _assemble_host(self, dataset, indices: Sequence[int], train: bool):
         """(x, mask, labels, spec) numpy arrays on the host, x float32; the
-        train bags shuffled by `_rng` when augmentation is on."""
+        train bags shuffled by `_rng` when augmentation is on; in exact mode
+        padded to the longest bag's true length, which is also `length`."""
         shuffle = None
         if self._augmented(train):
             shuffle = (augment.patch_shuffle if self.cfg.patch_shuffle
@@ -192,7 +202,11 @@ class Engine:
             bags.append(bag)
             labels.append(label)
             lengths.append(bag.shape[0])
-        spec = bucket_for(max(lengths), self.encoder_cfg)
+        if self.cfg.exact:
+            n = max(lengths)
+            spec = BucketSpec(key=(n,), repr_length=n, data_length=n)
+        else:
+            spec = bucket_for(max(lengths), self.encoder_cfg)
         xs, masks = zip(*[pad_bag(b, spec.data_length) for b in bags])
         return (np.stack(xs), np.stack(masks),
                 np.asarray(labels, dtype=np.int64), spec)
@@ -221,7 +235,8 @@ class Engine:
         cache (a hit costs a `torch.cat` on the device), else assembled on
         the host and transferred."""
         cache = None
-        if not self._augmented(train) and cacheable(dataset, train):
+        if not (self._augmented(train) or self.cfg.exact) and \
+                cacheable(dataset, train):
             cache = self._device_cache()
         if cache is not None:
             return self._make_batch_cached(dataset, indices, train, cache)

@@ -974,3 +974,151 @@ def test_survival_zoo_on_card_launches_no_kernel(tmp_path, name):
                       str(tmp_path / "out")])
     assert not any(f.launches for f in fns)
     assert all(np.isfinite(meter.cindex[1:]))
+
+
+def _grads_close(card, cpu, tol, skip=()):
+    """Every gradient of `card` within `tol` of `cpu`'s, scaled by max(1,
+    max|cpu|); returns the worst scaled error."""
+    grads = {n: p.grad for n, p in cpu.named_parameters()}
+    worst = 0.0
+    for n, p in card.named_parameters():
+        if n in skip:
+            continue
+        got, want = p.grad.float().cpu(), grads[n]
+        err = (got - want).abs().max().item() / max(1.0,
+                                                    want.abs().max().item())
+        assert err <= tol, f"{n}: scaled error {err:.3e}"
+        worst = max(worst, err)
+    return worst
+
+
+@pytest.mark.gpu
+def test_transmil_on_card_matches_cpu():
+    """TransMIL (input 64, every dropout off) on one bag of 2213 patches at
+    its true length: the card's logits, loss and every gradient against the
+    CPU's from the same weights (1e-4, f32, TF32 off: the Newton
+    pseudo-inverse amplifies the two sides' rounding, which stayed far
+    below that in chip_smoke.py's run at full width), no kernel launched,
+    the same bits from a second forward."""
+    from rrtmil_tpu_torch.models import zoo
+    from rrtmil_tpu_torch.models.nystrom import NystromAttention
+    dev = _cuda()
+    card = zoo.build_model("transmil", input_dim=64, dropout=0.0, seed=3)
+    cpu = zoo.build_model("transmil", input_dim=64, dropout=0.0,
+                          device="cpu", seed=3)
+    for m in list(card.modules()) + list(cpu.modules()):
+        if isinstance(m, NystromAttention):
+            m.p = 0.0
+    x = torch.randn((1, 2213, 64), generator=torch.Generator().manual_seed(1))
+    fns = _ALL_KERNELS()
+    for f in fns:
+        f.launches = 0
+    with torch.no_grad():
+        a, b = card(x.to(dev)), card(x.to(dev))
+    assert torch.equal(a, b)
+    losses = []
+    for model, d in ((card, dev), (cpu, "cpu")):
+        logits = model(x.to(d))
+        loss = torch.nn.functional.cross_entropy(logits, torch.tensor(
+            [1], device=d))
+        loss.backward()
+        losses.append((logits.detach().cpu(), loss.item()))
+    assert not any(f.launches for f in fns)
+    torch.testing.assert_close(losses[0][0], losses[1][0], rtol=0, atol=1e-4)
+    assert abs(losses[0][1] - losses[1][1]) <= 1e-4
+    print(f"transmil card vs CPU: logits "
+          f"{(losses[0][0] - losses[1][0]).abs().max().item():.3e}, "
+          f"gradients (scaled) {_grads_close(card, cpu, 1e-4):.3e}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc", [False, True])
+def test_ibmil_on_card_matches_cpu(enc):
+    """IBMIL (input 64, dropout 0) with four prototypes, without and with
+    c16_r50's encoder injected, on one bag of 2213 patches in its bucket:
+    logits, loss and every gradient against the CPU (1e-4, f32 products,
+    TF32 off; W_k's bias, whose gradient is rounding noise, left out); with
+    the encoder the forward launches K1, K3, K5, K8 and forward and
+    backward K1-K9, without it no kernel."""
+    from rrtmil_tpu_torch.data.bucketing import bucket_for
+    from rrtmil_tpu_torch.models import zoo
+    dev = _cuda()
+    rrt = dataclasses.replace(c16_r50().encoder, mm_dtype="float32",
+                              dropout=0.0)
+    conf = torch.randn((4, 512), generator=torch.Generator().manual_seed(2))
+    kw = dict(input_dim=64, dropout=0.0, rrt_cfg=rrt if enc else None,
+              confounders=conf.numpy(), seed=0)
+    card = zoo.build_model("ibmil", **kw)
+    cpu = zoo.build_model("ibmil", device="cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    spec = bucket_for(2213, rrt)
+    x = torch.zeros((1, spec.data_length, 64))
+    x[0, :2213] = torch.randn((2213, 64),
+                              generator=torch.Generator().manual_seed(5))
+    mask = torch.arange(spec.data_length)[None] < 2213
+    fns = _ALL_KERNELS()
+
+    def step(model, d):
+        for f in fns:
+            f.launches = 0
+        with torch.no_grad():
+            model(x.to(d), mask=mask.to(d), length=spec.repr_length)
+        fwd = [i for i, f in enumerate(fns) if f.launches]
+        out = model(x.to(d), mask=mask.to(d), length=spec.repr_length)
+        loss = torch.nn.functional.cross_entropy(out, torch.tensor(
+            [1], device=d))
+        loss.backward()
+        return fwd, [i for i, f in enumerate(fns) if f.launches], loss
+    fwd, both, loss = step(card, dev)
+    assert (fwd, both) == (([0, 2, 4, 7], list(range(9))) if enc
+                           else ([], []))
+    _, _, want = step(cpu, "cpu")
+    assert abs(loss.item() - want.item()) <= 1e-4 * max(1.0, abs(want.item()))
+    _grads_close(card, cpu, 1e-4, skip=("W_k.bias",))
+
+
+@pytest.mark.gpu
+def test_nystrom_pinv_on_card_matches_cpu():
+    """The Newton pseudo-inverse of TransMIL's landmark attention (8 heads
+    of 256 x 256 softmax rows) on the card against the CPU, f32 (TF32 off):
+    within 1e-3 of max(1, max|cpu|), and the same bits on a second call."""
+    from rrtmil_tpu_torch.models.nystrom import moore_penrose_pinv
+    dev = _cuda()
+    logits = torch.randn((1, 8, 256, 256),
+                         generator=torch.Generator().manual_seed(0)) * 3
+    a = torch.softmax(logits, dim=-1)
+    want = moore_penrose_pinv(a)
+    got = moore_penrose_pinv(a.to(dev))
+    assert torch.equal(got, moore_penrose_pinv(a.to(dev)))
+    err = (got.cpu() - want).abs().max().item() / max(
+        1.0, want.abs().max().item())
+    print(f"pinv card vs CPU: scaled error {err:.3e}")
+    assert err <= 1e-3, f"pinv: scaled error {err:.3e}"
+
+
+@pytest.mark.gpu
+def test_exact_mode_batches_on_card():
+    """The engine's exact mode on the card: one bag a batch whatever
+    batch_size says, on the device at its true length with an all-True
+    mask, the device bag cache never made (even when forced on), and an
+    evaluate that launches no kernel for TransMIL."""
+    from rrtmil_tpu_torch.models import zoo
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    lengths = (30, 937, 300)
+    ds = ArrayDataset([rng.standard_normal((n, 64)).astype(np.float32)
+                       for n in lengths], [0, 1, 0])
+    model = zoo.build_model("transmil", input_dim=64)
+    eng = Engine(model, EngineConfig(batch_size=4, exact=True,
+                                     device_cache="on"))
+    assert eng._batched_order(ds, [1, 2, 0]) == [[1], [2], [0]]
+    for i, n in enumerate(lengths):
+        x, mask, labels, spec = eng._make_batch(ds, [i], train=True)
+        assert x.is_cuda and x.shape == (1, n, 64) and bool(mask.all())
+        assert spec.repr_length == spec.data_length == n
+    fns = _ALL_KERNELS()
+    for f in fns:
+        f.launches = 0
+    probs, _, loss = eng.evaluate(ds)
+    assert probs.shape == (3,) and np.isfinite(loss)
+    assert eng._dcache is None and not any(f.launches for f in fns)

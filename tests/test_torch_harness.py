@@ -126,12 +126,12 @@ def test_amp_maps_to_bf16_compute_and_transfer():
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--model", "transmil"], ValueError, "queue 1 item 8"),
+    (["--model", "mhim"], ValueError, "queue 1 item 8"),
     (["--model", "dtfd"], ValueError, "queue 1 item 8"),
     (["--fold_parallel"], ValueError, "queue 1 item 9"),
     (["--device", "cuda"], RuntimeError, "no CUDA device")])
 def test_refusals(tmp_path, monkeypatch, argv, err, match):
-    """Unported models (transmil, dtfd), --fold_parallel and the card when
+    """Unported models (mhim, dtfd), --fold_parallel and the card when
     there is none raise before any work."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(err, match=match):
