@@ -124,6 +124,31 @@ phase 9's own interruption):
    937-9000 patches, then `--evaluate --resume`: every fold that saved
    weights (at least two) reproduces its best c-index and validation loss
    exactly;
+13. DTFD and MHIM-MIL (input 1024, inner / mlp_dim 512, f32, TF32 off;
+   weights carried from the card's model to a CPU copy): (a)
+   `DTFDClassificationEngine` (4 pseudo-bags, AFS and MaxMinS) on bags of
+   {937, 9000, 30000} patches: `evaluate` twice (the same bits) and against
+   the CPU with the same permutations (1e-4), a dropout-on `train_epoch`, a
+   forward and backward twice of the same bits, two dropout-off steps
+   against the CPU (losses 1e-4, parameters within Adam's drift bound); (b)
+   `DTFDSurvivalEngine` (group 8, MaxMinS) on {937, 9000, 50000} with the
+   same checks through `validate`; (c) `MHIMSurvivalEngine` on {937, 9000,
+   50000}: the teacher's feature and raw attention against the CPU,
+   `validate` against the CPU, a dropout-on `train_epoch` that moves the
+   teacher, two dropout-off student steps against the CPU with the
+   keep-masks the card built handed to the CPU (losses, then the student
+   and the EMA teacher within the drift bound); (d) MHIM 'selfattn' at 9025
+   tokens (PPEG runs) and 937 against the CPU, a second call the same
+   bits; (e) every counter 0 on each path of (a)-(d); (f) `python -m
+   rrtmil_tpu_torch.main --model dtfd` on phase 9's 12 bags (2 folds x 2
+   epochs) and `survival_main --model DTFD` / `--model MHIM-MIL` on phase
+   10's set (5 folds x 1 epoch), each a process of its own that exits 0,
+   their train and validation rates read from their logs; DTFD and MHIM-MIL
+   in this process, 5 folds x 2 epochs on phase 12 (f)'s 20 cases, then
+   `--evaluate --resume`: every fold that saved weights reproduces its
+   best c-index and validation loss exactly, no kernel launched; (g) DTFD's
+   eval forward and train step at L = 9000, MHIM's train step at L = 9000
+   and 50000, in ms;
 6. survival: `SurvivalEngine.train_epoch` (dropout on) and `validate` on
    survival_default() at full width, bags of {937, 1500, 10000, 30000,
    45000, 50000} patches: each bag whose R-MSA grid exceeds its CR-MSA grid
@@ -169,7 +194,7 @@ Every counter is set to 0 just before each path and read just after.
 Prints the `{"kernels": [...]}` line (each kernel's launches from its own
 path: K1-K9 the c16_r50 train epoch, K10 / K11 the FFN one, K12 / K13 the
 survival one; `launches_by_path` adds every other path, phase 9's to
-12's runs among them), the card's name and power limit,
+13's runs among them), the card's name and power limit,
 and as
 its last line
 `{"ok": true, "device": {...}}`.  Writes the full report to
@@ -1477,8 +1502,9 @@ def write_cli_data(root, tcga, dim, seed):
     return patches
 
 
-def cli_engine(stats, finals=None, stop_at=None, order_at=None):
-    """The harness's Engine, recording every train epoch and evaluation
+def cli_engine(stats, finals=None, stop_at=None, order_at=None, base=None):
+    """The harness's Engine (or the `base` engine class), recording every
+    train epoch and evaluation
     (fold, epoch, bags, seconds to the last sync, device cache hits and
     misses, the train loss) in `stats` and each fold's weights after its
     last train epoch in `finals` (a dict by fold, when given); raising CliInterrupt at (fold,
@@ -1486,7 +1512,7 @@ def cli_engine(stats, finals=None, stop_at=None, order_at=None):
     `order_at[0]` in the order `order_at[1]`."""
     from rrtmil_tpu_torch.train.engine import Engine
 
-    class Measured(Engine):
+    class Measured(base or Engine):
         epoch = None
 
         def _cache_counts(self):
@@ -1528,17 +1554,34 @@ def cli_engine(stats, finals=None, stop_at=None, order_at=None):
     return Measured
 
 
-def run_cli(argv, stats, finals=None, engine=None, **engine_kw):
-    """`rrtmil_tpu_torch.main.main(argv)` in this process, its engine
-    measured by cli_engine (or the given `engine` class)."""
+def run_cli(argv, stats, finals=None, engine=None, name="Engine",
+            **engine_kw):
+    """`rrtmil_tpu_torch.main.main(argv)` in this process, the harness's
+    `name` class (Engine or DTFDClassificationEngine) measured by
+    cli_engine (or replaced by the given `engine` class)."""
     from rrtmil_tpu_torch import main as cli
     from rrtmil_tpu_torch.harness import classification
-    orig = classification.Engine
-    classification.Engine = engine or cli_engine(stats, finals, **engine_kw)
+    orig = getattr(classification, name)
+    setattr(classification, name, engine or cli_engine(
+        stats, finals, base=orig, **engine_kw))
     try:
         return cli.main(argv)
     finally:
-        classification.Engine = orig
+        setattr(classification, name, orig)
+
+
+def cli_process(module, argv, what):
+    """`python -m module argv` as a process of its own in the repo root:
+    (stdout, seconds); fails unless it exits 0."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module] + argv,
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit code {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    return proc.stdout, secs
 
 
 def best_weights(out_dir, fold):
@@ -1774,12 +1817,13 @@ def write_survival_data(root, dim=1024, lengths=SCLI_LENGTHS, seed=0):
     return csv_file, patches
 
 
-def survival_cli_engine(records):
-    """The harness's SurvivalEngine counting each step's launches (with its
-    bucket's grids), timing each train epoch and validation to its last
-    sync with the device cache's hits and misses, and keeping each fold's
-    validations and best c-index in `records` (one dict a fold, in the
-    order the harness builds the engines)."""
+def survival_cli_engine(records, base=None):
+    """The harness's SurvivalEngine (or the `base` engine class) counting
+    each step's launches (with its bucket's grids), timing each train epoch
+    and validation to its last sync with the device cache's hits and
+    misses, and keeping each fold's validations and best c-index in
+    `records` (one dict a fold, in the order the harness builds the
+    engines)."""
     from rrtmil_tpu_torch.data.bucketing import bucket_for
     from rrtmil_tpu_torch.train.surv_engine import SurvivalEngine
 
@@ -1787,7 +1831,7 @@ def survival_cli_engine(records):
         return {"grids": bucket_for(length, eng.encoder_cfg).key,
                 "tokens": int(x.shape[1])}
 
-    class Measured(counting(SurvivalEngine, describe)):
+    class Measured(counting(base or SurvivalEngine, describe)):
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             self.fold = {"fold": len(records), "epochs": [], "val_ci": [],
@@ -1833,17 +1877,18 @@ def survival_cli_engine(records):
     return Measured
 
 
-def run_survival_cli(argv, records):
-    """`rrtmil_tpu_torch.survival_main.main(argv)` in this process, its
-    engines measured by survival_cli_engine."""
+def run_survival_cli(argv, records, engine="SurvivalEngine"):
+    """`rrtmil_tpu_torch.survival_main.main(argv)` in this process, the
+    harness's `engine` class (SurvivalEngine, DTFDSurvivalEngine or
+    MHIMSurvivalEngine) measured by survival_cli_engine."""
     from rrtmil_tpu_torch import survival_main as cli
     from rrtmil_tpu_torch.harness import survival
-    orig = survival.SurvivalEngine
-    survival.SurvivalEngine = survival_cli_engine(records)
+    orig = getattr(survival, engine)
+    setattr(survival, engine, survival_cli_engine(records, orig))
     try:
         return cli.main(argv)
     finally:
-        survival.SurvivalEngine = orig
+        setattr(survival, engine, orig)
 
 
 def survival_epoch_summary(records, epoch, kind):
@@ -2079,20 +2124,38 @@ def _zoo_engine_cfg(name, **kw):
                         aux_mode=zoo.aux_mode(name), **kw)
 
 
-def _zoo_params_close(got, want, lr, steps, frac):
+def _zoo_params_close(got, want, lr, steps, frac, noise=ZOO_NOISE_PARAMS):
     """Parameters after `steps` Adam steps: every tensor within Adam's drift
     bound (2 steps lr ADAM_STEP); at most `frac` of a tensor's elements
     past 1e-5 (scaled), but the encoder's and the scorers' noise-gradient
-    parameters (pe_bias, the key qkv biases, ZOO_NOISE_PARAMS), held to the
-    bound alone."""
-    noisy = {n: v for n, v in got.items()
-             if n.endswith(ZOO_NOISE_PARAMS)}
+    parameters (pe_bias, the key qkv biases, those ending in `noise`), held
+    to the bound alone."""
+    noisy = {n: v for n, v in got.items() if n.endswith(noise)}
     ok, worst, worst_frac = _adam_params_close(
         {n: v for n, v in got.items() if n not in noisy}, want, lr, steps,
         frac)
     for n, v in noisy.items():
         worst = max(worst, (v - want[n]).abs().max().item())
     return ok and worst <= 2 * steps * lr * ADAM_STEP, worst, worst_frac
+
+
+def _grad_bits(model, loss_fn, what):
+    """A forward and backward twice from the same weights: the loss and
+    every gradient the same bits; returns the number of gradients."""
+    runs = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.backward()
+        runs.append([loss.detach().clone()] + [
+            p.grad.detach().clone() for p in model.parameters()
+            if p.grad is not None])
+    model.zero_grad(set_to_none=True)
+    if len(runs[0]) != len(runs[1]) or not all(
+            torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"{what}: a second forward and backward gave "
+                             f"other bits")
+    return len(runs[0]) - 1
 
 
 def _zoo_step_bits(name, model, ds, dev, enc):
@@ -2107,28 +2170,16 @@ def _zoo_step_bits(name, model, ds, dev, enc):
     x, mask = torch.from_numpy(x[None]).to(dev), \
         torch.from_numpy(mask[None]).to(dev)
     lab = torch.tensor([label], device=dev)
-    runs = []
-    for _ in range(2):
-        model.zero_grad(set_to_none=True)
-        kw = {"label": label} if name.startswith("clam") else {}
+    kw = {"label": label} if name.startswith("clam") else {}
+    ce = torch.nn.functional.cross_entropy
+
+    def loss_fn():
         out = model(x, mask=mask, length=spec.repr_length, **kw)
-        ce = torch.nn.functional.cross_entropy
         if isinstance(out, tuple):
             aux = out[1] if kw else ce(out[1], lab)
-            loss = ce(out[0], lab) + aux
-        else:
-            loss = ce(out, lab)
-        loss.backward()
-        runs.append([loss.detach().clone()] + [
-            p.grad.detach().clone() for p in model.parameters()
-            if p.grad is not None])
-    model.zero_grad(set_to_none=True)
-    same = len(runs[0]) == len(runs[1]) and all(
-        torch.equal(a, b) for a, b in zip(*runs))
-    if not same:
-        raise AssertionError(f"{name}: a second forward and backward gave "
-                             f"other bits")
-    return len(runs[0]) - 1
+            return ce(out[0], lab) + aux
+        return ce(out, lab)
+    return _grad_bits(model, loss_fn, name)
 
 
 def zoo_datasets():
@@ -2447,23 +2498,16 @@ def phase_zoo_cli(dev):
             k: d_rep[k] for k in ("seconds", "launches")}}
 
         # the CLI as its own process
-        cmd = [sys.executable, "-m", "rrtmil_tpu_torch.main"] + argv(
-            "clam_sb", "process")
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=600, cwd=os.path.dirname(
-                                  os.path.abspath(__file__)))
-        secs = time.perf_counter() - t0
-        tail = proc.stdout.strip().splitlines()[-3:]
+        out, secs = cli_process("rrtmil_tpu_torch.main",
+                                argv("clam_sb", "process"),
+                                "the CLI process")
+        tail = out.strip().splitlines()[-3:]
         log(f"[11] `python -m rrtmil_tpu_torch.main --model clam_sb "
-            f"--only_rrt_enc ...` as its own process: exit code "
-            f"{proc.returncode}, {secs:.1f} s; last lines {tail}")
-        if proc.returncode != 0 or \
-                "Cross validation auc mean" not in proc.stdout:
-            raise AssertionError(f"the CLI process failed: "
-                                 f"{proc.stderr[-2000:]}")
-        report["process"] = {"returncode": proc.returncode, "seconds": secs,
-                             "tail": tail}
+            f"--only_rrt_enc ...` as its own process: exit code 0, "
+            f"{secs:.1f} s; last lines {tail}")
+        if "Cross validation auc mean" not in out:
+            raise AssertionError(f"the CLI process printed {out[-2000:]}")
+        report["process"] = {"returncode": 0, "seconds": secs, "tail": tail}
 
         # (e) the survival CLI's zoo backbones on phase 10's set
         csv_file, spatches = write_survival_data(os.path.join(tmp, "surv"))
@@ -2801,6 +2845,60 @@ def phase_variants(dev):
     return out
 
 
+def survival_cli_run(dev, tmp, tag, flags, csv, epochs, ph,
+                     engine="SurvivalEngine"):
+    """`rrtmil_tpu_torch.survival_main` in this process on `csv`, 5 folds x
+    `epochs`, seed 1, input 1024, results under `tmp`, the harness's
+    `engine` class measured by survival_cli_engine and every counter set to
+    0 just before: (its report, its results directory)."""
+    records = []
+    out = os.path.join(tmp, "s_" + tag)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meter = run_survival_cli(
+        ["--num_epoch", str(epochs), "--seed", "1", "--input_dim", "1024",
+         "--excel_file", csv, "--results_dir", out, "--device", str(dev)]
+        + flags, records, engine)
+    secs = time.perf_counter() - t0
+    launches = launches_now()
+    if len(records) != 5 or not all(np.isfinite(v)
+                                    for v in meter.cindex[1:]):
+        raise AssertionError(f"survival {tag}: c-index {meter.cindex}")
+    log(f"[{ph}] survival {tag}: {secs:.1f} s")
+    return {"seconds": secs, "launches": launches,
+            "cindex": meter.cindex[1:], "records": records}, out
+
+
+def check_evaluate_resume(dev, tmp, name, csv, ph, engine="SurvivalEngine"):
+    """`--model name`, 5 folds x 2 epochs on `csv`, then --evaluate --resume
+    over its results: every fold that saved weights (at least two)
+    reproduces its best c-index and validation loss exactly."""
+    rep, out = survival_cli_run(dev, tmp, name + "_resume", ["--model", name],
+                                csv, 2, ph, engine)
+    ev, _ = survival_cli_run(dev, tmp, name + "_evaluate", [
+        "--model", name, "--evaluate", "--resume", out], csv, 1, ph, engine)
+    saved = [bool(os.listdir(os.path.join(out, f"fold_{k}")))
+             for k in range(5)]
+    best = [f["best"] for f in rep["records"]]
+    best_loss = [[r["loss"] for r in f["epochs"] if r["kind"] == "val"
+                  and r["epoch"] == f["best"][1]][0]
+                 for f in rep["records"]]
+    got = [(f["val_ci"][0], f["epochs"][0]["loss"]) for f in ev["records"]]
+    log(f"[{ph}] {name} --evaluate --resume: (c-index, loss) by fold "
+        f"{got} against the run's best {[b[0] for b in best]} and "
+        f"losses {best_loss}; weights saved for folds "
+        f"{[k for k in range(5) if saved[k]]}")
+    if sum(saved) < 2 or any(
+            s and g != (b[0], bl)
+            for s, g, b, bl in zip(saved, got, best, best_loss)):
+        raise AssertionError(f"{name}: --evaluate --resume does not "
+                             f"reproduce every saved fold")
+    return {"saved": saved, "best": best, "best_loss": best_loss,
+            "evaluate": got, "train_launches": rep["launches"],
+            "launches": ev["launches"]}
+
+
 def phase_survival_transmil_ibmil(dev, tmp):
     """Phase 12 (e) and (f): (e) the survival CLI's TransMIL and IBMIL on
     phase 10's set (up to 50000 patches), 5 folds x 1 epoch, launching no
@@ -2812,28 +2910,9 @@ def phase_survival_transmil_ibmil(dev, tmp):
     csv_file, patches = write_survival_data(os.path.join(tmp, "surv"))
     log(f"[12] wrote phase 10's survival set ({patches} patches) in "
         f"{time.perf_counter() - t0:.1f} s")
-
-    def run(tag, flags, csv, epochs):
-        records = []
-        out = os.path.join(tmp, "s_" + tag)
-        reset_counters()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        meter = run_survival_cli(
-            ["--num_epoch", str(epochs), "--seed", "1", "--input_dim",
-             "1024", "--excel_file", csv, "--results_dir", out, "--device",
-             str(dev)] + flags, records)
-        secs = time.perf_counter() - t0
-        launches = launches_now()
-        if len(records) != 5 or not all(np.isfinite(v)
-                                        for v in meter.cindex[1:]):
-            raise AssertionError(f"survival {tag}: c-index {meter.cindex}")
-        log(f"[12] survival {tag}: {secs:.1f} s")
-        return {"seconds": secs, "launches": launches,
-                "cindex": meter.cindex[1:], "records": records}, out
-
     for name in ("TransMIL", "IBMIL"):
-        rep, _ = run(name, ["--model", name], csv_file, 1)
+        rep, _ = survival_cli_run(dev, tmp, name, ["--model", name],
+                                  csv_file, 1, "12")
         tr = survival_epoch_summary(rep["records"], 0, "train")
         va = survival_epoch_summary(rep["records"], 0, "val")
         log(f"[12] survival {name}: {rep['seconds']:.1f} s, c-index by fold "
@@ -2852,30 +2931,8 @@ def phase_survival_transmil_ibmil(dev, tmp):
     log(f"[12] wrote {len(RESUME_LENGTHS)} survival cases ({patches} "
         f"patches) in {time.perf_counter() - t0:.1f} s")
     for name in ("RRTMIL", "TransMIL"):
-        rep, out = run(name + "_resume", ["--model", name], csv20, 2)
-        ev, _ = run(name + "_evaluate", ["--model", name, "--evaluate",
-                                         "--resume", out], csv20, 1)
-        saved = [bool(os.listdir(os.path.join(out, f"fold_{k}")))
-                 for k in range(5)]
-        best = [f["best"] for f in rep["records"]]
-        best_loss = [[r["loss"] for r in f["epochs"] if r["kind"] == "val"
-                      and r["epoch"] == f["best"][1]][0]
-                     for f in rep["records"]]
-        got = [(f["val_ci"][0], f["epochs"][0]["loss"])
-               for f in ev["records"]]
-        log(f"[12] {name} --evaluate --resume: (c-index, loss) by fold "
-            f"{got} against the run's best {[b[0] for b in best]} and "
-            f"losses {best_loss}; weights saved for folds "
-            f"{[k for k in range(5) if saved[k]]}")
-        if sum(saved) < 2 or any(
-                s and g != (b[0], bl)
-                for s, g, b, bl in zip(saved, got, best, best_loss)):
-            raise AssertionError(f"{name}: --evaluate --resume does not "
-                                 f"reproduce every saved fold")
-        report[name + "_evaluate_resume"] = {
-            "saved": saved, "best": best, "best_loss": best_loss,
-            "evaluate": got, "train_launches": rep["launches"],
-            "launches": ev["launches"]}
+        report[name + "_evaluate_resume"] = check_evaluate_resume(
+            dev, tmp, name, csv20, "12")
     return report
 
 
@@ -2891,6 +2948,592 @@ def phase_slice12(dev):
         report["survival"] = phase_survival_transmil_ibmil(dev, tmp)
     report["seconds"] = time.perf_counter() - t0
     log(f"[12] phase 12: {report['seconds']:.1f} s")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# slice 13: DTFD and MHIM-MIL
+# ---------------------------------------------------------------------------
+
+DTFD_CLS_BAGS = (937, 9000, 30000)
+DTFD_SURV_BAGS = (937, 9000, 50000)
+MHIM_BAGS = (937, 9000, 50000)
+# 'selfattn': 95 x 95 tokens (PPEG runs) and 937 (it does not)
+SELFATTN_TOKENS = (9025, 937)
+SLICE13_TIMED = (9000, 50000)
+# card vs CPU, f32 with TF32 off: losses, probabilities, risks, features
+SLICE13_TOL = 1e-4
+# gradients that are zero in exact arithmetic, so rounding noise on both
+# sides (a whole softmax row's shift: DTFD's scorers' last bias), held to
+# Adam's drift bound alone
+SLICE13_NOISE = ("attention_weights.bias",)
+# `--model` names of both CLIs and the harness engine class each uses
+CLI13_SURVIVAL = (("DTFD", "DTFDSurvivalEngine"),
+                  ("MHIM-MIL", "MHIMSurvivalEngine"))
+
+
+def _bags13(lengths, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((n, 1024), dtype=np.float32)
+            for n in lengths]
+
+
+def _cpu_copy(model, cpu):
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return cpu
+
+
+def _no_launch(what):
+    """Every counter still 0 since the last reset_counters()."""
+    launches = launches_now()
+    if any(launches.values()):
+        raise AssertionError(f"{what} launched {launches}")
+    return launches
+
+
+def _scaled(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+
+def _recording(engine_cls):
+    """`engine_cls` keeping each train step's loss (`step_losses`) and each
+    epoch's or validation's (summed loss, risks) (`synced`)."""
+    class Recording(engine_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.step_losses, self.synced = [], []
+
+        def _train_step(self, *a, **k):
+            out = super()._train_step(*a, **k)
+            self.step_losses.append(float(out[0]))
+            return out
+
+        def _sync_meters(self, losses, risks):
+            out = super()._sync_meters(losses, risks)
+            self.synced.append(out)
+            return out
+    return Recording
+
+
+def _steps13(dev, tag, make_engine, ds, run, lr, extra=None):
+    """Two dropout-off steps on the card and on the CPU from the same
+    weights (`make_engine(device, state)`, state None on the card, the
+    card's initial weights on the CPU; `run(engine)` trains them):
+    no kernel on the card, the step losses within SLICE13_TOL, every
+    parameter (and `extra(engine)`'s, the EMA teacher's) within Adam's
+    drift bound."""
+    runs, state = {}, None
+    for key, d in (("card", dev), ("cpu", "cpu")):
+        eng = make_engine(d, state)
+        if state is None:
+            state = {k: v.detach().cpu().clone()
+                     for k, v in eng.model.state_dict().items()}
+        reset_counters()
+        run(eng)
+        if key == "card":
+            _no_launch(f"{tag} dropout-off steps")
+        named = {n: p.detach().float().cpu()
+                 for n, p in eng.model.named_parameters()}
+        if extra is not None:
+            named.update({"teacher." + n: p.detach().float().cpu()
+                          for n, p in extra(eng).named_parameters()})
+        runs[key] = (eng.step_losses, named)
+    (cl, cp), (ul, up) = runs["card"], runs["cpu"]
+    dloss = max(abs(a - b) for a, b in zip(cl, ul))
+    ok_p, dparam, frac = _zoo_params_close(cp, up, lr, 2, 1e-3,
+                                           SLICE13_NOISE)
+    shares = {n: ((cp[n] - up[n]).abs() > 1e-5 + 1e-4 * up[n].abs())
+              .float().mean().item() for n in cp
+              if not n.endswith(SLICE13_NOISE)}
+    most = max(shares, key=shares.get)
+    ok = len(cl) == len(ul) == 2 and ok_p and \
+        dloss <= SLICE13_TOL * max(1.0, max(map(abs, ul)))
+    log(f"[13] {tag} two dropout-off steps, card vs CPU: losses "
+        f"{np.round(cl, 6).tolist()} vs {np.round(ul, 6).tolist()} (max "
+        f"diff {dloss:.3e}); parameters after both max diff {dparam:.3e}, "
+        f"share past 1e-5 {frac:.2e} (most in {most}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: card and CPU steps disagree")
+    return {"card_losses": cl, "cpu_losses": ul, "loss_diff": dloss,
+            "param_max_diff": dparam, "param_share_past": frac}
+
+
+def dtfd_model(dev, surv, distill="MaxMinS", dropout=True):
+    """DTFD at full width (input 1024, inner 512), seed 0: classification
+    (numGroup 4, 2 classes, one instance a pseudo-bag each way) or survival
+    (group 8, 4 classes); `dropout=False` sets its fixed rate to 0."""
+    from rrtmil_tpu_torch.models import zoo
+    from rrtmil_tpu_torch.models.dtfd import DTFD
+    kw = dict(n_classes=4, group=8) if surv else dict(n_classes=2, group=4)
+    model = zoo.seeded(DTFD(input_dim=1024, survival=surv, distill=distill,
+                            **kw), dev, 0)
+    if not dropout:
+        model.p = 0.0
+    return model
+
+
+def phase_dtfd_cls(dev):
+    """Phase 13 (a): DTFDClassificationEngine (AFS and MaxMinS) on bags of
+    DTFD_CLS_BAGS patches: `evaluate` twice (the same bits) and against
+    the CPU with the same permutations (SLICE13_TOL), a dropout-on
+    `train_epoch`, a train forward and backward twice of the same bits,
+    two dropout-off steps against the CPU; no kernel on any path."""
+    from rrtmil_tpu_torch.data.datasets import ArrayDataset
+    from rrtmil_tpu_torch.harness.dtfd_cls import DTFDClassificationEngine
+    from rrtmil_tpu_torch.train.engine import EngineConfig
+    bags = _bags13(DTFD_CLS_BAGS, 13)
+    ds = ArrayDataset(bags, [i % 2 for i in range(len(bags))])
+    out = {}
+    for distill in ("AFS", "MaxMinS"):
+        rep = out[distill] = {}
+        model = dtfd_model(dev, False, distill)
+        eng = DTFDClassificationEngine(model, EngineConfig(), device=dev)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs, labs, loss = eng.evaluate(ds)
+        rep["eval_seconds"] = time.perf_counter() - t0
+        rep["eval_launches"] = _no_launch(f"dtfd {distill} evaluate")
+        again = eng.evaluate(ds)
+        if not (np.array_equal(probs, again[0]) and loss == again[2]):
+            raise AssertionError(f"dtfd {distill}: a second evaluate gave "
+                                 f"other bits")
+        cpu = _cpu_copy(model, dtfd_model("cpu", False, distill))
+        probs_c, labs_c, loss_c = DTFDClassificationEngine(
+            cpu, EngineConfig(), device="cpu").evaluate(ds)
+        diff = float(np.abs(probs - probs_c).max())
+        log(f"[13] dtfd {distill} evaluate on {DTFD_CLS_BAGS}: "
+            f"{rep['eval_seconds']:.2f} s, max |probs card - cpu| "
+            f"{diff:.3e}, mean loss {loss:.6f} vs {loss_c:.6f}")
+        if not (np.isfinite(probs).all() and probs.shape == (len(ds),)) or \
+                diff > SLICE13_TOL or abs(loss - loss_c) > SLICE13_TOL or \
+                not np.array_equal(labs, labs_c):
+            raise AssertionError(f"dtfd {distill}: card and CPU evaluate "
+                                 f"disagree")
+        rep.update(max_prob_diff=diff, loss=loss, loss_cpu=loss_c)
+
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_loss = eng.train_epoch(ds, 0, order=list(range(len(ds))))
+        torch.cuda.synchronize()
+        rep["train_seconds"] = time.perf_counter() - t0
+        rep["launches"] = _no_launch(f"dtfd {distill} train epoch")
+        if not np.isfinite(train_loss) or not all(
+                torch.isfinite(p).all() for p in model.parameters()):
+            raise AssertionError(f"dtfd {distill}: the train epoch is not "
+                                 f"finite")
+        rep["train_loss"] = train_loss
+
+        quiet = dtfd_model(dev, False, distill, dropout=False)
+        x, mask, labels, spec = eng._make_batch(ds, [1])
+        ce = torch.nn.functional.cross_entropy
+
+        def loss_fn():
+            pl, bl = quiet(x, mask=mask, length=spec.repr_length, train=True)
+            return ce(pl, labels.expand(pl.shape[0])) + ce(bl, labels)
+        rep["bits_checked_tensors"] = _grad_bits(quiet, loss_fn,
+                                                 f"dtfd {distill}")
+
+        def make(d, state):
+            m = dtfd_model(d, False, distill, dropout=False)
+            if state is not None:
+                m.load_state_dict(state)
+            return _recording(DTFDClassificationEngine)(
+                m, EngineConfig(), device=d)
+        rep["vs_cpu"] = _steps13(
+            dev, f"dtfd {distill}", make, ds,
+            lambda e: e.train_epoch(ds, 0, order=[0, 1]), EngineConfig().lr)
+        log(f"[13] dtfd {distill}: train epoch (dropout on) loss "
+            f"{train_loss:.6f} in {rep['train_seconds']:.2f} s, a second "
+            f"forward and backward the same bits "
+            f"({rep['bits_checked_tensors']} gradients)")
+    return out
+
+
+def _surv_ds13(lengths, seed):
+    from rrtmil_tpu_torch.data.survival import ArraySurvivalDataset
+    n = len(lengths)
+    return ArraySurvivalDataset(_bags13(lengths, seed),
+                                np.linspace(200.0, 1800.0, n),
+                                [1 - (i % 2) for i in range(n)])
+
+
+def _survival_vs_cpu(tag, eng, cpu_eng, ds):
+    """`validate` over every bag of `ds` on the card (twice: the same bits)
+    and on the CPU: the summed loss and every risk within SLICE13_TOL, the
+    same c-index; no kernel on the card."""
+    idx = list(range(len(ds)))
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, ci = eng.validate(ds, idx)
+    secs = time.perf_counter() - t0
+    launches = _no_launch(f"{tag} validate")
+    eng.validate(ds, idx)
+    (s1, r1), (s2, r2) = eng.synced[-2:]
+    if s1 != s2 or not np.array_equal(r1, r2):
+        raise AssertionError(f"{tag}: a second validate gave other bits")
+    loss_c, ci_c = cpu_eng.validate(ds, idx)
+    (sc, rc) = cpu_eng.synced[-1]
+    dr = _scaled(r1, rc)
+    log(f"[13] {tag} validate on {[b.shape[0] for b in ds._bags]}: "
+        f"{secs:.2f} s, loss {loss:.6f} vs CPU {loss_c:.6f}, risks scaled "
+        f"{dr:.3e}, c-index {ci} vs {ci_c}")
+    if abs(loss - loss_c) > SLICE13_TOL * max(1.0, abs(loss_c)) or \
+            dr > SLICE13_TOL or ci != ci_c or not np.isfinite(loss):
+        raise AssertionError(f"{tag}: card and CPU validate disagree")
+    return {"seconds": secs, "launches": launches, "loss": loss,
+            "loss_cpu": loss_c, "risk_scaled_err": dr, "cindex": ci}
+
+
+def phase_dtfd_survival(dev):
+    """Phase 13 (b): DTFDSurvivalEngine (group 8, MaxMinS, 4 classes) on
+    bags of DTFD_SURV_BAGS patches: `validate` (each bag's permutation)
+    twice and against the CPU, a dropout-on `train_epoch`, a train forward
+    and backward twice of the same bits, two dropout-off surrogate steps
+    against the CPU; no kernel on any path."""
+    from rrtmil_tpu_torch.harness.survival import (DTFDSurvivalEngine,
+                                                   build_survival_model)
+    from rrtmil_tpu_torch.train.losses import nll_surv_loss
+    from rrtmil_tpu_torch.train.surv_engine import SurvivalEngineConfig
+    ds = _surv_ds13(DTFD_SURV_BAGS, 13)
+    model, enc = build_survival_model("DTFD", 1024, device=dev)
+    cls = _recording(DTFDSurvivalEngine)
+    eng = cls(model, SurvivalEngineConfig(), enc, device=dev)
+    cpu = _cpu_copy(model, build_survival_model("DTFD", 1024,
+                                                device="cpu")[0])
+    rep = {"validate": _survival_vs_cpu(
+        "dtfd survival", eng, cls(cpu, SurvivalEngineConfig(), enc,
+                                  device="cpu"), ds)}
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = eng.train_epoch(ds, list(range(len(ds))), 0)
+    torch.cuda.synchronize()
+    rep["train_seconds"] = time.perf_counter() - t0
+    rep["launches"] = _no_launch("dtfd survival train epoch")
+    if not np.isfinite(loss):
+        raise AssertionError("dtfd survival: the train epoch is not finite")
+    rep["train_loss"] = loss
+
+    quiet = dtfd_model(dev, True, dropout=False)
+    x, mask, spec = eng._prep(ds._bags[1])
+    lab = torch.tensor([1], device=dev)
+    cen = torch.tensor([0.0], device=dev)
+
+    def loss_fn():
+        ph, ps_, hz, s = quiet(x, mask=mask, length=spec.repr_length,
+                               train=True)
+        return nll_surv_loss(ph, ps_, lab.expand(8), cen.expand(8)) + \
+            nll_surv_loss(hz, s, lab, cen)
+    rep["bits_checked_tensors"] = _grad_bits(quiet, loss_fn, "dtfd survival")
+
+    def make(d, state):
+        m, e = build_survival_model("DTFD", 1024, device=d)
+        m.p = 0.0
+        if state is not None:
+            m.load_state_dict(state)
+        return cls(m, SurvivalEngineConfig(), e, device=d)
+    two = _surv_ds13(DTFD_SURV_BAGS[:2], 14)
+    rep["vs_cpu"] = _steps13(dev, "dtfd survival", make, two,
+                             lambda e: e.train_epoch(two, [0, 1], 0),
+                             SurvivalEngineConfig().lr)
+    log(f"[13] dtfd survival train epoch (dropout on) loss {loss:.6f} in "
+        f"{rep['train_seconds']:.2f} s; a second forward and backward the "
+        f"same bits ({rep['bits_checked_tensors']} gradients)")
+    return rep
+
+
+def phase_mhim(dev):
+    """Phase 13 (c): MHIMSurvivalEngine ('attn') on bags of MHIM_BAGS
+    patches: the teacher's bag feature and raw attention on each bag
+    against the CPU (SLICE13_TOL), `validate` twice and against the CPU, a
+    dropout-on `train_epoch` (the teacher moves), and two dropout-off
+    student steps against the CPU with the keep-masks the card built handed
+    to the CPU: losses within SLICE13_TOL, the student and the EMA teacher
+    within Adam's drift bound; no kernel on any path."""
+    from rrtmil_tpu_torch.harness.survival import (MHIMSurvivalEngine,
+                                                   build_survival_model)
+    from rrtmil_tpu_torch.models import mhim
+    from rrtmil_tpu_torch.train.surv_engine import SurvivalEngineConfig
+    ds = _surv_ds13(MHIM_BAGS, 15)
+    cls = _recording(MHIMSurvivalEngine)
+    model, enc = build_survival_model("MHIM-MIL", 1024, device=dev)
+    cfg = SurvivalEngineConfig()
+    eng = cls(model, cfg, enc, device=dev, niter_per_ep=len(ds))
+    cpu_model = _cpu_copy(model, build_survival_model(
+        "MHIM-MIL", 1024, device="cpu")[0])
+    cpu_eng = cls(cpu_model, cfg, enc, device="cpu", niter_per_ep=len(ds))
+    rep = {"teacher": []}
+    reset_counters()
+    for bag in ds._bags:
+        got = []
+        for e in (eng, cpu_eng):
+            x, mask, spec = e._prep(bag)
+            with torch.no_grad():
+                _, feat, attn = e.teacher(x, mask=mask,
+                                          length=spec.repr_length,
+                                          return_attn=True, return_feat=True)
+            got.append((feat.cpu().numpy(), attn.cpu().numpy()))
+        d = {"length": bag.shape[0], "feature": _scaled(got[0][0],
+                                                        got[1][0]),
+             "attention": _scaled(got[0][1], got[1][1])}
+        rep["teacher"].append(d)
+        if max(d["feature"], d["attention"]) > SLICE13_TOL:
+            raise AssertionError(f"mhim teacher: card and CPU disagree {d}")
+    rep["teacher_launches"] = _no_launch("mhim teacher")
+    log(f"[13] mhim teacher card vs CPU (scaled): {rep['teacher']}")
+    rep["validate"] = _survival_vs_cpu("mhim", eng, cpu_eng, ds)
+
+    before = [p.detach().clone() for p in eng.teacher.parameters()]
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = eng.train_epoch(ds, list(range(len(ds))), 0)
+    torch.cuda.synchronize()
+    rep["train_seconds"] = time.perf_counter() - t0
+    rep["launches"] = _no_launch("mhim train epoch")
+    moved = max((p - q).abs().max().item()
+                for p, q in zip(eng.teacher.parameters(), before))
+    if not np.isfinite(loss) or not moved > 0 or eng._iter != len(ds):
+        raise AssertionError(f"mhim train epoch: loss {loss}, teacher "
+                             f"moved {moved}, step {eng._iter}")
+    rep.update(train_loss=loss, teacher_moved=moved)
+    log(f"[13] mhim train epoch (dropout on) on {MHIM_BAGS}: loss "
+        f"{loss:.6f} in {rep['train_seconds']:.2f} s, the teacher moved by "
+        f"up to {moved:.3e}")
+
+    masks = []
+    build = mhim.build_keep_mask
+
+    def record(*a, **k):
+        keep = build(*a, **k)
+        masks.append(keep.cpu())
+        return keep
+
+    def replay(*a, **k):
+        keep = masks[replay.n]
+        replay.n += 1
+        return keep
+    replay.n = 0
+
+    def make(d, state):
+        m, e = build_survival_model("MHIM-MIL", 1024, device=d)
+        m.p = 0.0
+        if state is not None:
+            m.load_state_dict(state)
+        mhim.build_keep_mask = record if state is None else replay
+        return cls(m, cfg, e, device=d, niter_per_ep=2)
+    two = _surv_ds13(MHIM_BAGS[:2], 16)
+    try:
+        rep["vs_cpu"] = _steps13(
+            dev, "mhim", make, two, lambda e: e.train_epoch(two, [0, 1], 0),
+            cfg.lr, extra=lambda e: e.teacher)
+    finally:
+        mhim.build_keep_mask = build
+    if replay.n != 2:
+        raise AssertionError("mhim: the CPU steps did not take the card's "
+                             "keep-masks")
+    rep["kept"] = [int(m.sum()) for m in masks]
+    return rep
+
+
+def phase_selfattn(dev):
+    """Phase 13 (d): MHIM 'selfattn' (input 1024, dropout off) evaluated at
+    SELFATTN_TOKENS tokens on the card, twice (the same bits), and on the
+    CPU: logits and bag feature within SLICE13_TOL; no kernel."""
+    from rrtmil_tpu_torch.models import mhim, zoo
+    model = zoo.seeded(mhim.MHIM(input_dim=1024, dropout=0.0,
+                                 baseline="selfattn"), dev, 0)
+    cpu = _cpu_copy(model, mhim.MHIM(input_dim=1024, dropout=0.0,
+                                     baseline="selfattn").eval())
+    rep = {}
+    reset_counters()
+    for n, bag in zip(SELFATTN_TOKENS, _bags13(SELFATTN_TOKENS, 17)):
+        x = torch.from_numpy(bag[None])
+        with torch.no_grad():
+            a = model(x.to(dev), return_feat=True)
+            b = model(x.to(dev), return_feat=True)
+            c = cpu(x, return_feat=True)
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError(f"selfattn at {n}: a second call gave "
+                                 f"other bits")
+        errs = [_scaled(u.cpu().numpy(), v.numpy()) for u, v in zip(a, c)]
+        rep[n] = {"logits": errs[0], "feature": errs[1]}
+        if max(errs) > SLICE13_TOL:
+            raise AssertionError(f"selfattn at {n}: card and CPU disagree "
+                                 f"{errs}")
+    rep["launches"] = _no_launch("mhim selfattn")
+    log(f"[13] mhim selfattn card vs CPU (scaled) by token count: {rep}")
+    return rep
+
+
+def phase_times13(dev):
+    """Phase 13 (g): DTFD's (classification, MaxMinS) eval forward and
+    train step at L = 9000, MHIM's train step (teacher, keep-mask, student,
+    Adam, EMA) at L = 9000 and 50000, CUDA events."""
+    from rrtmil_tpu_torch.data.bucketing import bucket_for
+    from rrtmil_tpu_torch.config import RRTEncoderConfig
+    from rrtmil_tpu_torch.harness.dtfd_cls import (DTFDClassificationEngine,
+                                                   eval_permutation)
+    from rrtmil_tpu_torch.harness.survival import (MHIMSurvivalEngine,
+                                                   build_survival_model)
+    from rrtmil_tpu_torch.train.engine import EngineConfig
+    from rrtmil_tpu_torch.train.surv_engine import SurvivalEngineConfig
+    n, n_long = SLICE13_TIMED
+    spec = bucket_for(n, RRTEncoderConfig())
+    x = torch.zeros((1, spec.data_length, 1024), device=dev)
+    x[0, :n] = _randn((n, 1024), _gen(n)).to(dev)
+    mask = torch.arange(spec.data_length, device=dev)[None] < n
+    perm = eval_permutation(np.random.default_rng(0), n, spec.repr_length)
+    model = dtfd_model(dev, False)
+    eng = DTFDClassificationEngine(model, EngineConfig(), device=dev)
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: model(x, mask=mask, length=spec.repr_length,
+                                       eval_perm=perm), iters=10, warmup=2)
+    labels = torch.tensor([1], device=dev)
+    model.train()
+
+    def step():
+        eng._train_step(x, mask, labels, spec.repr_length)
+        eng._apply_grads(eng.cfg.lr)
+    train_ms = time_ms(step, iters=10, warmup=2)
+    rep = {"dtfd": {"length": n, "tokens": spec.repr_length,
+                    "forward_ms": fwd_ms, "train_ms": train_ms}}
+    del eng, model
+    head, enc16 = build_survival_model("MHIM-MIL", 1024, device=dev)
+    surv = MHIMSurvivalEngine(head, SurvivalEngineConfig(), enc16,
+                              device=dev)
+    surv.model.train()
+    label, cens = torch.tensor([1], device=dev), torch.tensor([0.0],
+                                                              device=dev)
+    rep["mhim"] = {}
+    for length in (n, n_long):
+        sx, smask, sspec = surv._prep(_randn((length, 1024),
+                                             _gen(length)).numpy())
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: surv._train_step(sx, smask, label, cens,
+                                              sspec.repr_length),
+                     iters=5, warmup=2)
+        rep["mhim"][length] = {
+            "tokens": sspec.repr_length, "step_ms": ms,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"[13] dtfd L={n} ({spec.repr_length} rows) B=1: eval forward "
+        f"{fwd_ms:.3f} ms, train step {train_ms:.3f} ms; mhim train step "
+        + ", ".join(f"L={k} ({v['tokens']} rows) {v['step_ms']:.3f} ms, peak "
+                    f"{v['peak_mem_gib']:.2f} GiB"
+                    for k, v in rep["mhim"].items())
+        + f" ({nvidia_smi_line()})")
+    del surv
+    torch.cuda.empty_cache()
+    return rep
+
+
+def phase_cli13(dev):
+    """Phase 13 (f): `rrtmil_tpu_torch.main --model dtfd` on phase 9's 12
+    bags (2 folds x 2 epochs) in this process (each epoch measured to its
+    last sync: first against cached train and eval slides/s, the second
+    epoch all from the device cache, no kernel) and as a process of its
+    own, and `survival_main --model DTFD` and
+    `--model MHIM-MIL` on phase 10's set (5 folds x 1 epoch), each a process
+    of its own that exits 0, their train (and validation) rates read from
+    their logs; then, in this process on phase 12 (f)'s 20 cases, DTFD and
+    MHIM-MIL 5 folds x 2 epochs and --evaluate --resume: every fold that
+    saved weights reproduces its best c-index and validation loss exactly,
+    launching no kernel."""
+    import re
+    import tempfile
+    from rrtmil_tpu_torch import main as cli
+    from rrtmil_tpu_torch.harness import classification
+    rep = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "c16")
+        write_cli_data(root, False, 1024, 0)
+        argv = ["--model", "dtfd"] + CLI_RUN + [
+            "--input_dim", "1024", "--dataset_root", root, "--model_path",
+            os.path.join(tmp, "out"), "--title", "dtfd"]
+        stats = []
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = run_cli(argv, stats, name="DTFDClassificationEngine")
+        secs = time.perf_counter() - t0
+        summary = {e: epoch_summary(stats, e) for e in (0, 1)}
+        rep["dtfd_in_process"] = {
+            "seconds": secs, "launches": _no_launch("main --model dtfd"),
+            "metrics": metrics, "epochs": summary}
+        later = summary[1]
+        if any(later[k]["cache_misses"] or later[k]["cache_hits"]
+               != later[k]["bags"] for k in later) or not all(
+                np.isfinite(metrics[k]).all() for k in metrics):
+            raise AssertionError(f"main --model dtfd: epoch 1 {later}, "
+                                 f"metrics {metrics}")
+        for e, what in ((0, "first"), (1, "cached")):
+            tr, ev = summary[e]["train"], summary[e]["eval"]
+            log(f"[13] main --model dtfd (in this process) {what} epoch: "
+                f"train {tr['seconds']:.3f} s ({tr['slides_per_s']:.2f} "
+                f"slides/s), eval {ev['seconds']:.3f} s "
+                f"({ev['slides_per_s']:.2f} slides/s)")
+        splits = classification.make_splits(cli.postprocess_args(
+            cli.build_parser().parse_args(argv)))
+        out, secs = cli_process("rrtmil_tpu_torch.main", argv,
+                                "main --model dtfd")
+        times = [float(t) for t in re.findall(r"time: ([0-9.]+)s", out)]
+        n_train = [len(s[0]) for s in splits]
+        rates = [n_train[i // 2] / t for i, t in enumerate(times)]
+        if len(times) != 4 or "Cross validation auc mean" not in out:
+            raise AssertionError(f"main --model dtfd printed {out[-2000:]}")
+        rep["dtfd"] = {"seconds": secs, "train_seconds": times,
+                       "train_slides_per_s": rates}
+        log(f"[13] `python -m rrtmil_tpu_torch.main --model dtfd` (2 folds "
+            f"x 2 epochs, 12 bags) as its own process: {secs:.1f} s, train "
+            f"slides/s by fold and epoch {np.round(rates, 2).tolist()}")
+
+        csv_file, _ = write_survival_data(os.path.join(tmp, "surv"))
+        for name, _ in CLI13_SURVIVAL:
+            out, secs = cli_process("rrtmil_tpu_torch.survival_main", [
+                "--model", name, "--num_epoch", "1", "--seed", "1",
+                "--input_dim", "1024", "--excel_file", csv_file,
+                "--results_dir", os.path.join(tmp, "p_" + name)],
+                f"survival_main --model {name}")
+            rates = [tuple(map(float, r)) for r in re.findall(
+                r"\(([0-9.]+) bags/s\) \| val .*\(([0-9.]+) bags/s\)", out)]
+            if len(rates) != 5 or "finished!" not in out:
+                raise AssertionError(f"survival_main --model {name} printed "
+                                     f"{out[-2000:]}")
+            rep[name] = {"seconds": secs, "train_bags_per_s":
+                         [r[0] for r in rates],
+                         "val_bags_per_s": [r[1] for r in rates]}
+            log(f"[13] `python -m rrtmil_tpu_torch.survival_main --model "
+                f"{name}` (5 folds x 1 epoch, phase 10's set) as its own "
+                f"process: {secs:.1f} s, train bags/s by fold "
+                f"{[r[0] for r in rates]}, validation {[r[1] for r in rates]}"
+                f" (bags read and transferred)")
+
+        csv20, _ = write_survival_data(os.path.join(tmp, "surv20"),
+                                       lengths=RESUME_LENGTHS, seed=5)
+        for name, engine in CLI13_SURVIVAL:
+            res = rep[name + "_evaluate_resume"] = check_evaluate_resume(
+                dev, tmp, name, csv20, "13", engine)
+            if any(res["train_launches"].values()) or \
+                    any(res["launches"].values()):
+                raise AssertionError(f"{name} --evaluate --resume launched "
+                                     f"a kernel")
+    return rep
+
+
+def phase_slice13(dev):
+    """Phase 13: DTFD and MHIM-MIL through both CLIs."""
+    t0 = time.perf_counter()
+    report = {"dtfd_cls": phase_dtfd_cls(dev),
+              "dtfd_survival": phase_dtfd_survival(dev),
+              "mhim": phase_mhim(dev), "selfattn": phase_selfattn(dev),
+              "times": phase_times13(dev), "cli": phase_cli13(dev)}
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[13] phase 13: {report['seconds']:.1f} s")
     return report
 
 
@@ -3880,6 +4523,7 @@ def main():
         report["survival_cli"] = phase_survival_cli(dev)
         report["zoo"] = phase_zoo(dev)
         report["slice12"] = phase_slice12(dev)
+        report["slice13"] = phase_slice13(dev)
         report["times"] = phase_times_products(dev, phase_times_pairs(
             dev, phase_times_slice3(dev, phase_times(dev))))
         report["throughput"] = phase_throughput(dev)
@@ -3958,6 +4602,24 @@ def main():
     for name in ("RRTMIL", "TransMIL"):
         paths[f"cli_survival_{name}_evaluate_resume"] = s12.get(
             "survival", {}).get(f"{name}_evaluate_resume", {})
+    s13 = report.get("slice13", {})
+    for distill, rec in s13.get("dtfd_cls", {}).items():
+        paths[f"dtfd_{distill}_evaluate"] = {"launches": rec.get(
+            "eval_launches", {})}
+        paths[f"dtfd_{distill}_train_epoch"] = rec
+    ds13 = s13.get("dtfd_survival", {})
+    paths["dtfd_survival_validate"] = ds13.get("validate", {})
+    paths["dtfd_survival_train_epoch"] = ds13
+    mh = s13.get("mhim", {})
+    paths["mhim_teacher"] = {"launches": mh.get("teacher_launches", {})}
+    paths["mhim_validate"] = mh.get("validate", {})
+    paths["mhim_train_epoch"] = mh
+    paths["mhim_selfattn_evaluate"] = s13.get("selfattn", {})
+    for name, _ in CLI13_SURVIVAL:
+        res = s13.get("cli", {}).get(name + "_evaluate_resume", {})
+        paths[f"cli_survival_{name}_train"] = {"launches": res.get(
+            "train_launches", {})}
+        paths[f"cli_survival_{name}_evaluate_resume"] = res
     own = {n: "train_epoch" for n in C16_TRAIN}
     own.update({K[9]: "ffn_train_epoch", K[10]: "ffn_train_epoch",
                 K[11]: "survival_train_epoch", K[12]: "survival_train_epoch"})

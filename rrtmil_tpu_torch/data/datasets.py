@@ -39,6 +39,15 @@ def load_feature_file(path: str) -> np.ndarray:
     return feats
 
 
+def feature_file_length(path: str) -> int:
+    """The bag length of one feature file; a .npy file answers from its
+    header alone."""
+    if not path.endswith(".npy"):
+        return int(load_feature_file(path).shape[0])
+    shape = np.load(path, mmap_mode="r").shape     # maps, reads no rows
+    return int(shape[1] if len(shape) == 3 and shape[0] == 1 else shape[0])
+
+
 def read_label_csv(csv_file: str) -> Tuple[np.ndarray, np.ndarray]:
     """(patients, labels) from label.csv (reference dataloader.py:18-28)."""
     patients, labels = [], []
@@ -184,12 +193,7 @@ class BagDataset:
             return int(cached.shape[0])
         path = self.slide_path[idx]
         if path.endswith(".npy"):
-            with open(path, "rb") as f:
-                version = np.lib.format.read_magic(f)
-                shape, _, _ = np.lib.format._read_array_header(f, version)
-            if len(shape) == 3 and shape[0] == 1:
-                return int(shape[1])
-            return int(shape[0])
+            return feature_file_length(path)
         return int(self.bag(idx).shape[0])
 
     def lengths(self) -> List[int]:

@@ -21,7 +21,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from .datasets import load_feature_file
+from .datasets import feature_file_length, load_feature_file
 
 
 def quantile_bins(event: np.ndarray, status: np.ndarray, n_bins: int = 4,
@@ -96,6 +96,11 @@ class SurvivalDataset:
         return np.concatenate([load_feature_file(p)
                                for p in self._resolve(path)], axis=0)
 
+    def length(self, idx: int) -> int:
+        """Bag `idx`'s patch count over its files (.npy headers alone)."""
+        return sum(feature_file_length(p)
+                   for p in self._resolve(self.wsi_paths[idx]))
+
     def __getitem__(self, idx: int):
         return (self.ids[idx], self.read_wsi(self.wsi_paths[idx]),
                 float(self.events[idx]), int(self.censorship[idx]),
@@ -117,6 +122,9 @@ class ArraySurvivalDataset(SurvivalDataset):
 
     def resolved_path(self, idx: int) -> str:
         return self.wsi_paths[idx]      # mem://: keyed by the dataset's id
+
+    def length(self, idx: int) -> int:
+        return int(self._bags[idx].shape[0])
 
     def __getitem__(self, idx: int):
         return (self.ids[idx], self._bags[idx], float(self.events[idx]),

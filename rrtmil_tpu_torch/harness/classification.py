@@ -5,8 +5,11 @@ main.py:23-413): seeded patient shuffle and stratified k-fold, per-fold
 training with validation, early stopping on -AUC, the optional per-epoch
 test (`always_test`), best-AUC weights, the rolling full-resume checkpoint
 (every RNG stream included) and the cross-validation summary.  Models:
-rrtmil and the zoo's attmil, gattmil, clam_sb, clam_mb, dsmil, transmil,
-meanmil, maxmil and ibmil, with `--only_rrt_enc` injecting the RRT encoder
+rrtmil, the zoo's attmil, gattmil, clam_sb, clam_mb, dsmil, transmil,
+meanmil, maxmil and ibmil, and the standalone DTFD (no encoder, batch size
+1, `DTFDClassificationEngine`: its two tiers' clipped gradients and its
+permuted evaluation, classification.py:139-153), with `--only_rrt_enc`
+injecting the RRT encoder
 into the zoo's but TransMIL's (classification.py:68-81; CLAM's subtyping
 is on unless the dataset is camelyon16), the loss weights and batch size 1
 the reference forces on CLAM and DSMIL, DSMIL's `--ds_average` and
@@ -40,6 +43,7 @@ from ..data.datasets import (C16Dataset, TCGADataset, get_kfold,
                              read_label_csv)
 from ..models import zoo
 from ..models.dsmil import load_warm_start
+from ..models.dtfd import DTFD
 from ..models.rrt import build_model
 from ..train.checkpoint import FoldCheckpointer, load_host_state
 from ..train.earlystop import EarlyStopping
@@ -47,18 +51,24 @@ from ..train.engine import Engine, EngineConfig
 from ..train.metrics import five_scores
 from ..utils.device import resolve_device
 from ..utils.logger import Logger
+from .dtfd_cls import DTFDClassificationEngine
+
+
+def model_names() -> List[str]:
+    """The `--model` names: the zoo's and the standalone DTFD, which the
+    harness builds itself (the JAX registry holds no dtfd either)."""
+    return sorted(zoo.model_names() + ["dtfd"])
 
 
 def check_args(args) -> None:
-    """Refuse what the port does not run yet, before any work."""
-    name = args.model.lower()
-    if name not in zoo.model_names():
-        raise ValueError(f"--model {args.model}: " + (
-            zoo.not_ported(name) if name in zoo.NOT_PORTED else
-            f"unknown; choose from {zoo.model_names()}"))
+    """Refuse an unknown model and what the port does not run yet, before
+    any work."""
+    if args.model.lower() not in model_names():
+        raise ValueError(f"--model {args.model}: unknown model; choose from "
+                         f"{model_names()}")
     if getattr(args, "fold_parallel", False):
-        raise ValueError("--fold_parallel is not ported yet: see ROADMAP.md "
-                         "queue 1 item 9")
+        raise ValueError(f"--fold_parallel (--model {args.model}) is not "
+                         f"ported yet: see ROADMAP.md queue 1 item 9")
     resolve_device(args.device)
 
 
@@ -105,7 +115,9 @@ def model_config_from_args(args) -> RRTMILConfig:
 
 def build_model_from_args(args, device="cuda", confounders=None):
     """(model, the encoder config that buckets the bags)
-    (classification.py:68-81): rrtmil from its config; a zoo model with
+    (classification.py:68-81,139-153): rrtmil from its config; the
+    standalone DTFD (no encoder; --numGroup pseudo-bags, --distill_type,
+    --total_instance // --numGroup instances a pseudo-bag); a zoo model with
     the encoder injected under --only_rrt_enc, CLAM's subtyping on unless
     the dataset is camelyon16, IBMIL's `confounders`; seeded from
     `args.seed` on every fold."""
@@ -113,6 +125,13 @@ def build_model_from_args(args, device="cuda", confounders=None):
         cfg = model_config_from_args(args)
         return build_model(cfg, device=device, seed=args.seed), cfg.encoder
     enc = encoder_config_from_args(args)
+    if args.model == "dtfd":
+        model = DTFD(input_dim=args.input_dim, n_classes=args.n_classes,
+                     survival=False, group=args.numGroup,
+                     distill=args.distill_type,
+                     instance_per_group=max(
+                         1, args.total_instance // args.numGroup))
+        return zoo.seeded(model, device, args.seed), enc
     model = zoo.build_model(
         args.model, input_dim=args.input_dim, n_classes=args.n_classes,
         dropout=args.dropout, act=args.act,
@@ -136,18 +155,19 @@ def confounder_file(args, fold: int) -> str:
 def engine_config_from_args(args) -> EngineConfig:
     """--amp -> bags cast to bfloat16 on the host before the transfer; the
     loss weights the reference forces on CLAM (0.7 / 0.3) and DSMIL (0.5 /
-    0.5), and batch size 1 for those single-bag models
-    (classification.py:84-114)."""
+    0.5), and batch size 1 for those single-bag models and DTFD
+    (classification.py:84-114,150)."""
     cls_alpha, aux_alpha = zoo.LOSS_WEIGHT_OVERRIDES.get(
         args.model, (args.cls_alpha, args.aux_alpha))
     # the aux models (CLAM's instance sampler, DSMIL's critical-instance
     # queries) take one bag at a time
     aux_mode = zoo.aux_mode(args.model)
+    single = aux_mode or args.model == "dtfd"
     return EngineConfig(
         loss=args.loss, opt=args.opt, lr=args.lr,
         weight_decay=args.weight_decay, lr_schedule=args.lr_sche,
         lr_supi=args.lr_supi, num_epochs=args.num_epoch,
-        batch_size=1 if aux_mode else args.batch_size,
+        batch_size=1 if single else args.batch_size,
         n_classes=args.n_classes, cls_alpha=cls_alpha, aux_alpha=aux_alpha,
         aux_mode=aux_mode,
         ds_average=args.model == "dsmil" and args.ds_average,
@@ -194,8 +214,13 @@ def one_fold(args, fold: int, splits, metrics: Dict[str, List[float]],
         logger.print(f"ibmil confounders loaded from {path}")
     else:
         model, enc = build_model_from_args(args, device=args.device)
-    engine = Engine(model, engine_config_from_args(args), enc,
-                    device=args.device)
+    if args.model == "dtfd":
+        engine = DTFDClassificationEngine(
+            model, engine_config_from_args(args), enc,
+            grad_clipping=args.grad_clipping, device=args.device)
+    else:
+        engine = Engine(model, engine_config_from_args(args), enc,
+                        device=args.device)
     engine.logger = logger
     engine.fold = fold
     if args.model == "dsmil" and args.dsmil_init:

@@ -17,23 +17,38 @@ instance loss, DSMIL's bag logits, TransMIL's cls token at std 1e-6,
 IBMIL without confounders).  TransMIL sees the bucket's `repr_length`
 rows, zero rows included, not the bag's true length: the JAX survival
 engine passes it so (surv_engine.py:181,206), and the port keeps it.
+
+DTFD and MHIM-MIL train through engines of their own (survival.py:
+119-290) and are built bare, without an encoder: DTFD (group 8, MaxMinS)
+returns (hazards, S) itself and trains on the surrogate loss0 + loss1
+(`DTFDSurvivalEngine`); MHIM (the 'attn' baseline) keeps an EMA teacher
+(`MHIMSurvivalEngine`).  Both see the bucket's `repr_length` rows too:
+DTFD cuts its pseudo-bags over it, MHIM counts its keep-mask over it.
+`--resume` loads MHIM's student alone, its teacher staying the initial
+copy, and only the student is saved, as in the JAX package.
 """
 from __future__ import annotations
 
+import copy
 import csv
 import os
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
+import torch
 
 from ..config import PoolConfig, RRTEncoderConfig, RRTMILConfig
 from ..data.survival import SurvivalDataset
-from ..models import zoo
-from ..models.survival import SurvivalHead
+from ..models import mhim, zoo
+from ..models.dtfd import DTFD
+from ..models.survival import SurvivalHead, risk_score
 from ..train.checkpoint import load_params, save_params
+from ..train.metrics import concordance_index_censored
+from ..train.optim import fill_unreached_grads
 from ..train.surv_engine import SurvivalEngine, SurvivalEngineConfig
 from ..utils.device import resolve_device
 from ..utils.logger import Logger
+from .dtfd_cls import EVAL_PERM_SEED, eval_permutation
 
 PARALLEL_ITEM = "ROADMAP.md queue 1 item 9"
 
@@ -63,7 +78,9 @@ class CVMeter:
             writer.writerow(self.cindex)
 
 
-def _name(name: str) -> str:
+def model_key(name: str) -> str:
+    """The lower-case name without its -MIL / _MIL suffix (DTFD, dtfd and
+    MHIM-MIL give dtfd and mhim)."""
     return name.lower().replace("-mil", "").replace("_mil", "")
 
 
@@ -86,19 +103,26 @@ def build_survival_model(name: str, n_features: int, n_classes: int = 4,
                          epeg_k: int = 15, crmsa_k: int = 3,
                          amp: bool = False, device="cuda", seed: int = 0):
     """(SurvivalHead(backbone), the encoder config that buckets the bags)
-    (reference Survival/main.py:70-153)."""
-    name_l = _name(name)
+    (reference Survival/main.py:70-153); DTFD and MHIM bare."""
+    name_l = model_key(name)
     enc16 = RRTEncoderConfig(region_num=16, epeg_k=epeg_k, crmsa_k=crmsa_k,
                              compute_dtype="bfloat16" if amp else "float32")
+    if name_l == "dtfd":
+        return zoo.seeded(DTFD(input_dim=n_features, n_classes=n_classes),
+                          device, seed), enc16
+    if name_l == "mhim":
+        return zoo.seeded(mhim.MHIM(input_dim=n_features,
+                                    n_classes=n_classes),
+                          device, seed), enc16
     if name_l == "rrtmil":
         cfg = survival_rrtmil_config(n_features, n_classes, epeg_k, crmsa_k,
                                      amp=amp)
         backbone = zoo.build_model("rrtmil", rrtmil_cfg=cfg, device=device,
                                    seed=seed)
     else:
-        # the zoo raises for the models it does not have, naming the
-        # ROADMAP item that holds each; the survival TransMIL re-inits its
-        # cls token to std 1e-6 (Survival/models/TransMIL/network.py:75-76)
+        # the zoo raises for a name it does not have; the survival TransMIL
+        # re-inits its cls token to std 1e-6 (Survival/models/TransMIL/
+        # network.py:75-76)
         backbone = zoo.build_model(
             name_l, input_dim=n_features, n_classes=n_classes,
             cls_token_std=1e-6 if name_l == "transmil" else 1.0,
@@ -106,16 +130,143 @@ def build_survival_model(name: str, n_features: int, n_classes: int = 4,
     return SurvivalHead(backbone), enc16
 
 
+class DTFDSurvivalEngine(SurvivalEngine):
+    """DTFD's protocol (survival.py:119-194): each step optimizes the
+    surrogate loss0 + loss1, loss0 the survival loss of the G pseudo-bags'
+    hazards against the label and censorship repeated G times, loss1 the
+    bag's; the risk is -sum(S).  `validate` permutes each bag's true
+    instances (the dataset's bag length) before chunking, the pad rows at
+    the tail, from `np.random.default_rng(seed + 0xD7FD)` made anew in each
+    call (the reference's shuffle, DTFD/network.py:231-233)."""
+
+    def _train_step(self, x, mask, label, censorship, length: int):
+        p_hazards, p_survival, hazards, survival = self.model(
+            x, mask=mask, length=length, generator=self.generator,
+            train=True)
+        g = p_hazards.shape[0]
+        loss = self._loss(p_hazards, p_survival, label.expand(g),
+                          censorship.expand(g)) + \
+            self._loss(hazards, survival, label, censorship)
+        loss.backward()
+        fill_unreached_grads(self.model)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        return loss.detach(), risk_score(survival).detach()
+
+    @torch.no_grad()
+    def _eval_step_perm(self, x, mask, label, censorship, perm, length: int):
+        hazards, survival = self.model(x, mask=mask, length=length,
+                                       eval_perm=perm)
+        return (self._loss(hazards, survival, label, censorship),
+                risk_score(survival))
+
+    def validate(self, dataset, indices: Sequence[int]):
+        self.model.eval()
+        indices = list(indices)
+        rng = np.random.default_rng(self.cfg.seed + EVAL_PERM_SEED)
+        losses, risks = [], []
+        for idx, targets in zip(indices,
+                                self._epoch_targets(dataset, indices)):
+            x, mask, spec = self._prep_indexed(dataset, idx)[:3]
+            perm = eval_permutation(
+                rng, min(dataset.length(idx), spec.repr_length),
+                spec.repr_length)
+            loss, risk = self._eval_step_perm(x, mask, *targets, perm,
+                                              spec.repr_length)
+            losses.append(loss)
+            risks.append(risk)
+        total, risk_np = self._sync_meters(losses, risks)
+        c_index = concordance_index_censored(
+            1 - np.asarray(dataset.censorship)[indices],
+            np.asarray(dataset.events)[indices], risk_np)
+        return total / max(len(indices), 1), c_index
+
+
+class MHIMSurvivalEngine(SurvivalEngine):
+    """MHIM-MIL's protocol (survival.py:196-290): each step runs the teacher
+    in eval mode without gradients (its bag feature and raw attention),
+    builds the keep-mask over the bucket's `repr_length` rows (draws from
+    the engine's generator), trains the student on the survival loss plus
+    `cl_alpha` soft_target_ce(student feature, teacher feature), steps the
+    optimizer and moves the teacher by EMA.  `mrh_sche` (cosine
+    `mask_ratio_h` -> 0, rounded to 4 places) and `mm_sche` (cosine `mm` ->
+    1) run over `num_epochs * niter_per_ep` steps, indexed by a step count
+    that carries across epochs and stops at the last entry.  Validation is
+    the base engine's, through sigmoid and cumprod of the logits.  The teacher starts as a copy
+    of the initial student; `load_state_dict` (--resume) loads the student
+    alone."""
+
+    def __init__(self, model, cfg: SurvivalEngineConfig, encoder_cfg=None,
+                 device="cuda", niter_per_ep: int = 100,
+                 mask_ratio: float = 0.7, mask_ratio_l: float = 0.2,
+                 mask_ratio_h: float = 0.02, cl_alpha: float = 0.5,
+                 mm: float = 0.9999):
+        super().__init__(model, cfg, encoder_cfg, device=device)
+        self.cl_alpha = cl_alpha
+        self.mask_ratio, self.mask_ratio_l = mask_ratio, mask_ratio_l
+        self.mrh_sche = mhim.cosine_schedule(mask_ratio_h, 0.0,
+                                             cfg.num_epochs, niter_per_ep)
+        self.mm_sche = mhim.cosine_schedule(mm, 1.0, cfg.num_epochs,
+                                            niter_per_ep, start_warmup=1.0)
+        self.teacher = copy.deepcopy(self.model).eval().requires_grad_(False)
+        self._iter = 0
+
+    def _train_step(self, x, mask, label, censorship, length: int):
+        i = min(self._iter, len(self.mrh_sche) - 1)
+        mask_ratio_h = round(float(self.mrh_sche[i]), 4)
+        self._iter += 1
+        with torch.no_grad():
+            _, tea_feat, tea_attn = self.teacher(
+                x, mask=mask, length=length, return_attn=True,
+                return_feat=True)
+        n = x.shape[1]
+        draws = mhim.keep_mask_draws(n, length, self.mask_ratio,
+                                     mask_ratio_h, 0.0, self.generator,
+                                     self.device)
+        keep = mhim.build_keep_mask(draws, tea_attn[0], length, n,
+                                    self.mask_ratio, self.mask_ratio_l,
+                                    mask_ratio_h)
+        logits, stu_feat = self.model(
+            x, mask=mask, length=length, keep_mask=keep[None],
+            generator=self.generator, return_feat=True)
+        hazards = torch.sigmoid(logits.float())
+        survival = torch.cumprod(1 - hazards, dim=-1)
+        loss = self._loss(hazards, survival, label, censorship) + \
+            self.cl_alpha * mhim.soft_target_ce(stu_feat, tea_feat)
+        loss.backward()
+        fill_unreached_grads(self.model)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        mhim.ema_update(self.model, self.teacher, float(self.mm_sche[i]))
+        return loss.detach(), risk_score(survival).detach()
+
+    @torch.no_grad()
+    def _eval_step(self, x, mask, label, censorship, length: int):
+        hazards = torch.sigmoid(self.model(x, mask=mask,
+                                           length=length).float())
+        survival = torch.cumprod(1 - hazards, dim=-1)
+        return (self._loss(hazards, survival, label, censorship),
+                risk_score(survival))
+
+
 def make_survival_engine(name: str, model, cfg: SurvivalEngineConfig,
                          encoder_cfg=None, sp_shards: int = 1,
-                         device="cuda") -> SurvivalEngine:
+                         device="cuda", niter_per_ep: int = 100
+                         ) -> SurvivalEngine:
+    """The model's engine (survival.py:293-316): DTFD's and MHIM's own, the
+    SurvivalEngine otherwise; `niter_per_ep` sizes MHIM's schedules."""
+    name_l = model_key(name)
     if sp_shards > 1:
-        raise ValueError(f"--sp_shards {sp_shards}: the sequence-sharded "
-                         f"survival engine is not ported yet "
-                         f"({PARALLEL_ITEM})")
-    if _name(name) in ("dtfd", "mhim"):
-        raise ValueError(f"the {name} survival engine: "
-                         f"{zoo.not_ported(_name(name))}")
+        only = "" if name_l == "rrtmil" else \
+            ", and it takes RRTMIL alone, as in the JAX package"
+        raise ValueError(f"--sp_shards {sp_shards} (--model {name}): the "
+                         f"sequence-sharded survival engine is not ported "
+                         f"yet ({PARALLEL_ITEM}){only}")
+    if name_l == "dtfd":
+        return DTFDSurvivalEngine(model, cfg, encoder_cfg, device=device)
+    if name_l == "mhim":
+        return MHIMSurvivalEngine(model, cfg, encoder_cfg, device=device,
+                                  niter_per_ep=niter_per_ep)
     return SurvivalEngine(model, cfg, encoder_cfg, device=device)
 
 
@@ -168,7 +319,8 @@ def run_survival_cv(args) -> CVMeter:
             device=device, seed=args.seed)
         engine = make_survival_engine(args.model, model,
                                       engine_config_from_args(args), enc,
-                                      sp_shards=sp_shards, device=device)
+                                      sp_shards=sp_shards, device=device,
+                                      niter_per_ep=len(train_idx))
 
         # --resume: the best-checkpoint weights (reference Survival/models/
         # RRTMIL/engine.py:27-35)

@@ -8,10 +8,13 @@ plain versions).  The reference's inverted `store_false` booleans (--epeg,
 --cr_msa, --qkv_bias, --epeg_bias, --early_stopping default ON; passing the
 flag turns them OFF) are kept, so commands port unchanged.  `--model`
 takes rrtmil, attmil, gattmil, clam_sb, clam_mb, dsmil, transmil, meanmil,
-maxmil and ibmil (`--only_rrt_enc` puts the RRT encoder into the zoo's but
-TransMIL's; ibmil reads `--confounder_path` / `--confounder_k`, the
-prototypes `python -m rrtmil_tpu_torch.build_confounders` writes); dtfd,
-mhim and `--fold_parallel` raise, naming their ROADMAP.md item.
+maxmil, ibmil and dtfd (`--only_rrt_enc` puts the RRT encoder into the
+zoo's but TransMIL's; ibmil reads `--confounder_path` / `--confounder_k`,
+the prototypes `python -m rrtmil_tpu_torch.build_confounders` writes; dtfd
+reads `--numGroup`, `--total_instance`, `--distill_type` and
+`--grad_clipping`).  Any other name fails as an unknown model (mhim is a
+survival model alone, as in the JAX package); `--fold_parallel` raises,
+naming the model and its ROADMAP.md item.
 """
 from __future__ import annotations
 

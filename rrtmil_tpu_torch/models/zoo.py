@@ -7,9 +7,10 @@ package's distributions (`models/rrt.init_parameters`), `aux_mode(name)`
 loss weights.  Every zoo model but TransMIL takes an optional injected
 RRT encoder config (`rrt=`, the `--only_rrt_enc` path); IBMIL takes its
 confounder prototypes (`confounders=`), TransMIL its cls token's init std
-(`cls_token_std=`, 1e-6 in survival).  The names
-the port does not have yet (DTFD, MHIM, which train through engines of
-their own) raise, each naming its ROADMAP item.
+(`cls_token_std=`, 1e-6 in survival).  As in the JAX registry, DTFD and
+MHIM are not zoo names: they train through engines of their own
+(harness/dtfd_cls.py, harness/survival.py), and their harnesses build them
+with `seeded`.
 """
 from __future__ import annotations
 
@@ -45,8 +46,6 @@ _REGISTRY = {
     "maxmil": (MaxMIL, None),
     "ibmil": (IBMIL, None),
 }
-# the JAX package's other names, by the ROADMAP.md item that ports them
-NOT_PORTED = {"dtfd": "8(f)", "mhim": "8(g)"}
 
 # loss weights forced by the reference harness (main.py:213-214,719-726)
 LOSS_WEIGHT_OVERRIDES = {
@@ -56,10 +55,13 @@ LOSS_WEIGHT_OVERRIDES = {
 }
 
 
-def not_ported(name: str) -> str:
-    """The refusal of a name the port does not have yet."""
-    return (f"model {name!r} is not ported yet: see ROADMAP.md queue 1 item "
-            f"{NOT_PORTED[name]}")
+def seeded(model: nn.Module, device="cuda", seed: int = 0) -> nn.Module:
+    """`model` with fresh weights drawn from the JAX package's distributions
+    (`rrt.init_parameters`, seeded by `seed`), in eval mode on `device`
+    (the card by default; raises when there is none unless device='cpu')."""
+    dev = resolve_device(device)
+    rrt.init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()
 
 
 def model_names():
@@ -85,8 +87,6 @@ def build_model(name: str, input_dim: int = 1024, n_classes: int = 2,
     TransMIL takes no injected encoder (`rrt_cfg` is ignored, as in the
     JAX package)."""
     name = name.lower()
-    if name in NOT_PORTED:
-        raise ValueError(not_ported(name))
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; choose from "
                          f"{model_names()}")
@@ -96,7 +96,6 @@ def build_model(name: str, input_dim: int = 1024, n_classes: int = 2,
             dropout=dropout, encoder=rrt_cfg or RRTEncoderConfig(),
             pool=PoolConfig())
         return rrt.build_model(cfg, device=device, seed=seed)
-    dev = resolve_device(device)
     kwargs = {"rrt": rrt_cfg}
     if aux_mode(name) == "loss":
         kwargs["subtyping"] = subtyping
@@ -104,7 +103,7 @@ def build_model(name: str, input_dim: int = 1024, n_classes: int = 2,
         kwargs["confounders"] = confounders
     elif name == "transmil":
         kwargs = {"cls_token_std": cls_token_std}
-    model = _REGISTRY[name][0](input_dim=input_dim, n_classes=n_classes,
-                               act=act, dropout=dropout, **kwargs)
-    rrt.init_parameters(model, torch.Generator().manual_seed(seed))
-    return model.to(dev).eval()
+    return seeded(_REGISTRY[name][0](input_dim=input_dim,
+                                     n_classes=n_classes, act=act,
+                                     dropout=dropout, **kwargs),
+                  device, seed)

@@ -6,9 +6,10 @@ The flag surface of the JAX package's `survival_main.py` (reference
 Survival/main.py + Survival/utils/options.py), defaults included, plus
 `--device` (default 'cuda'; 'cpu' runs the kernels' plain versions).  A
 5-fold CV (`harness/survival.run_survival_cv`) for RRTMIL, MeanMIL,
-MaxMIL, AttMIL, CLAM_SB, CLAM_MB, DSMIL, TransMIL and IBMIL; DTFD, MHIM-MIL,
-`--fold_parallel` and `--sp_shards > 1` raise (ROADMAP.md queue 1 items 8
-and 9).
+MaxMIL, AttMIL, CLAM_SB, CLAM_MB, DSMIL, TransMIL, IBMIL, DTFD and
+MHIM-MIL (the last two through engines of their own); `--fold_parallel`
+and `--sp_shards > 1` raise, naming the model that asked (ROADMAP.md
+queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import argparse
 import os
 import time
 
-from .harness.survival import PARALLEL_ITEM, run_survival_cv
+from .harness.survival import PARALLEL_ITEM, model_key, run_survival_cv
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -34,8 +35,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", type=str, default="")
     parser.add_argument("--model", type=str, default="MeanMIL",
                         help="[RRTMIL, MeanMIL, MaxMIL, AttMIL, CLAM_SB, "
-                             "CLAM_MB, DSMIL, TransMIL, IBMIL]; DTFD and "
-                             "MHIM-MIL are not ported yet")
+                             "CLAM_MB, DSMIL, TransMIL, IBMIL, DTFD, "
+                             "MHIM-MIL]")
     parser.add_argument("--optimizer", type=str, default="Adam",
                         choices=["SGD", "Adam", "AdamW", "RAdam",
                                  "PlainRAdam", "Lookahead"])
@@ -88,8 +89,12 @@ def main(argv=None):
     args = parse_args(argv)
     print(args)
     if args.fold_parallel:
-        raise ValueError(f"--fold_parallel is not ported yet: see "
-                         f"{PARALLEL_ITEM}")
+        own = model_key(args.model) in ("dtfd", "mhim")
+        raise ValueError(
+            f"--fold_parallel (--model {args.model}) is not ported yet: see "
+            f"{PARALLEL_ITEM}" + ("; it trains the SurvivalEngine zoo alone, "
+                                  "not DTFD's or MHIM-MIL's engines, as in "
+                                  "the JAX package" if own else ""))
     meter = run_survival_cv(args)
     print("finished!")
     return meter

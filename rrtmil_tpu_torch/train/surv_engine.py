@@ -17,6 +17,7 @@ later slice (ROADMAP.md queue 1 item 9).
 from __future__ import annotations
 
 import dataclasses
+import time
 from functools import partial
 from typing import Callable, List, Optional, Sequence
 
@@ -204,19 +205,26 @@ class SurvivalEngine:
     def learning(self, dataset, train_idx, val_idx, logger=None,
                  checkpoint_fn: Optional[Callable] = None):
         """A whole fold (reference engine.py:24-60): returns (best c-index,
-        its epoch, the state_dict at that epoch, on the CPU)."""
+        its epoch, the state_dict at that epoch, on the CPU).  Each epoch's
+        log line carries its train and validation bags/s (each phase ends
+        in its one host sync)."""
         best_score, best_epoch = 0.0, 0
         best_state = {k: v.detach().cpu().clone()
                       for k, v in self.model.state_dict().items()}
         for epoch in range(self.cfg.num_epochs):
+            t0 = time.perf_counter()
             tr_loss, tr_ci = self.train_epoch(dataset, train_idx, epoch)
+            t1 = time.perf_counter()
             val_loss, val_ci = self.validate(dataset, val_idx)
+            t2 = time.perf_counter()
             if self._plateau is not None:
                 self._plateau.step(val_loss)
             if logger:
                 logger.print(f"epoch {epoch}: train loss {tr_loss:.4f} "
-                             f"ci {tr_ci:.4f} | val loss {val_loss:.4f} "
-                             f"ci {val_ci:.4f}")
+                             f"ci {tr_ci:.4f} ({len(train_idx) / (t1 - t0):.2f}"
+                             f" bags/s) | val loss {val_loss:.4f} ci "
+                             f"{val_ci:.4f} ({len(val_idx) / (t2 - t1):.2f} "
+                             f"bags/s)")
                 logger.log({"train/loss": tr_loss, "train/c_index": tr_ci,
                             "val/loss": val_loss, "val/c_index": val_ci},
                            step=epoch)

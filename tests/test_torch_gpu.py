@@ -1122,3 +1122,156 @@ def test_exact_mode_batches_on_card():
     probs, _, loss = eng.evaluate(ds)
     assert probs.shape == (3,) and np.isfinite(loss)
     assert eng._dcache is None and not any(f.launches for f in fns)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("surv", [False, True])
+def test_dtfd_on_card_matches_cpu(surv):
+    """DTFD (input 64, dropout off; classification: 4 pseudo-bags, MaxMinS;
+    survival: 8, MaxMinS) on a 2213-patch bag read over its bucket's 2304
+    rows: the train path's outputs and both tiers' loss gradients, and the
+    eval path with a permutation of the true rows, against the CPU from
+    the same weights (1e-4, f32, TF32 off); no kernel launched, the same
+    bits from a second eval forward."""
+    from rrtmil_tpu_torch.models import zoo
+    from rrtmil_tpu_torch.models.dtfd import DTFD
+    dev = _cuda()
+    kw = dict(input_dim=64, n_classes=4 if surv else 2, survival=surv,
+              group=8 if surv else 4, distill="MaxMinS")
+    card = zoo.seeded(DTFD(**kw), dev, 3)
+    cpu = zoo.seeded(DTFD(**kw), "cpu", 3)
+    card.p = cpu.p = 0.0
+    x = torch.zeros((1, 2400, 64))
+    x[0, :2213] = torch.randn((2213, 64),
+                              generator=torch.Generator().manual_seed(1))
+    mask = torch.arange(2400)[None] < 2213
+    perm = torch.cat([torch.randperm(
+        2213, generator=torch.Generator().manual_seed(2)),
+        torch.arange(2213, 2304)])
+    fns = _ALL_KERNELS()
+    for f in fns:
+        f.launches = 0
+    outs = []
+    for model, d in ((card, dev), (cpu, "cpu")):
+        out = model(x.to(d), mask=mask.to(d), length=2304, train=True)
+        loss = out[-1].sum() + out[1].sum() if surv else \
+            out[0].logsumexp(-1).sum() + out[1][0, 1]
+        loss.backward()
+        with torch.no_grad():
+            ev = model(x.to(d), mask=mask.to(d), length=2304, eval_perm=perm)
+            if model is card:
+                again = model(x.to(d), mask=mask.to(d), length=2304,
+                              eval_perm=perm)
+                assert all(torch.equal(a, b) for a, b in zip(
+                    ev if surv else (ev,), again if surv else (again,)))
+        outs.append([t.detach().float().cpu() for t in out] +
+                    ([t.cpu() for t in ev] if surv else [ev.cpu()]))
+    assert not any(f.launches for f in fns)
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    _grads_close(card, cpu, 1e-4, skip=("attention.attention_weights.bias",
+                                       "u_attention.attention_weights.bias"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("baseline,n", [("attn", 9000), ("selfattn", 1024),
+                                        ("selfattn", 1000)])
+def test_mhim_on_card_matches_cpu(baseline, n):
+    """MHIM (input 64, dropout 0): the teacher's feature and raw attention
+    on the card against the CPU, a keep-mask built on the card from them
+    and handed to the CPU, the student's logits, loss (survival loss plus
+    the soft-target CE) and every gradient against the CPU (1e-4, f32,
+    TF32 off); 'selfattn' at 1024 tokens (32 x 32: PPEG runs) and 1000;
+    no kernel launched."""
+    from rrtmil_tpu_torch.models import mhim, zoo
+    from rrtmil_tpu_torch.train.losses import nll_surv_loss
+    dev = _cuda()
+    kw = dict(input_dim=64, dropout=0.0, baseline=baseline)
+    card = zoo.seeded(mhim.MHIM(**kw), dev, 4)
+    cpu = zoo.seeded(mhim.MHIM(**kw), "cpu", 4)
+    x = torch.randn((1, n, 64), generator=torch.Generator().manual_seed(5))
+    mask = torch.arange(n)[None] < n - 37
+    fns = _ALL_KERNELS()
+    for f in fns:
+        f.launches = 0
+    with torch.no_grad():
+        tea = [card(x.to(dev), mask=mask.to(dev), return_attn=True,
+                    return_feat=True),
+               cpu(x, mask=mask, return_attn=True, return_feat=True)]
+    for a, b in zip(*tea):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    keep = mhim.build_keep_mask(
+        mhim.keep_mask_draws(n, n - 20, 0.7, 0.02, 0.0, gen, dev),
+        tea[0][2][0], n - 20, n, 0.7, 0.2, 0.02).cpu()
+    assert 0 < int(keep.sum()) < n - 37
+    losses = []
+    for model, d, t in ((card, dev, tea[0]), (cpu, "cpu", tea[1])):
+        logits, feat = model(x.to(d), mask=mask.to(d),
+                             keep_mask=keep[None].to(d), return_feat=True)
+        hazards = torch.sigmoid(logits)
+        surv = torch.cumprod(1 - hazards, dim=-1)
+        loss = nll_surv_loss(hazards, surv, torch.tensor([2], device=d),
+                             torch.tensor([0.0], device=d)) + \
+            0.5 * mhim.soft_target_ce(feat, t[1])
+        loss.backward()
+        losses.append(loss.item())
+    assert not any(f.launches for f in fns)
+    assert abs(losses[0] - losses[1]) <= 1e-4
+    # PPEG runs on a square token count alone
+    unused = {n for n, p in cpu.named_parameters() if p.grad is None}
+    assert unused == {n for n, p in card.named_parameters()
+                      if p.grad is None}
+    assert bool(unused) == (baseline == "selfattn" and n != 1024)
+    _grads_close(card, cpu, 1e-4, skip=unused)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["DTFD", "MHIM-MIL"])
+def test_dtfd_mhim_survival_cli_on_card(tmp_path, name):
+    """The survival CLI's DTFD and MHIM-MIL on the card: 5 folds x 2
+    epochs, no kernel launched, then --evaluate --resume: every fold that
+    saved weights gives its best c-index again."""
+    _cuda()
+    from rrtmil_tpu_torch import survival_main as cli
+    csv_file = _write_survival_set(str(tmp_path / "data"), 64)
+    fns = _ALL_KERNELS()
+    for f in fns:
+        f.launches = 0
+    res = str(tmp_path / "out")
+    common = ["--model", name, "--input_dim", "64", "--excel_file",
+              csv_file]
+    meter = cli.main(common + ["--num_epoch", "2", "--results_dir", res])
+    again = cli.main(common + ["--evaluate", "--resume", res,
+                               "--results_dir", str(tmp_path / "ev")])
+    assert not any(f.launches for f in fns)
+    kept = [k for k in range(5) if os.listdir(os.path.join(res,
+                                                           f"fold_{k}"))]
+    assert kept and all(again.cindex[1 + k] == meter.cindex[1 + k]
+                        for k in kept)
+
+
+@pytest.mark.gpu
+def test_dtfd_classification_cli_on_card(tmp_path):
+    """`rrtmil_tpu_torch.main --model dtfd` on the card: 2 folds x 2
+    epochs on 12 small bags, finite metrics, no kernel launched."""
+    _cuda()
+    from rrtmil_tpu_torch import main as cli
+    rng = np.random.default_rng(0)
+    root = tmp_path / "c16"
+    os.makedirs(root / "pt")
+    rows = []
+    for i in range(12):
+        bag = rng.standard_normal((int(rng.integers(100, 900)), 64))
+        bag[:20] += 0.5 * (i % 2)
+        np.save(root / "pt" / f"s{i:02d}.npy", bag.astype(np.float32))
+        rows.append(f"s{i:02d},{i % 2}\n")
+    (root / "label.csv").write_text("".join(rows))
+    fns = _ALL_KERNELS()
+    for f in fns:
+        f.launches = 0
+    metrics = cli.main(["--model", "dtfd", "--dataset_root", str(root),
+                        "--model_path", str(tmp_path / "m"), "--input_dim",
+                        "64", "--cv_fold", "2", "--num_epoch", "2"])
+    assert not any(f.launches for f in fns)
+    assert all(np.isfinite(metrics[k]).all() for k in ("acs", "auc"))

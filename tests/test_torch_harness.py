@@ -126,14 +126,23 @@ def test_amp_maps_to_bf16_compute_and_transfer():
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--model", "mhim"], ValueError, "queue 1 item 8"),
-    (["--model", "dtfd"], ValueError, "queue 1 item 8"),
+    (["--model", "mhim"], ValueError, "unknown model"),
+    (["--model", "dtfd"], None, None),
     (["--fold_parallel"], ValueError, "queue 1 item 9"),
     (["--device", "cuda"], RuntimeError, "no CUDA device")])
 def test_refusals(tmp_path, monkeypatch, argv, err, match):
-    """Unported models (mhim, dtfd), --fold_parallel and the card when
-    there is none raise before any work."""
+    """mhim (a survival model alone, as in the JAX registry) fails as an
+    unknown model, --fold_parallel and the card when there is none raise,
+    each before any work; dtfd runs one fold on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if err is None:
+        _write_c16(str(tmp_path / "c16"), n=8)
+        metrics = cli.main(argv + [
+            "--model_path", str(tmp_path), "--dataset_root",
+            str(tmp_path / "c16"), "--input_dim", str(D_IN), "--cv_fold",
+            "2", "--fold_start", "1", "--num_epoch", "1", "--device", "cpu"])
+        assert len(metrics["auc"]) == 1 and np.isfinite(metrics["auc"][0])
+        return
     with pytest.raises(err, match=match):
         cli.main(argv + ["--model_path", str(tmp_path),
                          "--dataset_root", str(tmp_path / "absent")])
@@ -370,12 +379,12 @@ class _Interrupt(Exception):
     pass
 
 
-def _engine_class(record, stop_at=None, order_at=None):
-    """A harness Engine recording each train epoch's order and the weights
-    after it and, at each fold's close, its streams' states; raising `_Interrupt` at
-    (fold, epoch) `stop_at`; training (fold, epoch) `order_at[0]` in the order
-    `order_at[1]`."""
-    class Recorder(Engine):
+def _engine_class(record, stop_at=None, order_at=None, base=Engine):
+    """A harness Engine (or `base`) recording each train epoch's order and
+    the weights after it and, at each fold's close, its streams' states;
+    raising `_Interrupt` at (fold, epoch) `stop_at`; training (fold, epoch)
+    `order_at[0]` in the order `order_at[1]`."""
+    class Recorder(base):
         def train_epoch(self, dataset, epoch, order=None):
             if (self.fold, epoch) == stop_at:
                 raise _Interrupt

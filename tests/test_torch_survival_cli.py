@@ -139,17 +139,32 @@ def test_flag_surface_is_survival_main_pys_plus_device(monkeypatch):
 @pytest.mark.parametrize("name,item", [("TransMIL", None), ("IBMIL", None),
                                        ("DTFD", "f"), ("MHIM-MIL", "g")])
 def test_unported_models_name_their_roadmap_item(name, item):
-    """DTFD and MHIM-MIL raise, naming their items; TransMIL and IBMIL
-    (items 8(b), 8(e)) are ported: four hazards for a masked bag."""
+    """Every survival name of items 8(b), 8(e), 8(f) and 8(g) builds and
+    runs on a masked bag: TransMIL and IBMIL under SurvivalHead, four
+    hazards; DTFD (its own (hazards, S)) and MHIM-MIL (logits) bare, each
+    through the engine of its own, one train step and a validation."""
+    model, enc = survival.build_survival_model(name, D_IN, device="cpu")
+    x, mask = torch.randn(1, 64, D_IN), torch.ones(1, 64, dtype=bool)
     if item is None:
-        model, _ = survival.build_survival_model(name, D_IN, device="cpu")
-        x, mask = torch.randn(1, 64, D_IN), torch.ones(1, 64, dtype=bool)
         with torch.no_grad():
             assert model(x, mask=mask, length=64)[0].shape == (1, 4)
         return
-    with pytest.raises(ValueError,
-                       match=f"ROADMAP.md queue 1 item 8\\({item}\\)"):
-        survival.build_survival_model(name, D_IN, device="cpu")
+    assert not isinstance(model, SurvivalHead)
+    with torch.no_grad():
+        out = model(x, mask=mask, length=64)
+    out = out if item == "f" else torch.sigmoid(out)
+    assert (out[0] if item == "f" else out).shape == (1, 4)
+    eng = survival.make_survival_engine(
+        name, model, SurvivalEngineConfig(num_epochs=1), enc, device="cpu",
+        niter_per_ep=2)
+    assert type(eng).__name__ == {"f": "DTFDSurvivalEngine",
+                                  "g": "MHIMSurvivalEngine"}[item]
+    rng = np.random.default_rng(0)
+    ds = ArraySurvivalDataset([rng.standard_normal((n, D_IN)).astype(
+        np.float32) for n in (50, 90)], [100.0, 500.0], [1, 1])
+    loss, _ = eng.train_epoch(ds, [0, 1], 0)
+    vloss, ci = eng.validate(ds, [0, 1])
+    assert np.isfinite(loss) and np.isfinite(vloss) and ci in (0.0, 1.0)
 
 
 @pytest.mark.parametrize("name,cls", [("AttMIL", "ABMIL"),
@@ -173,17 +188,31 @@ def test_zoo_backbones_build_and_run_on_the_cpu(name, cls):
 
 
 def test_refusals_name_their_roadmap_items(tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 8"):
+    """mhim is no zoo name (an unknown model there, as in the JAX
+    registry); DTFD and MHIM-MIL get their own engines; --sp_shards > 1
+    and --fold_parallel raise naming the model that asked and item 9, and
+    tell a DTFD or MHIM-MIL user that the JAX package does not run it
+    there either."""
+    with pytest.raises(ValueError, match="unknown model 'mhim'"):
         zoo.build_model("mhim", device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 8"):
-        survival.make_survival_engine("DTFD", torch.nn.Linear(2, 2),
-                                      SurvivalEngineConfig(), device="cpu")
+    assert isinstance(survival.make_survival_engine(
+        "DTFD", torch.nn.Linear(2, 2), SurvivalEngineConfig(),
+        device="cpu"), survival.DTFDSurvivalEngine)
     with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 9"):
         survival.make_survival_engine("RRTMIL", torch.nn.Linear(2, 2),
                                       SurvivalEngineConfig(), sp_shards=2,
                                       device="cpu")
+    with pytest.raises(ValueError, match="--model DTFD.*item 9.*RRTMIL "
+                                         "alone"):
+        survival.make_survival_engine("DTFD", torch.nn.Linear(2, 2),
+                                      SurvivalEngineConfig(), sp_shards=2,
+                                      device="cpu")
     with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 9"):
         cli.main(["--fold_parallel", "--results_dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="--model MHIM-MIL.*item 9.*not "
+                                         "DTFD's or MHIM-MIL's"):
+        cli.main(["--fold_parallel", "--model", "MHIM-MIL",
+                  "--results_dir", str(tmp_path)])
     with pytest.raises(ValueError, match="unknown model"):
         survival.build_survival_model("nope", D_IN, device="cpu")
     if not torch.cuda.is_available():

@@ -228,13 +228,16 @@ def test_seeded_init_is_reproducible_and_seed_dependent():
                                        ("dtfd", "8\\(f\\)"),
                                        ("mhim", "8\\(g\\)")])
 def test_unported_names_name_their_own_item(name, item):
-    """dtfd and mhim raise, each naming its ROADMAP item; transmil and
-    ibmil (items 8(b), 8(e)) are ported and build."""
+    """transmil and ibmil (items 8(b), 8(e)) are zoo names and build; dtfd
+    and mhim (items 8(f), 8(g)) train through engines of their own and,
+    as in the JAX registry, are no zoo names: `build_model` fails on them
+    as on any unknown name."""
     if item is None:
-        assert name in zoo.model_names() and name not in zoo.NOT_PORTED
+        assert name in zoo.model_names()
         model = zoo.build_model(name, input_dim=D_IN, device="cpu")
         with torch.no_grad():
             assert model(torch.randn(1, 40, D_IN)).shape == (1, 2)
         return
-    with pytest.raises(ValueError, match=f"ROADMAP.md queue 1 item {item}"):
+    assert name not in zoo.model_names()
+    with pytest.raises(ValueError, match=f"unknown model {name!r}"):
         zoo.build_model(name, device="cpu")

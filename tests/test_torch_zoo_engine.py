@@ -284,12 +284,14 @@ def test_survival_dsmil_learning_matches_jax():
 
 
 def test_survival_refusals_name_their_items():
-    """DTFD and MHIM-MIL raise, naming their items; TransMIL and IBMIL
-    (items 8(b), 8(e)) build."""
+    """Every survival name builds: TransMIL and IBMIL (items 8(b), 8(e))
+    under SurvivalHead, DTFD and MHIM-MIL (items 8(f), 8(g)) bare, without
+    an encoder, as the JAX factory builds them; an unknown name raises."""
     for name in ("TransMIL", "IBMIL"):
         head, _ = survival.build_survival_model(name, D_IN, device="cpu")
         assert isinstance(head, SurvivalHead)
-    for name, item in (("DTFD", "8\\(f\\)"), ("MHIM-MIL", "8\\(g\\)")):
-        with pytest.raises(ValueError,
-                           match=f"ROADMAP.md queue 1 item {item}"):
-            survival.build_survival_model(name, D_IN, device="cpu")
+    for name, cls in (("DTFD", "DTFD"), ("MHIM-MIL", "MHIM")):
+        model, enc = survival.build_survival_model(name, D_IN, device="cpu")
+        assert type(model).__name__ == cls and enc.region_num == 16
+    with pytest.raises(ValueError, match="unknown model"):
+        survival.build_survival_model("MHIM-X", D_IN, device="cpu")
