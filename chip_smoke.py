@@ -149,6 +149,27 @@ phase 9's own interruption):
    best c-index and validation loss exactly, no kernel launched; (g) DTFD's
    eval forward and train step at L = 9000, MHIM's train step at L = 9000
    and 50000, in ms;
+14. the EPEG ablations, the native loader tier and the JAX package's
+   weights: (a) c16_r50 (input 1024) with `epeg_type` value_bf, value_af,
+   2-D 'attn' and 2-D value_af: `Engine.evaluate` on {937, 2213, 9000}
+   against the CPU (K3, K5, K8 once a batch, K1 / K2 never), two
+   dropout-off steps against the CPU in f32 (TF32 off; K3-K9 once a step),
+   a forward and backward twice of the same bits, the forward and train
+   step at L = 9000, B in {1, 8}; (b)
+   `python -m rrtmil_tpu_torch.main` with c16_r50's flags and
+   `--epeg_type value_af`, and with `--epeg_2d`, each a process of its own
+   on phase 9's 12 bags that exits 0; (c) on those bags, every bag and
+   batch through the native tier and the Python tier in fp32 and bf16: the
+   same bits on the host and on the card; host ms a bag of each tier; the
+   CLI with c16_r50's flags through the native tier in fp32 and --amp and
+   through the Python tier in fp32 (first and cached epoch rates, batches
+   by tier: every miss of a native run served natively), and with a device
+   cache of OVER_BUDGET_SHARE of the set (3 epochs: hits, misses and rates
+   by epoch; most bags stream every epoch); (d) the committed fixture of
+   JAX-written `.msgpack` weights (attmil and a survival MeanMIL at input
+   64) loaded on the card, their outputs within 1e-4 of the JAX package's,
+   and `survival_main --evaluate --resume` over a JAX results directory as
+   a process that exits 0;
 6. survival: `SurvivalEngine.train_epoch` (dropout on) and `validate` on
    survival_default() at full width, bags of {937, 1500, 10000, 30000,
    45000, 50000} patches: each bag whose R-MSA grid exceeds its CR-MSA grid
@@ -194,7 +215,7 @@ Every counter is set to 0 just before each path and read just after.
 Prints the `{"kernels": [...]}` line (each kernel's launches from its own
 path: K1-K9 the c16_r50 train epoch, K10 / K11 the FFN one, K12 / K13 the
 survival one; `launches_by_path` adds every other path, phase 9's to
-13's runs among them), the card's name and power limit,
+14's runs among them), the card's name and power limit,
 and as
 its last line
 `{"ok": true, "device": {...}}`.  Writes the full report to
@@ -1521,6 +1542,7 @@ def cli_engine(stats, finals=None, stop_at=None, order_at=None, base=None):
 
         def _measure(self, kind, run, n):
             h0, m0 = self._cache_counts()
+            t_before = dict(self.tier_batches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = run()
@@ -1530,7 +1552,9 @@ def cli_engine(stats, finals=None, stop_at=None, order_at=None, base=None):
             stats.append({"kind": kind, "fold": self.fold,
                           "epoch": self.epoch, "bags": n, "seconds": secs,
                           "slides_per_s": n / secs, "cache_hits": h1 - h0,
-                          "cache_misses": m1 - m0})
+                          "cache_misses": m1 - m0,
+                          "tiers": {k: v - t_before[k] for k, v in
+                                    self.tier_batches.items()}})
             return out
 
         def train_epoch(self, dataset, epoch, order=None):
@@ -3537,6 +3561,389 @@ def phase_slice13(dev):
     return report
 
 
+# ---------------------------------------------------------------------------
+# slice 14: the EPEG ablations, the native loader tier, the JAX weights
+# ---------------------------------------------------------------------------
+
+# phase 14 (a): c16_r50 with each EPEG ablation of the CLI (encoder
+# fields): the R-MSA layer takes the XLA formulation as torch ops (no K1 /
+# K2), the CR-MSA layer keeps K3 -> K5 -> K8 (its EPEG is always off)
+EPEG_VARIANTS = (("value_bf", {"epeg_type": "value_bf"}),
+                 ("value_af", {"epeg_type": "value_af"}),
+                 ("attn_2d", {"epeg_2d": True}),
+                 ("value_af_2d", {"epeg_type": "value_af", "epeg_2d": True}))
+EPEG_EVAL = NTRANS_EVAL           # K3, K5, K8: once a forward
+EPEG_TRAIN = NTRANS_TRAIN         # K3-K9: once a train step
+# phase 14 (b): the CLI's EPEG flags, each run as its own process
+CLI_EPEG = (("value_af", ["--epeg_type", "value_af"]),
+            ("epeg_2d", ["--epeg_2d"]))
+# phase 14 (c): the over-budget run's cache holds this share of the set
+OVER_BUDGET_SHARE = 0.25
+OVER_BUDGET_EPOCHS = 3
+# phase 14 (d): the JAX package's weights, written by
+# tests/fixtures/make_jax_weights.py, and its CPU outputs
+FIXTURE = os.path.join("tests", "fixtures", "jax_weights")
+FIXTURE_TOL = 1e-4
+
+
+def epeg_cfg(fields, dropout=True):
+    import dataclasses
+    from rrtmil_tpu_torch.config import c16_r50
+    base = c16_r50()
+    enc = dataclasses.replace(base.encoder, **fields)
+    if not dropout:
+        enc = dataclasses.replace(enc, dropout=0.0)
+    return dataclasses.replace(base, encoder=enc,
+                               dropout=base.dropout if dropout else 0.0)
+
+
+def _exactly_once(launches, expect, runs, what):
+    """`launches` (totals over `runs` forwards or steps): each kernel of
+    `expect` `runs` times, none other."""
+    want = {n: (runs if n in expect else 0) for n in launches}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{want}")
+
+
+def _batch9000(dev, b, cfg):
+    from rrtmil_tpu_torch.data.bucketing import bucket_for
+    spec = bucket_for(9000, cfg.encoder)
+    x = torch.zeros((b, spec.data_length, cfg.input_dim))
+    x[:, :9000] = _randn((b, 9000, cfg.input_dim), _gen(b))
+    mask = (torch.arange(spec.data_length) < 9000)[None].expand(b, -1)
+    return x.to(dev), mask.contiguous().to(dev), spec.repr_length
+
+
+def epeg_bits_and_times(dev, tag, fields):
+    """One dropout-off forward and backward of a 9000-patch bag twice (the
+    same bits; K3-K9 once a run, K1 / K2 never), then the forward and the
+    train step (dropout on, Adam) at L = 9000, B = 1 and 8, CUDA events."""
+    from rrtmil_tpu_torch.models.rrt import build_model
+    cfg = epeg_cfg(fields, dropout=False)
+    model = build_model(cfg, device=dev, seed=0)
+    x, mask, length = _batch9000(dev, 1, cfg)
+    lab = torch.tensor([1], device=dev)
+    reset_counters()
+    n = _grad_bits(model, lambda: torch.nn.functional.cross_entropy(
+        model(x, mask=mask, length=length), lab), tag)
+    bits_launches = launches_now()
+    _exactly_once(bits_launches, EPEG_TRAIN, 2, f"{tag} forward + backward")
+    del model
+    times = {}
+    for b in (1, 8):
+        eng, step, cfg = train_setup(dev, b, epeg_cfg(fields))
+        x, mask, length = _batch9000(dev, b, cfg)
+        eng.model.eval()
+        with torch.no_grad():
+            fwd = time_ms(lambda: eng.model(x, mask=mask, length=length),
+                          iters=5, warmup=2)
+        eng.model.train()
+        torch.cuda.reset_peak_memory_stats()
+        tr = time_ms(step, iters=5, warmup=2)
+        times[str(b)] = {"forward_ms": fwd, "train_ms": tr,
+                         "peak_mem_gib": torch.cuda.max_memory_allocated()
+                         / 2 ** 30}
+        log(f"[14] {tag} L=9000 B={b}: forward {fwd:.3f} ms, train step "
+            f"{tr:.3f} ms, peak {times[str(b)]['peak_mem_gib']:.2f} GiB")
+        del eng, step, x, mask
+        torch.cuda.empty_cache()
+    return {"gradients_same_bits": n, "launches": bits_launches,
+            "times": times}
+
+
+def phase_epeg(dev):
+    """Phase 14 (a): c16_r50 with each EPEG ablation at full width:
+    Engine.evaluate on {937, 2213, 9000} against the CPU (K3, K5, K8 once a
+    batch, K1 / K2 never), two dropout-off train steps against the CPU in
+    f32 (TF32 off; K3-K9 once a step), the same bits twice, and the forward
+    and train-step times."""
+    out = {}
+    for tag, fields in EPEG_VARIANTS:
+        t0 = time.perf_counter()
+        cfg = epeg_cfg(fields)
+        ev = phase_main_path(dev, cfg, CANON_BAGS, f"epeg {tag}", "14",
+                             EPEG_EVAL)
+        _exactly_once(ev["launches"], EPEG_EVAL, ev["batches"],
+                      f"{tag} evaluate")
+        reset_counters()
+        tr = phase_train_vs_cpu(dev, cfg, f"epeg {tag}", "14", EPEG_TRAIN,
+                                ("float32",))
+        steps = sum(len(r["card_losses"]) for r in tr.values())
+        tr_launches = launches_now()
+        _exactly_once(tr_launches, EPEG_TRAIN, steps, f"{tag} train steps")
+        rec = {"evaluate": ev, "train_vs_cpu": tr,
+               "train": {"launches": tr_launches, "steps": steps}}
+        rec.update(epeg_bits_and_times(dev, tag, fields))
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"[14] epeg {tag}: {rec['seconds']:.1f} s")
+        out[tag] = rec
+    return out
+
+
+def phase_epeg_cli(dev, root):
+    """Phase 14 (b): `python -m rrtmil_tpu_torch.main` with c16_r50's flags
+    and each EPEG flag, as its own process on phase 9's 12 bags."""
+    out = {}
+    for tag, flags in CLI_EPEG:
+        argv = (CLI_RUN + CLI_C16 + flags
+                + ["--dataset_root", root, "--model_path",
+                   os.path.join(os.path.dirname(root), "epeg_" + tag),
+                   "--title", tag])
+        stdout, secs = cli_process("rrtmil_tpu_torch.main", argv,
+                                   f"main {' '.join(flags)}")
+        out[tag] = {"seconds": secs, "tail": stdout[-600:]}
+        log(f"[14] main {' '.join(flags)}: exit 0 in {secs:.1f} s")
+    return out
+
+
+def _tier_run(tag, root, flags, epochs=2, python=False):
+    """The CLI in process on `root` (c16_r50's flags and `flags`): per
+    epoch (summed over folds) train and eval slides/s, device cache hits
+    and misses and the batches each host tier served; every miss of a
+    native run served natively."""
+    from rrtmil_tpu_torch.train.engine import Engine
+    stats = []
+    argv = (["--cv_fold", "2", "--num_epoch", str(epochs), "--seed", "2021"]
+            + CLI_C16 + flags + ["--dataset_root", root, "--model_path",
+                                 os.path.join(os.path.dirname(root),
+                                              "tiers"), "--title", tag])
+    orig = Engine.native_ok
+    if python:
+        Engine.native_ok = lambda *a: False
+    try:
+        t0 = time.perf_counter()
+        run_cli(argv, stats)
+        secs = time.perf_counter() - t0
+    finally:
+        Engine.native_ok = orig
+    epochs_out = {}
+    for e in range(epochs):
+        rows = [r for r in stats if r["epoch"] == e]
+        rec = epoch_summary(stats, e)
+        rec["tiers"] = {k: sum(r["tiers"][k] for r in rows)
+                        for k in ("cache", "native", "python")}
+        epochs_out[e] = rec
+        tr, ev = rec["train"], rec["eval"]
+        log(f"[14] {tag} epoch {e}: train {tr['slides_per_s']:.2f} slides/s "
+            f"({tr['cache_hits']} hits / {tr['cache_misses']} misses), eval "
+            f"{ev['slides_per_s']:.2f} slides/s ({ev['cache_hits']} hits / "
+            f"{ev['cache_misses']} misses); batches by tier {rec['tiers']}")
+    for r in stats:
+        t = r["tiers"]
+        host = t["native"] + t["python"]
+        if host != r["cache_misses"] or (t["python"] if not python
+                                         else t["native"]):
+            raise AssertionError(f"{tag}: a miss went through another tier "
+                                 f"than expected: {r}")
+    return {"seconds": secs, "epochs": epochs_out, "stats": stats}
+
+
+def native_batches(dev, ds):
+    """Phase 14 (c): each bag of `ds` (and the batch-2 batches the engine
+    forms) through the native tier and the Python tier, fp32 and bf16: the
+    host batches and the device batches the same bits; then host ms a bag
+    of each tier at batch 1, the assembly alone and with its transfer to
+    the card (cache off, files in the page cache: a warm read)."""
+    from rrtmil_tpu_torch.config import c16_r50
+    from rrtmil_tpu_torch.train.engine import Engine, EngineConfig
+    enc = c16_r50().encoder
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        eng = Engine(torch.nn.Linear(4, 2), EngineConfig(
+            device_cache="off", transfer_dtype=dtype, batch_size=2), enc,
+            device=dev)
+        tdt = getattr(torch, dtype)
+        batches = [[i] for i in range(len(ds))] + eng._batched_order(
+            ds, range(len(ds)))
+        for b in batches:
+            if not eng.native_ok(ds, b, False):
+                raise AssertionError(f"batch {b} is not native-eligible")
+            xn, mn, ln, sn = (t.clone() if torch.is_tensor(t) else t
+                              for t in eng._assemble_native(ds, b))
+            xh, mh, lh, sh = eng._assemble_host(ds, b, False)
+            xp = torch.from_numpy(xh).to(tdt)
+            dev_n = eng._make_batch(ds, b)
+            dev_p = eng._transfer(xp, torch.from_numpy(mh),
+                                  torch.from_numpy(lh), sh)
+            torch.cuda.synchronize()
+            same = (sn == sh and torch.equal(xn.view(torch.int16) if
+                                             dtype == "bfloat16" else xn,
+                                             xp.view(torch.int16) if
+                                             dtype == "bfloat16" else xp)
+                    and torch.equal(mn, torch.from_numpy(mh))
+                    and ln.tolist() == lh.tolist()
+                    and all(torch.equal(a, c) for a, c in
+                            zip(dev_n[:3], dev_p[:3])))
+            if not same:
+                raise AssertionError(f"native and Python batches of {b} "
+                                     f"differ ({dtype})")
+        torch.cuda.synchronize()
+        single = [[i] for i in range(len(ds))]
+
+        def assemble(native):
+            for b in single:
+                if native:
+                    eng._assemble_native(ds, b)
+                else:
+                    x, *_ = eng._assemble_host(ds, b, False)
+                    torch.from_numpy(x).to(tdt)
+
+        def python_host(b):
+            x, m, lab, spec = eng._assemble_host(ds, b, False)
+            return (torch.from_numpy(x).to(tdt), torch.from_numpy(m),
+                    torch.from_numpy(lab), spec)
+
+        def make(native):
+            for b in single:
+                if native:
+                    eng._make_batch(ds, b)
+                else:
+                    eng._transfer(*python_host(b))
+            torch.cuda.synchronize()
+        rec = {"bags": len(single), "batches_checked": len(batches)}
+        for what, fn in (("assembly", assemble), ("with_transfer", make)):
+            for rnd in range(2):                  # the second round is kept
+                for tier, native in (("python", False), ("native", True)):
+                    t0 = time.perf_counter()
+                    fn(native)
+                    rec[f"{tier}_{what}_ms_per_bag"] = \
+                        (time.perf_counter() - t0) * 1e3 / len(single)
+        out[dtype] = rec
+        log(f"[14] native vs Python tier ({dtype}): {len(batches)} batches "
+            f"the same bits on the host and the card; host ms a bag, "
+            f"assembly: native {rec['native_assembly_ms_per_bag']:.2f}, "
+            f"python {rec['python_assembly_ms_per_bag']:.2f}; with the "
+            f"transfer: native {rec['native_with_transfer_ms_per_bag']:.2f}, "
+            f"python {rec['python_with_transfer_ms_per_bag']:.2f} (warm "
+            f"page cache)")
+    return out
+
+
+def phase_native_tier(dev, root):
+    """Phase 14 (c) on phase 9's 12 bags (c16_r50, input 1024): the tiers'
+    batches and host ms a bag; the CLI with c16_r50's flags through the
+    native tier in fp32 and --amp and, for comparison in this call, through
+    the Python tier in fp32 (first and cached epoch slides/s, batches by
+    tier); then a run whose device cache holds OVER_BUDGET_SHARE of the
+    set's bytes, so most bags stream every epoch (hits, misses, slides/s by
+    epoch).  The two tiers' fp32 runs alternate, python, native, python,
+    native; the second of each is the reading."""
+    from rrtmil_tpu_torch.data.datasets import C16Dataset
+    names = sorted(f[:-4] for f in os.listdir(os.path.join(root, "pt")))
+    ds = C16Dataset(names, [i % 2 for i in range(len(names))], root)
+    out = {"batches": native_batches(dev, ds)}
+    set_bytes = sum(os.path.getsize(p) for p in ds.slide_path)
+    budget_gb = OVER_BUDGET_SHARE * set_bytes / 2 ** 30
+    # the two tiers alternate, each run twice (the first pays warm-ups)
+    for tag, flags, kw in (
+            ("python_1", [], {"python": True}), ("native_1", [], {}),
+            ("python", [], {"python": True}), ("native", [], {}),
+            ("native_amp", ["--amp"], {}),
+            ("over_budget", ["--device_cache_gb", f"{budget_gb:.6f}"],
+             {"epochs": OVER_BUDGET_EPOCHS})):
+        reset_counters()
+        rec = _tier_run(tag, root, flags, **kw)
+        rec["launches"] = launches_now()
+        _exactly_once({n: min(v, 1) for n, v in rec["launches"].items()},
+                      C16_TRAIN, 1, f"CLI {tag}")
+        out[tag] = rec
+    over = out["over_budget"]["epochs"]
+    later = [{k: sum(over[e][kind][k] for kind in ("train", "eval"))
+              for k in ("cache_hits", "cache_misses")}
+             for e in range(1, OVER_BUDGET_EPOCHS)]
+    if not all(t["cache_misses"] > t["cache_hits"] > 0 for t in later):
+        raise AssertionError(f"the over-budget run's later epochs did not "
+                             f"stream most bags from a cache in use: "
+                             f"{later}")
+    out["over_budget"]["budget_gb"] = budget_gb
+    out["over_budget"]["set_gb"] = set_bytes / 2 ** 30
+    log(f"[14] over-budget run: cache {budget_gb:.4f} GB for a set of "
+        f"{set_bytes / 2 ** 30:.4f} GB")
+    return out
+
+
+def phase_jax_weights(dev, tmp):
+    """Phase 14 (d): the JAX package's `.msgpack` weights (the committed
+    fixture) on the card: attmil's logits and the survival MeanMIL's hazards
+    and survival on the stored bags within FIXTURE_TOL of the JAX package's
+    CPU outputs; then `survival_main --evaluate --resume` over a JAX results
+    directory (each fold's `model_best_*.msgpack`) as a process: exit 0,
+    every fold loading its `.msgpack`."""
+    import shutil
+    from rrtmil_tpu_torch.models import zoo
+    from rrtmil_tpu_torch.models.mean_max import MeanMIL
+    from rrtmil_tpu_torch.models.survival import SurvivalHead
+    from rrtmil_tpu_torch.train.checkpoint import load_params
+    root = os.path.dirname(os.path.abspath(__file__))
+    fix = os.path.join(root, FIXTURE)
+    attmil = zoo.build_model("attmil", input_dim=64, device=dev)
+    attmil.load_state_dict(load_params(os.path.join(fix, "attmil.msgpack")))
+    surv = SurvivalHead(MeanMIL(64, 4)).to(dev).eval()
+    surv.load_state_dict(load_params(os.path.join(
+        fix, "survival_meanmil.msgpack")))
+    reset_counters()
+    err = 0.0
+    with np.load(os.path.join(fix, "outputs.npz")) as f:
+        for i in range(3):
+            n = f[f"x_{i}"].shape[0]
+            x = torch.zeros((1, int(f[f"rows_{i}"]), 64))
+            x[0, :n] = torch.from_numpy(f[f"x_{i}"])
+            x = x.to(dev)
+            mask = torch.arange(x.shape[1], device=dev)[None] < n
+            with torch.no_grad():
+                got = (attmil(x, mask=mask, length=n),
+                       *surv(x, mask=mask, length=n))
+            for g, key in zip(got, ("logits", "hazards", "survival")):
+                err = max(err, float(np.abs(g.cpu().numpy()
+                                            - f[f"{key}_{i}"]).max()))
+    launches = launches_now()
+    log(f"[14] JAX weights on the card: max |port - JAX| {err:.3e} (tol "
+        f"{FIXTURE_TOL}) over attmil's logits and MeanMIL's hazards and "
+        f"survival on 3 bags")
+    if err > FIXTURE_TOL:
+        raise AssertionError("the JAX weights give other outputs on the card")
+    csv, _ = write_survival_data(os.path.join(tmp, "surv64"), dim=64)
+    res = os.path.join(tmp, "jax_results")
+    for k in range(5):
+        os.makedirs(os.path.join(res, f"fold_{k}"))
+        shutil.copy(os.path.join(fix, "survival_meanmil.msgpack"),
+                    os.path.join(res, f"fold_{k}",
+                                 f"model_best_0.5000_{k}.msgpack"))
+    stdout, secs = cli_process("rrtmil_tpu_torch.survival_main", [
+        "--excel_file", csv, "--model", "MeanMIL", "--input_dim", "64",
+        "--evaluate", "--resume", res, "--results_dir",
+        os.path.join(tmp, "jax_eval")], "survival_main --evaluate --resume")
+    loaded = [ln for ln in stdout.splitlines()
+              if ln.startswith("=> loading checkpoint")
+              and ln.rstrip("'").endswith(".msgpack")]
+    folds = [ln for ln in stdout.splitlines() if "evaluate: loss" in ln]
+    log(f"[14] survival_main --evaluate --resume over JAX weights: exit 0 "
+        f"in {secs:.1f} s; {len(loaded)} folds loaded a .msgpack; {folds}")
+    if len(loaded) != 5 or len(folds) != 5:
+        raise AssertionError("a fold did not evaluate the JAX weights")
+    return {"max_abs_err": err, "launches": launches, "cli_seconds": secs,
+            "folds": folds}
+
+
+def phase_slice14(dev):
+    """Phase 14: the EPEG ablations, the native loader tier and the JAX
+    package's weights."""
+    import tempfile
+    t0 = time.perf_counter()
+    report = {"epeg": phase_epeg(dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "c16")
+        write_cli_data(root, False, 1024, 0)
+        report["epeg_cli"] = phase_epeg_cli(dev, root)
+        report["native"] = phase_native_tier(dev, root)
+    with tempfile.TemporaryDirectory() as tmp:
+        report["jax_weights"] = phase_jax_weights(dev, tmp)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[14] phase 14: {report['seconds']:.1f} s")
+    return report
+
+
 def k5_library_call(args, mmd):
     """One PyTorch call computing K5 at kk = 0: multi-head self-attention
     with in- and out-projection, on x and weights cast to the mm dtype
@@ -4524,6 +4931,7 @@ def main():
         report["zoo"] = phase_zoo(dev)
         report["slice12"] = phase_slice12(dev)
         report["slice13"] = phase_slice13(dev)
+        report["slice14"] = phase_slice14(dev)
         report["times"] = phase_times_products(dev, phase_times_pairs(
             dev, phase_times_slice3(dev, phase_times(dev))))
         report["throughput"] = phase_throughput(dev)
@@ -4620,6 +5028,14 @@ def main():
         paths[f"cli_survival_{name}_train"] = {"launches": res.get(
             "train_launches", {})}
         paths[f"cli_survival_{name}_evaluate_resume"] = res
+    s14 = report.get("slice14", {})
+    for tag, rec in s14.get("epeg", {}).items():
+        paths[f"epeg_{tag}_evaluate"] = rec.get("evaluate", {})
+        paths[f"epeg_{tag}_train_steps"] = rec.get("train", {})
+        paths[f"epeg_{tag}_same_bits"] = rec
+    for run in ("native", "native_amp", "python", "over_budget"):
+        paths[f"cli_tier_{run}"] = s14.get("native", {}).get(run, {})
+    paths["jax_weights"] = s14.get("jax_weights", {})
     own = {n: "train_epoch" for n in C16_TRAIN}
     own.update({K[9]: "ffn_train_epoch", K[10]: "ffn_train_epoch",
                 K[11]: "survival_train_epoch", K[12]: "survival_train_epoch"})

@@ -7,8 +7,10 @@ with torch's layouts:
 
   * Dense `kernel` (in, out)      <-> Linear `weight` (out, in)
   * LayerNorm `scale` / `bias`    <-> `weight` / `bias`
-  * EPEG `pe_kernel` (k, 1, 1, H) <-> `pe_weight` (H, k), the kernels'
-    layout (w = kernel[:, 0, 0, :].T)
+  * EPEG `pe_kernel` (kh, kw, 1, C) <-> `pe_weight` (C, kh) when kw = 1,
+    the kernels' layout (w = kernel[:, 0, 0, :].T), else (C, kh, kw): the
+    1-D logit taps (k, 1, 1, H), the 2-D ones (k, k, 1, H) and the value
+    convs' (k, 1 or k, 1, h * hd) (ops/epeg.py)
   * a depthwise conv kernel `kernel` / `*_kernel` (kh, kw, 1, C) <->
     `weight` / `*_weight` (C, 1, kh, kw), torch's Conv2d layout: Nystrom's
     `res_conv_kernel`, the PPEGs' `proj*_kernel`, PEG's `kernel`
@@ -17,15 +19,25 @@ with torch's layouts:
     are unchanged.
 
 The qkv column order (C, 3, H, hd) is the same on both sides (rrt.py:642),
-so the Linear weight's rows are (3, H, hd).  `torch_to_flax` inverts it
-exactly.
+so the Linear weight's rows are (3, H, hd).  A bfloat16 leaf stays
+bfloat16.  `torch_to_flax` inverts it exactly (a bfloat16 tensor comes back
+as float32).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+
+def _bfloat16_bits(val) -> Optional[np.ndarray]:
+    """The uint16 bits of a bfloat16 leaf (a JAX or ml_dtypes array, or the
+    bits train/flax_msgpack.py decodes), else None."""
+    if getattr(val, "bfloat16_bits", False) or \
+            getattr(getattr(val, "dtype", None), "name", "") == "bfloat16":
+        return np.asarray(val).view(np.uint16)
+    return None
 
 
 def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -36,12 +48,15 @@ def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
             if hasattr(val, "items"):
                 walk(val, prefix + [key])
                 continue
-            a = np.asarray(val)
+            bits = _bfloat16_bits(val)
+            a = np.asarray(val) if bits is None else bits
             if key == "pe_kernel":
-                if a.ndim != 4 or a.shape[1:3] != (1, 1):
+                if a.ndim != 4 or a.shape[2] != 1:
                     raise ValueError(f"{'/'.join(prefix)}: pe_kernel "
-                                     f"{a.shape} is not a (k, 1, 1, H) tap set")
-                name, a = "pe_weight", a[:, 0, 0, :].T
+                                     f"{a.shape} is not a (kh, kw, 1, C) tap "
+                                     f"set")
+                a = a[:, :, 0, :].transpose(2, 0, 1)
+                name, a = "pe_weight", a[:, :, 0] if a.shape[2] == 1 else a
             elif key == "kernel" and a.ndim == 2:
                 name, a = "weight", a.T
             elif key == "kernel" or (key.endswith("_kernel") and a.ndim == 4):
@@ -55,7 +70,10 @@ def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
                 name = "weight"
             else:
                 name = key
-            out[".".join(prefix + [name])] = torch.from_numpy(np.array(a))
+            t = torch.from_numpy(np.array(a))
+            if bits is not None:
+                t = t.view(torch.int16).view(torch.bfloat16)
+            out[".".join(prefix + [name])] = t
 
     walk(params, [])
     return out
@@ -65,9 +83,11 @@ def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     tree: dict = {}
     for dotted, t in state_dict.items():
         *path, name = dotted.split(".")
-        a = t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         if name == "pe_weight":
-            name, a = "pe_kernel", a.T[:, None, None, :]
+            a = a[:, :, None] if a.ndim == 2 else a
+            name, a = "pe_kernel", a.transpose(1, 2, 0)[:, :, None, :]
         elif name.endswith("weight") and a.ndim == 4:
             name, a = name[:-len("weight")] + "kernel", a.transpose(2, 3, 1, 0)
         elif name == "weight":

@@ -4,7 +4,8 @@ Counterpart of `rrtmil_tpu/harness/survival.py:40-117,293-402` (reference
 Survival/main.py:16-166): the reference's seeded splits, the survival model
 factory, one `SurvivalEngine.learning` a fold with best-c-index weights
 saved as `fold_{k}/model_best_{score:.4f}_{epoch}.pt`, `--resume` (a file,
-or a directory of `fold_{k}/` whose last file in sorted order is taken),
+or a directory of `fold_{k}/` whose last `.pt` in sorted order is taken,
+else its last `.msgpack`: a JAX results directory's weights),
 `--evaluate` (validation only) and the CV_Meter CSV.
 
 Every fold builds its model from `args.seed` (the JAX package initialises
@@ -271,15 +272,19 @@ def make_survival_engine(name: str, model, cfg: SurvivalEngineConfig,
 
 
 def resume_path(resume: str, fold: int) -> str:
-    """The checkpoint `--resume` names for `fold`: the file itself, or the
-    last `.pt` in sorted order under `{resume}/fold_{fold}/` ('' if none)."""
+    """The checkpoint `--resume` names for `fold`: the file itself, or under
+    `{resume}/fold_{fold}/` the last `.pt` in sorted order, else the last
+    `.msgpack` (a JAX results directory, rrtmil_tpu/harness/survival.py:
+    362-376); '' if none."""
     if not os.path.isdir(resume):
         return resume
     fold_dir = os.path.join(resume, f"fold_{fold}")
-    cand = sorted(c for c in (os.listdir(fold_dir)
-                              if os.path.isdir(fold_dir) else [])
-                  if c.endswith(".pt"))
-    return os.path.join(fold_dir, cand[-1]) if cand else ""
+    names = sorted(os.listdir(fold_dir)) if os.path.isdir(fold_dir) else []
+    for ext in (".pt", ".msgpack"):
+        cand = [c for c in names if c.endswith(ext)]
+        if cand:
+            return os.path.join(fold_dir, cand[-1])
+    return ""
 
 
 def engine_config_from_args(args) -> SurvivalEngineConfig:

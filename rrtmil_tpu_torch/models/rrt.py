@@ -1,18 +1,19 @@
 """RRT: regional re-embedding transformer, PyTorch port.
 
-Counterpart of `rrtmil_tpu/models/rrt.py` for what the canonical and
-survival configs use: InnerAttention with 1-D 'attn' EPEG or none,
-RegionAttention, CrossRegionAttention with phi or the phi MLP
-(`crmsa_mlp`), the fused CR-MSA attention,
-DropPath, Mlp, TransLayer (with the optional FFN), RRTEncoder and RRTMIL;
+Counterpart of `rrtmil_tpu/models/rrt.py`: InnerAttention with every
+EPEG variant (1-D or 2-D 'attn', 'value_bf', 'value_af', or none) and
+attention-probability dropout, RegionAttention, CrossRegionAttention with
+phi or the phi MLP (`crmsa_mlp`), the fused CR-MSA attention, DropPath,
+Mlp, TransLayer (with the optional FFN), RRTEncoder and RRTMIL;
 the Nystrom variants (`region_attn='ntrans'` inside each region,
 `attn_mode='ntrans'` over the stream, models/nystrom.py) and the position
 embeddings (`pos`, models/posemb.py), which the JAX package computes in
 plain XLA and the port as torch ops on either device.
 Parameters keep the flax tree's names (state_dict keys are the flax paths
 joined by '.', see convert.py); tensors keep torch's layouts (Linear weight
-(out, in)); the EPEG taps are stored as `pe_weight` (H, k), the layout the
-kernels take.
+(out, in)); the EPEG taps are stored as `pe_weight` (C, k) for a (k, 1)
+kernel, the layout the kernels take, or (C, k, k) for a 2-D one (C the
+heads for 'attn', h * hd for the value convs; ops/epeg.py).
 
 Two structures, as in the JAX package:
 
@@ -42,8 +43,15 @@ K12/K13's plain versions with float32 products.
 
 The JAX package's TPU gates (layer_fusable_geometry, crmsa_fusable_geometry,
 legal_cb) have no counterpart: the kernels take every geometry of these
-configs and raise on one they cannot take.  Variants outside the port raise
-NotImplementedError pointing at ROADMAP.md.
+configs and raise on one they cannot take.  Its configuration gates do:
+InnerAttention runs K5 only where JAX's `fusable` holds (1-D 'attn' EPEG or
+none, and no attention dropout: `fusable`), and the R-MSA layer is one K1 call
+only under the same EPEG condition (`fused_layer_ok`); the other EPEG
+variants and attention dropout run the JAX package's XLA formulation as
+torch ops on either device, as JAX runs XLA there (rrt.py:218-273).  An
+`epeg.kind` outside 'attn', 'value_bf', 'value_af' adds no positional term
+and has no taps, as in JAX.  Sequence sharding raises NotImplementedError
+pointing at ROADMAP.md.
 
 `model.train()` plays the role of the JAX package's `deterministic=False`:
 dropout and stochastic depth go where the JAX model puts them (after
@@ -65,6 +73,7 @@ from torch import nn
 
 from ..config import (CRMSAConfig, InnerAttentionConfig, RMSAConfig,
                       RRTEncoderConfig, RRTMILConfig, TransLayerConfig)
+from ..ops.epeg import epeg_logit_conv, value_pe
 from ..ops.kernels.common import ln_fast
 from ..ops.kernels.crmsa_kernels import (crmsa_compress, crmsa_compress_grid,
                                          crmsa_redistribute,
@@ -86,9 +95,9 @@ def _dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _todo(what: str) -> NotImplementedError:
+def _todo(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md "
-                               f"queue 1 item 8")
+                               f"queue 1 item {item}")
 
 
 def drop_path(x: torch.Tensor, rate: float,
@@ -150,41 +159,38 @@ class Mlp(nn.Module):
         return dropout(self.fc2(x), self.p, generator, self.training)
 
 
-def _epeg_logit_conv(attn, w, bias):
-    """(k, 1) depthwise conv along the query axis of (R, H, P, P) logits,
-    zero padding k//2 (a cross-correlation, rmsa.py:83,106-108)."""
-    kk = w.shape[1]
-    pad = kk // 2
-    n = attn.shape[2]
-    padded = F.pad(attn, (0, 0, pad, pad))
-    pe = torch.zeros_like(attn)
-    for t in range(kk):
-        pe = pe + w[None, :, t, None, None] * padded[:, :, t:t + n]
-    if bias is not None:
-        pe = pe + bias[None, :, None, None]
-    return pe
+def fusable(cfg: InnerAttentionConfig) -> bool:
+    """JAX's `fusable` (rrt.py:148-149): no EPEG or the 1-D 'attn' kind, and
+    no attention dropout; only then does InnerAttention run K5."""
+    ep = cfg.epeg
+    return ((not ep.enabled or (ep.kind == "attn" and not ep.two_d))
+            and cfg.attn_dropout == 0.0)
 
 
 class InnerAttention(nn.Module):
-    """Scaled-dot-product MHSA over one region's tokens with 1-D 'attn' EPEG
-    (reference modules/rmsa.py:56-134).  Input (B_, N, C)."""
+    """Scaled-dot-product MHSA over one region's tokens, with EPEG
+    (reference modules/rmsa.py:56-134).  Input (B_, N, C).
+
+    EPEG kinds (`cfg.epeg`): 'attn' adds the depthwise conv of the logits,
+    (k, 1) or 2-D (k, k); 'value_bf' adds the value conv to v before the AV
+    product; 'value_af' adds it, flat, to the output before the projection
+    (ops/epeg.py, with the reference's channel order); any other kind adds
+    nothing.  `attn_dropout` drops attention probabilities in train mode,
+    its mask drawn from the caller's generator."""
 
     def __init__(self, cfg: InnerAttentionConfig):
         super().__init__()
         ep = cfg.epeg
-        if ep.enabled and ep.kind != "attn":
-            raise _todo(f"value EPEG ('{ep.kind}')")
-        if ep.enabled and ep.two_d:
-            raise _todo("2-D EPEG")
         self.cfg = cfg
         h, hd = cfg.num_heads, cfg.resolved_head_dim
         self.qkv = nn.Linear(cfg.dim, 3 * h * hd, bias=cfg.qkv_bias)
         self.proj = nn.Linear(h * hd, cfg.dim)
-        if ep.enabled:
-            self.pe_weight = nn.Parameter(torch.zeros(h, ep.k))
-            self.pe_bias = nn.Parameter(torch.zeros(h)) if ep.bias else None
-        else:
-            self.pe_weight, self.pe_bias = None, None
+        self.pe_weight, self.pe_bias = None, None
+        if ep.enabled and ep.kind in ("attn", "value_bf", "value_af"):
+            ch = h if ep.kind == "attn" else h * hd
+            taps = (ep.k, ep.k) if ep.two_d and ep.k > 1 else (ep.k,)
+            self.pe_weight = nn.Parameter(torch.zeros(ch, *taps))
+            self.pe_bias = nn.Parameter(torch.zeros(ch)) if ep.bias else None
 
     def kernel_weights(self):
         """The kernels' weight layout (region_block.py:168-180): wq/wk/wv
@@ -204,18 +210,21 @@ class InnerAttention(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         cdt = _dtype(cfg.compute_dtype)
-        if self.training and cfg.attn_dropout > 0:
-            raise _todo("attention-probability dropout (attn_dropout > 0)")
-        if x.is_cuda or cfg.backend != "xla":
+        if fusable(cfg) and (x.is_cuda or cfg.backend != "xla"):
             out = region_block_fused(x.to(cdt), *self.kernel_weights(),
                                      mm_dtype=products_dtype(cfg))
         else:
-            out = self._forward_xla(x, cdt)
+            out = self._forward_xla(x, cdt, generator)
         return dropout(out, cfg.proj_dropout, generator, self.training)
 
-    def _forward_xla(self, x, cdt):
-        """The JAX package's XLA formulation (rrt.py:185-250), on the CPU."""
+    def _forward_xla(self, x, cdt, generator):
+        """The JAX package's XLA formulation (rrt.py:218-273): on the CPU
+        for backend 'xla', and on either device for what is not `fusable`.
+        The EPEG convs run in float32, as flax promotes a bf16 value image
+        against its float32 taps."""
         cfg = self.cfg
+        ep = cfg.epeg
+        kind = ep.kind if ep.enabled else None
         b_, n, _ = x.shape
         h, hd = cfg.num_heads, cfg.resolved_head_dim
         bias = None if self.qkv.bias is None else self.qkv.bias.to(cdt)
@@ -223,13 +232,21 @@ class InnerAttention(nn.Module):
         qkv = qkv.reshape(b_, n, 3, h, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * cfg.scale, qkv[1], qkv[2]
         attn = torch.einsum("bhid,bhjd->bhij", q.float(), k.float())
-        if self.pe_weight is not None:
-            attn = attn + _epeg_logit_conv(attn, self.pe_weight, self.pe_bias)
+        if kind == "attn":
+            attn = attn + epeg_logit_conv(attn, self.pe_weight, self.pe_bias)
         attn = torch.softmax(attn, dim=-1)
+        attn = dropout(attn, cfg.attn_dropout, generator, self.training)
+        v_in = v
+        if kind == "value_bf":
+            v = v.float() + value_pe(v, self.pe_weight, self.pe_bias)
         out = torch.einsum("bhij,bhjd->bhid", attn.to(v.dtype).float(),
                            v.float())
         out = out.transpose(1, 2).reshape(b_, n, h * hd).to(cdt)
-        return F.linear(out, self.proj.weight.to(cdt), self.proj.bias.to(cdt))
+        if kind == "value_af":
+            out = out.float() + value_pe(v_in, self.pe_weight, self.pe_bias,
+                                         flat=True)
+        return F.linear(out.to(cdt), self.proj.weight.to(cdt),
+                        self.proj.bias.to(cdt))
 
 
 def products_dtype(cfg: InnerAttentionConfig) -> torch.dtype:
@@ -251,7 +268,7 @@ class RegionAttention(nn.Module):
             raise ValueError(f"region_attn={cfg.region_attn!r} is not one of "
                              f"'native', 'ntrans'")
         if cfg.region.sp_shards > 1:
-            raise _todo("sequence sharding (sp_shards > 1)")
+            raise _todo("sequence sharding (sp_shards > 1)", "9(b)")
         self.cfg = cfg
         # 'ntrans': Nystrom attention inside each region (rrt.py:314-316),
         # torch ops on either device as the JAX package's XLA
@@ -291,7 +308,7 @@ class CrossRegionAttention(nn.Module):
     def __init__(self, cfg: CRMSAConfig):
         super().__init__()
         if cfg.region.sp_shards > 1:
-            raise _todo("sequence sharding (sp_shards > 1)")
+            raise _todo("sequence sharding (sp_shards > 1)", "9(b)")
         self.cfg = cfg
         c, kk = cfg.attn.dim, cfg.crmsa_k
         if cfg.crmsa_mlp:
@@ -384,6 +401,9 @@ def fused_layer_ok(cfg: TransLayerConfig, x, mask, length: int) -> bool:
     if cfg.rmsa.region_attn == "ntrans":
         return False
     a = cfg.rmsa.attn
+    ep = a.epeg
+    if ep.enabled and (ep.kind != "attn" or ep.two_d):
+        return False
     if a.attn_dropout != 0.0 or not _fused_backend(a):
         return False
     return x.shape[1] == grid_geometry(length, cfg.rmsa.region).padded_length
@@ -610,8 +630,7 @@ class RRTMIL(nn.Module):
         self.patch_to_emb = nn.Linear(cfg.input_dim, 512)
         self.online_encoder = RRTEncoder(cfg.encoder)
         p = cfg.pool
-        if p.kind not in ("attn", "avg"):
-            raise _todo(f"pool '{p.kind}'")
+        # any kind but 'attn' is the masked mean, as in JAX (rrt.py:867-879)
         self.pool_fn = (DAttention(cfg.encoder.dim, p.act, p.gated, p.bias,
                                    p.dropout)
                         if p.kind == "attn" else MeanPool())
@@ -644,7 +663,7 @@ class RRTMIL(nn.Module):
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Fresh init with the JAX package's distributions (utils/inits.py):
     xavier_normal kernels with flax's fans, zero biases, LayerNorm ones and
-    zeros, EPEG taps with the fans of flax's (k, 1, 1, H) kernel,
+    zeros, EPEG taps with the fans of flax's (kh, kw, 1, C) kernel,
     U(+-1/sqrt(k)) for phi, and a module's `init_own_parameters(generator)`
     for its raw parameters; drawn in module order."""
     with torch.no_grad():
@@ -658,8 +677,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
             elif isinstance(mod, InnerAttention) and mod.pe_weight is not None:
-                h, k = mod.pe_weight.shape
-                xavier_normal_(mod.pe_weight, k, h * k, generator)
+                # flax's fans of the (kh, kw, 1, C) kernel
+                ch, taps = mod.pe_weight.shape[0], mod.pe_weight[0].numel()
+                xavier_normal_(mod.pe_weight, taps, ch * taps, generator)
                 if mod.pe_bias is not None:
                     mod.pe_bias.zero_()
             elif isinstance(mod, CrossRegionAttention) and mod.phi is not None:

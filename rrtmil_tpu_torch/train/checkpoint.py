@@ -14,9 +14,12 @@ stopped.  Two families, as in the reference:
 
 The survival harness keeps weights only (`save_params` / `load_params`, the
 JAX package's `train/checkpoint.py:38-46`): a `state_dict` through
-`torch.save`, read back with `weights_only=True`.  The port's files are
-`.pt`; the JAX package's `.msgpack` checkpoints are not read (ROADMAP.md
-queue 1 item 4).
+`torch.save`, read back with `weights_only=True`.  The port writes `.pt`;
+`load_params` also reads the JAX package's weights, the `.msgpack` files
+flax's `to_bytes` writes of a param tree (train/flax_msgpack.py decodes
+them without flax), as the `state_dict` that `convert.flax_to_torch` makes
+of the tree.  A JAX train state (`ckp.msgpack`, with its optax state) is
+not read: it has no torch counterpart.
 """
 from __future__ import annotations
 
@@ -26,13 +29,20 @@ from typing import Any, Dict
 
 import torch
 
+from ..convert import flax_to_torch
+from . import flax_msgpack
+
 
 def save_params(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
     torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
 
 
 def load_params(path: str) -> Dict[str, torch.Tensor]:
-    """A `state_dict` written by `save_params`, on the CPU."""
+    """A `state_dict` on the CPU: written by `save_params`, or, from a
+    `.msgpack` file, the JAX package's param tree through
+    `convert.flax_to_torch`."""
+    if path.endswith(".msgpack"):
+        return flax_to_torch(flax_msgpack.read(path))
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

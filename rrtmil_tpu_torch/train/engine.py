@@ -2,9 +2,10 @@
 
 Counterpart of `rrtmil_tpu/train/engine.py` for the classification path:
 `EngineConfig`, `_batched_order` (greedy bucket-aware batching that keeps
-the given order within a bucket), batch assembly (`_make_batch`: the device
-bag cache, else host assembly with the shuffle augmentations and the
-transfer dtype's cast, then the transfer), `_batch_iter` (next-batch
+the given order within a bucket), batch assembly (`_make_batch`, three
+tiers as in engine.py:334-356: the device bag cache; else the native
+loader; else the Python route with the shuffle augmentations and the
+transfer dtype's cast; then the transfer), `_batch_iter` (next-batch
 assembly in threads while the device runs the current one), `train_epoch`
 (`_train_step` and `_apply_grads`: per-step learning rate, global-norm
 clipping, gradient accumulation with the loss pre-scaled by
@@ -35,9 +36,22 @@ Random streams, as in the JAX package: `_rng` (numpy, seeded with
 `cfg.seed`) draws the augmentations and, unless `fix_loader_random` pins it
 to the reference's fixed loader seed, the train order too: one stream,
 drawn in the JAX package's order.  Dropout masks come from the engine's
-`torch.Generator` (seeded with `cfg.seed`, on the engine's device).  The
-native loader and pinned staging buffers are a later slice (ROADMAP.md
-queue 1); host assembly is the Python route.
+`torch.Generator` (seeded with `cfg.seed`, on the engine's device).
+
+The native tier (engine.py:457-543, data/native_loader.py) serves a batch
+whose files the C++ loader reads as the Python route does: a dataset with
+`slide_path`, no `persistence`, `keep_same_psize` or `max_patch`, no
+augmentation or exact mode, and C-order 2-D `<f4` / `<f2` `.npy` files
+(`native_ok`; JAX checks no dtype, so there a `<f8` file fails mid-epoch,
+here it takes the Python route, which gives JAX's Python result).  Its C++
+threads write the transfer dtype (bfloat16 under --amp, no host cast pass)
+into a per-thread staging buffer, pinned on a CUDA engine, whose copies
+to the device are asynchronous; a CUDA event recorded after them is waited
+on before the buffer is filled again (a CPU engine fills a fresh buffer
+each batch: there the transfer is no copy).  The Python route copies from
+pageable memory.  `tier_batches` counts the batches each tier served
+('cache': every bag a hit; 'native' / 'python': a host tier assembled the
+batch's missing bags).
 """
 from __future__ import annotations
 
@@ -52,7 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import RRTEncoderConfig
-from ..data import augment
+from ..data import augment, native_loader
 from ..data.bucketing import BucketSpec, bucket_for, pad_bag
 from ..data.device_cache import DeviceBagCache, cacheable
 from ..utils.device import resolve_device
@@ -139,6 +153,8 @@ class Engine:
         self.generator.manual_seed(cfg.seed)
         self._dcache: Optional[DeviceBagCache] = None
         self._dcache_lock = threading.Lock()   # prefetch threads race init
+        self._staging = threading.local()      # a native buffer a thread
+        self.tier_batches = {"cache": 0, "native": 0, "python": 0}
 
     def reseed(self, seed: int) -> None:
         """Re-pin the numpy streams (fix_train_random: the reference re-runs
@@ -211,13 +227,92 @@ class Engine:
         return (np.stack(xs), np.stack(masks),
                 np.asarray(labels, dtype=np.int64), spec)
 
-    def _transfer(self, x, mask, labels, spec):
-        """Host arrays -> device tensors, x cast to the transfer dtype on the
-        host first."""
-        dev = self.device
+    def native_ok(self, dataset, indices: Sequence[int],
+                  train: bool) -> bool:
+        """JAX's `_can_use_native` (engine.py:457-476), and the header's
+        dtype and order besides: True when the native tier takes the
+        batch."""
+        paths = getattr(dataset, "slide_path", None)
+        if paths is None or self._augmented(train) or self.cfg.exact:
+            return False
+        if getattr(dataset, "persistence", False) or \
+                getattr(dataset, "keep_same_psize", 0) > 0 or \
+                getattr(dataset, "max_patch", -1) > 0:
+            return False
+        return all(native_loader.eligible(paths[i]) for i in indices)
+
+    def _count(self, tier: str) -> None:
+        with self._dcache_lock:
+            self.tier_batches[tier] += 1
+
+    def _staging_buffers(self, b: int, rows: int, cols: int):
+        """(x (b, rows, cols) in the transfer dtype, mask (b, rows) bool,
+        labels (b,) int64) on one host buffer: this thread's pinned one on
+        a CUDA engine, once the copies from its last fill are done; a new
+        one on the CPU."""
+        dt = _TRANSFER_DTYPES[self.cfg.transfer_dtype]
+        nx = b * rows * cols * dt.itemsize
+        nl = -(-(nx + b * rows) // 8) * 8           # labels 8-byte aligned
+        total = nl + 8 * b
+        if self.device.type != "cuda":
+            buf = torch.empty(total, dtype=torch.uint8)
+        else:
+            st = self._staging
+            if getattr(st, "event", None) is not None:
+                st.event.synchronize()
+                st.event = None
+            buf = getattr(st, "buf", None)
+            if buf is None or buf.numel() < total:
+                buf = st.buf = torch.empty(total, dtype=torch.uint8,
+                                           pin_memory=True)
+        return (buf[:nx].view(dt).view(b, rows, cols),
+                buf[nx:nx + b * rows].view(torch.bool).view(b, rows),
+                buf[nl:total].view(torch.int64))
+
+    def _assemble_native(self, dataset, indices: Sequence[int]):
+        """(x, mask, labels, spec) host tensors from the C++ loader, x in the
+        transfer dtype, on this thread's staging buffer."""
+        paths = [dataset.slide_path[i] for i in indices]
+        spec = bucket_for(max(map(native_loader.num_rows, paths)),
+                          self.encoder_cfg)
+        cols = native_loader.header(paths[0])[0][1]
+        x, mask, labels = self._staging_buffers(len(paths), spec.data_length,
+                                                cols)
+        xs = x.view(torch.int16).numpy().view(np.uint16) \
+            if x.dtype == torch.bfloat16 else x.numpy()
+        native_loader.fill_batch(paths, spec.data_length, cols, out=xs,
+                                 dtype=self.cfg.transfer_dtype,
+                                 mask=mask.numpy())
+        labels.copy_(torch.tensor([dataset.slide_label[i] for i in indices]))
+        return x, mask, labels, spec
+
+    def _host_batch(self, dataset, indices: Sequence[int], train: bool):
+        """(x, mask, labels, spec) host tensors, x in the transfer dtype,
+        from the native tier when it takes the batch, else the Python
+        route; the tier is counted."""
+        if self.native_ok(dataset, indices, train):
+            self._count("native")
+            return self._assemble_native(dataset, indices)
+        self._count("python")
+        x, mask, labels, spec = self._assemble_host(dataset, indices, train)
         xt = torch.from_numpy(x).to(_TRANSFER_DTYPES[self.cfg.transfer_dtype])
-        return (xt.to(dev), torch.from_numpy(mask).to(dev),
-                torch.from_numpy(labels).to(dev), spec)
+        return xt, torch.from_numpy(mask), torch.from_numpy(labels), spec
+
+    def _transfer(self, x, mask, labels, spec):
+        """Host tensors -> device tensors; from a pinned staging buffer the
+        copies are asynchronous."""
+        dev = self.device
+        nb = x.is_pinned()
+        return (x.to(dev, non_blocking=nb), mask.to(dev, non_blocking=nb),
+                labels.to(dev, non_blocking=nb), spec)
+
+    def _staged(self, x) -> None:
+        """After the transfers from this thread's pinned buffer: an event
+        that its next fill waits on."""
+        if x.is_pinned():
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            self._staging.event = ev
 
     def _device_cache(self) -> Optional[DeviceBagCache]:
         mode = self.cfg.device_cache
@@ -240,24 +335,31 @@ class Engine:
             cache = self._device_cache()
         if cache is not None:
             return self._make_batch_cached(dataset, indices, train, cache)
-        return self._transfer(*self._assemble_host(dataset, indices, train))
+        return self._host_to_device(dataset, indices, train)
+
+    def _host_to_device(self, dataset, indices, train: bool):
+        host = self._host_batch(dataset, indices, train)
+        out = self._transfer(*host)
+        self._staged(host[0])
+        return out
 
     def _make_batch_cached(self, dataset, indices, train: bool,
                            cache: DeviceBagCache):
         entries = {i: cache.get(dataset, i) for i in indices}
         missing = [i for i in indices if entries[i] is None]
         if missing:
-            x, mask, labels, spec = self._assemble_host(dataset, missing,
-                                                        train)
+            x, mask, labels, spec = self._host_batch(dataset, missing, train)
             for j, i in enumerate(missing):
                 entries[i] = self._transfer(x[j:j + 1], mask[j:j + 1],
                                             labels[j:j + 1], spec)
                 cache.put(dataset, i, *entries[i])
+            self._staged(x)
+        else:
+            self._count("cache")
         if len({e[3].key for e in entries.values()}) != 1:
             # bags cached under different buckets: cannot happen with
             # bucket-grouped batches, but a hand-built mixed batch stays right
-            return self._transfer(*self._assemble_host(dataset, indices,
-                                                       train))
+            return self._host_to_device(dataset, indices, train)
         if len(indices) == 1:
             return entries[indices[0]]
         parts = [entries[i] for i in indices]

@@ -1275,3 +1275,136 @@ def test_dtfd_classification_cli_on_card(tmp_path):
                         "64", "--cv_fold", "2", "--num_epoch", "2"])
     assert not any(f.launches for f in fns)
     assert all(np.isfinite(metrics[k]).all() for k in ("acs", "auc"))
+
+
+# -- the EPEG ablations, the native loader tier, JAX weights ----------------
+
+EPEG_ABLATIONS = {"value_bf": {"epeg_type": "value_bf"},
+                  "value_af": {"epeg_type": "value_af"},
+                  "attn_2d": {"epeg_2d": True},
+                  "value_af_2d": {"epeg_type": "value_af", "epeg_2d": True}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", list(EPEG_ABLATIONS))
+def test_epeg_ablation_on_card_matches_cpu(tag):
+    """c16_r50 (input 64, dropout off, float32 products) with each EPEG
+    ablation on a bag of 2213 patches: logits and every gradient against
+    the CPU (1e-4, f32, TF32 off); the R-MSA layer runs torch ops (K1 / K2 never), the CR-MSA
+    layer K3, K5, K8 once a forward and K4, K6, K7, K9 once a backward; a
+    second forward and backward gives the same bits."""
+    from rrtmil_tpu_torch.data.bucketing import bucket_for
+    dev = _cuda()
+    base = c16_r50()
+    cfg = dataclasses.replace(base, input_dim=64, dropout=0.0,
+                              encoder=dataclasses.replace(
+                                  base.encoder, dropout=0.0,
+                                  mm_dtype="float32", **EPEG_ABLATIONS[tag]))
+    card = build_model(cfg, device=dev, seed=2)
+    cpu = build_model(cfg, device="cpu", seed=2)
+    spec = bucket_for(2213, cfg.encoder)
+    x = torch.zeros((1, spec.data_length, 64))
+    x[0, :2213] = torch.randn((2213, 64),
+                              generator=torch.Generator().manual_seed(4))
+    mask = (torch.arange(spec.data_length) < 2213)[None]
+    fns = _ALL_KERNELS()
+    runs = []
+    for model, d in ((card, dev), (card, dev), (cpu, "cpu")):
+        for f in fns:
+            f.launches = 0
+        model.zero_grad(set_to_none=True)
+        logits = model(x.to(d), mask=mask.to(d), length=spec.repr_length)
+        fwd = [f.launches for f in fns]
+        torch.nn.functional.cross_entropy(logits, torch.tensor(
+            [1], device=d)).backward()
+        runs.append((logits.detach().cpu(), fwd, [f.launches for f in fns],
+                     [p.grad.detach().cpu().clone()
+                      for p in model.parameters()]))
+    once = lambda idx: [1 if i in idx else 0 for i in range(13)]
+    assert runs[0][1] == once((2, 4, 7))
+    assert runs[0][2] == once(range(2, 9))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][3], runs[1][3]))
+    torch.testing.assert_close(runs[0][0], runs[2][0], rtol=0, atol=1e-4)
+    print(f"epeg {tag} card vs CPU: gradients (scaled) "
+          f"{_grads_close(card, cpu, 1e-4):.3e}")
+
+
+def _npy_set(root, descr, lengths=(937, 2213, 300, 9000)):
+    from rrtmil_tpu_torch.data.datasets import C16Dataset
+    os.makedirs(os.path.join(root, "pt"))
+    rng = np.random.default_rng(0)
+    for i, n in enumerate(lengths):
+        np.save(os.path.join(root, "pt", f"s{i}.npy"),
+                rng.standard_normal((n, 64)).astype(descr))
+    return C16Dataset([f"s{i}" for i in range(len(lengths))],
+                      [i % 2 for i in range(len(lengths))], root)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("descr", ["<f4", "<f2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_native_tier_on_card(tmp_path, descr, dtype):
+    """The native tier on a CUDA engine: its device batches equal the
+    Python tier's bit for bit; it fills one pinned buffer a thread, reused
+    across batches once it holds the largest; an engine's two epochs with
+    the device cache on serve every miss natively and every later batch
+    from the cache."""
+    dev = _cuda()
+    ds = _npy_set(str(tmp_path), descr)
+    eng = Engine(torch.nn.Linear(4, 2), EngineConfig(
+        device_cache="off", transfer_dtype=dtype, num_workers=0),
+        c16_r50().encoder, device=dev)
+    bufs = set()
+    for b in ([3], [0], [1], [2], [0, 2]):       # the largest first
+        got = eng._make_batch(ds, b)
+        bufs.add(eng._staging.buf.data_ptr())
+        x, m, lab, spec = eng._assemble_host(ds, b, False)
+        want = eng._transfer(torch.from_numpy(x).to(getattr(torch, dtype)),
+                             torch.from_numpy(m), torch.from_numpy(lab),
+                             spec)
+        assert got[3] == spec and got[0].is_cuda
+        for a, w in zip(got[:3], want[:3]):
+            assert a.dtype == w.dtype and torch.equal(a, w)
+    assert eng._staging.buf.is_pinned() and len(bufs) == 1
+    assert eng.tier_batches == {"cache": 0, "native": 5, "python": 0}
+    from rrtmil_tpu_torch.models import zoo
+    model = zoo.build_model("attmil", input_dim=64, device=dev)
+    eng = Engine(model, EngineConfig(device_cache="on", transfer_dtype=dtype,
+                                     batch_size=2), c16_r50().encoder,
+                 device=dev)
+    for epoch in range(2):
+        eng.train_epoch(ds, epoch)
+    n = len(eng._batched_order(ds, range(len(ds))))
+    assert eng.tier_batches == {"cache": n, "native": n, "python": 0}
+    assert eng._dcache.misses == len(ds)
+
+
+@pytest.mark.gpu
+def test_jax_weights_on_card():
+    """The committed fixture of JAX-written `.msgpack` weights on the card:
+    attmil's logits and the survival MeanMIL's hazards within 1e-4 of the
+    JAX package's CPU outputs."""
+    from rrtmil_tpu_torch.models import zoo
+    from rrtmil_tpu_torch.models.mean_max import MeanMIL
+    from rrtmil_tpu_torch.train.checkpoint import load_params
+    dev = _cuda()
+    fix = os.path.join(REPO, "tests", "fixtures", "jax_weights")
+    attmil = zoo.build_model("attmil", input_dim=64, device=dev)
+    attmil.load_state_dict(load_params(os.path.join(fix, "attmil.msgpack")))
+    surv = SurvivalHead(MeanMIL(64, 4)).to(dev).eval()
+    surv.load_state_dict(load_params(os.path.join(
+        fix, "survival_meanmil.msgpack")))
+    with np.load(os.path.join(fix, "outputs.npz")) as f:
+        for i in range(3):
+            n = f[f"x_{i}"].shape[0]
+            x = torch.zeros((1, int(f[f"rows_{i}"]), 64))
+            x[0, :n] = torch.from_numpy(f[f"x_{i}"])
+            x, mask = x.to(dev), (torch.arange(x.shape[1]) < n)[None].to(dev)
+            with torch.no_grad():
+                logits = attmil(x, mask=mask, length=n)
+                hazards, _ = surv(x, mask=mask, length=n)
+            np.testing.assert_allclose(logits.cpu().numpy(), f[f"logits_{i}"],
+                                       rtol=0, atol=1e-4)
+            np.testing.assert_allclose(hazards.cpu().numpy(),
+                                       f[f"hazards_{i}"], rtol=0, atol=1e-4)
