@@ -170,6 +170,29 @@ phase 9's own interruption):
    64) loaded on the card, their outputs within 1e-4 of the JAX package's,
    and `survival_main --evaluate --resume` over a JAX results directory as
    a process that exits 0;
+15. fold-parallel cross-validation (`--fold_parallel`, FOLDS = 5 folds,
+   each with weights of its own): (a) K1-K13 in their fold form (the folds'
+   streams along the leading axis, their weights stacked) at the main
+   path's shapes (one 9000-patch bag a fold; K12 / K13 at a 45000-patch
+   survival bag; K6 / K7 also with per-fold EPEG taps) in the three dtype
+   pairs: one launch for all folds (the wrapper's counter up by one, no
+   other), against each fold's own launch and plain version (TOL), the same
+   bits twice; the fold launch's ms against the five per-fold launches',
+   the plain fold form's and the bound; (b) c16_r50 at full width, one
+   9000-patch bag a fold: two fold-parallel steps (dropout off, f32
+   products) against the folds' own batch-1 steps on the card and, at
+   FOLD_CPU_BAG patches, against the CPU (losses 1e-4, parameters within
+   Adam's drift bound), every step launching K1-K9 once and no other
+   kernel; the step's ms against five batch-1 steps' (default config,
+   dropout on) and its peak memory; (c) survival_default's RRTMIL, one
+   45000-patch bag a fold (grids 224 / 216), each fold its own lr: (b)'s
+   checks (the CPU at FOLD_SURV_CPU_BAG), K1, K2, K5-K7, K12 and K13 once a
+   step; (d) `python -m rrtmil_tpu_torch.main --fold_parallel` (c16_r50's
+   flags, phase 9's 12 bags, 5 folds x 2 epochs) and `python -m
+   rrtmil_tpu_torch.survival_main --model RRTMIL --fold_parallel` (phase
+   10's cases, 5 folds x 2 epochs), each a process that exits 0, beside
+   the same commands without the flag: each epoch's train rate from the
+   logs;
 6. survival: `SurvivalEngine.train_epoch` (dropout on) and `validate` on
    survival_default() at full width, bags of {937, 1500, 10000, 30000,
    45000, 50000} patches: each bag whose R-MSA grid exceeds its CR-MSA grid
@@ -213,9 +236,10 @@ phase 9's own interruption):
 
 Every counter is set to 0 just before each path and read just after.
 Prints the `{"kernels": [...]}` line (each kernel's launches from its own
-path: K1-K9 the c16_r50 train epoch, K10 / K11 the FFN one, K12 / K13 the
-survival one; `launches_by_path` adds every other path, phase 9's to
-14's runs among them), the card's name and power limit,
+path: K1-K9 phase 15's fold-parallel c16_r50 step, K10 / K11 the FFN train
+epoch, K12 / K13 phase 15's fold-parallel survival step; `launches_by_path`
+adds every other path, phase 3's to 14's among them; `fold_parallel` each
+kernel's phase 15 (a) times), the card's name and power limit,
 and as
 its last line
 `{"ok": true, "device": {...}}`.  Writes the full report to
@@ -224,6 +248,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import os
@@ -395,11 +420,12 @@ def ln_params(c, g, dev):
     return ((1.0 + _randn((c,), g, 0.1)).to(dev), _randn((c,), g, 0.1).to(dev))
 
 
-def kernel_cases(b, dev, stream_dtype, G=96, length=9000):
+def kernel_cases(b, dev, stream_dtype, G=96, length=9000, seed=None):
     """{kernel: (wrapper, plain version, args)} at the c16_r50 main path shape
     for batch b (by default a 9000-patch bag: G = 96, C = 512, H = 8 x 64,
     P = 144, EPEG k = 15, CR-MSA k = 1 over 64 regions; K6 and K7 as K5's
-    backward runs them, on (b, 8, 64, 64) at scale 1 without EPEG)."""
+    backward runs them, on (b, 8, 64, 64) at scale 1 without EPEG), drawn
+    from `seed` (100 + b by default)."""
     from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
     from rrtmil_tpu_torch.ops.kernels import region_attn as ra
     from rrtmil_tpu_torch.ops.kernels import region_attn_bwd as rab
@@ -407,7 +433,8 @@ def kernel_cases(b, dev, stream_dtype, G=96, length=9000):
     from rrtmil_tpu_torch.ops.kernels import region_layer as rl
 
     RS, C, H, HD, KK = G // 8, 512, 8, 64, 15
-    x, mask, g = stream_inputs(b, G, C, length, 100 + b, dev)
+    x, mask, g = stream_inputs(b, G, C, length,
+                               100 + b if seed is None else seed, dev)
     x = x.to(stream_dtype)
     ls, lb = ln_params(C, g, dev)
     w1 = layer_weights(C, H, HD, KK, g, dev)
@@ -4901,6 +4928,501 @@ def profile_naming(key, want, take, tries=3):
                          f"{tries} windows")
 
 
+# ---------------------------------------------------------------------------
+# slice 15: fold-parallel cross-validation (--fold_parallel)
+# ---------------------------------------------------------------------------
+
+FOLDS = 5
+FOLD_BAG = 9000                 # (b): a c16_r50 bag a fold, G = 96
+FOLD_SURV_BAG = 45000           # (c): survival grids 224 / 216: K12 / K13
+# the CPU checks' bags (its plain versions at 9000 and 45000 patches, five
+# folds, two steps would take minutes): 2213 (G = 48) and 1500 (grids 48 /
+# 40: K12 / K13 too)
+FOLD_CPU_BAG, FOLD_SURV_CPU_BAG = 2213, 1500
+FOLD_STEPS = 2
+FOLD_TIME_ROUNDS = 3            # (par, seq, seq, par) rounds, 2 steps each
+CLI_FOLD_RUN = ["--cv_fold", "5", "--num_epoch", "2", "--seed", "2021"]
+SCLI_FOLD_RUN = ["--num_epoch", "2", "--seed", "1", "--model", "RRTMIL"]
+
+
+def _fold_args(per_fold, kinds):
+    """The fold form of FOLDS argument lists: each fold's rows in turn
+    (`rows`), each fold's weights stacked (`weight`), the rest fold 0's."""
+    out = []
+    for i, kind in enumerate(kinds):
+        vals = [a[i] for a in per_fold]
+        if kind == "rows":
+            out.append(torch.cat(vals))
+        elif kind == "weight" and vals[0] is not None:
+            out.append(torch.stack(vals))
+        else:
+            out.append(vals[0])
+    return out
+
+
+def _fold_part(t, kind, f):
+    if t is None:
+        return None
+    if kind == "rows":
+        n = t.shape[0] // FOLDS
+        return t[f * n:(f + 1) * n]
+    return t[f]
+
+
+def fold_kernel_items(dev, sdt):
+    """[(name, wrapper, plain version, FOLDS argument lists, argument kinds,
+    output kinds)] of K1-K13 at the main path's shapes (one 9000-patch bag a
+    fold for K1-K11, G = 96; K6 / K7 as K5's backward runs them and, with
+    per-fold EPEG taps, at P = 144; K12 / K13 at a 45000-patch survival
+    bag), every fold with a stream and weights of its own."""
+    from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
+    from rrtmil_tpu_torch.ops.kernels import region_attn as ra
+    from rrtmil_tpu_torch.ops.kernels import region_attn_bwd as rab
+    R, W = "rows", "weight"
+    per = [kernel_cases(1, dev, sdt, seed=500 + f) for f in range(FOLDS)]
+    items = []
+    layer = (R, R) + (W,) * 12
+    kinds = {"K1 region_layer_fused": (layer + (None,) * 3, (R,)),
+             "K2 region_layer_bwd": (layer + (R,) + (None,) * 3,
+                                     (R,) + (W,) * 12),
+             "K3 crmsa_compress_grid": ((R, R, W, W, W, None, None), (R, R)),
+             "K4 crmsa_compress_grid_bwd": ((R, R, W, W, W, R, R, None, None),
+                                            (R, W, W, W)),
+             "K5 region_block_fused": ((R,) + (W,) * 10, (R,)),
+             "K6 region_attention_fused": ((R, R, R, None, None, None), (R,)),
+             "K7 region_attention_bwd": ((R, R, R, None, None, R, None),
+                                         (R, R, R, W, W)),
+             "K8 crmsa_redistribute_grid_ln": (
+                 (R, R, R, R, W, W, R, None, None), (R,)),
+             "K9 crmsa_redistribute_grid_ln_bwd": (
+                 (R, R, R, R, W, W, R, R, None, None), (R, R, R, W, W, R))}
+    for name, (ak, ok) in kinds.items():
+        fn, plain, _ = per[0][name]
+        items.append((name, fn, plain, [p[name][2] for p in per], ak, ok))
+    grid = [grid_redistribute_inputs(1, 96, 12, 1, dev, sdt, 600 + f)
+            for f in range(FOLDS)]
+    items.append(("K10 crmsa_redistribute_grid", ck.crmsa_redistribute_grid,
+                  ck.redistribute_grid_plain,
+                  [(x, m, w, r, 96, 12, True) for x, m, w, r, _ in grid],
+                  (R, R, R, R, None, None, None), (R,)))
+    items.append(("K11 crmsa_redistribute_grid_bwd",
+                  ck.crmsa_redistribute_grid_bwd,
+                  ck.redistribute_grid_bwd_plain,
+                  [(m, w, r, go, 96, 12) for _, m, w, r, go in grid],
+                  (R, R, R, R, None, None), (R, R)))
+    surv = [surv_region_inputs(FOLD_SURV_BAG, 216, 27, dev, sdt, 700 + f)
+            for f in range(FOLDS)]
+    items.append(("K12 crmsa_compress", ck.crmsa_compress, ck.compress_plain,
+                  [(x, phi) for x, phi, _, _ in surv], (R, W), (R, R)))
+    items.append(("K13 crmsa_redistribute", ck.crmsa_redistribute,
+                  ck.redistribute_plain, [(w, r) for _, _, w, r in surv],
+                  (R, R), (R,)))
+    taps = []
+    for f in range(FOLDS):
+        g = _gen(800 + f)
+        q, k, v, ga = (_randn((16, 8, 144, 64), g).to(dev).to(sdt)
+                       for _ in range(4))
+        taps.append((q, k, v, _randn((8, 15), g, 0.3).to(dev),
+                     _randn((8,), g, 0.1).to(dev), ga))
+    items.append(("K6 region_attention_fused (P=144, k=15)",
+                  ra.region_attention_fused, ra.region_attention_plain,
+                  [(q, k, v, pw, pb, 0.125) for q, k, v, pw, pb, _ in taps],
+                  (R, R, R, W, W, None), (R,)))
+    items.append(("K7 region_attention_bwd (P=144, k=15)",
+                  rab.region_attention_bwd, rab.region_attention_bwd_plain,
+                  [(q, k, v, pw, pb, ga, 0.125)
+                   for q, k, v, pw, pb, ga in taps],
+                  (R, R, R, W, W, R, None), (R, R, R, W, W)))
+    return items
+
+
+def _fold_bound(name, per_fold, sdt, mdt):
+    """bound_ms of the FOLDS folds' work: each fold's inputs read once and
+    outputs written once (its weights included), summed over the folds."""
+    key = name.split(" (")[0]
+    if key.startswith(("K5", "K6", "K7", "K10", "K11", "K12", "K13")):
+        flops, byts = map(sum, zip(*[work_from_args(key, a)
+                                     for a in per_fold]))
+    else:
+        flops, byts = (FOLDS * v for v in work_of(key, 1, sdt, mdt))
+    return bound_ms(flops, byts, mdt)
+
+
+def phase_fold_kernels(dev):
+    """(a) K1-K13 fold-batched (FOLDS folds in one launch) against each
+    fold's own launch and each fold's plain version, in the three dtype
+    pairs: TOL of max(1, max|reference|), the same bits on a second call,
+    the wrapper's counter up by exactly one; the fold form of one fold
+    gives the call without a fold axis bit for bit.  In the main path's pair (f32
+    stream, bf16 products) the fold launch's ms beside the FOLDS per-fold
+    launches', the plain fold form's and the folds' bound."""
+    fns = all_counters()
+    report = {"errors": {}, "times": {}}
+    for sdt, mdt in DTYPE_PAIRS:
+        pair = f"{dname(sdt)}/{dname(mdt)}"
+        for name, fn, plain, per_fold, kinds, out_kinds in \
+                fold_kernel_items(dev, sdt):
+            key = name.split(" (")[0]
+            args = _fold_args(per_fold, kinds)
+            reset_counters()
+            got = _as_tuple(fn(*args, mm_dtype=mdt))
+            launches = launches_now()
+            if launches[key] != 1 or sum(launches.values()) != 1:
+                raise AssertionError(f"[15] {name}: the fold call launched "
+                                     f"{launches}, not {key} once")
+            again = _as_tuple(fn(*args, mm_dtype=mdt))
+            for a, b in zip(got, again):
+                if a is not None and not torch.equal(a, b):
+                    raise AssertionError(f"[15] {name}: two fold calls differ")
+            one = _as_tuple(fn(*_fold_args(per_fold[:1], kinds), mm_dtype=mdt))
+            base = _as_tuple(fn(*per_fold[0], mm_dtype=mdt))
+            for a, b, kind in zip(one, base, out_kinds):
+                a = a if a is None or kind == "rows" else a[0]
+                if (a is None) != (b is None) or (
+                        a is not None and not torch.equal(a, b)):
+                    raise AssertionError(f"[15] {name}: one fold's fold form "
+                                         f"differs from the plain call")
+            worst = {"launch": 0.0, "plain": 0.0}
+            for f in range(FOLDS):
+                refs = {"launch": _as_tuple(fn(*per_fold[f], mm_dtype=mdt)),
+                        "plain": _as_tuple(plain(*per_fold[f], mm_dtype=mdt))}
+                for ref, want in refs.items():
+                    for i, (a, b, kind) in enumerate(zip(got, want,
+                                                         out_kinds)):
+                        a = _fold_part(a, kind, f)
+                        if a is None or b is None:
+                            if (a is None) != (b is None):
+                                raise AssertionError(f"[15] {name} output "
+                                                     f"{i}: None on one side")
+                            continue
+                        if a.shape != b.shape or not torch.isfinite(
+                                a.float()).all():
+                            raise AssertionError(f"[15] {name} output {i}: "
+                                                 f"{tuple(a.shape)} vs "
+                                                 f"{tuple(b.shape)}")
+                        e = (a.float() - b.float()).abs().max().item() / max(
+                            1.0, b.float().abs().max().item())
+                        worst[ref] = max(worst[ref], e)
+            ok = max(worst.values()) <= TOL[mdt]
+            log(f"[15] (a) {name:44s} {pair:17s} fold vs per-fold launches "
+                f"{worst['launch']:.3e}, vs plain {worst['plain']:.3e} "
+                f"(tol {TOL[mdt]:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"[15] {name} {pair}: {worst}")
+            report["errors"].setdefault(key, {})[pair + name[len(key):]] = \
+                worst
+            if (sdt, mdt) == DTYPE_PAIRS[0]:
+                ms = time_ms(lambda: fn(*args, mm_dtype=mdt), iters=10)
+                per_ms = time_ms(lambda: [fn(*a, mm_dtype=mdt)
+                                          for a in per_fold], iters=10)
+                plain_ms = time_ms(lambda: [plain(*a, mm_dtype=mdt)
+                                            for a in per_fold], iters=3,
+                                   warmup=1)
+                bms, by = _fold_bound(name, per_fold, sdt, mdt)
+                report["times"][name] = {"ms": ms, "per_fold_launches_ms":
+                                         per_ms, "plain_ms": plain_ms,
+                                         "bound_ms": bms, "bound_by": by}
+                log(f"[15] (a) {name:44s} {FOLDS} folds: {ms:.3f} ms in one "
+                    f"launch, {per_ms:.3f} ms in {FOLDS}, plain {plain_ms:.3f}"
+                    f", bound {bms:.4f} ({by})")
+        torch.cuda.empty_cache()
+    for f in fns.values():
+        f.launches = 0
+    return report
+
+
+def _fold_bags(cfg, length, dev, seed, dtype=torch.float32):
+    """FOLDS bags of `length` patches (each its own), padded to their bucket
+    on the card: x (FOLDS, 1, N, D), mask (FOLDS, 1, N), spec."""
+    from rrtmil_tpu_torch.data.bucketing import bucket_for
+    spec = bucket_for(length, cfg.encoder)
+    g = _gen(seed)
+    x = torch.zeros((FOLDS, 1, spec.data_length, cfg.input_dim))
+    x[:, :, :length] = _randn((FOLDS, 1, length, cfg.input_dim), g)
+    mask = (torch.arange(spec.data_length) < length)[None, None].expand(
+        FOLDS, 1, -1).contiguous()
+    return x.to(dtype).to(dev), mask.to(dev), spec
+
+
+def _fold_engines(cfg, dev, surv=False, lrs=None):
+    """FOLDS engines of `cfg` (seeds 0 ..), each fold its own weights and
+    optimizer; survival ones with the per-fold lrs `lrs`."""
+    from rrtmil_tpu_torch.models.rrt import build_model
+    from rrtmil_tpu_torch.train.engine import Engine, EngineConfig
+    from rrtmil_tpu_torch.train.surv_engine import (SurvivalEngine,
+                                                    SurvivalEngineConfig)
+    engines = []
+    for f in range(FOLDS):
+        if surv:
+            eng = SurvivalEngine(_surv_model(cfg, dev, seed=f),
+                                 SurvivalEngineConfig(), cfg.encoder,
+                                 device=dev)
+            for group in eng.optimizer.param_groups:
+                group["lr"] = lrs[f]
+        else:
+            eng = Engine(build_model(cfg, device=dev, seed=f), EngineConfig(),
+                         cfg.encoder, device=dev)
+        eng.generator.manual_seed(f)
+        eng.model.train()
+        engines.append(eng)
+    return engines
+
+
+def _fold_runner(engines, x, mask, y, cens, spec, surv):
+    """(parallel step, sequential steps): one fold-parallel step with each
+    engine's update, and the FOLDS engines' own batch-1 steps."""
+    from rrtmil_tpu_torch.harness.survival import _update
+    from rrtmil_tpu_torch.parallel.folds import (make_fold_parallel_step,
+                                                 make_fold_parallel_surv_step,
+                                                 stack_states)
+    models = [e.model for e in engines]
+    stacked = stack_states(models)
+    gens = [e.generator for e in engines]
+    if surv:
+        step = make_fold_parallel_surv_step(models, stacked, engines[0]._loss,
+                                            spec.repr_length)
+    else:
+        step = make_fold_parallel_step(models, stacked, engines[0]._loss,
+                                       spec.repr_length)
+
+    def par():
+        out = step(x, mask, y, cens, gens) if surv else \
+            step(x, mask, y, gens)
+        for e in engines:
+            if surv:
+                _update(e)
+            else:
+                e._apply_grads(e.cfg.lr)
+        return out[0] if surv else out
+
+    def seq():
+        losses = []
+        for f, e in enumerate(engines):
+            if surv:
+                loss, _ = e._train_step(x[f], mask[f], y[f], cens[f],
+                                        spec.repr_length)
+            else:
+                loss = e._train_step(x[f], mask[f], y[f],
+                                     spec.repr_length)[0]
+                e._apply_grads(e.cfg.lr)
+            losses.append(loss)
+        return torch.stack(losses)
+    return par, seq
+
+
+def _fold_states(engines):
+    return [{n: p.detach().cpu().clone()
+             for n, p in e.model.named_parameters()} for e in engines]
+
+
+def _fold_inputs(cfg, length, dev, surv, seed):
+    x, mask, spec = _fold_bags(cfg, length, dev, seed)
+    y = (torch.arange(FOLDS)[:, None] % (4 if surv else 2)).to(dev)
+    cens = (torch.arange(FOLDS)[:, None] % 2).float().to(dev)
+    return x, mask, y, cens, spec
+
+
+def _fold_steps(cfg, dev, surv, lrs, inputs, kind, expect=None):
+    """FOLD_STEPS steps of fresh engines (seeds 0 ..) on `inputs`: the
+    fold-parallel step (`par`, each step required to launch each kernel of
+    `expect` once and no other, when given) or the folds' own batch-1 steps
+    (`seq`); returns (losses (FOLD_STEPS, FOLDS), the parameters, the
+    launches of all the steps)."""
+    engines = _fold_engines(cfg, dev, surv, lrs)
+    par, seq = _fold_runner(engines, *inputs, surv)
+    losses = []
+    reset_counters()
+    for _ in range(FOLD_STEPS):
+        before = launches_now()
+        losses.append((par if kind == "par" else seq)().cpu())
+        if expect is not None:
+            now = launches_now()
+            _exactly_once({n: now[n] - before[n] for n in now}, expect, 1,
+                          "a fold-parallel step")
+    return torch.stack(losses), _fold_states(engines), launches_now()
+
+
+def _fold_close(tag, got, want, lr_max, ref):
+    (lg, sg), (lw, sw) = got, want
+    loss_err = ((lg - lw).abs() / lw.abs().clamp_min(1.0)).max().item()
+    drift = [_adam_params_close(a, b, lr_max, FOLD_STEPS, 1e-3)
+             for a, b in zip(sg, sw)]
+    ok = loss_err <= 1e-4 and all(d[0] for d in drift)
+    out = {"loss_err": loss_err, "param_err": max(d[1] for d in drift),
+           "param_frac": max(d[2] for d in drift)}
+    log(f"[15] {tag}: fold-parallel on the card vs {ref}: losses "
+        f"{loss_err:.2e}, parameters {out['param_err']:.2e} (bound "
+        f"{2 * FOLD_STEPS * lr_max * ADAM_STEP:.2e}, frac "
+        f"{out['param_frac']:.1e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"[15] {tag} vs {ref}: {out}")
+    return out
+
+
+def _fold_check(tag, dev, cfg, length, cpu_length, surv, expect, lrs=None):
+    """(dropout off, f32 products, TF32 off) FOLD_STEPS fold-parallel steps
+    on the card against the folds' own batch-1 steps on the card at
+    `length`, and against the same fold-parallel steps on the CPU at
+    `cpu_length`: per-step losses within 1e-4, parameters within Adam's
+    drift bound; every parallel step on the card launches each kernel of
+    `expect` once, none other."""
+    cfg = dataclasses.replace(cfg, dropout=0.0, encoder=dataclasses.replace(
+        cfg.encoder, dropout=0.0, mm_dtype="float32"))
+    lr_max = max(lrs) if lrs else 2e-4
+    out = {}
+    for ref, n in (("sequential", length), ("cpu", cpu_length)):
+        inputs = _fold_inputs(cfg, n, "cpu", surv, 900 + n)
+        card = tuple(t.to(dev) if torch.is_tensor(t) else t for t in inputs)
+        got = _fold_steps(cfg, dev, surv, lrs, card, "par", expect)
+        want = (_fold_steps(cfg, dev, surv, lrs, card, "seq")
+                if ref == "sequential"
+                else _fold_steps(cfg, torch.device("cpu"), surv, lrs, inputs,
+                                 "par"))
+        out[ref] = _fold_close(f"{tag} L={n}", got[:2], want[:2], lr_max,
+                               ref)
+        out[ref]["launches"] = got[2]
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fold_times(tag, dev, cfg, length, surv, expect, lrs=None):
+    """A fold-parallel step (FOLDS bags, each engine's update) against the
+    FOLDS folds' batch-1 steps in the default config (dropout on), host
+    clock around synchronised steps, rounds (par, seq, seq, par); the
+    parallel step's launches (each kernel of `expect` once) and peak
+    memory."""
+    inputs = _fold_inputs(cfg, length, dev, surv, 950 + length)
+    par, _ = _fold_runner(_fold_engines(cfg, dev, surv, lrs), *inputs, surv)
+    _, seq = _fold_runner(_fold_engines(cfg, dev, surv, lrs), *inputs, surv)
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / 2
+    par(), seq()
+    times = {"par": [], "seq": []}
+    for _ in range(FOLD_TIME_ROUNDS):
+        for kind in ("par", "seq", "seq", "par"):
+            times[kind].append(clock(par if kind == "par" else seq))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    par()
+    torch.cuda.synchronize()
+    launches = launches_now()
+    _exactly_once(launches, expect, 1, f"{tag} step")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pm, sm = float(np.median(times["par"])), float(np.median(times["seq"]))
+    log(f"[15] {tag}: fold-parallel step {pm:.3f} ms ({pm / FOLDS:.3f} ms a "
+        f"bag) against {FOLDS} batch-1 steps {sm:.3f} ms ({sm / FOLDS:.3f} ms "
+        f"a bag): {sm / pm:.2f}x; peak {peak:.2f} GiB; rounds par "
+        f"{[round(t, 3) for t in times['par']]} seq "
+        f"{[round(t, 3) for t in times['seq']]}")
+    torch.cuda.empty_cache()
+    return {"par_ms": pm, "seq_ms": sm, "speedup": sm / pm,
+            "peak_mem_gib": peak, "rounds": times, "launches": launches}
+
+
+def _rates(stdout, pattern, bags):
+    """{epoch: train rate} from a CLI log: `pattern` finds each epoch line
+    with groups (epoch, number), `bags[i]` is the i-th line's train bags
+    and turns its number into seconds."""
+    import re
+    sums = {}
+    for i, m in enumerate(re.finditer(pattern, stdout)):
+        n, secs = bags[i](float(m.group(2)))
+        b0, s0 = sums.get(int(m.group(1)), (0, 0.0))
+        sums[int(m.group(1))] = (b0 + n, s0 + secs)
+    return {e: b / s for e, (b, s) in sorted(sums.items()) if s}
+
+
+def phase_fold_cli(dev):
+    """(d) `python -m rrtmil_tpu_torch.main --fold_parallel` (c16_r50's
+    flags, phase 9's 12 bags, 5 folds x 2 epochs) and `python -m
+    rrtmil_tpu_torch.survival_main --model RRTMIL --fold_parallel` (phase
+    10's 10 cases, 5 folds x 2 epochs), each a process of its own that must
+    exit 0, each beside the same command without --fold_parallel: every
+    epoch's train rate read from the logs."""
+    import tempfile
+    from rrtmil_tpu_torch import main as cli
+    from rrtmil_tpu_torch.harness.classification import make_splits
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "c16")
+        write_cli_data(root, False, 1024, 0)
+        csv_file, _ = write_survival_data(os.path.join(tmp, "surv"))
+        c16 = CLI_FOLD_RUN + CLI_C16 + ["--dataset_root", root,
+                                        "--model_path",
+                                        os.path.join(tmp, "out")]
+        sizes = [len(s[0]) for s in make_splits(
+            cli.build_parser().parse_args(c16))]
+        epochs = int(CLI_FOLD_RUN[CLI_FOLD_RUN.index("--num_epoch") + 1])
+        runs = {
+            "cli": ("rrtmil_tpu_torch.main", c16,
+                    r"Epoch \[(\d+)/\d+\].*?time: ([\d.]+)s",
+                    # seconds on each line: fold-major fold-epochs, or an
+                    # epoch of every fold
+                    lambda par: [(lambda s, n=(sum(sizes) if par else
+                                               sizes[i // epochs]): (n, s))
+                                 for i in range(len(sizes) * epochs)]),
+            "survival_cli": ("rrtmil_tpu_torch.survival_main",
+                             SCLI_FOLD_RUN + ["--input_dim", "1024",
+                                              "--excel_file", csv_file],
+                             r"epoch (\d+): train loss \S+ (?:ci \S+ )?"
+                             r"\(([\d.]+) bags/s\)",
+                             # bags/s on each line: 8 train cases a fold
+                             lambda par: [(lambda r, n=8 * (FOLDS if par
+                                                            else 1):
+                                           (n, n / r))
+                                          for _ in range(FOLDS * epochs)])}
+        for tag, (module, argv, pattern, bags) in runs.items():
+            rec = {}
+            for kind, flag in (("sequential", []),
+                               ("fold_parallel", ["--fold_parallel"])):
+                extra = (["--title", kind] if tag == "cli" else
+                         ["--results_dir", os.path.join(tmp, kind)])
+                stdout, secs = cli_process(module, argv + extra + flag,
+                                           f"{module} {' '.join(flag)}")
+                rates = _rates(stdout, pattern, bags(bool(flag)))
+                if len(rates) != epochs:
+                    raise AssertionError(f"[15] {tag} {kind}: epoch rates "
+                                         f"{rates}: {stdout[-1500:]}")
+                rec[kind] = {"seconds": secs, "train_rate_by_epoch": rates}
+                log(f"[15] (d) {tag} {kind}: exit 0 in {secs:.1f} s, train "
+                    f"{'slides' if tag == 'cli' else 'bags'}/s by epoch "
+                    + ", ".join(f"{e}: {r:.2f}" for e, r in rates.items()))
+            report[tag] = rec
+    return report
+
+
+def phase_slice15(dev):
+    """Phase 15: fold-parallel cross-validation on the card: (a) the
+    kernels' fold forms, (b) c16_r50 and (c) survival_default's RRTMIL
+    fold-parallel steps (launches, the card's sequential steps and the CPU,
+    times, peak memory), (d) both CLIs with --fold_parallel."""
+    from rrtmil_tpu_torch.config import c16_r50, survival_default
+    t0 = time.perf_counter()
+    report = {"kernels": phase_fold_kernels(dev)}
+    lrs = [1e-4 * (f + 1) for f in range(FOLDS)]
+    for tag, cfg, length, cpu_length, surv, expect in (
+            ("(b) c16_r50", c16_r50(), FOLD_BAG, FOLD_CPU_BAG, False,
+             C16_TRAIN),
+            ("(c) survival", survival_default(), FOLD_SURV_BAG,
+             FOLD_SURV_CPU_BAG, True, SURV_MISMATCHED)):
+        fl = lrs if surv else None
+        report[tag[4:]] = {
+            "check": _fold_check(tag, dev, cfg, length, cpu_length, surv,
+                                 expect, fl),
+            "times": _fold_times(f"{tag} L={length}", dev, cfg, length, surv,
+                                 expect, fl)}
+    report["cli"] = phase_fold_cli(dev)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[15] phase 15: {report['seconds']:.1f} s")
+    return report
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -4915,7 +5437,8 @@ def main():
     dev = torch.device("cuda:0")
     smi = phase_device()
     report = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-              "build_s": phase_build(), "errors": phase_kernels(dev)}
+              "build_s": phase_build()}
+    report["errors"] = phase_kernels(dev)
     if not args.quick:
         report["main_path"] = phase_main_path(dev)
         report["train"] = phase_train(dev)
@@ -4932,6 +5455,7 @@ def main():
         report["slice12"] = phase_slice12(dev)
         report["slice13"] = phase_slice13(dev)
         report["slice14"] = phase_slice14(dev)
+        report["slice15"] = phase_slice15(dev)
         report["times"] = phase_times_products(dev, phase_times_pairs(
             dev, phase_times_slice3(dev, phase_times(dev))))
         report["throughput"] = phase_throughput(dev)
@@ -5036,9 +5560,21 @@ def main():
     for run in ("native", "native_amp", "python", "over_budget"):
         paths[f"cli_tier_{run}"] = s14.get("native", {}).get(run, {})
     paths["jax_weights"] = s14.get("jax_weights", {})
-    own = {n: "train_epoch" for n in C16_TRAIN}
+    s15 = report.get("slice15", {})
+    for tag in ("c16_r50", "survival"):
+        rec = s15.get(tag, {})
+        paths[f"fold_parallel_{tag}_step"] = rec.get("times", {})
+        for ref in ("sequential", "cpu"):
+            paths[f"fold_parallel_{tag}_steps_vs_{ref}"] = rec.get(
+                "check", {}).get(ref, {})
+    # this slice's main path: one fold-parallel step of 5 folds, c16_r50
+    # (K1-K9) and survival_default's RRTMIL on a mismatched bucket (K12,
+    # K13); K10 / K11 from the FFN train epoch
+    own = {n: "fold_parallel_c16_r50_step" for n in C16_TRAIN}
     own.update({K[9]: "ffn_train_epoch", K[10]: "ffn_train_epoch",
-                K[11]: "survival_train_epoch", K[12]: "survival_train_epoch"})
+                K[11]: "fold_parallel_survival_step",
+                K[12]: "fold_parallel_survival_step"})
+    fold_times = s15.get("kernels", {}).get("times", {})
     kernels = []
     for name, (replaces, jax_fn, source) in TPU_KERNELS.items():
         errs = report["errors"][name]
@@ -5062,6 +5598,8 @@ def main():
                                             "device_ms", "library_device_ms",
                                             "host_ms", "library_host_ms")}
                                for b, rec in t.items()}
+        if name in fold_times:
+            row["fold_parallel"] = {"folds": FOLDS, **fold_times[name]}
         kernels.append(row)
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as f:

@@ -22,6 +22,11 @@ The qkv column order (C, 3, H, hd) is the same on both sides (rrt.py:642),
 so the Linear weight's rows are (3, H, hd).  A bfloat16 leaf stays
 bfloat16.  `torch_to_flax` inverts it exactly (a bfloat16 tensor comes back
 as float32).
+
+The stacked forms carry fold-parallel training's weights: the tree of the
+JAX package's `parallel.folds.stack_states` (every leaf with a leading fold
+axis) to the port's stacked parameters {name: (K, ...)}
+(`parallel.folds.stack_states`), fold by fold, and back.
 """
 from __future__ import annotations
 
@@ -97,3 +102,27 @@ def torch_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(p, {})
         node[name] = np.ascontiguousarray(a)
     return tree
+
+
+def _fold_leaf(tree: Mapping, f: int) -> dict:
+    return {k: _fold_leaf(v, f) if hasattr(v, "items") else np.asarray(v)[f]
+            for k, v in tree.items()}
+
+
+def flax_stacked_to_torch(params: Mapping, k: int) -> Dict[str, torch.Tensor]:
+    """A stacked flax param tree of k folds -> {name: (k, ...)}."""
+    folds = [flax_to_torch(_fold_leaf(params, f)) for f in range(k)]
+    return {n: torch.stack([d[n] for d in folds]) for n in folds[0]}
+
+
+def torch_stacked_to_flax(stacked: Mapping[str, torch.Tensor]) -> dict:
+    """{name: (k, ...)} -> the stacked flax param tree of k folds."""
+    k = next(iter(stacked.values())).shape[0]
+    folds = [torch_to_flax({n: t[f] for n, t in stacked.items()})
+             for f in range(k)]
+
+    def stack(trees):
+        return {key: stack([t[key] for t in trees])
+                if isinstance(trees[0][key], dict)
+                else np.stack([t[key] for t in trees]) for key in trees[0]}
+    return stack(folds)

@@ -52,12 +52,24 @@ constexpr int CPL = 32;
 
 // Where token p of region r lives in the (B, G*G, C) stream.  grid == 0
 // means the regions are already contiguous: row r * P + p of (R, P, C).
+// With folds (rf > 0) the regions of fold f are f * rf .. f * rf + rf - 1,
+// and each fold has weights of its own, stacked on a leading fold axis.
 struct TokenMap {
   int grid;  // G, or 0 for the contiguous (R, P, C) layout
   int rs;    // region side
   int nrs;   // regions per grid side
   int P;     // tokens per region
+  int rf;    // regions per fold, or 0 for one fold
 };
+
+__host__ __device__ __forceinline__ int fold_of(const TokenMap& tm, int r) {
+  return tm.rf > 0 ? r / tm.rf : 0;
+}
+
+// p moved to fold f's weights (f * fs elements on), null kept null
+template <typename T> __device__ __forceinline__ T* fold_ptr(T* p, long long off) {
+  return p ? p + off : p;
+}
 
 __device__ __forceinline__ long long token_of(const TokenMap& tm, int r, int p) {
   if (tm.grid == 0) return (long long)r * tm.P + p;
@@ -111,15 +123,20 @@ __device__ __forceinline__ void warp_ln_mask(float (&vals)[CPL], int C, int lane
   }
 }
 
-// z[t] = round_TM(mask[t] * LN(x[t])), one warp per token row.
+// z[t] = round_TM(mask[t] * LN(x[t])), one warp per token row.  The rows
+// fall into gridDim.y folds of Mf rows; fold blockIdx.y's LayerNorm is ls,
+// lb (F, C) row blockIdx.y (no division: one fold is the kernel as it was).
 template <typename TS, typename TM>
 __global__ void __launch_bounds__(256)
 ln_mask_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
                const float* __restrict__ ls, const float* __restrict__ lb,
-               TM* __restrict__ z, long long M, int C, float eps) {
+               TM* __restrict__ z, long long Mf, int C, float eps) {
   const int lane = threadIdx.x & 31;
-  const long long t = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (t >= M) return;
+  const long long tf = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (tf >= Mf) return;
+  const long long t = blockIdx.y * Mf + tf;
+  ls += blockIdx.y * C;
+  lb += blockIdx.y * C;
   const TS* xr = x + t * C;
   float vals[CPL];
 #pragma unroll
@@ -149,6 +166,7 @@ ln_mask_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
 //    (H, hd, C) is read as the (C, H * hd) or (H * hd, C) matrix it is; one
 //    of sk0, sn0 is 1.
 //  * Bias3: the bias in the same blocks, contiguous float32, or null.
+// With folds, fold f's B and bias start fs elements after fold f - 1's.
 // ---------------------------------------------------------------------------
 struct RowsA {
   const void* p;
@@ -159,6 +177,7 @@ struct Thirds {
   const void* p[3];
   int nper, kdiv, ndiv;
   long long sk1, sk0, sn1, sn0;
+  long long fs;  // fold stride (elements), 0 without folds
   __device__ __forceinline__ long long off(int k, int n) const {
     return (long long)(k / kdiv) * sk1 + (long long)(k % kdiv) * sk0 +
            (long long)(n / ndiv) * sn1 + (long long)(n % ndiv) * sn0;
@@ -167,6 +186,11 @@ struct Thirds {
 struct Bias3 {
   const float* p[3];
   int nper;
+  long long fs;  // fold stride (elements), 0 without folds
+  __device__ __forceinline__ Bias3 fold(int f) const {
+    return Bias3{{fold_ptr(p[0], f * fs), fold_ptr(p[1], f * fs), fold_ptr(p[2], f * fs)},
+                 nper, fs};
+  }
   __device__ __forceinline__ float at(int n) const {
     const int t = n / nper;
     const float* q = t == 0 ? p[0] : t == 1 ? p[1] : p[2];  // no indexed param array
@@ -178,18 +202,27 @@ struct Bias3 {
 template <typename T, bool TR> struct PlainMat {  // (i, j) of row-major or, TR, its transpose
   const T* p;
   int ld;
+  long long fs;  // fold stride (elements) of a per-fold operand
+  __device__ __forceinline__ PlainMat fold(int f) const { return PlainMat{p + f * fs, ld, fs}; }
   __device__ __forceinline__ float at(int i, int j) const {
     return to_f(TR ? p[(long long)j * ld + i] : p[(long long)i * ld + j]);
   }
 };
 template <typename T> struct RowsAt {
   RowsA a;
+  __device__ __forceinline__ RowsAt fold(int) const { return *this; }
   __device__ __forceinline__ float at(int m, int k) const {
     return to_f(((const T*)a.p)[(long long)(m / a.P) * a.sr + (long long)(m % a.P) * a.sp + k]);
   }
 };
 template <typename T> struct ThirdsAt {
   Thirds b;
+  __device__ __forceinline__ ThirdsAt fold(int f) const {
+    ThirdsAt c = *this;
+    for (int t = 0; t < 3; ++t)
+      c.b.p[t] = b.p[t] ? (const void*)((const T*)b.p[t] + f * b.fs) : nullptr;
+    return c;
+  }
   __device__ __forceinline__ float at(int k, int n) const {
     const int t = n / b.nper;
     const T* q = (const T*)(t == 0 ? b.p[0] : t == 1 ? b.p[1] : b.p[2]);
@@ -208,21 +241,35 @@ template <typename T> struct ThirdsAt {
 // blockIdx.z splits K into chunks of kchunk, each chunk writing its own
 // partial product at out + z * zstride (a later pass sums them in a fixed
 // order, so no atomics and no order-dependent sums).
+//
+// Folds (GFold): the M rows fall into folds of Mf rows, each with its own B
+// and bias (fold f's tiles are rows f Mf .. f Mf + Mf - 1 only, so no tile
+// straddles two folds), or the K rows into folds of Kf rows, each split
+// into kcpf chunks of its own (fold f's partials are chunks f kcpf ..
+// f kcpf + kcpf - 1).  Mf = M and Kf = K is one fold: the kernel as it was.
 // ---------------------------------------------------------------------------
 constexpr int GBM = 128, GBN = 128, GBK = 8;
+
+struct GFold {
+  int Mf, Kf, kcpf;
+};
 
 template <typename TM, typename TO, class AL, class BL, bool AT, bool BT>
 __global__ void __launch_bounds__(256)
 gemm_kernel(AL A, BL B, TO* __restrict__ out, int ldc, int M, int N, int K, int kchunk,
             long long zstride, Bias3 bias, const uint8_t* __restrict__ rowmask,
-            const TO* __restrict__ resid, int ldr) {
+            const TO* __restrict__ resid, int ldr, GFold fd) {
   __shared__ __align__(16) float As[GBK][GBM];
   __shared__ __align__(16) float Bs[GBK][GBN];
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  const int kb = blockIdx.z * kchunk;
-  const int ke = min(K, kb + kchunk);
+  const int tpf = (fd.Mf + GBM - 1) / GBM, fm = blockIdx.y / tpf, fk = blockIdx.z / fd.kcpf;
+  const int m0 = fm * fd.Mf + (blockIdx.y % tpf) * GBM, n0 = blockIdx.x * GBN;
+  M = min(M, fm * fd.Mf + fd.Mf);
+  const int kb = fk * fd.Kf + (blockIdx.z % fd.kcpf) * kchunk;
+  const int ke = min(min(K, fk * fd.Kf + fd.Kf), kb + kchunk);
+  B = B.fold(fm);
+  bias = bias.fold(fm);
   out += (long long)blockIdx.z * zstride;
 
   float acc[8][8];
@@ -282,30 +329,35 @@ gemm_kernel(AL A, BL B, TO* __restrict__ out, int ldc, int M, int N, int K, int 
   }
 }
 
-// K2's products: plain row-major operands (or their transposes), no epilogue
+// K2's products: plain row-major operands (or their transposes), no epilogue.
+// With F folds: A^T B (AT) sums each fold's K / F rows into chunks of its
+// own; A B^T (BT) takes fold f's B b_fs elements on for its M / F rows.
 template <typename TA, typename TB, typename TM, typename TO, bool AT, bool BT>
 cudaError_t launch_gemm_ex(const void* A, int lda, const void* B, int ldb, void* out,
                            int ldc, int M, int N, int K, int kchunk,
-                           long long zstride, cudaStream_t stream) {
-  if (kchunk <= 0 || kchunk % GBK != 0) return cudaErrorInvalidValue;
-  dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, (K + kchunk - 1) / kchunk);
+                           long long zstride, int F, long long b_fs, cudaStream_t stream) {
+  if (kchunk <= 0 || kchunk % GBK != 0 || F < 1) return cudaErrorInvalidValue;
+  if (AT ? K % F != 0 : M % F != 0) return cudaErrorInvalidValue;
+  const int Mf = AT ? M : M / F, Kf = AT ? K / F : K, kcpf = (Kf + kchunk - 1) / kchunk;
+  dim3 grid((N + GBN - 1) / GBN, (AT ? 1 : F) * ((Mf + GBM - 1) / GBM), (AT ? F : 1) * kcpf);
   gemm_kernel<TM, TO, PlainMat<TA, AT>, PlainMat<TB, BT>, AT, BT><<<grid, 256, 0, stream>>>(
-      PlainMat<TA, AT>{(const TA*)A, lda}, PlainMat<TB, BT>{(const TB*)B, ldb}, (TO*)out,
-      ldc, M, N, K, kchunk, zstride, Bias3{{nullptr, nullptr, nullptr}, N}, nullptr,
-      nullptr, 0);
+      PlainMat<TA, AT>{(const TA*)A, lda, 0}, PlainMat<TB, BT>{(const TB*)B, ldb, b_fs},
+      (TO*)out, ldc, M, N, K, kchunk, zstride, Bias3{{nullptr, nullptr, nullptr}, N, 0},
+      nullptr, nullptr, 0, GFold{Mf, Kf, kcpf});
   return cudaGetLastError();
 }
 
-// the forward's f32 product on described operands, K in one chunk
+// the forward's f32 product on described operands, K in one chunk; with
+// folds of Mf rows, fold f's B and bias b.fs and bias.fs elements on
 template <typename TA, typename TB, typename TO>
 cudaError_t launch_gemm_simt(RowsA a, Thirds b, void* out, int ldc, int M, int N, int K,
                              Bias3 bias, const void* rowmask, const void* resid, int ldr,
-                             cudaStream_t stream) {
+                             int Mf, cudaStream_t stream) {
   const int kchunk = ((K + GBK - 1) / GBK) * GBK;
-  dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, 1);
+  dim3 grid((N + GBN - 1) / GBN, (M / Mf) * ((Mf + GBM - 1) / GBM), 1);
   gemm_kernel<float, TO, RowsAt<TA>, ThirdsAt<TB>, false, false><<<grid, 256, 0, stream>>>(
       RowsAt<TA>{a}, ThirdsAt<TB>{b}, (TO*)out, ldc, M, N, K, kchunk > 0 ? kchunk : GBK, 0,
-      bias, (const uint8_t*)rowmask, (const TO*)resid, ldr);
+      bias, (const uint8_t*)rowmask, (const TO*)resid, ldr, GFold{Mf, K, 1});
   return cudaGetLastError();
 }
 
@@ -324,6 +376,8 @@ __global__ void __launch_bounds__(256)
 reduce_rows_kernel(const float* __restrict__ part, int S, long long N,
                    float* __restrict__ out) {
   const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  part += (long long)blockIdx.y * S * N;  // fold blockIdx.y's partials
+  out += (long long)blockIdx.y * N;
   if (n >= N) return;
   float acc = 0.f;
   for (int s = 0; s < S; ++s) acc += part[(long long)s * N + n];
@@ -335,6 +389,8 @@ reduce_rows_striped_kernel(const float* __restrict__ part, int S, long long N,
                            float* __restrict__ out) {
   __shared__ float stripe[32][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, W = blockDim.x >> 5;
+  part += (long long)blockIdx.y * S * N;
+  out += (long long)blockIdx.y * N;
   const long long n = (long long)blockIdx.x * 32 + lane;
   const int s0 = (int)((long long)S * w / W), s1 = (int)((long long)S * (w + 1) / W);
   float acc = 0.f;
@@ -351,14 +407,16 @@ reduce_rows_striped_kernel(const float* __restrict__ part, int S, long long N,
   }
 }
 
+// With F folds, part is (F, S, N) and out (F, N): each fold's S rows
+// summed as one fold's are.
 inline cudaError_t launch_reduce_rows(const void* part, int S, long long N, void* out,
-                                      cudaStream_t stream) {
-  if (S <= 0 || N <= 0) return cudaErrorInvalidValue;
+                                      cudaStream_t stream, int F = 1) {
+  if (S <= 0 || N <= 0 || F < 1) return cudaErrorInvalidValue;
   if (N >= REDUCE_WIDE || S < 32) {
-    reduce_rows_kernel<<<(unsigned)((N + 255) / 256), 256, 0, stream>>>(
+    reduce_rows_kernel<<<dim3((unsigned)((N + 255) / 256), F), 256, 0, stream>>>(
         (const float*)part, S, N, (float*)out);
   } else {
-    reduce_rows_striped_kernel<<<(unsigned)((N + 31) / 32), 1024, 0, stream>>>(
+    reduce_rows_striped_kernel<<<dim3((unsigned)((N + 31) / 32), F), 1024, 0, stream>>>(
         (const float*)part, S, N, (float*)out);
   }
   return cudaGetLastError();
@@ -417,7 +475,7 @@ attn_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float sc
   __shared__ float coef[MAX_KK];
 
   const int P = tm.P;
-  const int r = blockIdx.x / H, h = blockIdx.x % H;
+  const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
   const int q0 = blockIdx.y * AQT, oc = blockIdx.z * ADC, nch = hd / ADC;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const TI* qp = (const TI*)q.p + (long long)h * q.sh;
@@ -427,7 +485,7 @@ attn_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float sc
   if (kk > 0) {  // hd == 64
     const int pad = kk / 2;
     for (int t = tid; t < kk; t += blockDim.x)
-      coef[t] = round_to<TM>(pw[h * kk + t] + (t == pad ? 1.f : 0.f));
+      coef[t] = round_to<TM>(pw[hw * kk + t] + (t == pad ? 1.f : 0.f));
     float* Hs = Kt;  // halo rows q0-pad .. q0+AQT-1+(kk-1-pad), reuses Kt..Ps
     const int nh = AQT + kk - 1;
     for (int idx = tid; idx < nh * ADC; idx += blockDim.x) {
@@ -452,7 +510,7 @@ attn_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float sc
   }
   __syncthreads();
 
-  const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
+  const float bias = (kk > 0 && pb != nullptr) ? pb[hw] : 0.f;
   float mrow[4], srow[4], s[4][4], oacc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {

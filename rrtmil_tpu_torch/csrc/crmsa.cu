@@ -86,6 +86,8 @@ compress_reps_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
   const int region = blockIdx.x, R = gridDim.x, part = blockIdx.y;
   const int p0 = part * chunk, np = min(P, p0 + chunk) - p0;
   const int tid = threadIdx.x, slot = tid / ng, c0 = (tid - slot * ng) * VW;
+  ls = fold_ptr(ls, (long long)fold_of(map, region) * C);
+  lb = fold_ptr(lb, (long long)fold_of(map, region) * C);
   float* lg = sm;                   // [k][P] the region's logits
   float* cm = lg + k * P;           // [k][chunk] round(combine) of the chunk's rows
   float* rmu = cm + k * chunk;      // [chunk] mean, then 1/std, then mask
@@ -200,10 +202,11 @@ redistribute_ln_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mas
   const int np = min(P, p0 + chunk) - p0, nq = C / 4;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = blockDim.x >> 5;
   const long long base = region_base(map, region);
+  const long long lo = (long long)fold_of(map, region) * C;  // the fold's LayerNorm
 
   for (int i = tid; i < C; i += blockDim.x) {
-    lss[i] = ls[i];
-    lbs[i] = lb[i];
+    lss[i] = ls[lo + i];
+    lbs[i] = lb[lo + i];
   }
   for (int i = tid; i < k * C; i += blockDim.x)
     repm[i] = round_to<TM>(reps[(long long)region * k * C + i]);
@@ -353,15 +356,18 @@ int compress(const void* x, const void* mask, const float* ls, const float* lb,
 }
 
 // K3: x (B, G*G, C) -> reps (B, nR, k, C), w (B, nR, k, P); scratch
-// (R (k + 2) P floats) and part (parts, R, k, C) when P > chunk
+// (R (k + 2) P floats) and part (parts, R, k, C) when P > chunk.  bf > 0:
+// folds of bf bags, bag b taking fold b / bf's ls, lb (F, C), phi (F, C, k)
 extern "C" int cr_compress_grid(int ts, int tm, const void* x, const void* mask,
                                 const void* ls, const void* lb, const void* phi,
                                 void* reps, void* w, void* scratch, void* part, int B, int G,
-                                int rs, int C, int k, int chunk, float eps, void* stream) {
-  if (C < 1 || C > 32 * CPL || k < 1 || k > KMAX || rs < 1 || G % rs != 0 || chunk < 1)
+                                int rs, int C, int k, int chunk, float eps, int bf,
+                                void* stream) {
+  if (C < 1 || C > 32 * CPL || k < 1 || k > KMAX || rs < 1 || G % rs != 0 || chunk < 1 ||
+      bf < 0 || (bf > 0 && B % bf != 0))
     return (int)cudaErrorInvalidValue;
   const int nrs = G / rs;
-  const TokenMap map{G, rs, nrs, rs * rs};
+  const TokenMap map{G, rs, nrs, rs * rs, bf * nrs * nrs};
   RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
       return compress<TS, TM>(x, mask, (const float*)ls, (const float*)lb, (const float*)phi,
                               (float*)reps, (float*)w, (float*)scratch, (float*)part,
@@ -370,13 +376,14 @@ extern "C" int cr_compress_grid(int ts, int tm, const void* x, const void* mask,
 }
 
 // K12: x (R, P, C) -> reps (R, k, C), w (R, k, P); scratch (R k P floats)
-// and part as K3's
+// and part as K3's.  rf > 0: folds of rf regions, each with its phi (F, C, k)
 extern "C" int cr_compress(int ts, int tm, const void* x, const void* phi, void* reps,
                            void* w, void* scratch, void* part, int R, int P, int C, int k,
-                           int chunk, void* stream) {
-  if (C < 1 || C > 32 * CPL || k < 1 || k > KMAX || R < 1 || P < 1 || chunk < 1)
+                           int chunk, int rf, void* stream) {
+  if (C < 1 || C > 32 * CPL || k < 1 || k > KMAX || R < 1 || P < 1 || chunk < 1 || rf < 0 ||
+      (rf > 0 && R % rf != 0))
     return (int)cudaErrorInvalidValue;
-  const TokenMap map{0, 1, 1, P};
+  const TokenMap map{0, 1, 1, P, rf};
   RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
       return compress<TS, TM>(x, nullptr, nullptr, nullptr, (const float*)phi, (float*)reps,
                               (float*)w, (float*)scratch, (float*)part, R, map, C, k, chunk,
@@ -417,16 +424,18 @@ cudaError_t launch_redistribute_ln(dim3 grid, size_t smem, cudaStream_t s, const
 }
 
 // K8: x (B, G*G, C) (+ shortcut, or null) -> out (B, G*G, C) fp32, one block
-// per (region, chunk of `chunk` token rows)
+// per (region, chunk of `chunk` token rows).  bf > 0: folds of bf bags, bag
+// b taking fold b / bf's final LayerNorm ls, lb (F, C)
 extern "C" int cr_redistribute_ln(int ts, int tm, const void* x, const void* mask,
                                   const void* w, const void* reps, const void* ls,
                                   const void* lb, const void* sc, void* out, int B, int G,
-                                  int rs, int C, int k, int chunk, float eps, void* stream) {
+                                  int rs, int C, int k, int chunk, float eps, int bf,
+                                  void* stream) {
   if (C < 4 || C % 4 != 0 || C > 32 * CPL || k < 1 || k > KMAX || rs < 1 || G % rs != 0 ||
-      chunk < 1)
+      chunk < 1 || bf < 0 || (bf > 0 && B % bf != 0))
     return (int)cudaErrorInvalidValue;
   const int nrs = G / rs, P = rs * rs;
-  const TokenMap map{G, rs, nrs, P};
+  const TokenMap map{G, rs, nrs, P, bf * nrs * nrs};
   const dim3 grid(B * nrs * nrs, (P + chunk - 1) / chunk);
   const size_t smem = (size_t)(2 * C + k * C + k * chunk) * 4;
   const cudaStream_t s = (cudaStream_t)stream;

@@ -129,6 +129,15 @@ __device__ __forceinline__ void load_row(const TS* __restrict__ row, int C, int 
   }
 }
 
+// The slot of block (region, part pt of parts) among per-block partials
+// that are summed per fold: fold f's blocks are consecutive, in (part,
+// region) order, so one fold (rf = 0) is the order pt * R + region.
+__device__ __forceinline__ long long fold_slot(const TokenMap& tm, int region, int R, int pt,
+                                               int parts) {
+  const int rf = tm.rf > 0 ? tm.rf : R, f = region / rf;
+  return ((long long)f * parts + pt) * rf + (region - f * rf);
+}
+
 // Region r's token 0 in the stream, and its token p from there: the grid
 // map's divisions once a block, one a row
 __device__ __forceinline__ long long region_base(const TokenMap& tm, int r) {
@@ -314,6 +323,10 @@ compress_rows_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
   const int p0 = blockIdx.y * chunk, p1 = min(P, p0 + chunk);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, W = blockDim.x >> 5;
   const long long base = region_base(map, region);
+  const int fold = fold_of(map, region);  // its LayerNorm and phi
+  ls = fold_ptr(ls, (long long)fold * C);
+  lb = fold_ptr(lb, (long long)fold * C);
+  phi += (long long)fold * C * k;
 
   for (int i = tid; i < k * Cp; i += blockDim.x) {
     const int j = i / Cp, c = i - j * Cp;

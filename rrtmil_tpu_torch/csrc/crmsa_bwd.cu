@@ -108,6 +108,10 @@ compress_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
   const float* dwr = dw + rk * P;
   const float* dcr = dcomb + rk * P;
   const long long base = region_base(map, region);
+  const int fold = fold_of(map, region);  // its LayerNorm and phi
+  ls += (long long)fold * C;
+  lb += (long long)fold * C;
+  phi += (long long)fold * C * k;
 
   for (int i = tid; i < k * Cp; i += blockDim.x) {
     const int j = i / Cp, c = i - j * Cp;
@@ -278,7 +282,7 @@ compress_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
     }
   }
   __syncthreads();
-  float* out = part + ((long long)pt * R + region) * (2 + k) * C;
+  float* out = part + fold_slot(map, region, R, pt, gridDim.y) * (2 + k) * C;
   for (int e = tid; e < (2 + k) * C; e += blockDim.x) {
     const int r = e / C, c = e - r * C;
     float t = 0.f;
@@ -339,7 +343,7 @@ redistribute_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ ma
   const long long base = region_base(map, region);
 
   if constexpr (LN)
-    for (int i = tid; i < C; i += blockDim.x) lss[i] = ls[i];
+    for (int i = tid; i < C; i += blockDim.x) lss[i] = ls[(long long)fold_of(map, region) * C + i];
   for (int i = tid; i < k * C; i += blockDim.x)
     repm[i] = round_to<TM>(reps[(long long)region * k * C + i]);
   for (int i = tid; i < W * k * C; i += blockDim.x) wdr[i] = 0.f;
@@ -469,7 +473,7 @@ redistribute_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ ma
       for (int c = tid; c < C; c += blockDim.x) {
         float s = 0.f;
         for (int v = 0; v < W; ++v) s += wdr[v * C + c];
-        part_ln[blk * 2 * C + r * C + c] = s;
+        part_ln[fold_slot(map, region, R, part, gridDim.y) * 2 * C + r * C + c] = s;
       }
     }
   }
@@ -508,7 +512,8 @@ cudaError_t launch_compress_bwd(dim3 grid, StreamShape sh, size_t smem, cudaStre
 
 // K4's two passes and the sum of the blocks' partials.  scratch: the rows'
 // logits, d_comb, su and sv (R, k, P) each, then their LayerNorm statistics
-// (R, P, 2); part (parts * R, (2 + k) C); out = (dls | dlb | dphi^T).
+// (R, P, 2); part (parts * R, (2 + k) C); out = (dls | dlb | dphi^T), one
+// row a fold (F = R / map.rf), each the sum of its own blocks' partials.
 template <typename TS, typename TM>
 int compress_bwd(const void* x, const void* mask, const float* ls, const float* lb,
                  const float* phi, const float* dreps, const float* dw, void* dx,
@@ -537,8 +542,9 @@ int compress_bwd(const void* x, const void* mask, const float* ls, const float* 
     default: RRT_COMPRESS_BWD(8); break;
   }
 #undef RRT_COMPRESS_BWD
+  const int F = map.rf > 0 ? R / map.rf : 1;
   if (err == cudaSuccess)
-    err = launch_reduce_rows(part, parts * R, (long long)(2 + k) * C, out, s);
+    err = launch_reduce_rows(part, parts * (R / F), (long long)(2 + k) * C, out, s, F);
   return (int)err;
 }
 
@@ -546,16 +552,18 @@ int compress_bwd(const void* x, const void* mask, const float* ls, const float* 
 
 // K4: x (B, G*G, C), d(reps) (B, nR, k, C), d(w) (B, nR, k, P) -> dx in x's
 // dtype and out = (dls | dlb | dphi^T) ((2 + k) C); scratch (R (4 k + 2) P
-// floats) and part (parts * R, (2 + k) C) as compress_bwd takes them
+// floats) and part (parts * R, (2 + k) C) as compress_bwd takes them.  bf >
+// 0: folds of bf bags with ls, lb (F, C), phi (F, C, k); out (F, (2 + k) C)
 extern "C" int cb_compress_grid_bwd(int ts, int tm, const void* x, const void* mask,
                                     const void* ls, const void* lb, const void* phi,
                                     const void* dreps, const void* dw, void* dx,
                                     void* scratch, void* part, void* out, int B, int G, int rs,
-                                    int C, int k, int chunk, float eps, void* stream) {
-  if (C < 1 || C > 32 * CPL || k < 1 || k > KMAX || rs < 1 || G % rs != 0 || chunk < 1)
+                                    int C, int k, int chunk, float eps, int bf, void* stream) {
+  if (C < 1 || C > 32 * CPL || k < 1 || k > KMAX || rs < 1 || G % rs != 0 || chunk < 1 ||
+      bf < 0 || (bf > 0 && B % bf != 0))
     return (int)cudaErrorInvalidValue;
   const int nrs = G / rs;
-  const TokenMap map{G, rs, nrs, rs * rs};
+  const TokenMap map{G, rs, nrs, rs * rs, bf * nrs * nrs};
   RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
       return compress_bwd<TS, TM>(x, mask, (const float*)ls, (const float*)lb,
                                   (const float*)phi, (const float*)dreps, (const float*)dw, dx,
@@ -575,13 +583,13 @@ struct RgridPlan {
   bool ok;
 };
 
-static RgridPlan rgrid_plan(int B, int G, int rs, int C, int k, int chunk) {
+static RgridPlan rgrid_plan(int B, int G, int rs, int C, int k, int chunk, int bf = 0) {
   RgridPlan pl{};
   pl.ok = C >= 4 && C <= 32 * CPL && C % 4 == 0 && k >= 1 && k <= KMAX && rs >= 1 &&
-          G % rs == 0 && chunk >= 1;
+          G % rs == 0 && chunk >= 1 && bf >= 0 && (bf == 0 || B % bf == 0);
   if (!pl.ok) return pl;
   const int nrs = G / rs, P = rs * rs;
-  pl.map = TokenMap{G, rs, nrs, P};
+  pl.map = TokenMap{G, rs, nrs, P, bf * nrs * nrs};
   pl.R = B * nrs * nrs;
   pl.parts = (P + chunk - 1) / chunk;
   pl.grid = dim3(pl.R, pl.parts);
@@ -591,13 +599,15 @@ static RgridPlan rgrid_plan(int B, int G, int rs, int C, int k, int chunk) {
 // K9: x, the shortcut (or null) in the stream dtype, g = d(out) fp32 ->
 // dx, dw (B, nR, k, P), dreps (B, nR, k, C) and dln = (dls | dlb) (2 C);
 // part: (parts, R, k, C) floats when a region is more than one chunk, then
-// (parts * R, 2 C) for the blocks' dls / dlb partials
+// (parts * R, 2 C) for the blocks' dls / dlb partials.  bf > 0: folds of bf
+// bags, ls (F, C), dln (F, 2 C) each fold's own sums
 extern "C" int cb_redistribute_ln_bwd(int ts, int tm, const void* x, const void* mask,
                                       const void* w, const void* reps, const void* ls,
                                       const void* sc, const void* g, void* dx, void* dw,
                                       void* dreps, void* dln, void* part, int B, int G, int rs,
-                                      int C, int k, int chunk, float eps, void* stream) {
-  const RgridPlan pl = rgrid_plan(B, G, rs, C, k, chunk);
+                                      int C, int k, int chunk, float eps, int bf,
+                                      void* stream) {
+  const RgridPlan pl = rgrid_plan(B, G, rs, C, k, chunk, bf);
   if (!pl.ok || part == nullptr) return (int)cudaErrorInvalidValue;
   const long long nrep = (long long)pl.R * k * C;
   float* part_reps = pl.parts > 1 ? (float*)part : (float*)dreps;
@@ -614,8 +624,9 @@ extern "C" int cb_redistribute_ln_bwd(int ts, int tm, const void* x, const void*
 #undef RRT_K9
   if (err == cudaSuccess && pl.parts > 1)
     err = launch_reduce_rows(part_reps, pl.parts, nrep, dreps, s);
+  const int F = bf > 0 ? B / bf : 1;
   if (err == cudaSuccess)
-    err = launch_reduce_rows(part_ln, pl.parts * pl.R, 2LL * C, dln, s);
+    err = launch_reduce_rows(part_ln, pl.parts * (pl.R / F), 2LL * C, dln, s, F);
   return (int)err;
 }
 

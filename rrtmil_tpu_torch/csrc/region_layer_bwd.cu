@@ -218,7 +218,7 @@ attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenM
   __shared__ float red[BQ];
 
   const int P = tm.P;
-  const int r = blockIdx.x / H, h = blockIdx.x % H;
+  const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
   const int qt = blockIdx.y, q0 = qt * BQ;
   const int oc = blockIdx.z, nch = hd / HD;   // this block's 64 columns of dq
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -229,7 +229,7 @@ attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenM
   const TI* gp = (const TI*)g.p + (long long)h * g.sh;
 
   if (kk > 0) {
-    epeg_coef<float>(pw, h, kk, coef);
+    epeg_coef<float>(pw, hw, kk, coef);
     for (int t = tid; t < kk; t += blockDim.x) dwacc[t] = 0.f;
   }
   __syncthreads();
@@ -254,7 +254,7 @@ attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenM
     }
   };
 
-  const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
+  const float bias = (kk > 0 && pb != nullptr) ? pb[hw] : 0.f;
   // dbrow: this thread's share of its 4 rows' sums of dLc (the bias
   // gradient), kept per row: each row of dLc sums to zero in exact
   // arithmetic, so a row's sum is taken whole before rows are added
@@ -418,7 +418,7 @@ attn_bwd_kv_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, int H, int 
   __shared__ float coef[MAX_KK];
 
   const int P = tm.P;
-  const int r = blockIdx.x / H, h = blockIdx.x % H;
+  const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
   const int k0 = blockIdx.y * BK;
   const int oc = blockIdx.z, nch = hd / HD;   // this block's 64 columns of dk, dv
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -429,9 +429,9 @@ attn_bwd_kv_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, int H, int 
   const TI* vp = (const TI*)v.p + (long long)h * v.sh;
   const TI* gp = (const TI*)g.p + (long long)h * g.sh;
 
-  if (kk > 0) epeg_coef<float>(pw, h, kk, coef);
+  if (kk > 0) epeg_coef<float>(pw, hw, kk, coef);
   if (nch == 1) load_keys<TI>(kp, k, vp, v, tm, r, k0, Kt, nullptr, Vt);
-  const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
+  const float bias = (kk > 0 && pb != nullptr) ? pb[hw] : 0.f;
 
   float s[4][4], da[4][4], dkacc[4][4], dvacc[4][4];
   zero44(dkacc);
@@ -550,7 +550,7 @@ attn_bwd_q_tc(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenMap t
   __shared__ float coef[MAX_KK], dwacc[MAX_KK], red[4];
 
   const int P = tm.P;
-  const int r = blockIdx.x / H, h = blockIdx.x % H;
+  const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
   const int qt = blockIdx.y, q0 = qt * TQ, oc0 = blockIdx.z * NC, nch = hd / TD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, cq = (lane & 3) * 2;
@@ -563,7 +563,7 @@ attn_bwd_q_tc(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenMap t
   if (kk > 0) {
     const int pad = kk / 2;
     for (int t = tid; t < kk; t += 128) {
-      coef[t] = round_to<bf16>(pw[h * kk + t] + (t == pad ? 1.f : 0.f));
+      coef[t] = round_to<bf16>(pw[hw * kk + t] + (t == pad ? 1.f : 0.f));
       dwacc[t] = 0.f;
     }
     load_tile<TI>(Hs, TRS, qp, q, tm, r, q0 - pad, HR, TD, scale);
@@ -636,7 +636,7 @@ attn_bwd_q_tc(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenMap t
     cp_async_commit();
   }
 
-  const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
+  const float bias = (kk > 0 && pb != nullptr) ? pb[hw] : 0.f;
   const bf16* Qw = Qs + warp * 16 * QST;
   const bf16* Gw = Gs + warp * 16 * QST;
   float S[8][4], dA[8][4], dY[NC][8][4];
@@ -795,7 +795,7 @@ attn_bwd_kv_tc(Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, const bf16* __restrict_
   bf16* ring = Vs + TK * QST;                     // BST x (y tile, g tile)
 
   const int P = tm.P;
-  const int r = blockIdx.x / H, h = blockIdx.x % H;
+  const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
   const int k0 = blockIdx.y * TK, oc = blockIdx.z, nch = hd / TD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, cq = (lane & 3) * 2;
@@ -842,7 +842,7 @@ attn_bwd_kv_tc(Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, const bf16* __restrict_
     cp_async_commit();
   }
 
-  const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
+  const float bias = (kk > 0 && pb != nullptr) ? pb[hw] : 0.f;
   const bf16* Kw = Ks + warp * 16 * QST;
   const bf16* Vw = Vs + warp * 16 * QST;
   float LT[8][4], dAT[8][4], dK[8][4], dV[8][4];
@@ -927,11 +927,11 @@ attn_bwd_dq_kernel(const TM* __restrict__ dy, Opnd dq, int H, TokenMap tm,
   extern __shared__ __align__(16) float smem[];
   __shared__ float coef[MAX_KK];
   const int P = tm.P;
-  const int r = blockIdx.x / H, h = blockIdx.x % H;
+  const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
   const int q0 = blockIdx.y * BQ;
   const int pad = kk / 2, nh = BQ + kk - 1, h0 = q0 - (kk - 1 - pad);
   const long long rh = (long long)r * H + h;
-  epeg_coef<TM>(pw, h, kk, coef);
+  epeg_coef<TM>(pw, hw, kk, coef);
   for (int idx = threadIdx.x; idx < nh * HD; idx += blockDim.x) {
     const int row = idx / HD, d = idx % HD, p = h0 + row;
     smem[idx] = (p >= 0 && p < P) ? to_f(dy[(rh * P + p) * HD + d]) : 0.f;
@@ -946,17 +946,20 @@ attn_bwd_dq_kernel(const TM* __restrict__ dy, Opnd dq, int H, TokenMap tm,
   }
 }
 
-// (4) dw[h, t] and db[h]: the partials of every (region, query tile), in order
+// (4) dw[h, t] and db[h]: the partials of every (region, query tile), in
+// order; with F folds of nbf partials each (the regions of fold f are
+// consecutive), fold f's own into dw[f, h, t] and db[f, h]
 __global__ void __launch_bounds__(256)
-attn_bwd_dw_kernel(const float* __restrict__ part, int nb, int kk, int H,
+attn_bwd_dw_kernel(const float* __restrict__ part, int nb, int nbf, int kk, int H, int F,
                    float* __restrict__ dw, float* __restrict__ db) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= H * (kk + 1)) return;
-  const int h = e / (kk + 1), t = e % (kk + 1);
+  if (e >= F * H * (kk + 1)) return;
+  const int fh = e / (kk + 1), t = e % (kk + 1), f = fh / H, h = fh % H;
   float acc = 0.f;
-  for (int n = 0; n < nb; ++n) acc += part[((long long)h * nb + n) * (kk + 1) + t];
-  if (t < kk) dw[h * kk + t] = acc;
-  else if (db) db[h] = acc;
+  for (int n = f * nbf; n < f * nbf + nbf; ++n)
+    acc += part[((long long)h * nb + n) * (kk + 1) + t];
+  if (t < kk) dw[fh * kk + t] = acc;
+  else if (db) db[fh] = acc;
 }
 
 struct BwdArgs {
@@ -1022,24 +1025,28 @@ cudaError_t launch_attention_bwd(const BwdArgs& a, cudaStream_t stream) {
                                  (size_t)(BQ + a.kk - 1) * HD * 4, stream>>>(
         (const TM*)a.dy, a.dq, a.H, a.tm, a.pw, a.kk, a.scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const int n = a.H * (a.kk + 1);
-    attn_bwd_dw_kernel<<<(n + 255) / 256, 256, 0, stream>>>(a.part, a.R * nqt, a.kk, a.H,
-                                                           a.dw, a.db);
+    const int F = a.tm.rf > 0 ? a.R / a.tm.rf : 1, n = F * a.H * (a.kk + 1);
+    attn_bwd_dw_kernel<<<(n + 255) / 256, 256, 0, stream>>>(a.part, a.R * nqt, a.R / F * nqt,
+                                                           a.kk, a.H, F, a.dw, a.db);
   }
   return cudaGetLastError();
 }
 
 // partial column sums of round-free v = A * mask (per chunk of `rows` rows),
-// and optionally v rounded to TM: part[s, n] = sum_{rows of chunk s} v[m, n]
+// and optionally v rounded to TM: part[s, n] = sum_{rows of chunk s} v[m, n];
+// the rows fall into gridDim.z folds of Mf, each split into gridDim.y
+// chunks of its own (fold f's are chunks f gridDim.y .. (f + 1) gridDim.y
+// - 1; one fold is the kernel as it was)
 template <typename TA, typename TM>
 __global__ void __launch_bounds__(256)
-colsum_kernel(const TA* __restrict__ A, int lda, long long M, int N,
+colsum_kernel(const TA* __restrict__ A, int lda, long long Mf, int N,
               const uint8_t* __restrict__ rowmask, TM* __restrict__ rounded, int ldo,
               int rows, float* __restrict__ part) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  const long long r0 = (long long)blockIdx.y * rows;
-  const long long r1 = min(M, r0 + rows);
+  const long long f0 = blockIdx.z * Mf, r0 = f0 + (long long)blockIdx.y * rows;
+  const long long r1 = min(f0 + Mf, r0 + rows);
+  part += (long long)blockIdx.z * gridDim.y * N;
   float acc = 0.f;
   for (long long m = r0; m < r1; ++m) {
     float v = to_f(A[m * lda + n]);
@@ -1052,21 +1059,32 @@ colsum_kernel(const TA* __restrict__ A, int lda, long long M, int N,
 
 // LayerNorm backward of z = mask * LN(x), one warp per token row, with the
 // residual's gradient g added when given; every warp owns `rpw` rows and
-// writes its dls / dlb partials (part[w, c] and part[S + w, c]).
+// writes its dls / dlb partials (part[w, c] and part[S + w, c]).  The rows
+// fall into gridDim.y folds of Mf, fold blockIdx.y with its LayerNorm scale
+// (ls (F, C) row blockIdx.y) and its own warps (fold f's are warps f Sf ..
+// f Sf + Sf - 1, Sf = ceil(Mf / rpw); one fold is the kernel as it was).
 template <typename TS>
 __global__ void __launch_bounds__(256)
 ln_bwd_rows_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
                    const float* __restrict__ ls, const float* __restrict__ dz,
                    const TS* __restrict__ g, TS* __restrict__ dx, float* __restrict__ part,
-                   long long M, int C, float eps, int rpw) {
+                   long long Mf, int C, float eps, int rpw) {
   const int lane = threadIdx.x & 31;
   const long long w = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const long long S = (M + rpw - 1) / rpw;
-  if (w >= S) return;
+  const long long Sf = (Mf + rpw - 1) / rpw, S = gridDim.y * Sf;
+  if (w >= Sf) return;
+  const long long row0 = blockIdx.y * Mf;  // fold blockIdx.y's rows
+  x += row0 * C;
+  mask += row0;
+  dz += row0 * C;
+  dx += row0 * C;
+  if (g) g += row0 * C;
+  ls += blockIdx.y * C;
+  part += blockIdx.y * Sf * C;
   float pls[CPL], plb[CPL], vals[CPL], dzh[CPL];
 #pragma unroll
   for (int i = 0; i < CPL; ++i) { pls[i] = 0.f; plb[i] = 0.f; }
-  const long long t1 = min(M, (w + 1) * rpw);
+  const long long t1 = min(Mf, (w + 1) * rpw);
   for (long long t = w * rpw; t < t1; ++t) {
 #pragma unroll
     for (int i = 0; i < CPL; ++i) {
@@ -1114,19 +1132,19 @@ ln_bwd_rows_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
 
 struct GemmArgs {
   const void* A; int lda; const void* B; int ldb; void* out; int ldc;
-  int M, N, K, kchunk; long long zstride; cudaStream_t stream;
+  int M, N, K, kchunk; long long zstride; int F; long long b_fs; cudaStream_t stream;
 };
 
 template <typename TA, typename TB, typename TM, typename TO>
 int gemm_tr(int at, int bt, const GemmArgs& g) {
   if (at && !bt)
     return (int)launch_gemm_ex<TA, TB, TM, TO, true, false>(
-        g.A, g.lda, g.B, g.ldb, g.out, g.ldc, g.M, g.N, g.K, g.kchunk, g.zstride,
-        g.stream);
+        g.A, g.lda, g.B, g.ldb, g.out, g.ldc, g.M, g.N, g.K, g.kchunk, g.zstride, g.F,
+        g.b_fs, g.stream);
   if (!at && bt)
     return (int)launch_gemm_ex<TA, TB, TM, TO, false, true>(
-        g.A, g.lda, g.B, g.ldb, g.out, g.ldc, g.M, g.N, g.K, g.kchunk, g.zstride,
-        g.stream);
+        g.A, g.lda, g.B, g.ldb, g.out, g.ldc, g.M, g.N, g.K, g.kchunk, g.zstride, g.F,
+        g.b_fs, g.stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1146,11 +1164,15 @@ int gemm_tm(int a32, int b32, int o32, int at, int bt, const GemmArgs& g) {
 }  // namespace
 
 // out = round(A) round(B) with A^T (at) or B^T (bt); the A and B operands
-// are float (a32 / b32) or of the mm dtype, out float (o32) or the mm dtype
+// are float (a32 / b32) or of the mm dtype, out float (o32) or the mm dtype.
+// F folds: at, each fold's K / F rows in chunks of their own (fold f's
+// partials f ceil(K / F / kchunk) on); bt, fold f's M / F rows times its B,
+// b_fs elements past fold 0's
 extern "C" int rb_gemm(int tm, int a32, int b32, int o32, int at, int bt, const void* A,
                        int lda, const void* B, int ldb, void* out, int ldc, int M, int N,
-                       int K, int kchunk, long long zstride, void* stream) {
-  const GemmArgs g{A, lda, B, ldb, out, ldc, M, N, K, kchunk, zstride,
+                       int K, int kchunk, long long zstride, int F, long long b_fs,
+                       void* stream) {
+  const GemmArgs g{A, lda, B, ldb, out, ldc, M, N, K, kchunk, zstride, F, b_fs,
                    (cudaStream_t)stream};
   if (tm == 0) return gemm_tm<float>(a32, b32, o32, at, bt, g);
   if (tm == 1) return gemm_tm<bf16>(a32, b32, o32, at, bt, g);
@@ -1161,48 +1183,56 @@ extern "C" int rb_gemm(int tm, int a32, int b32, int o32, int at, int bt, const 
 // A^T B with A stored (K, M), B stored (K, N), the token axis K split into
 // chunks of kchunk rows (a multiple of 64), chunk z written at out + z *
 // zstride; mn = 0, out = A B^T with A stored (M, K), B stored (N, K).  A and
-// B bf16; out float (o32) or bf16.
+// B bf16; out float (o32) or bf16.  F folds as rb_gemm's: mn, each fold's
+// K / F token rows in chunks of their own; else fold f's M / F rows times
+// its B, b_fs elements past fold 0's.
 extern "C" int rb_gemm_tc(int mn, int o32, const void* A, int lda, const void* B, int ldb,
                           void* out, int ldc, int M, int N, int K, int kchunk,
-                          long long zstride, void* stream) {
+                          long long zstride, int F, long long b_fs, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (mn)
     return (int)(o32 ? wg::launch_gemm_wgmma<true, float>(A, lda, B, ldb, out, ldc, M, N, K,
-                                                          kchunk, zstride, s)
+                                                          kchunk, zstride, F, b_fs, s)
                      : wg::launch_gemm_wgmma<true, bf16>(A, lda, B, ldb, out, ldc, M, N, K,
-                                                         kchunk, zstride, s));
+                                                         kchunk, zstride, F, b_fs, s));
   return (int)(o32 ? wg::launch_gemm_wgmma<false, float>(A, lda, B, ldb, out, ldc, M, N, K,
-                                                         kchunk, zstride, s)
+                                                         kchunk, zstride, F, b_fs, s)
                    : wg::launch_gemm_wgmma<false, bf16>(A, lda, B, ldb, out, ldc, M, N, K,
-                                                        kchunk, zstride, s));
+                                                        kchunk, zstride, F, b_fs, s));
 }
 
+// Mf: rows per fold (0 or M: one fold; M a multiple of it)
 extern "C" int rb_colsum(int ta, int tm, const void* A, int lda, long long M, int N,
                          const void* rowmask, void* rounded, int ldo, int rows, void* part,
-                         void* stream) {
-  if (rows <= 0 || M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + 255) / 256, (unsigned)((M + rows - 1) / rows));
+                         long long Mf, void* stream) {
+  if (Mf <= 0) Mf = M;
+  if (rows <= 0 || M <= 0 || N <= 0 || M % Mf != 0) return (int)cudaErrorInvalidValue;
+  dim3 grid((N + 255) / 256, (unsigned)((Mf + rows - 1) / rows), (unsigned)(M / Mf));
   RRT_DISPATCH(ta, TA, RRT_DISPATCH(tm, TM,
       colsum_kernel<TA, TM><<<grid, 256, 0, (cudaStream_t)stream>>>(
-          (const TA*)A, lda, M, N, (const uint8_t*)rowmask, (TM*)rounded, ldo, rows,
+          (const TA*)A, lda, Mf, N, (const uint8_t*)rowmask, (TM*)rounded, ldo, rows,
           (float*)part)));
   return (int)cudaGetLastError();
 }
 
-extern "C" int rb_reduce(const void* part, int S, long long N, void* out, void* stream) {
-  return (int)launch_reduce_rows(part, S, N, out, (cudaStream_t)stream);
+// F folds: part (F, S, N) summed into out (F, N)
+extern "C" int rb_reduce(const void* part, int S, long long N, void* out, int F,
+                         void* stream) {
+  return (int)launch_reduce_rows(part, S, N, out, (cudaStream_t)stream, F);
 }
 
+// Mf: rows per fold (0 or M: one fold), ls (F, C); part holds F * Sf dls
+// partials, then F * Sf dlb partials, Sf = ceil(Mf / rpw)
 extern "C" int rb_ln_bwd(int ts, const void* x, const void* mask, const void* ls,
                          const void* dz, const void* g, void* dx, void* part, long long M,
-                         int C, float eps, int rpw, void* stream) {
-  if (C > 32 * CPL || rpw <= 0) return (int)cudaErrorInvalidValue;
-  const long long S = (M + rpw - 1) / rpw;
-  const unsigned blocks = (unsigned)((S + 7) / 8);
+                         int C, float eps, int rpw, long long Mf, void* stream) {
+  if (Mf <= 0) Mf = M;
+  if (C > 32 * CPL || rpw <= 0 || M % Mf != 0) return (int)cudaErrorInvalidValue;
+  const dim3 blocks((unsigned)(((Mf + rpw - 1) / rpw + 7) / 8), (unsigned)(M / Mf));
   RRT_DISPATCH(ts, TS,
       ln_bwd_rows_kernel<TS><<<blocks, 256, 0, (cudaStream_t)stream>>>(
           (const TS*)x, (const uint8_t*)mask, (const float*)ls, (const float*)dz,
-          (const TS*)g, (TS*)dx, (float*)part, M, C, eps, rpw));
+          (const TS*)g, (TS*)dx, (float*)part, Mf, C, eps, rpw));
   return (int)cudaGetLastError();
 }
 
@@ -1213,7 +1243,9 @@ extern "C" int rb_ln_bwd(int ts, const void* x, const void* mask, const void* ls
 // block owns with bf16 products (1, or 2 when hd / 64 is even).  Scratch:
 // stats (3, R*H*P) f32; ys (R*H*P, hd) bf16 (tm = 1); with EPEG dy
 // (R*H*P, 64) in the mm dtype and part (H, R*ceil(P/64), kk+1) f32, and the
-// outputs dw (H, kk), db (H,) or null.
+// outputs dw (H, kk), db (H,) or null.  rf > 0: folds of rf regions, region
+// r reading fold r / rf's taps pw (F, H, kk) and bias pb (F, H), and dw
+// (F, H, kk), db (F, H) each fold's own sums.
 extern "C" int rb_attention_bwd(int tm, int ti, int to, const void* q, long long q_sr,
                                 long long q_sh, long long q_sp, const void* k, long long k_sr,
                                 long long k_sh, long long k_sp, const void* v, long long v_sr,
@@ -1224,18 +1256,19 @@ extern "C" int rb_attention_bwd(int tm, int ti, int to, const void* q, long long
                                 long long dv_sh, long long dv_sp, int R, int H, int hd, int P,
                                 int grid, int rs, int qcols, const void* pw, int kk,
                                 const void* pb, float scale, void* stats, void* ys, void* dy,
-                                void* part, void* dw, void* db, void* stream) {
+                                void* part, void* dw, void* db, int rf, void* stream) {
   if (hd <= 0 || hd % HD != 0 || hd > MAX_HD || kk < 0 || kk > MAX_KK || (kk > 0 && hd != HD) ||
       P <= 0 || stats == nullptr || (tm == 1 && ys == nullptr) || qcols < 1 || qcols > 2 ||
       (hd / HD) % qcols != 0)
     return (int)cudaErrorInvalidValue;
   if (kk > 0 && (pw == nullptr || dy == nullptr || part == nullptr || dw == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (rf < 0 || (rf > 0 && R % rf != 0)) return (int)cudaErrorInvalidValue;
   const BwdArgs a{Opnd{q, q_sr, q_sh, q_sp},    Opnd{k, k_sr, k_sh, k_sp},
                   Opnd{v, v_sr, v_sh, v_sp},    Opnd{g, g_sr, g_sh, g_sp},
                   Opnd{dq, dq_sr, dq_sh, dq_sp}, Opnd{dk, dk_sr, dk_sh, dk_sp},
                   Opnd{dv, dv_sr, dv_sh, dv_sp}, R, H, hd,
-                  TokenMap{grid, rs, grid > 0 ? grid / rs : 0, P},
+                  TokenMap{grid, rs, grid > 0 ? grid / rs : 0, P, rf},
                   (const float*)pw, kk, (const float*)pb, scale, (float*)stats, ys, dy,
                   (float*)part, (float*)dw, (float*)db, qcols};
   cudaError_t err = cudaErrorInvalidValue;

@@ -283,7 +283,7 @@ attn_tc_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float
   __shared__ float coef[MAX_KK];
 
   const int P = tm.P;
-  const int r = blockIdx.x / H, h = blockIdx.x % H;
+  const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
   const int q0 = blockIdx.y * TQ, oc = blockIdx.z, nch = hd / TD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const TI* qp = (const TI*)q.p + (long long)h * q.sh;
@@ -295,7 +295,7 @@ attn_tc_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float
     const int pad = kk / 2, nh = TQ + kk - 1;
     bf16* Hs = ring;  // [nh][TD]
     for (int t = tid; t < kk; t += blockDim.x)
-      coef[t] = round_to<bf16>(pw[h * kk + t] + (t == pad ? 1.f : 0.f));
+      coef[t] = round_to<bf16>(pw[hw * kk + t] + (t == pad ? 1.f : 0.f));
     for (int i0 = 0; i0 < nh * (TD / 8); i0 += 4 * 128) {  // 4 loads in flight
       uint4 val[4];
 #pragma unroll
@@ -390,7 +390,7 @@ attn_tc_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float
     cp_async_commit();
   }
 
-  const float bias = (kk > 0 && pb != nullptr) ? pb[h] : 0.f;
+  const float bias = (kk > 0 && pb != nullptr) ? pb[hw] : 0.f;
   const int g = lane >> 2, cq = (lane & 3) * 2;
   float S[8][4], O[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   uint32_t Pa[4][4];
@@ -453,7 +453,9 @@ attn_tc_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float
 // z = x.astype(mm)); B (Thirds) likewise, read in place through its strides
 // (BKC: k is B's contiguous axis, as in a Linear weight; else n is).
 // Requires K % 8 == 0, nper % 8 == 0 and 16-byte aligned 8-element
-// segments along B's unit-stride axis.
+// segments along B's unit-stride axis.  With folds of Mf rows (gridDim.z
+// of them), a block's tile lies in fold blockIdx.z and reads that fold's B
+// and bias (b.fs, bias.fs elements a fold); Mf = M is one fold.
 // ---------------------------------------------------------------------------
 constexpr int GM = 64, GN = 64, GK = 64, GKS = GK + 8, GNS = GN + 8;
 
@@ -461,11 +463,13 @@ template <typename TA, typename TB, typename TO, bool BKC>
 __global__ void __launch_bounds__(128)
 gemm_tc_kernel(RowsA a, Thirds b, TO* __restrict__ out, int ldc, int M, int N, int K,
                Bias3 bias, const uint8_t* __restrict__ rowmask, const TO* __restrict__ resid,
-               int ldr) {
+               int ldr, int Mf) {
   __shared__ __align__(16) bf16 As[2][GM * GKS];
   __shared__ __align__(16) bf16 Bs[2][BKC ? GN * GKS : GK * GNS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
+  const int f = blockIdx.z, m0 = f * Mf + blockIdx.y * GM, n0 = blockIdx.x * GN;
+  M = min(M, f * Mf + Mf);
+  bias = bias.fold(f);
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const TA* ap = (const TA*)a.p;
   Seg<TA> sa[4];
@@ -486,7 +490,7 @@ gemm_tc_kernel(RowsA a, Thirds b, TO* __restrict__ out, int ldc, int M, int N, i
     arow[u] = ap + (aok[u] ? (long long)(gm / a.P) * a.sr + (long long)(gm % a.P) * a.sp : 0) + lo;
     bok[u] = gn < N;
     const int t = bok[u] ? gn / b.nper : 0, nl = gn - t * b.nper;
-    bcol[u] = (const TB*)(t == 0 ? b.p[0] : t == 1 ? b.p[1] : b.p[2]) +
+    bcol[u] = (const TB*)(t == 0 ? b.p[0] : t == 1 ? b.p[1] : b.p[2]) + f * b.fs +
               (bok[u] ? (long long)(nl / b.ndiv) * b.sn1 + (long long)(nl % b.ndiv) * b.sn0 : 0);
   }
   auto fetch = [&](int k0, int st) {
@@ -624,25 +628,31 @@ cudaError_t launch_attention(Opnd q, Opnd k, Opnd v, Opnd o, int R, int H, int h
   return cudaGetLastError();
 }
 
+// Mf: rows per fold (M for one fold; M a multiple of it)
 template <typename TA, typename TB, typename TM, typename TO>
 cudaError_t launch_gemm(RowsA a, Thirds b, void* out, int ldc, int M, int N, int K, Bias3 bias,
-                        const void* rowmask, const void* resid, int ldr, cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || a.P <= 0 || b.nper <= 0) return cudaErrorInvalidValue;
+                        const void* rowmask, const void* resid, int ldr, cudaStream_t stream,
+                        int Mf = 0) {
+  if (Mf <= 0) Mf = M;
+  if (M <= 0 || N <= 0 || K <= 0 || a.P <= 0 || b.nper <= 0 || M % Mf != 0)
+    return cudaErrorInvalidValue;
   if (sizeof(TM) == 4)
     return launch_gemm_simt<TA, TB, TO>(a, b, out, ldc, M, N, K, bias, rowmask, resid, ldr,
-                                        stream);
+                                        Mf, stream);
   // 8-element segments along the unit-stride axis stay inside one block
   const bool bkc = b.sk0 == 1;
   if (K % 8 != 0 || b.nper % 8 != 0 || (bkc ? b.kdiv : b.ndiv) % 8 != 0 ||
       (!bkc && b.sn0 != 1))
     return cudaErrorInvalidValue;
-  dim3 grid((N + GN - 1) / GN, (M + GM - 1) / GM);
+  dim3 grid((N + GN - 1) / GN, (Mf + GM - 1) / GM, M / Mf);
   if (bkc)
     gemm_tc_kernel<TA, TB, TO, true><<<grid, 128, 0, stream>>>(
-        a, b, (TO*)out, ldc, M, N, K, bias, (const uint8_t*)rowmask, (const TO*)resid, ldr);
+        a, b, (TO*)out, ldc, M, N, K, bias, (const uint8_t*)rowmask, (const TO*)resid, ldr,
+        Mf);
   else
     gemm_tc_kernel<TA, TB, TO, false><<<grid, 128, 0, stream>>>(
-        a, b, (TO*)out, ldc, M, N, K, bias, (const uint8_t*)rowmask, (const TO*)resid, ldr);
+        a, b, (TO*)out, ldc, M, N, K, bias, (const uint8_t*)rowmask, (const TO*)resid, ldr,
+        Mf);
   return cudaGetLastError();
 }
 

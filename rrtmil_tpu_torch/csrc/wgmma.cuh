@@ -32,6 +32,14 @@
 // Tensor maps are encoded on the host with libcuda's cuTensorMapEncodeTiled,
 // found in the loaded libcuda.so.1 at first use, and passed to the kernel
 // by value (__grid_constant__).
+//
+// Folds (fold-parallel cross-validation, F folds in one launch): every
+// tensor map is 3-D, (columns, rows of one fold, fold), so a box never
+// reaches into the next fold's rows (TMA fills rows past the fold's end
+// with zeros, as past a matrix's).  The weight gradients split each fold's
+// token rows into chunks of their own (fold f's partials are chunks f kcpf
+// .. f kcpf + kcpf - 1); the data gradients give each fold's rows its own
+// B, b_fs elements past fold 0's.  F = 1 is the product as it was.
 #pragma once
 
 #include <cuda.h>
@@ -73,14 +81,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// the box of `map` at (c0 inner, c1 outer) into shared memory at dst,
-// completing `bar`'s transaction count
+// the box of `map` at (c0 inner, c1 rows, c2 fold) into shared memory at
+// dst, completing `bar`'s transaction count
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         uint32_t bar) {
+                                         int c2, uint32_t bar) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(bar)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
 }
 
@@ -125,20 +133,29 @@ __device__ __forceinline__ void mma_64x128(float (&d)[64], uint64_t da, uint64_t
 }
 
 // out[M, N] (+ z * zstride) = A B over the k rows of chunk z = blockIdx.z:
-// MN: A stored (K, M), B stored (K, N) (A^T B); else A stored (M, K), B
-// stored (N, K) (A B^T).  TO float or bf16.
+// MN: A stored (K, M), B stored (K, N) (A^T B), the K rows in F folds of
+// K / F, each split into chunks of its own; else A stored (M, K), B stored
+// (N, K) per fold (A B^T), the M rows in F folds of M / F.  TO float or
+// bf16.
 template <bool MN, typename TO>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                   TO* __restrict__ out, int ldc, int M, int N, int K, int kchunk,
-                  long long zstride) {
+                  long long zstride, int F) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzle atoms' alignment
   const uint32_t full0 = base + STAGES * STAGE_BYTES, empty0 = full0 + STAGES * 8;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int kb = blockIdx.z * kchunk;
-  const int nk = (min(K, kb + kchunk) - kb + BK - 1) / BK;
+  // MN: fold f of the token rows, chunk kb .. of it; else fold f of the
+  // output rows, tile m0 .. of it, stored from row f * M / F on
+  const int Kf = MN ? K / F : K, kcpf = (Kf + kchunk - 1) / kchunk;
+  const int Mf = MN ? M : M / F, tpf = (Mf + BM - 1) / BM;
+  const int f = MN ? blockIdx.z / kcpf : blockIdx.y / tpf;
+  const int m0 = (MN ? blockIdx.y : blockIdx.y % tpf) * BM, n0 = blockIdx.x * BN;
+  const int kb = (MN ? blockIdx.z % kcpf : 0) * kchunk;
+  const int nk = (min(Kf, kb + kchunk) - kb + BK - 1) / BK;
+  out += MN ? 0 : (long long)f * Mf * ldc;
+  M = Mf;
   const int wgi = threadIdx.x / 128, t = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
@@ -162,13 +179,13 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
         const uint32_t sa = base + s * STAGE_BYTES, sb = sa + TILE_BYTES;
         const int k0 = kb + kt * BK;
         if (MN) {  // 64-wide boxes of (k rows, MN columns)
-          tma_load(sa, &ta, m0, k0, full);
-          tma_load(sa + BOX_BYTES, &ta, m0 + 64, k0, full);
-          tma_load(sb, &tb, n0, k0, full);
-          tma_load(sb + BOX_BYTES, &tb, n0 + 64, k0, full);
+          tma_load(sa, &ta, m0, k0, f, full);
+          tma_load(sa + BOX_BYTES, &ta, m0 + 64, k0, f, full);
+          tma_load(sb, &tb, n0, k0, f, full);
+          tma_load(sb + BOX_BYTES, &tb, n0 + 64, k0, f, full);
         } else {   // (128 rows, 64 k) boxes
-          tma_load(sa, &ta, k0, m0, full);
-          tma_load(sb, &tb, k0, n0, full);
+          tma_load(sa, &ta, k0, m0, f, full);
+          tma_load(sb, &tb, k0, n0, f, full);
         }
       }
     }
@@ -234,15 +251,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a (rows, cols) bf16 matrix with row stride ld (elements), read in boxes of
-// (box_rows, box_cols), 128-byte swizzle, zeros past the edges
+// F (rows, cols) bf16 matrices with row stride ld and fold stride fs
+// (elements), read in boxes of (box_rows, box_cols) of one fold, 128-byte
+// swizzle, zeros past each fold's edges
 inline bool tensor_map(CUtensorMap* map, EncodeTiled enc, const void* p, long long rows,
-                       long long cols, long long ld, int box_rows, int box_cols) {
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
+                       long long cols, long long ld, int F, long long fs, int box_rows,
+                       int box_cols) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)F};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)(F > 1 ? fs : rows * ld) * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims, strides, box,
              estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -251,30 +270,35 @@ inline bool tensor_map(CUtensorMap* map, EncodeTiled enc, const void* p, long lo
 // MN: out = A^T B with A (K, M), B (K, N), chunk z of kchunk k rows at
 // out + z * zstride; else out = A B^T with A (M, K), B (N, K), one chunk.
 // bf16 operands with row strides lda / ldb (multiples of 8, 16-byte aligned
-// bases), out (M, N) with row stride ldc, N a multiple of 8.
+// bases), out (M, N) with row stride ldc, N a multiple of 8.  F folds: MN,
+// the K rows in F folds of K / F, fold f's partials chunks f kcpf .. (kcpf
+// = ceil(K / F / kchunk)); else the M rows in F folds of M / F, fold f's B
+// b_fs elements past fold 0's (a multiple of 8).
 template <bool MN, typename TO>
 cudaError_t launch_gemm_wgmma(const void* A, int lda, const void* B, int ldb, void* out,
                               int ldc, int M, int N, int K, int kchunk, long long zstride,
-                              cudaStream_t stream) {
+                              int F, long long b_fs, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || kchunk <= 0 || kchunk % BK != 0 || N % 8 != 0 ||
       lda % 8 != 0 || ldb % 8 != 0 || ldc % 2 != 0 || ((uintptr_t)A & 15) != 0 ||
-      ((uintptr_t)B & 15) != 0)
+      ((uintptr_t)B & 15) != 0 || F < 1 || (MN ? K % F : M % F) != 0 || b_fs % 8 != 0)
     return cudaErrorInvalidValue;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return cudaErrorSharedObjectSymbolNotFound;
   CUtensorMap ta, tb;
-  const bool ok = MN ? tensor_map(&ta, enc, A, K, M, lda, BK, 64) &&
-                           tensor_map(&tb, enc, B, K, N, ldb, BK, 64)
-                     : tensor_map(&ta, enc, A, M, K, lda, BM, BK) &&
-                           tensor_map(&tb, enc, B, N, K, ldb, BN, BK);
+  const int Kf = MN ? K / F : K, Mf = MN ? M : M / F;
+  const bool ok = MN ? tensor_map(&ta, enc, A, Kf, M, lda, F, (long long)Kf * lda, BK, 64) &&
+                           tensor_map(&tb, enc, B, Kf, N, ldb, F, (long long)Kf * ldb, BK, 64)
+                     : tensor_map(&ta, enc, A, Mf, K, lda, F, (long long)Mf * lda, BM, BK) &&
+                           tensor_map(&tb, enc, B, N, K, ldb, F, b_fs, BN, BK);
   if (!ok) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(gemm_wgmma_kernel<MN, TO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, (K + kchunk - 1) / kchunk);
+  const int kcpf = (Kf + kchunk - 1) / kchunk;
+  const dim3 grid((N + BN - 1) / BN, (MN ? 1 : F) * ((Mf + BM - 1) / BM), (MN ? F : 1) * kcpf);
   gemm_wgmma_kernel<MN, TO><<<grid, THREADS, SMEM_BYTES, stream>>>(ta, tb, (TO*)out, ldc, M, N,
-                                                                     K, kchunk, zstride);
+                                                                     K, kchunk, zstride, F);
   return cudaGetLastError();
 }
 

@@ -62,13 +62,10 @@ def model_names() -> List[str]:
 
 def check_args(args) -> None:
     """Refuse an unknown model and what the port does not run yet, before
-    any work."""
+    any work (--fold_parallel's own refusals: harness/fold_parallel.py)."""
     if args.model.lower() not in model_names():
         raise ValueError(f"--model {args.model}: unknown model; choose from "
                          f"{model_names()}")
-    if getattr(args, "fold_parallel", False):
-        raise ValueError(f"--fold_parallel (--model {args.model}) is not "
-                         f"ported yet: see ROADMAP.md queue 1 item 9")
     resolve_device(args.device)
 
 

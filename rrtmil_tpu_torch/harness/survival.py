@@ -27,12 +27,22 @@ returns (hazards, S) itself and trains on the surrogate loss0 + loss1
 DTFD cuts its pseudo-bags over it, MHIM counts its keep-mask over it.
 `--resume` loads MHIM's student alone, its teacher staying the initial
 copy, and only the student is saved, as in the JAX package.
+
+`run_survival_fold_parallel` (`--fold_parallel`, survival.py:404-559)
+trains the 5 folds at once through parallel/folds.py's step: one bag a
+fold a step, zero-extended on the device to the step's largest bucket;
+ragged epoch tails through each fold's engine; each fold's lr from its own
+schedule (the plateau on its own validation loss) and its own best-c-index
+saves.  It takes `SURV_FOLD_MODELS`; DTFD, MHIM-MIL and `--sp_shards > 1`
+are refused as in the JAX package, the other models naming ROADMAP.md
+queue 1 item 9(a).
 """
 from __future__ import annotations
 
 import copy
 import csv
 import os
+import time
 from typing import List, Sequence
 
 import numpy as np
@@ -52,6 +62,9 @@ from ..utils.logger import Logger
 from .dtfd_cls import EVAL_PERM_SEED, eval_permutation
 
 PARALLEL_ITEM = "ROADMAP.md queue 1 item 9"
+# the survival models fold-parallel training takes (RRTMIL on the kernels,
+# the others no kernel at all)
+SURV_FOLD_MODELS = ("rrtmil", "meanmil", "maxmil", "attmil")
 
 
 class CVMeter:
@@ -360,5 +373,134 @@ def run_survival_cv(args) -> CVMeter:
         engine.close()     # free the fold's device bag cache
         meter.update(score, epoch)
 
+    meter.save(os.path.join(results_dir, f"results_{args.model}.csv"))
+    return meter
+
+
+def check_survival_fold_parallel(args) -> None:
+    """Refuse what --fold_parallel does not run, before any work."""
+    name_l = model_key(args.model)
+    if int(getattr(args, "sp_shards", 1) or 1) > 1:
+        raise ValueError(f"--fold_parallel is incompatible with --sp_shards "
+                         f"{args.sp_shards}, as in the JAX package "
+                         f"({PARALLEL_ITEM})")
+    if name_l in ("dtfd", "mhim"):
+        raise ValueError(
+            f"--fold_parallel (--model {args.model}) is not ported yet: see "
+            f"{PARALLEL_ITEM}; it trains the SurvivalEngine zoo alone, not "
+            f"DTFD's or MHIM-MIL's engines, as in the JAX package")
+    if name_l not in SURV_FOLD_MODELS:
+        raise ValueError(f"--fold_parallel --model {args.model}: only RRTMIL, "
+                         f"MeanMIL, MaxMIL and AttMIL are ported to "
+                         f"fold-parallel training; see {PARALLEL_ITEM}(a)")
+
+
+def _update(engine: SurvivalEngine) -> None:
+    """The engine's own optimizer update at its own lr (set per epoch),
+    as its `_train_step` makes it."""
+    fill_unreached_grads(engine.model)
+    engine.optimizer.step()
+    engine.optimizer.zero_grad(set_to_none=True)
+
+
+def run_survival_fold_parallel(args, folds=None) -> CVMeter:
+    """All folds at once (the JAX package's run_survival_fold_parallel) on
+    `args.device`; returns the CV meter, whose CSV is written as the
+    sequential harness writes it."""
+    from ..parallel.folds import make_fold_parallel_surv_step, stack_states
+    from .fold_parallel import pad_stack
+
+    check_survival_fold_parallel(args)
+    device = getattr(args, "device", "cuda")
+    resolve_device(device)
+    folds = list(folds if folds is not None else range(5))
+    k_folds = len(folds)
+    n_features = getattr(args, "input_dim", None) or \
+        (512 if args.folder == "plip" else 1024)
+    dataset = SurvivalDataset(args.excel_file, folder=args.folder,
+                              root=getattr(args, "dataset_root", None))
+    logger = Logger(quiet=getattr(args, "no_log", False))
+    results_dir = args.results_dir
+    os.makedirs(results_dir, exist_ok=True)
+    meter = CVMeter(fold=k_folds)
+    cfg = engine_config_from_args(args)
+    engines = []
+    for _ in folds:
+        model, enc = build_survival_model(
+            args.model, n_features, n_classes=4, epeg_k=args.epeg_k,
+            crmsa_k=args.crmsa_k, amp=getattr(args, "amp", False),
+            device=device, seed=args.seed)
+        engines.append(SurvivalEngine(model, cfg, enc, device=device))
+    shared = engines[0]._device_cache()
+    for e in engines[1:]:
+        e._dcache = shared
+    models = [e.model for e in engines]
+    stacked = stack_states(models)
+    generators = [e.generator for e in engines]
+    splits = [dataset.get_split(f) for f in folds]
+    best_score, best_epoch = [0.0] * k_folds, [0] * k_folds
+    steps = {}     # the step of each bucket length, as the JAX harness's
+
+    def step_of(length: int):
+        if length not in steps:
+            steps[length] = make_fold_parallel_surv_step(
+                models, stacked, engines[0]._loss, length)
+        return steps[length]
+
+    for epoch in range(cfg.num_epochs):
+        t0 = time.perf_counter()
+        orders = []
+        for k, e in enumerate(engines):
+            order = list(splits[k][0])
+            e._rng.shuffle(order)
+            orders.append(order)
+            for group in e.optimizer.param_groups:
+                group["lr"] = e.epoch_lr(epoch)
+            e.model.train()
+            e.optimizer.zero_grad(set_to_none=True)
+        targets = [e._epoch_targets(dataset, o)
+                   for e, o in zip(engines, orders)]
+        t_par = min(len(o) for o in orders)
+        losses = []
+        for t in range(t_par):
+            parts = [e._prep_indexed(dataset, orders[k][t])
+                     for k, e in enumerate(engines)]
+            spec = max((p[2] for p in parts), key=lambda s: s.data_length)
+            x, mask = pad_stack(parts, spec.data_length)
+            label = torch.stack([tg[t][0] for tg in targets])
+            cens = torch.stack([tg[t][1] for tg in targets])
+            loss, _ = step_of(spec.repr_length)(x, mask, label, cens,
+                                                generators)
+            losses.append(loss)
+            for e in engines:
+                _update(e)
+        for k, e in enumerate(engines):
+            for t in range(t_par, len(orders[k])):
+                xk, mk, spec, _, _, _ = e._prep_indexed(dataset, orders[k][t])
+                e._train_step(xk, mk, *targets[k][t], spec.repr_length)
+        t1 = time.perf_counter()
+        tr_loss = float(torch.stack(losses).mean()) if losses else 0.0
+        msgs = []
+        for k, e in enumerate(engines):
+            val_loss, val_ci = e.validate(dataset, splits[k][1])
+            if e._plateau is not None:
+                e._plateau.step(val_loss)
+            if val_ci > best_score[k]:
+                best_score[k], best_epoch[k] = val_ci, epoch
+                fold_dir = os.path.join(results_dir, f"fold_{folds[k]}")
+                os.makedirs(fold_dir, exist_ok=True)
+                save_params(os.path.join(
+                    fold_dir, f"model_best_{val_ci:.4f}_{epoch}.pt"),
+                    e.model.state_dict())
+            msgs.append(f"f{folds[k]} ci {val_ci:.4f}")
+        logger.print(f"epoch {epoch}: train loss {tr_loss:.4f} "
+                     f"({sum(map(len, orders)) / (t1 - t0):.2f} bags/s) | "
+                     + ", ".join(msgs))
+
+    engines[0].close()
+    for k in range(k_folds):
+        logger.print(f"fold {folds[k]}: best c-index {best_score[k]:.4f} "
+                     f"@ epoch {best_epoch[k]}")
+        meter.update(best_score[k], best_epoch[k])
     meter.save(os.path.join(results_dir, f"results_{args.model}.csv"))
     return meter

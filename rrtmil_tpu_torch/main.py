@@ -13,8 +13,9 @@ zoo's but TransMIL's; ibmil reads `--confounder_path` / `--confounder_k`,
 the prototypes `python -m rrtmil_tpu_torch.build_confounders` writes; dtfd
 reads `--numGroup`, `--total_instance`, `--distill_type` and
 `--grad_clipping`).  Any other name fails as an unknown model (mhim is a
-survival model alone, as in the JAX package); `--fold_parallel` raises,
-naming the model and its ROADMAP.md item.
+survival model alone, as in the JAX package).  `--fold_parallel` trains
+the CV folds at once (harness/fold_parallel.py, rrtmil alone; another model
+raises, naming it and its ROADMAP.md item).
 """
 from __future__ import annotations
 
@@ -39,8 +40,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cv_fold", default=3, type=int)
     parser.add_argument("--persistence", action="store_true")
     parser.add_argument("--fold_parallel", action="store_true",
-                        help="train all cv folds simultaneously: not ported "
-                             "yet (ROADMAP.md queue 1 item 9)")
+                        help="train all cv folds at once, each kernel "
+                             "launched once a step for every fold (--model "
+                             "rrtmil)")
     parser.add_argument("--same_psize", default=0, type=int)
     parser.add_argument("--tcga_sub", default="nsclc", type=str)
 
@@ -176,6 +178,9 @@ def main(argv=None):
     args = postprocess_args(build_parser().parse_args(argv))
     print(args)
     print(time.asctime(time.localtime(time.time())))
+    if args.fold_parallel:
+        from .harness.fold_parallel import run_cv_fold_parallel
+        return run_cv_fold_parallel(args)
     from .harness.classification import run_cv
     return run_cv(args)
 

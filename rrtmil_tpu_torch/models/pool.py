@@ -8,6 +8,12 @@ instances takes the boolean mask of true tokens; masked places are filled
 with finfo(float32).min, not -inf (pool.py:26-30).  The scorers' dropout
 (`dropout=True`) is flax's fixed p = 0.25 on the hidden activations, drawn
 from the caller's `torch.Generator` in train mode.
+
+Fold-parallel training (parallel/folds.py) runs a model under
+`torch.func.vmap` over K folds and passes `FoldGenerators`, one generator a
+fold, as the generator: each dropout then draws fold f's mask from
+generator f, of that fold's own shape (`keep_mask`), so every fold draws
+what its own sequential run draws.
 """
 from __future__ import annotations
 
@@ -30,16 +36,66 @@ def masked_softmax(logits: torch.Tensor, mask: Optional[torch.Tensor],
     return torch.softmax(logits, dim=dim)
 
 
+class FoldGenerators(tuple):
+    """One torch.Generator a fold: the `generator` of a model run under
+    torch.func.vmap over folds, fold f's masks drawn from element f."""
+
+
+def _draw(x: torch.Tensor, keep: float, generator, per_sample: bool):
+    if per_sample:   # one draw a sample: (B, 1, ..., 1) float32
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        return torch.empty(shape, device=x.device).bernoulli_(
+            keep, generator=generator)
+    return torch.empty_like(x).bernoulli_(keep, generator=generator)
+
+
+class _FoldKeep(torch.autograd.Function):
+    """A keep mask under vmap over folds: fold f's drawn from generator f
+    with the shape and dtype of fold f's x, the folds' masks stacked."""
+
+    @staticmethod
+    def forward(x, keep, generators, per_sample):
+        return _draw(x, keep, generators[0], per_sample)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, keep, generators, per_sample):
+        d = in_dims[0]
+        if len(generators) != info.batch_size:
+            raise ValueError(f"{len(generators)} generators for "
+                             f"{info.batch_size} folds")
+        return torch.stack([
+            _draw(x if d is None else x.select(d, f), keep, generators[f],
+                  per_sample) for f in range(info.batch_size)]), 0
+
+
+def keep_mask(x: torch.Tensor, keep: float, generator,
+              per_sample: bool = False) -> torch.Tensor:
+    """Bernoulli(keep) draws of x's shape (per_sample: one a sample along
+    axis 0, float32) from `generator`, or fold by fold from
+    `FoldGenerators`."""
+    if generator is None:
+        raise ValueError("dropout and drop_path in train mode draw their "
+                         "masks from a torch.Generator: pass generator=")
+    if isinstance(generator, FoldGenerators):
+        return _FoldKeep.apply(x, keep, generator, per_sample)
+    return _draw(x, keep, generator, per_sample)
+
+
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator],
             training: bool) -> torch.Tensor:
     """flax nn.Dropout: keep with probability 1 - p and scale by 1 / (1 - p);
     the mask is drawn from `generator` (on x's device)."""
     if not training or p == 0.0:
         return x
-    if generator is None:
-        raise ValueError("dropout in train mode draws its masks from a "
-                         "torch.Generator: pass generator=")
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    keep = keep_mask(x, 1.0 - p, generator)
     return torch.where(keep.bool(), x / (1.0 - p), torch.zeros_like(x))
 
 

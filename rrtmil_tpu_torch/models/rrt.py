@@ -85,7 +85,7 @@ from ..ops.regions import grid_geometry, region_partition, region_reverse
 from ..utils.device import resolve_device
 from ..utils.inits import crmsa_phi_init_, xavier_normal_
 from .nystrom import NystromAttention
-from .pool import DAttention, MeanPool, dropout
+from .pool import DAttention, MeanPool, dropout, keep_mask
 from .posemb import build_pos_embedding
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -108,13 +108,8 @@ def drop_path(x: torch.Tensor, rate: float,
     1 / (1 - rate); the (B, 1, ..., 1) mask is drawn from `generator`."""
     if not training or rate == 0.0:
         return x
-    if generator is None:
-        raise ValueError("drop_path in train mode draws its masks from a "
-                         "torch.Generator: pass generator=")
     keep = 1.0 - rate
-    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    m = torch.empty(shape, device=x.device).bernoulli_(keep,
-                                                       generator=generator)
+    m = keep_mask(x, keep, generator, per_sample=True)
     return torch.where(m.bool(), x / keep, torch.zeros_like(x))
 
 

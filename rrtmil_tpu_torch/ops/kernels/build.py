@@ -38,45 +38,47 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # argtypes of every C entry; each returns an int error code
 SIGNATURES = {
     "region_layer": {
-        "rl_ln_mask": [_I, _I, _P, _P, _P, _P, _P, _LL, _I, _F, _P],
+        "rl_ln_mask": [_I, _I, _P, _P, _P, _P, _P, _LL, _I, _F, _LL, _P],
         "rl_gemm": [_I, _I, _I, _I, _P, _I, _LL, _LL, _P, _P, _P, _I, _I, _LL,
                     _LL, _I, _LL, _LL, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                    _I, _P],
+                    _I, _I, _LL, _LL, _P],
         "rl_attention": [_I, _I, _I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P,
                          _LL, _LL, _LL, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I,
-                         _I, _F, _P, _I, _P, _P],
+                         _I, _F, _P, _I, _P, _I, _P],
         "rl_block": [_I, _I, _I, _P, _LL, _LL, _P, _P, _P, _I, _LL, _LL, _I,
                      _LL, _LL, _P, _P, _P, _P, _I, _P, _P, _I, _LL, _LL, _I,
-                     _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                     _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LL,
+                     _LL, _LL, _LL, _P],
     },
     "region_layer_bwd": {
         "rb_gemm": [_I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _I, _I,
-                    _I, _I, _LL, _P],
+                    _I, _I, _LL, _I, _LL, _P],
         "rb_gemm_tc": [_I, _I, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _LL,
-                       _P],
-        "rb_colsum": [_I, _I, _P, _I, _LL, _I, _P, _P, _I, _I, _P, _P],
-        "rb_reduce": [_P, _I, _LL, _P, _P],
-        "rb_ln_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _P],
+                       _I, _LL, _P],
+        "rb_colsum": [_I, _I, _P, _I, _LL, _I, _P, _P, _I, _I, _P, _LL, _P],
+        "rb_reduce": [_P, _I, _LL, _P, _I, _P],
+        "rb_ln_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _F, _I, _LL,
+                      _P],
         "rb_attention_bwd": [_I, _I, _I, *[_P, _LL, _LL, _LL] * 7, _I, _I, _I,
                              _I, _I, _I, _I, _P, _I, _P, _F, _P, _P, _P, _P,
-                             _P, _P, _P],
+                             _P, _P, _I, _P],
     },
     "crmsa": {
         "cr_compress_grid": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _I, _I, _I, _F, _P],
+                             _I, _I, _I, _I, _I, _F, _I, _P],
         "cr_redistribute_ln": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _F, _P],
+                               _I, _I, _I, _I, _F, _I, _P],
         "cr_compress": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _P],
+                        _I, _P],
         "cr_redistribute": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _P],
     },
     "crmsa_bwd": {
         "cb_compress_grid_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+                                 _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
         "cb_redistribute_ln_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                   _P],
+                                   _I, _P],
         "cb_redistribute_grid_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                      _I, _I, _I, _I, _I, _P],
     },

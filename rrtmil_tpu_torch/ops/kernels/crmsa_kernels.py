@@ -54,6 +54,16 @@ the card are PyTorch ops.
 The forward wrappers are `torch.autograd.Function`s (K3 with K4, K8 with K9,
 K10 with K11, K12 and K13 with the plain vjp).  Every wrapper launches its
 kernel for a CUDA tensor and runs the plain version for a CPU tensor.
+
+Folds (`folds.py`): under `torch.func.vmap` the streams hold each fold's
+bags (K3, K4, K8, K9, K10, K11) or regions (K12, K13) in turn, and the
+LayerNorms and phi stack on a leading fold axis (ln_s (K, C), phi (K, C,
+k)).  Each kernel is one launch for all folds: K3 and K12 read each fold's
+LayerNorm and phi, K8 its final LayerNorm, and K4 and K9 sum each fold's
+dls, dlb, dphi over that fold's blocks alone, in one fold's order.  K10,
+K11 and K13 carry no weights: the folds are more bags or regions to them.
+K12's backward (autograd through its plain version) runs under
+`torch.func.vmap` over the folds.
 """
 from __future__ import annotations
 
@@ -65,6 +75,8 @@ from ..regions import region_partition, region_reverse
 from . import build
 from .common import (LN_EPS, ln_bwd_plain, ln_fast, ln_mask_plain, ln_stats,
                      mm_round)
+from .folds import (ROWS, WEIGHT, FoldFunction, fold_plain, folds,
+                    vmap_rule)
 from .region_layer import SMS, check_grid
 
 MAX_K = 8   # representatives per region the kernels take
@@ -229,16 +241,16 @@ def _compress_scratch(r, p, c, k, dev, per_row: int):
     return scratch[:rows], (scratch[rows:] if parts > 1 else None), chunk
 
 
-def _rgrid_bwd_buffers(r, p, c, k, dev, ln: bool = False):
+def _rgrid_bwd_buffers(r, p, c, k, dev, ln: bool = False, nf: int = 0):
     """(dw, dreps, dln, part, chunk) of K9 (ln) or K11 on r regions of p
     rows: the row split, and one float32 allocation for dw (r k p), dreps
-    (r k c), K9's summed dls | dlb (2 c; else None) and `part`: the blocks'
-    dreps partials (chunks, r, k, c) when a region is more than one chunk
-    (else the kernel writes dreps in place), then K9's dls | dlb partials
-    (chunks * r, 2 c); None when empty."""
+    (r k c), K9's summed dls | dlb (2 c a fold; else None) and `part`: the
+    blocks' dreps partials (chunks, r, k, c) when a region is more than one
+    chunk (else the kernel writes dreps in place), then K9's dls | dlb
+    partials (chunks * r, 2 c); None when empty."""
     chunk = row_split(r, p)
     parts = -(-p // chunk)
-    sizes = (r * k * p, r * k * c, 2 * c if ln else 0,
+    sizes = (r * k * p, r * k * c, 2 * c * max(nf, 1) if ln else 0,
              (parts * r * k * c if parts > 1 else 0)
              + (parts * r * 2 * c if ln else 0))
     buf = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
@@ -249,9 +261,17 @@ def _rgrid_bwd_buffers(r, p, c, k, dev, ln: bool = False):
     return (*views, chunk)
 
 
+def _fold_split(b: int, nf: int) -> int:
+    """The bags a fold of b bags in nf folds (0 without folds)."""
+    if nf and b % nf:
+        raise ValueError(f"{b} bags do not split into {nf} folds")
+    return b // nf if nf else 0
+
+
 def _launch_compress(x, mask, ln_s, ln_b, phi, g, rs, mmd):
     b, n, c = x.shape
-    k = phi.shape[1]
+    k = phi.shape[-1]
+    bf = _fold_split(b, folds(phi, 2))
     check_grid(x, mask, g, rs)
     _check_k(k)
     build.require_cuda({"x": x, "mask": mask},
@@ -267,7 +287,7 @@ def _launch_compress(x, mask, ln_s, ln_b, phi, g, rs, mmd):
         build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
         mask.data_ptr(), ls.data_ptr(), lb.data_ptr(), phi_f.data_ptr(),
         reps.data_ptr(), w.data_ptr(), scratch.data_ptr(), build.ptr(part), b,
-        g, rs, c, k, chunk, LN_EPS, build.stream_of(x)), "K3 compress")
+        g, rs, c, k, chunk, LN_EPS, bf, build.stream_of(x)), "K3 compress")
     crmsa_compress_grid.launches += 1
     return reps, w
 
@@ -291,6 +311,7 @@ def _check_redistribute(x, mask, w, reps, shortcut, g, rs):
 def _launch_redistribute(x, mask, w, reps, ln_s, ln_b, shortcut, g, rs, mmd):
     b, n, c = x.shape
     k = w.shape[2]
+    bf = _fold_split(b, folds(ln_s, 1))
     _check_redistribute(x, mask, w, reps, shortcut, g, rs)
     build.require_cuda({"x": x, "mask": mask, "w": w, "reps": reps,
                         "shortcut": shortcut}, dict(ln_s=ln_s, ln_b=ln_b))
@@ -302,7 +323,7 @@ def _launch_redistribute(x, mask, w, reps, ln_s, ln_b, shortcut, g, rs, mmd):
         build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
         mask.data_ptr(), w.data_ptr(), reps.data_ptr(), ls.data_ptr(),
         lb.data_ptr(), build.ptr(shortcut), out.data_ptr(), b, g, rs, c, k,
-        k8_split(b * (g // rs) ** 2, rs * rs), LN_EPS, build.stream_of(x)),
+        k8_split(b * (g // rs) ** 2, rs * rs), LN_EPS, bf, build.stream_of(x)),
         "K8 redistribute")
     crmsa_redistribute_grid_ln.launches += 1
     return out
@@ -310,7 +331,9 @@ def _launch_redistribute(x, mask, w, reps, ln_s, ln_b, shortcut, g, rs, mmd):
 
 def _launch_compress_bwd(x, mask, ln_s, ln_b, phi, dreps, dw, g, rs, mmd):
     b, n, c = x.shape
-    k = phi.shape[1]
+    k = phi.shape[-1]
+    nf = folds(phi, 2)
+    bf = _fold_split(b, nf)
     check_grid(x, mask, g, rs)
     _check_k(k)
     nr, p = (g // rs) ** 2, rs * rs
@@ -331,24 +354,29 @@ def _launch_compress_bwd(x, mask, ln_s, ln_b, phi, dreps, dw, g, rs, mmd):
     # one allocation: the rows' scratch (logits, d_comb and the LayerNorm
     # backward's two row sums, k each, and the LayerNorm statistics), the
     # blocks' partials (parts * R, (2 + k) C) and the summed (dls | dlb |
-    # dphi^T)
+    # dphi^T), one row a fold
     rows, wide = r * (4 * k + 2) * p, parts * r * (2 + k) * c
-    scratch = torch.empty((rows + wide + (2 + k) * c,), **f32)
-    out = scratch[rows + wide:]
+    scratch = torch.empty((rows + wide + max(nf, 1) * (2 + k) * c,), **f32)
+    out = scratch[rows + wide:].view(max(nf, 1), 2 + k, c)
     build.check(lib.cb_compress_grid_bwd(
         build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
         mask.data_ptr(), ls.data_ptr(), lb.data_ptr(), phi_f.data_ptr(),
         dreps.data_ptr(), dw.data_ptr(), dx.data_ptr(), scratch.data_ptr(),
         scratch[rows:].data_ptr(), out.data_ptr(), b, g, rs, c, k, chunk,
-        LN_EPS, build.stream_of(x)), "K4 compress backward")
+        LN_EPS, bf, build.stream_of(x)), "K4 compress backward")
     crmsa_compress_grid_bwd.launches += 1
-    return dx, out[:c], out[c:2 * c], out[2 * c:].reshape(k, c).t()
+    if not nf:
+        out = out[0]
+    return (dx, out[..., 0, :], out[..., 1, :],
+            out[..., 2:, :].transpose(-1, -2))
 
 
 def _launch_redistribute_bwd(x, mask, w, reps, ln_s, ln_b, shortcut, gout,
                              g, rs, mmd):
     b, n, c = x.shape
     nr, k, p = w.shape[1], w.shape[2], w.shape[3]
+    nf = folds(ln_s, 1)
+    bf = _fold_split(b, nf)
     _check_redistribute(x, mask, w, reps, shortcut, g, rs)
     if gout.shape != x.shape:
         raise ValueError(f"g {tuple(gout.shape)} does not match x")
@@ -361,16 +389,17 @@ def _launch_redistribute_bwd(x, mask, w, reps, ln_s, ln_b, shortcut, gout,
     ls = ln_s.float().contiguous()
     dx = torch.empty_like(x)
     dw, dreps, out, part, chunk = _rgrid_bwd_buffers(b * nr, p, c, k,
-                                                     x.device, ln=True)
+                                                     x.device, ln=True, nf=nf)
     build.check(lib.cb_redistribute_ln_bwd(
         build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
         mask.data_ptr(), w.data_ptr(), reps.data_ptr(), ls.data_ptr(),
         build.ptr(shortcut), gout.data_ptr(), dx.data_ptr(), dw.data_ptr(),
         dreps.data_ptr(), out.data_ptr(), part.data_ptr(), b, g, rs, c, k,
-        chunk, LN_EPS, build.stream_of(x)), "K9 redistribute backward")
+        chunk, LN_EPS, bf, build.stream_of(x)), "K9 redistribute backward")
     crmsa_redistribute_grid_ln_bwd.launches += 1
-    return (dx, dw.view(b, nr, k, p), dreps.view(b, nr, k, c), out[:c],
-            out[c:], None if shortcut is None else dx)
+    out = out.view(nf, 2, c) if nf else out.view(2, c)
+    return (dx, dw.view(b, nr, k, p), dreps.view(b, nr, k, c),
+            out[..., 0, :], out[..., 1, :], None if shortcut is None else dx)
 
 
 def _device(x, what: str) -> str:
@@ -379,15 +408,22 @@ def _device(x, what: str) -> str:
     return x.device.type
 
 
+# the fold forms (folds.py) of the Functions' inputs
+_CGRID_KINDS = (ROWS, ROWS, WEIGHT, WEIGHT, WEIGHT, None, None, None)
+_RGRID_LN_KINDS = (ROWS,) * 4 + (WEIGHT, WEIGHT, ROWS) + (None,) * 3
+
+
 def crmsa_compress_grid_bwd(x, mask, ln_s, ln_b, phi, dreps, dw,
                             grid_side: int, region_size: int,
                             mm_dtype=torch.bfloat16):
     """K4 for CUDA tensors, its plain version for CPU tensors: (dx, dls,
-    dlb, dphi) of `crmsa_compress_grid`."""
+    dlb, dphi) of `crmsa_compress_grid`, each fold's own with folds."""
     args = (x, mask, ln_s, ln_b, phi, dreps, dw, grid_side, region_size,
             mm_dtype)
     if _device(x, "crmsa_compress_grid_bwd") == "cpu":
-        return compress_grid_bwd_plain(*args)
+        return fold_plain(compress_grid_bwd_plain, folds(phi, 2), args,
+                          _CGRID_KINDS[:5] + (ROWS, ROWS, None, None, None),
+                          (ROWS, WEIGHT, WEIGHT, WEIGHT))
     return _launch_compress_bwd(*args)
 
 
@@ -395,33 +431,45 @@ def crmsa_redistribute_grid_ln_bwd(x, mask, w, reps, ln_s, ln_b, shortcut, g,
                                    grid_side: int, region_size: int,
                                    mm_dtype=torch.bfloat16):
     """K9 for CUDA tensors, its plain version for CPU tensors: (dx, dw,
-    dreps, dls, dlb, dshortcut) of `crmsa_redistribute_grid_ln`."""
+    dreps, dls, dlb, dshortcut) of `crmsa_redistribute_grid_ln`, each
+    fold's own dls, dlb with folds."""
     args = (x, mask, w, reps, ln_s, ln_b, shortcut, g, grid_side,
             region_size, mm_dtype)
     if _device(x, "crmsa_redistribute_grid_ln_bwd") == "cpu":
-        return redistribute_grid_ln_bwd_plain(*args)
+        return fold_plain(redistribute_grid_ln_bwd_plain, folds(ln_s, 1),
+                          args, _RGRID_LN_KINDS[:7] + (ROWS, None, None, None),
+                          (ROWS, ROWS, ROWS, WEIGHT, WEIGHT, ROWS))
     return _launch_redistribute_bwd(*args)
 
 
-class _CompressGrid(torch.autograd.Function):
-    """K3 forward, K4 backward (plain versions on the CPU)."""
+class _CompressGrid(FoldFunction):
+    """K3 forward, K4 backward (plain versions on the CPU); under vmap,
+    one call for every fold."""
 
     @staticmethod
-    def forward(ctx, x, mask, ln_s, ln_b, phi, grid_side, region_size,
-                mm_dtype):
-        ctx.save_for_backward(x, mask, ln_s, ln_b, phi)
-        ctx.geom = (grid_side, region_size, mm_dtype)
+    def forward(x, mask, ln_s, ln_b, phi, grid_side, region_size, mm_dtype):
         args = (x, mask, ln_s, ln_b, phi, grid_side, region_size, mm_dtype)
         if x.device.type == "cpu":
-            return compress_grid_plain(*args)
+            return fold_plain(compress_grid_plain, folds(phi, 2), args,
+                              _CGRID_KINDS, (ROWS, ROWS))
         return _launch_compress(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:5])
+        ctx.geom = inputs[5:]
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return vmap_rule(_CompressGrid.apply, info, in_dims, args,
+                         _CGRID_KINDS)
 
     @staticmethod
     def backward(ctx, dreps, dw):
         x, mask, ln_s, ln_b, phi = ctx.saved_tensors
         g, rs, mmd = ctx.geom
         # autograd hands None for an output nobody used
-        b, nr, k = x.shape[0], (g // rs) ** 2, phi.shape[1]
+        b, nr, k = x.shape[0], (g // rs) ** 2, phi.shape[-1]
         if dreps is None:
             dreps = x.new_zeros((b, nr, k, x.shape[2]), dtype=torch.float32)
         if dw is None:
@@ -431,19 +479,29 @@ class _CompressGrid(torch.autograd.Function):
         return dx, None, dls, dlb, dphi, None, None, None
 
 
-class _RedistributeGridLN(torch.autograd.Function):
-    """K8 forward, K9 backward (plain versions on the CPU)."""
+class _RedistributeGridLN(FoldFunction):
+    """K8 forward, K9 backward (plain versions on the CPU); under vmap,
+    one call for every fold."""
 
     @staticmethod
-    def forward(ctx, x, mask, w, reps, ln_s, ln_b, shortcut, grid_side,
+    def forward(x, mask, w, reps, ln_s, ln_b, shortcut, grid_side,
                 region_size, mm_dtype):
-        ctx.save_for_backward(x, mask, w, reps, ln_s, ln_b, shortcut)
-        ctx.geom = (grid_side, region_size, mm_dtype)
         args = (x, mask, w, reps, ln_s, ln_b, shortcut, grid_side,
                 region_size, mm_dtype)
         if x.device.type == "cpu":
-            return redistribute_grid_ln_plain(*args)
+            return fold_plain(redistribute_grid_ln_plain, folds(ln_s, 1), args,
+                              _RGRID_LN_KINDS, (ROWS,))
         return _launch_redistribute(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:7])
+        ctx.geom = inputs[7:]
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return vmap_rule(_RedistributeGridLN.apply, info, in_dims, args,
+                         _RGRID_LN_KINDS)
 
     @staticmethod
     def backward(ctx, g):
@@ -556,9 +614,10 @@ def _check_regions(w, reps):
 
 def _launch_compress_regions(x, phi, mmd):
     r, p, c = x.shape
-    k = phi.shape[1]
+    k = phi.shape[-1]
+    rf = _fold_split(r, folds(phi, 2))
     _check_k(k)
-    if c > MAX_C or phi.shape[0] != c:
+    if c > MAX_C or phi.shape[-2] != c:
         raise ValueError(f"K12 takes phi (C, k) with C <= {MAX_C}, not "
                          f"{tuple(phi.shape)} for x {tuple(x.shape)}")
     build.require_cuda({"x": x}, dict(phi=phi))
@@ -570,7 +629,7 @@ def _launch_compress_regions(x, phi, mmd):
     build.check(lib.cr_compress(
         build.dtype_code(x.dtype), build.dtype_code(mmd), x.data_ptr(),
         phi_f.data_ptr(), reps.data_ptr(), w.data_ptr(), scratch.data_ptr(),
-        build.ptr(part), r, p, c, k, chunk, build.stream_of(x)),
+        build.ptr(part), r, p, c, k, chunk, rf, build.stream_of(x)),
         "K12 compress")
     crmsa_compress.launches += 1
     return reps, w
@@ -628,46 +687,93 @@ def _launch_redistribute_grid_bwd(mask, w, reps, gout, g, rs, mmd):
     return dw.view(b, nr, k, p), dreps.view(b, nr, k, c)
 
 
-def _plain_vjp(plain, ctx, grads):
-    """The backward of a Function whose gradient is autograd through its
-    plain forward: the saved inputs, the plain forward recomputed."""
-    inputs = [t.detach().requires_grad_(need)
-              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+def _vjp(plain, inputs, needs, grads, mmd, nf: int = 0):
+    """The gradients of `inputs` (those `needs` names) through plain(*inputs,
+    mm_dtype=mmd) at `grads`; with nf folds (x's leading axis split into nf
+    runs, the other inputs stacked) the plain version runs under
+    torch.func.vmap over the folds."""
+    inputs = [t.detach().requires_grad_(need) for t, need in
+              zip(inputs, needs)]
     live = [t for t in inputs if t.requires_grad]
     if not live:
         return tuple(None for _ in inputs)
     with torch.enable_grad():
-        out = plain(*inputs, mm_dtype=ctx.mmd)
+        if nf:
+            x = inputs[0]
+            out = torch.func.vmap(lambda *a: plain(*a, mm_dtype=mmd))(
+                x.reshape(nf, x.shape[0] // nf, *x.shape[1:]), *inputs[1:])
+            out = tuple(o.reshape(-1, *o.shape[2:]) for o in out)
+        else:
+            out = plain(*inputs, mm_dtype=mmd)
     got = iter(torch.autograd.grad(out, live, grads, allow_unused=True))
     return tuple(next(got) if t.requires_grad else None for t in inputs)
 
 
-class _Compress(torch.autograd.Function):
-    """K12 forward; backward the vjp of `compress_plain`."""
+def _plain_vjp(plain, ctx, grads):
+    """The backward of a Function whose gradient is autograd through its
+    plain forward: the saved inputs, the plain forward recomputed."""
+    return _vjp(plain, ctx.saved_tensors, ctx.needs_input_grad, grads,
+                ctx.mmd)
+
+
+class _Compress(FoldFunction):
+    """K12 forward; backward the vjp of `compress_plain`; under vmap, one
+    call for every fold (phi (K, C, k))."""
 
     @staticmethod
-    def forward(ctx, x, phi, mm_dtype):
-        ctx.save_for_backward(x, phi)
-        ctx.mmd = mm_dtype
+    def forward(x, phi, mm_dtype):
         if x.device.type == "cpu":
-            return compress_plain(x, phi, mm_dtype)
+            return fold_plain(compress_plain, folds(phi, 2),
+                              (x, phi, mm_dtype), (ROWS, WEIGHT, None),
+                              (ROWS, ROWS))
         return _launch_compress_regions(x, phi, mm_dtype)
 
     @staticmethod
-    def backward(ctx, dreps, dw):
-        return _plain_vjp(compress_plain, ctx, (dreps, dw)) + (None,)
-
-
-class _Redistribute(torch.autograd.Function):
-    """K13 forward; backward the vjp of `redistribute_plain`."""
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], inputs[1])
+        ctx.mmd = inputs[2]
 
     @staticmethod
-    def forward(ctx, w, reps, mm_dtype):
-        ctx.save_for_backward(w, reps)
-        ctx.mmd = mm_dtype
+    def vmap(info, in_dims, *args):
+        return vmap_rule(_Compress.apply, info, in_dims, args,
+                         (ROWS, WEIGHT, None))
+
+    @staticmethod
+    def backward(ctx, dreps, dw):
+        x, phi = ctx.saved_tensors
+        nf = folds(phi, 2)
+        if not nf:
+            return _plain_vjp(compress_plain, ctx, (dreps, dw)) + (None,)
+        if dreps is None:
+            dreps = torch.zeros((x.shape[0], phi.shape[-1], x.shape[2]),
+                                device=x.device)
+        if dw is None:
+            dw = torch.zeros((x.shape[0], phi.shape[-1], x.shape[1]),
+                             device=x.device)
+        grads = _vjp(compress_plain, (x, phi), ctx.needs_input_grad[:2],
+                     (dreps, dw), ctx.mmd, nf)
+        return (*grads, None)
+
+
+class _Redistribute(FoldFunction):
+    """K13 forward; backward the vjp of `redistribute_plain`.  No
+    weights: under vmap the folds' regions are one call's."""
+
+    @staticmethod
+    def forward(w, reps, mm_dtype):
         if w.device.type == "cpu":
             return redistribute_plain(w, reps, mm_dtype)
         return _launch_redistribute_regions(w, reps, mm_dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], inputs[1])
+        ctx.mmd = inputs[2]
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return vmap_rule(_Redistribute.apply, info, in_dims, args,
+                         (ROWS, ROWS, None))
 
     @staticmethod
     def backward(ctx, g):
@@ -684,22 +790,32 @@ def crmsa_redistribute_grid_bwd(mask, w, reps, g, grid_side: int,
     return _launch_redistribute_grid_bwd(*args)
 
 
-class _RedistributeGrid(torch.autograd.Function):
+class _RedistributeGrid(FoldFunction):
     """K10 forward, K11 backward (plain versions on the CPU).  dx is g
     itself with the residual; without it x gets no gradient (None, autograd's
-    zero), as the JAX backward's zeros_like (crmsa_kernels.py:725)."""
+    zero), as the JAX backward's zeros_like (crmsa_kernels.py:725).  No
+    weights: under vmap the folds' bags are one call's."""
 
     @staticmethod
-    def forward(ctx, x, mask, w, reps, grid_side, region_size, add_residual,
+    def forward(x, mask, w, reps, grid_side, region_size, add_residual,
                 mm_dtype):
-        ctx.save_for_backward(mask, w, reps)
-        ctx.geom = (grid_side, region_size, mm_dtype)
-        ctx.add_residual, ctx.x_dtype = add_residual, x.dtype
         args = (x, mask, w, reps, grid_side, region_size, add_residual,
                 mm_dtype)
         if x.device.type == "cpu":
             return redistribute_grid_plain(*args)
         return _launch_redistribute_grid(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, mask, w, reps, grid_side, region_size, add_residual, mmd = inputs
+        ctx.save_for_backward(mask, w, reps)
+        ctx.geom = (grid_side, region_size, mmd)
+        ctx.add_residual, ctx.x_dtype = add_residual, x.dtype
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return vmap_rule(_RedistributeGrid.apply, info, in_dims, args,
+                         (ROWS,) * 4 + (None,) * 4)
 
     @staticmethod
     def backward(ctx, g):

@@ -17,7 +17,9 @@ multiple of 64 up to 512 without EPEG (the CR-MSA of `crmsa_heads=1`
 configs: one 512-wide head), 64 with it.  `region_attention_fused` is a
 `torch.autograd.Function` whose backward is K7 (`region_attn_bwd.py`); on a
 CPU tensor both directions run the plain versions, on a CUDA tensor the
-kernels.
+kernels.  Folds (`folds.py`): q, k, v hold each fold's regions in turn; the
+EPEG taps, when there are any, stack on a leading fold axis (w (K, H, kk),
+b (K, H)) and region r reads fold r / (R / K)'s; one launch for all folds.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ import torch
 
 from . import build, layout
 from .common import epeg_toeplitz, mm_round
+from .folds import (ROWS, WEIGHT, FoldFunction, fold_plain, folds,
+                    vmap_rule)
 
 HEAD_DIM = 64      # head width with EPEG, and the cores' column chunk
 MAX_HEAD_DIM = 512  # widest head the cores take (without EPEG)
@@ -80,10 +84,17 @@ def check_qkv(q, k, v) -> None:
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
 
 
+# the fold forms of the Function's inputs (folds.py)
+_ATTN_KINDS = (ROWS, ROWS, ROWS, WEIGHT, WEIGHT, None, None)
+
+
 def _launch(q, k, v, w, b, scale, mmd):
     check_qkv(q, k, v)
     r, h, p, hd = q.shape
-    kk = check_heads(q, w)
+    nf = folds(w, 2)
+    kk = check_heads(q, w[0] if nf else w)
+    if nf and r % nf:
+        raise ValueError(f"{r} regions do not split into {nf} folds")
     dev = q.device
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share one dtype, got {q.dtype} "
@@ -101,21 +112,28 @@ def _launch(q, k, v, w, b, scale, mmd):
         code, build.dtype_code(mmd), code, q.data_ptr(), *layout.heads(q, "q"),
         k.data_ptr(), *layout.heads(k, "k"), v.data_ptr(),
         *layout.heads(v, "v"), o.data_ptr(), h * p * hd, p * hd, hd, r, h,
-        hd, p, 0, 0, scale, pw, kk, pb, build.stream_of(q)), "K6 attention")
+        hd, p, 0, 0, scale, pw, kk, pb, r // nf if nf else 0,
+        build.stream_of(q)), "K6 attention")
     region_attention_fused.launches += 1
     return o
 
 
-class _RegionAttention(torch.autograd.Function):
-    """K6 forward, K7 backward (plain versions on the CPU)."""
+class _RegionAttention(FoldFunction):
+    """K6 forward, K7 backward (plain versions on the CPU); under vmap,
+    one call for every fold."""
 
     @staticmethod
-    def forward(ctx, q, k, v, w, b, scale, mm_dtype):
-        ctx.save_for_backward(q, k, v, w, b)
-        ctx.scale, ctx.mm_dtype = scale, mm_dtype
+    def forward(q, k, v, w, b, scale, mm_dtype):
+        args = (q, k, v, w, b, scale, mm_dtype)
         if q.device.type == "cpu":
-            return region_attention_plain(q, k, v, w, b, scale, mm_dtype)
-        return _launch(q, k, v, w, b, scale, mm_dtype)
+            return fold_plain(region_attention_plain, folds(w, 2), args,
+                              _ATTN_KINDS, (ROWS,))
+        return _launch(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:5])
+        ctx.scale, ctx.mm_dtype = inputs[5], inputs[6]
 
     @staticmethod
     def backward(ctx, g):
@@ -124,6 +142,11 @@ class _RegionAttention(torch.autograd.Function):
         dq, dk, dv, dw, db = region_attention_bwd(
             q, k, v, w, b, g.contiguous(), ctx.scale, ctx.mm_dtype)
         return dq, dk, dv, dw, db, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return vmap_rule(_RegionAttention.apply, info, in_dims, args,
+                         _ATTN_KINDS)
 
 
 def region_attention_fused(q, k, v, w: Optional[torch.Tensor],

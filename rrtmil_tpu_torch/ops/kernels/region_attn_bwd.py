@@ -21,7 +21,9 @@ bounds it on an H100 and what the design does about it.  The kernels read
 q, k, v and g where they lie, through their (region, head, token) strides
 (`layout.heads`), and write dq, dk, dv straight into (R, H, P, hd) tensors:
 the wrapper runs no torch op but `torch.empty`.  K2 runs the same entry on
-the R-MSA layer's token order, on the columns of its recomputed qkv.
+the R-MSA layer's token order, on the columns of its recomputed qkv.  With
+the taps stacked on a leading fold axis (`folds.py`), dw (K, H, kk) and db
+(K, H) are each fold's own sums over its regions, from one launch.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from . import build, layout
 from .common import epeg_toeplitz, mm_round
+from .folds import ROWS, WEIGHT, fold_plain, folds
 from .region_attn import check_heads, check_qkv
 
 QUERY_TILE = 64    # rows of one block of the query-side kernel
@@ -89,13 +92,15 @@ def region_attention_bwd_plain(q, k, v, w, b, g, scale: float,
 
 
 def attention_bwd_launch(lib, tm, ti, to, ops, r, h, hd, p, grid, rs, w, b,
-                         kk, scale, dev, stream):
+                         kk, scale, dev, stream, nf: int = 0):
     """rb_attention_bwd with its scratch; returns (dw, db) or (None, None)
     without EPEG.  `ops` holds the (pointer, region, head, token-row
     strides) descriptions of q, k, v, g (dtype code ti) and of dq, dk, dv
-    (dtype code to); tm is the mm dtype code."""
+    (dtype code to); tm is the mm dtype code.  With nf folds (w (nf, H,
+    kk)) dw and db are (nf, H, kk) and (nf, H)."""
     pw = build.f32_param(w, "pe_weight") if kk else None
     pb = build.f32_param(b, "pe_bias") if kk else None
+    lead = (nf,) if nf else ()
     n = r * h * p
     stats = torch.empty((3, n), dtype=torch.float32, device=dev)
     ys = torch.empty((n, hd), dtype=torch.bfloat16, device=dev) if tm else None
@@ -106,15 +111,15 @@ def attention_bwd_launch(lib, tm, ti, to, ops, r, h, hd, p, grid, rs, w, b,
                          dtype=torch.bfloat16 if tm else torch.float32)
         part = torch.empty((h, r * nqt, kk + 1), dtype=torch.float32,
                            device=dev)
-        dw = torch.empty((h, kk), dtype=torch.float32, device=dev)
+        dw = torch.empty((*lead, h, kk), dtype=torch.float32, device=dev)
         if pb is not None:
-            db = torch.empty((h,), dtype=torch.float32, device=dev)
+            db = torch.empty((*lead, h), dtype=torch.float32, device=dev)
     qcols = DQ_CHUNKS if tm and (hd // 64) % DQ_CHUNKS == 0 else 1
     build.check(lib.rb_attention_bwd(
         tm, ti, to, *[x for op in ops for x in op], r, h, hd, p, grid, rs,
         qcols, pw, kk, pb, scale, stats.data_ptr(), build.ptr(ys),
-        build.ptr(dy), build.ptr(part), build.ptr(dw), build.ptr(db), stream),
-        "K7 attention backward")
+        build.ptr(dy), build.ptr(part), build.ptr(dw), build.ptr(db),
+        r // nf if nf else 0, stream), "K7 attention backward")
     return dw, db
 
 
@@ -124,7 +129,10 @@ def _launch(q, k, v, w, b, g, scale, mmd):
         raise ValueError(f"g {tuple(g.shape)} does not match q "
                          f"{tuple(q.shape)}")
     r, h, p, hd = q.shape
-    kk = check_heads(q, w)
+    nf = folds(w, 2)
+    kk = check_heads(q, w[0] if nf else w)
+    if nf and r % nf:
+        raise ValueError(f"{r} regions do not split into {nf} folds")
     dev = q.device
     if k.dtype != q.dtype or v.dtype != q.dtype or g.dtype != q.dtype:
         raise TypeError(f"q, k, v, g must share one dtype, got {q.dtype} "
@@ -139,7 +147,7 @@ def _launch(q, k, v, w, b, g, scale, mmd):
     code = build.dtype_code(q.dtype)
     dw, db = attention_bwd_launch(
         build.load("region_layer_bwd"), build.dtype_code(mmd), code, code, ops,
-        r, h, hd, p, 0, 0, w, b, kk, scale, dev, build.stream_of(q))
+        r, h, hd, p, 0, 0, w, b, kk, scale, dev, build.stream_of(q), nf)
     region_attention_bwd.launches += 1
     return (*outs, dw, db)
 
@@ -147,9 +155,13 @@ def _launch(q, k, v, w, b, g, scale, mmd):
 def region_attention_bwd(q, k, v, w, b, g, scale: float,
                          mm_dtype=torch.bfloat16):
     """(dq, dk, dv, dw, db) of `region_attention_fused`: the kernels for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors; each fold's own dw, db
+    with folded taps."""
     if q.device.type == "cpu":
-        return region_attention_bwd_plain(q, k, v, w, b, g, scale, mm_dtype)
+        return fold_plain(region_attention_bwd_plain, folds(w, 2),
+                          (q, k, v, w, b, g, scale, mm_dtype),
+                          (ROWS,) * 3 + (WEIGHT,) * 2 + (ROWS, None, None),
+                          (ROWS,) * 3 + (WEIGHT,) * 2)
     if q.device.type != "cuda":
         raise ValueError(f"region_attention_bwd: no kernel for {q.device}")
     return _launch(q, k, v, w, b, g, scale, mm_dtype)

@@ -30,6 +30,14 @@ the kernels on an H100 and what the design does about it.
 backward K2; on a CPU tensor both directions run the plain versions.  The
 gradients of wq and bq are those of the pre-scaled tensors the caller
 passed; autograd carries them through the caller's scaling.
+
+Folds (`folds.py`): under `torch.func.vmap` the weights arrive stacked on a
+leading fold axis (ln_s (K, C), wq (K, H, C, hd), ...) and x, mask with
+each fold's bags in turn along the batch axis.  K1 and K2 then run once for
+all K folds: each of their launches takes the rows a fold (B * G * G), and
+K2 sums each fold's weight gradients over that fold's rows alone (its
+split-K partials, column sums and LayerNorm partials never straddle two
+folds), in the same fixed order as one fold's, into (K, ...) gradients.
 """
 from __future__ import annotations
 
@@ -38,6 +46,8 @@ import torch
 from ..regions import region_partition, region_reverse
 from . import build, layout
 from .common import LN_EPS, ln_bwd_plain, ln_mask_plain, ln_stats, mm_round
+from .folds import (ROWS, WEIGHT, FoldFunction, fold_plain, folds,
+                    vmap_rule)
 from .region_attn import HEAD_DIM, attention_core_plain, check_heads
 from .region_attn_bwd import attention_bwd_core_plain, attention_bwd_launch
 from .region_block import block_core_plain, qkv_args, qkv_weights
@@ -125,43 +135,64 @@ def _params(ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp):
                 bv=bv, pw=pw, pb=pb, wp=wp, bp=bp)
 
 
+# the fold forms (folds.py) of the Function's inputs, and of K2's
+_LAYER_KINDS = (ROWS, ROWS) + (WEIGHT,) * 12 + (None,) * 4
+_BWD_KINDS = _LAYER_KINDS[:14] + (ROWS,) + (None,) * 4
+_BWD_OUT = (ROWS,) + (WEIGHT,) * 12
+
+
+def _fs(t, nf: int) -> int:
+    """The fold stride of a stacked weight (0 without folds)."""
+    return t.stride(0) if nf else 0
+
+
+def _fold0(t, nf: int):
+    """Fold 0's weight (its layout is every fold's), or t itself."""
+    return t[0] if nf and t is not None else t
+
+
 def _recompute(lib, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, gs,
-               rs, mmd, s):
+               rs, mmd, s, nf: int = 0):
     """K1's first two steps: z = round(mask * LN(x)), the qkv matrix y and
-    the head outputs o, all in the mm dtype and token order."""
+    the head outputs o, all in the mm dtype and token order; with nf folds
+    each fold's rows read its own weights."""
     b, n, c = x.shape
-    h, _, hd = wq.shape
-    kk = check_heads(wq, pw, HEAD_DIM)
+    h, _, hd = wq.shape[-3:]
+    kk = check_heads(wq, _fold0(pw, nf), HEAD_DIM)
     ts, tm = build.dtype_code(x.dtype), build.dtype_code(mmd)
     m, nq, hh = b * n, 3 * h * hd, h * hd
+    rows_f, regions = (m // nf if nf else 0), b * (gs // rs) ** 2
     z = torch.empty((m, c), dtype=mmd, device=x.device)
     build.check(lib.rl_ln_mask(ts, tm, x.data_ptr(), mask.data_ptr(),
                                build.f32_param(ln_s, "ln_s"),
                                build.f32_param(ln_b, "ln_b"), z.data_ptr(), m,
-                               c, LN_EPS, s), "K1 layernorm")
-    wptr, wdesc, bptr = qkv_args(wq, wk, wv, bq, bk, bv)
+                               c, LN_EPS, rows_f, s), "K1 layernorm")
+    wptr, wdesc, bptr = qkv_args(*(_fold0(t, nf)
+                                   for t in (wq, wk, wv, bq, bk, bv)))
     y = torch.empty((m, nq), dtype=mmd, device=x.device)
     build.check(lib.rl_gemm(tm, build.dtype_code(wq.dtype), tm, tm,
                             z.data_ptr(), 1, c, 0, *wptr, hh, *wdesc,
                             y.data_ptr(), nq, m, nq, c, *bptr, None, None, 0,
-                            s), "K1 qkv")
+                            rows_f, _fs(wq, nf), _fs(bq, nf), s), "K1 qkv")
     o = torch.empty((m, hh), dtype=mmd, device=x.device)
     yp, esz = y.data_ptr(), y.element_size()
     build.check(lib.rl_attention(tm, tm, tm, yp, 0, hd, nq, yp + hh * esz, 0,
                                  hd, nq, yp + 2 * hh * esz, 0, hd, nq,
-                                 o.data_ptr(), 0, hd, hh, b * (gs // rs) ** 2,
+                                 o.data_ptr(), 0, hd, hh, regions,
                                  h, hd, rs * rs, gs, rs, 1.0,
                                  build.f32_param(pw, "pe_weight") if kk
                                  else None, kk,
                                  build.f32_param(pb, "pe_bias") if kk
-                                 else None, s), "K1 attention")
+                                 else None, regions // nf if nf else 0, s),
+                "K1 attention")
     return z, y, o
 
 
 def _launch(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
             g, rs, add_residual, mmd):
     b, n, c = x.shape
-    h, _, hd = wq.shape
+    h, _, hd = wq.shape[-3:]
+    nf = folds(ln_s, 1)
     check_grid(x, mask, g, rs)
     build.require_cuda({"x": x, "mask": mask},
                        _params(ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp,
@@ -171,14 +202,16 @@ def _launch(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
     ts, tm = build.dtype_code(x.dtype), build.dtype_code(mmd)
     m, hh = b * n, h * hd
     _, _, o = _recompute(lib, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw,
-                         pb, g, rs, mmd, s)
+                         pb, g, rs, mmd, s, nf)
     out = torch.empty_like(x)
     build.check(lib.rl_gemm(tm, build.dtype_code(wp.dtype), tm, ts,
                             o.data_ptr(), 1, hh, 0, wp.data_ptr(), None, None,
-                            c, *layout.proj_rows(wp), out.data_ptr(), c, m, c,
-                            hh, build.f32_param(bp, "bp"), None, None,
+                            c, *layout.proj_rows(_fold0(wp, nf)),
+                            out.data_ptr(), c, m, c, hh,
+                            build.f32_param(bp, "bp"), None, None,
                             mask.data_ptr(),
-                            x.data_ptr() if add_residual else None, c, s),
+                            x.data_ptr() if add_residual else None, c,
+                            m // nf if nf else 0, _fs(wp, nf), _fs(bp, nf), s),
                 "K1 projection")
     region_layer_fused.launches += 1
     return out
@@ -210,13 +243,17 @@ def token_split(m: int, tiles: int, sms: int = SMS) -> int:
 
 
 def _gemm(lib, tm, a, lda, b, ldb, out, ldc, m, n, k, *, at=False, bt=False,
-          s=None):
+          s=None, nf=0):
     """out = round(A) round(B) (A^T with at, B^T with bt); with at the token
     axis k is split into partials that are summed in order into `out`.
     bf16 products run on the tensor cores and read A and B as they are
-    (bf16), f32 products on the SIMT product."""
+    (bf16), f32 products on the SIMT product.  With nf folds: at, out (nf,
+    m, n) holds each fold's own sum over its k / nf token rows; bt, the m
+    rows fall into nf folds, each times its B (b (nf, n, k) contiguous)."""
+    f = max(nf, 1)
+    b_fs = b.stride(0) if nf and bt else 0
     if tm == 1:
-        _gemm_tc(lib, a, lda, b, ldb, out, ldc, m, n, k, at, s)
+        _gemm_tc(lib, a, lda, b, ldb, out, ldc, m, n, k, at, s, f, b_fs)
         return
     a32 = int(a.dtype == torch.float32)
     b32 = int(b.dtype == torch.float32)
@@ -225,21 +262,23 @@ def _gemm(lib, tm, a, lda, b, ldb, out, ldc, m, n, k, *, at=False, bt=False,
         kchunk = -(-k // 8) * 8
         build.check(lib.rb_gemm(tm, a32, b32, o32, 0, int(bt), a.data_ptr(),
                                 lda, b.data_ptr(), ldb, out.data_ptr(), ldc,
-                                m, n, k, kchunk, 0, s), "K2 product")
+                                m, n, k, kchunk, 0, f, b_fs, s), "K2 product")
         return
-    kchunk = _split(k, -(-m // 128) * -(-n // 128))
-    parts = -(-k // kchunk)
-    part = torch.empty((parts, m, n), dtype=torch.float32, device=a.device)
+    kchunk = _split(k // f, -(-m // 128) * -(-n // 128))
+    parts = -(-(k // f) // kchunk)
+    part = torch.empty((f * parts, m, n), dtype=torch.float32,
+                       device=a.device)
     build.check(lib.rb_gemm(tm, a32, b32, 1, 1, int(bt), a.data_ptr(), lda,
                             b.data_ptr(), ldb, part.data_ptr(), n, m, n, k,
-                            kchunk, m * n, s), "K2 weight product")
+                            kchunk, m * n, f, 0, s), "K2 weight product")
     build.check(lib.rb_reduce(part.data_ptr(), parts, m * n, out.data_ptr(),
-                              s), "K2 reduce")
+                              f, s), "K2 reduce")
 
 
-def _gemm_tc(lib, a, lda, b, ldb, out, ldc, m, n, k, at, s):
+def _gemm_tc(lib, a, lda, b, ldb, out, ldc, m, n, k, at, s, f=1, b_fs=0):
     """The bf16 product on the warpgroup tensor cores: A^T B (at: A (k, m),
-    B (k, n), split along the token axis k) or A B^T (A (m, k), B (n, k))."""
+    B (k, n), split along the token axis k) or A B^T (A (m, k), B (n, k));
+    f folds as `_gemm`'s."""
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError(f"the tensor-core product reads bfloat16 operands, "
                         f"not {a.dtype} and {b.dtype}")
@@ -247,20 +286,21 @@ def _gemm_tc(lib, a, lda, b, ldb, out, ldc, m, n, k, at, s):
     if not at:
         build.check(lib.rb_gemm_tc(0, o32, a.data_ptr(), lda, b.data_ptr(),
                                    ldb, out.data_ptr(), ldc, m, n, k,
-                                   -(-k // TC_STEP) * TC_STEP, 0, s),
+                                   -(-k // TC_STEP) * TC_STEP, 0, f, b_fs, s),
                     "K2 product")
         return
-    kchunk = token_split(k, -(-m // TC_TILE) * -(-n // TC_TILE))
-    parts = -(-k // kchunk)
-    part = out if parts == 1 else torch.empty((parts, m, n),
+    kchunk = token_split(k // f, -(-m // TC_TILE) * -(-n // TC_TILE))
+    parts = -(-(k // f) // kchunk)
+    part = out if parts == 1 else torch.empty((f * parts, m, n),
                                               dtype=torch.float32,
                                               device=a.device)
     build.check(lib.rb_gemm_tc(1, 1, a.data_ptr(), lda, b.data_ptr(), ldb,
                                part.data_ptr(), n if parts > 1 else ldc, m,
-                               n, k, kchunk, m * n, s), "K2 weight product")
+                               n, k, kchunk, m * n, f, 0, s),
+                "K2 weight product")
     if parts > 1:
         build.check(lib.rb_reduce(part.data_ptr(), parts, m * n,
-                                  out.data_ptr(), s), "K2 reduce")
+                                  out.data_ptr(), f, s), "K2 reduce")
 
 
 def k2_product_plain(a, b, at: bool, out_dtype=torch.float32,
@@ -304,24 +344,29 @@ def _cols(t, ld, col, hd):
     return (t.data_ptr() + col * t.element_size(), 0, hd, ld)
 
 
-def _colsum(lib, tm, a, m, n, mask, rounded, s):
+def _colsum(lib, tm, a, m, n, mask, rounded, s, nf=0):
     """sum over rows of a * mask (float32), and round(a * mask) into
-    `rounded` when given."""
-    parts = -(-m // COLSUM_ROWS)
-    part = torch.empty((parts, n), dtype=torch.float32, device=a.device)
+    `rounded` when given; with nf folds each fold's own sum, (nf, n)."""
+    f = max(nf, 1)
+    parts = -(-(m // f) // COLSUM_ROWS)
+    part = torch.empty((f * parts, n), dtype=torch.float32, device=a.device)
     build.check(lib.rb_colsum(build.dtype_code(a.dtype), tm, a.data_ptr(), n,
                               m, n, build.ptr(mask), build.ptr(rounded), n,
-                              COLSUM_ROWS, part.data_ptr(), s), "K2 colsum")
-    out = torch.empty((n,), dtype=torch.float32, device=a.device)
-    build.check(lib.rb_reduce(part.data_ptr(), parts, n, out.data_ptr(), s),
-                "K2 reduce")
+                              COLSUM_ROWS, part.data_ptr(), m // f, s),
+                "K2 colsum")
+    out = torch.empty((f, n) if nf else (n,), dtype=torch.float32,
+                      device=a.device)
+    build.check(lib.rb_reduce(part.data_ptr(), parts, n, out.data_ptr(), f,
+                              s), "K2 reduce")
     return out
 
 
 def _launch_bwd(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
                 g, gs, rs, add_residual, mmd):
     b, n, c = x.shape
-    h, _, hd = wq.shape
+    h, _, hd = wq.shape[-3:]
+    nf = folds(ln_s, 1)
+    lead = (nf,) if nf else ()
     check_grid(x, mask, gs, rs)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} does not match x")
@@ -334,20 +379,20 @@ def _launch_bwd(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
     s = build.stream_of(x)
     tm = build.dtype_code(mmd)
     m, nq, hh = b * n, 3 * h * hd, h * hd
-    kk = check_heads(wq, pw, HEAD_DIM)
+    kk = check_heads(wq, _fold0(pw, nf), HEAD_DIM)
     f32 = dict(dtype=torch.float32, device=x.device)
     z, y, o = _recompute(rl, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw,
-                         pb, gs, rs, mmd, s)
+                         pb, gs, rs, mmd, s, nf)
     wqkv, _ = qkv_weights(wq, wk, wv, bq, bk, bv, mmd)
     # gm = round(g * mask), dbp = sum g * mask
     gmm = torch.empty((m, c), dtype=mmd, device=x.device)
-    dbp = _colsum(rb, tm, g, m, c, mask, gmm, s)
+    dbp = _colsum(rb, tm, g, m, c, mask, gmm, s, nf)
     # dWp = o^T gm, d(o) = round(gm Wp^T)
-    dwp = torch.empty((hh, c), **f32)
-    _gemm(rb, tm, o, hh, gmm, c, dwp, c, hh, c, m, at=True, s=s)
-    wp2 = wp.reshape(hh, c).to(mmd).contiguous()
+    dwp = torch.empty((*lead, hh, c), **f32)
+    _gemm(rb, tm, o, hh, gmm, c, dwp, c, hh, c, m, at=True, s=s, nf=nf)
+    wp2 = wp.reshape(*lead, hh, c).to(mmd).contiguous()
     go = torch.empty((m, hh), dtype=mmd, device=x.device)
-    _gemm(rb, tm, gmm, c, wp2, c, go, hh, m, hh, c, bt=True, s=s)
+    _gemm(rb, tm, gmm, c, wp2, c, go, hh, m, hh, c, bt=True, s=s, nf=nf)
     # the attention core's backward, on the token map: q, k, v are the
     # column blocks (0, hh, 2 hh) of the recomputed qkv y (row stride nq),
     # and dq, dk, dv go to the same columns of dqkv
@@ -355,78 +400,93 @@ def _launch_bwd(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
     ops = [_cols(y, nq, col, hd) for col in (0, hh, 2 * hh)] \
         + [_cols(go, hh, 0, hd)] \
         + [_cols(dqkv, nq, col, hd) for col in (0, hh, 2 * hh)]
-    dpw, dpb = attention_bwd_launch(rb, tm, tm, 0, ops, b * (gs // rs) ** 2,
-                                    h, hd, rs * rs, gs, rs, pw, pb, kk, 1.0,
-                                    x.device, s)
+    regions = b * (gs // rs) ** 2
+    dpw, dpb = attention_bwd_launch(rb, tm, tm, 0, ops, regions, h, hd,
+                                    rs * rs, gs, rs, pw, pb, kk, 1.0,
+                                    x.device, s, nf)
     # dbqkv = the sum of dqkv; with bf16 products round(dqkv) into a bf16
     # copy, which both products read (the tensor cores read bf16 as it lies)
     dqm = torch.empty((m, nq), dtype=mmd, device=x.device) \
         if mmd != torch.float32 else None
-    dbqkv = _colsum(rb, tm, dqkv, m, nq, None, dqm, s)
+    dbqkv = _colsum(rb, tm, dqkv, m, nq, None, dqm, s, nf)
     dqm = dqkv if dqm is None else dqm
     # dWqkv = z^T round(dqkv), dz = round(dqkv) Wqkv^T
-    dwqkv = torch.empty((c, nq), **f32)
-    _gemm(rb, tm, z, c, dqm, nq, dwqkv, nq, c, nq, m, at=True, s=s)
+    dwqkv = torch.empty((*lead, c, nq), **f32)
+    _gemm(rb, tm, z, c, dqm, nq, dwqkv, nq, c, nq, m, at=True, s=s, nf=nf)
     dz = torch.empty((m, c), **f32)
-    _gemm(rb, tm, dqm, nq, wqkv, nq, dz, c, m, c, nq, bt=True, s=s)
-    # the LayerNorm backward (+ g through the residual)
-    parts = -(-m // LN_ROWS_PER_WARP)
-    part = torch.empty((2, parts, c), **f32)
+    _gemm(rb, tm, dqm, nq, wqkv, nq, dz, c, m, c, nq, bt=True, s=s, nf=nf)
+    # the LayerNorm backward (+ g through the residual); each fold's warps
+    # own its rows alone, so a fold's dls / dlb partials are its own
+    f = max(nf, 1)
+    parts = -(-(m // f) // LN_ROWS_PER_WARP)
+    part = torch.empty((2, f * parts, c), **f32)
     dx = torch.empty_like(x)
     build.check(rb.rb_ln_bwd(build.dtype_code(x.dtype), x.data_ptr(),
                              mask.data_ptr(), build.f32_param(ln_s, "ln_s"),
                              dz.data_ptr(),
                              g.data_ptr() if add_residual else None,
                              dx.data_ptr(), part.data_ptr(), m, c, LN_EPS,
-                             LN_ROWS_PER_WARP, s), "K2 layernorm backward")
-    dln = torch.empty((2, c), **f32)
+                             LN_ROWS_PER_WARP, m // f, s),
+                "K2 layernorm backward")
+    dln = torch.empty((2, *lead, c), **f32)
     for i in range(2):
         build.check(rb.rb_reduce(part[i].data_ptr(), parts, c,
-                                 dln[i].data_ptr(), s), "K2 reduce")
+                                 dln[i].data_ptr(), f, s), "K2 reduce")
     region_layer_bwd.launches += 1
-    w3 = dwqkv.reshape(c, 3, h, hd).permute(1, 2, 0, 3)
-    b3 = dbqkv.reshape(3, h, hd)
+    w3 = dwqkv.reshape(*lead, c, 3, h, hd).movedim(-3, 0).transpose(-3, -2)
+    b3 = dbqkv.reshape(*lead, 3, h, hd).movedim(-3, 0)
     return (dx, dln[0], dln[1], w3[0].contiguous(), w3[1].contiguous(),
             w3[2].contiguous(), b3[0], b3[1], b3[2],
             dpw if pw is not None else None,
             dpb if (pw is not None and pb is not None) else None,
-            dwp.reshape(h, hd, c), dbp)
+            dwp.reshape(*lead, h, hd, c), dbp)
 
 
 def region_layer_bwd(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp,
                      bp, g, grid_side: int, region_size: int,
                      add_residual: bool, mm_dtype=torch.bfloat16):
     """K2 for CUDA tensors, its plain version for CPU tensors: the
-    gradients of (x, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp)."""
+    gradients of (x, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp),
+    each fold's own with folded weights."""
     args = (x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp, g,
             grid_side, region_size, add_residual, mm_dtype)
     if x.device.type == "cpu":
-        return region_layer_bwd_plain(*args)
+        return fold_plain(region_layer_bwd_plain, folds(ln_s, 1), args,
+                          _BWD_KINDS, _BWD_OUT)
     if x.device.type != "cuda":
         raise ValueError(f"region_layer_bwd: no kernel for {x.device}")
     return _launch_bwd(*args)
 
 
-class _RegionLayer(torch.autograd.Function):
-    """K1 forward, K2 backward (plain versions on the CPU)."""
+class _RegionLayer(FoldFunction):
+    """K1 forward, K2 backward (plain versions on the CPU); under vmap,
+    one call for every fold."""
 
     @staticmethod
-    def forward(ctx, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp,
-                bp, grid_side, region_size, add_residual, mm_dtype):
-        ctx.save_for_backward(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw,
-                              pb, wp, bp)
-        ctx.geom = (grid_side, region_size, add_residual, mm_dtype)
+    def forward(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
+                grid_side, region_size, add_residual, mm_dtype):
         args = (x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
                 grid_side, region_size, add_residual, mm_dtype)
         if x.device.type == "cpu":
-            return region_layer_plain(*args)
+            return fold_plain(region_layer_plain, folds(ln_s, 1), args,
+                              _LAYER_KINDS, (ROWS,))
         return _launch(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:14])
+        ctx.geom = inputs[14:]
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
         grads = region_layer_bwd(*saved, g, *ctx.geom)
         return (grads[0], None, *grads[1:], None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return vmap_rule(_RegionLayer.apply, info, in_dims, args,
+                         _LAYER_KINDS)
 
 
 def region_layer_fused(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb,
@@ -436,7 +496,8 @@ def region_layer_fused(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb,
     """x: (B, G*G, C) float32 or bfloat16; mask (B, G*G) bool; wq/wk/wv
     (H, C, hd) with wq/bq pre-scaled; bq/bk/bv (H, hd); pw (H, k) or None;
     pb (H,) or None; wp (H, hd, C); bp (C,).  Returns the post-layer stream
-    (add_residual) or the masked attention branch, in x's dtype."""
+    (add_residual) or the masked attention branch, in x's dtype.  Under
+    `torch.func.vmap` over folds every argument may carry the fold axis."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"region_layer_fused: no kernel for {x.device}")
     return _RegionLayer.apply(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw,

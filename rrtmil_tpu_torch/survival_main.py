@@ -7,9 +7,10 @@ Survival/main.py + Survival/utils/options.py), defaults included, plus
 `--device` (default 'cuda'; 'cpu' runs the kernels' plain versions).  A
 5-fold CV (`harness/survival.run_survival_cv`) for RRTMIL, MeanMIL,
 MaxMIL, AttMIL, CLAM_SB, CLAM_MB, DSMIL, TransMIL, IBMIL, DTFD and
-MHIM-MIL (the last two through engines of their own); `--fold_parallel`
-and `--sp_shards > 1` raise, naming the model that asked (ROADMAP.md
-queue 1 item 9).
+MHIM-MIL (the last two through engines of their own).  `--fold_parallel`
+trains the 5 folds at once (`harness/survival.run_survival_fold_parallel`:
+RRTMIL, MeanMIL, MaxMIL, AttMIL; the others raise, naming the model and
+ROADMAP.md queue 1 item 9); `--sp_shards > 1` raises (item 9(b)).
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import argparse
 import os
 import time
 
-from .harness.survival import PARALLEL_ITEM, model_key, run_survival_cv
+from .harness.survival import (PARALLEL_ITEM, run_survival_cv,
+                               run_survival_fold_parallel)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,8 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["auto", "on", "off"])
     parser.add_argument("--device_cache_gb", default=6.0, type=float)
     parser.add_argument("--fold_parallel", action="store_true",
-                        help="train all 5 folds simultaneously: not ported "
-                             f"yet ({PARALLEL_ITEM})")
+                        help="train all 5 folds at once, each kernel "
+                             "launched once a step for every fold (RRTMIL, "
+                             "MeanMIL, MaxMIL, AttMIL)")
     parser.add_argument("--results_dir", type=str, default=None)
     parser.add_argument("--sp_shards", type=int, default=1,
                         help="sequence-parallel shards for long bags: only 1 "
@@ -88,14 +91,8 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     print(args)
-    if args.fold_parallel:
-        own = model_key(args.model) in ("dtfd", "mhim")
-        raise ValueError(
-            f"--fold_parallel (--model {args.model}) is not ported yet: see "
-            f"{PARALLEL_ITEM}" + ("; it trains the SurvivalEngine zoo alone, "
-                                  "not DTFD's or MHIM-MIL's engines, as in "
-                                  "the JAX package" if own else ""))
-    meter = run_survival_cv(args)
+    meter = (run_survival_fold_parallel(args) if args.fold_parallel
+             else run_survival_cv(args))
     print("finished!")
     return meter
 

@@ -33,8 +33,15 @@ from ..convert import flax_to_torch
 from . import flax_msgpack
 
 
+def _own(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each tensor in storage of its own on the CPU: torch.save writes a
+    view's whole storage, and a fold-parallel model's parameters are views
+    of every fold's stacked tensors."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in state_dict.items()}
+
+
 def save_params(path: str, state_dict: Dict[str, torch.Tensor]) -> None:
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+    torch.save(_own(state_dict), path)
 
 
 def load_params(path: str) -> Dict[str, torch.Tensor]:
@@ -93,7 +100,7 @@ class FoldCheckpointer:
         return self._path(f"fold_{fold}_model_best_auc.pt")
 
     def save_best(self, fold: int, model: torch.nn.Module) -> None:
-        torch.save(model.state_dict(), self.best_path(fold))
+        torch.save(_own(model.state_dict()), self.best_path(fold))
 
     def load_best(self, fold: int, model: torch.nn.Module) -> None:
         dev = next(model.parameters()).device

@@ -1408,3 +1408,154 @@ def test_jax_weights_on_card():
                                        rtol=0, atol=1e-4)
             np.testing.assert_allclose(hazards.cpu().numpy(),
                                        f[f"hazards_{i}"], rtol=0, atol=1e-4)
+
+
+# -- fold-parallel cross-validation (the fold axis in the kernels) -----------
+
+FOLD_FNS = (rl.region_layer_fused, rl.region_layer_bwd,
+            ck.crmsa_compress_grid, ck.crmsa_compress_grid_bwd,
+            rb.region_block_fused, ra.region_attention_fused,
+            rab.region_attention_bwd, ck.crmsa_redistribute_grid_ln,
+            ck.crmsa_redistribute_grid_ln_bwd, ck.crmsa_redistribute_grid,
+            ck.crmsa_redistribute_grid_bwd, ck.crmsa_compress,
+            ck.crmsa_redistribute)
+
+
+def _fold_cases(dev, sdt, mm, nf):
+    """(name, fn, per-fold argument lists) of the eight Functions at the
+    c16_r50-like shape of `_case` (G = 24, P = 144, C = 128, 2 heads of
+    64), each fold with weights of its own."""
+    g, rs = 24, 12
+    per = [_case(dev, sdt, seed=f) for f in range(nf)]
+    gen = torch.Generator().manual_seed(11)
+    r = lambda *s: torch.randn(s, generator=gen).to(dev)
+    nr, p = (g // rs) ** 2, rs * rs
+
+    def wl(f, kk):
+        return list(per[f][3](kk))
+    return [
+        ("K1/K2", lambda *a: rl.region_layer_fused(*a, g, rs, True, mm),
+         [[per[f][0], per[f][1], *per[f][2], *wl(f, 15)]
+          for f in range(nf)]),
+        ("K5", lambda *a: rb.region_block_fused(*a, mm),
+         [[per[f][5], *wl(f, 0)] for f in range(nf)]),
+        ("K6/K7 EPEG", lambda *a: ra.region_attention_fused(*a, 0.125, mm),
+         [[r(4, 2, 64, 64).to(sdt) for _ in range(3)]
+          + wl(f, 15)[6:8] for f in range(nf)]),
+        ("K3/K4", lambda *a: ck.crmsa_compress_grid(*a, g, rs, mm),
+         [[per[f][0], per[f][1], *per[f][2], per[f][4]]
+          for f in range(nf)]),
+        ("K8/K9", lambda x, m, w, reps, ls, lb, sc:
+         ck.crmsa_redistribute_grid_ln(x, m, w, reps, ls, lb, sc, g, rs, mm),
+         [[per[f][0], per[f][1], r(2, nr, 1, p).abs(), r(2, nr, 1, 128),
+           *per[f][2], per[f][0]] for f in range(nf)]),
+        ("K10/K11", lambda x, m, w, reps: ck.crmsa_redistribute_grid(
+            x, m, w, reps, g, rs, True, mm),
+         [[per[f][0], per[f][1], r(2, nr, 1, p).abs(), r(2, nr, 1, 128)]
+          for f in range(nf)]),
+        ("K12", lambda x, phi: ck.crmsa_compress(x, phi, mm),
+         [[per[f][5], per[f][4]] for f in range(nf)]),
+        ("K13", lambda w, reps: ck.crmsa_redistribute(w, reps, mm),
+         [[r(4, 1, 64).abs(), r(4, 1, 128)] for f in range(nf)]),
+    ]
+
+
+def _fold_run(fn, per_fold, cots):
+    """fn under vmap over the stacked folds: (outputs, input gradients)."""
+    stacked = [None if a[0] is None else
+               torch.stack(a).requires_grad_(a[0].is_floating_point())
+               for a in zip(*per_fold)]
+    dims = tuple(None if s is None else 0 for s in stacked)
+    out = torch.func.vmap(fn, in_dims=dims)(*stacked)
+    out = out if isinstance(out, tuple) else (out,)
+    loss = sum((o.float() * c).sum() for o, c in zip(out, cots))
+    live = [s for s in stacked if s is not None and s.requires_grad]
+    return [o.detach() for o in out], torch.autograd.grad(loss, live)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", [(torch.float32, torch.bfloat16),
+                                    (torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+def test_fold_kernels_match_per_fold_launches(sdt, mm):
+    """Each of the eight Functions under vmap over 3 folds of distinct
+    weights on the card: one launch of each kernel for all folds, the
+    outputs and gradients within TOL of each fold's own launches, and the
+    same bits on a second call."""
+    dev, nf = _cuda(), 3
+    for name, fn, per_fold in _fold_cases(dev, sdt, mm, nf):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        probe = fn(*per_fold[0])
+        probe = probe if isinstance(probe, tuple) else (probe,)
+        cots = [torch.randn((nf, *o.shape), generator=gen, device=dev)
+                for o in probe]
+        for f in FOLD_FNS:
+            f.launches = 0
+        out, grads = _fold_run(fn, per_fold, cots)
+        launched = [f.launches for f in FOLD_FNS if f.launches]
+        assert launched and all(n == 1 for n in launched), (name, launched)
+        out2, grads2 = _fold_run(fn, per_fold, cots)
+        for a, b in zip(out + list(grads), out2 + list(grads2)):
+            assert torch.equal(a, b), f"{name}: not the same bits twice"
+        for f in range(nf):
+            leaves = [None if a is None else
+                      a.clone().requires_grad_(a.is_floating_point())
+                      for a in per_fold[f]]
+            want = fn(*leaves)
+            want = want if isinstance(want, tuple) else (want,)
+            loss = sum((o.float() * c[f]).sum() for o, c in zip(want, cots))
+            wgrads = torch.autograd.grad(
+                loss, [a for a in leaves if a is not None and a.requires_grad])
+            for i, (a, b) in enumerate(zip(out, want)):
+                _close(a[f], b.detach(), mm, f"{name} fold {f} output {i}")
+            for i, (a, b) in enumerate(zip(grads, wgrads)):
+                if name == "K1/K2" and i in (7, 10):   # K2_NOISE_GRADS
+                    err = (a[f] - b).abs().max().item()
+                    assert err <= max(NOISE_ABS, TOL[mm]), (name, i, err)
+                    continue
+                _close(a[f], b, mm, f"{name} fold {f} gradient {i}")
+
+
+@pytest.mark.gpu
+def test_fold_parallel_step_on_card_matches_cpu():
+    """One fold-parallel step of c16_r50 (3 folds of distinct weights,
+    dropout off, fp32 products, TF32 off) on the card launches each of K1-K9
+    once, not once a fold; its per-fold losses and gradients match the same
+    step on the CPU."""
+    from rrtmil_tpu_torch.parallel.folds import (make_fold_parallel_step,
+                                                 stack_states)
+    from rrtmil_tpu_torch.train.losses import cross_entropy
+    _cuda()
+    base = c16_r50()
+    cfg = dataclasses.replace(base, dropout=0.0, encoder=dataclasses.replace(
+        base.encoder, dropout=0.0, mm_dtype="float32"))
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((3, 1, 1024, 1024)).astype(
+        np.float32))
+    mask = torch.ones((3, 1, 1024), dtype=torch.bool)
+    mask[1, :, 937:] = False
+    labels = torch.tensor([[0], [1], [1]])
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        models = [build_model(cfg, device=dev, seed=s) for s in range(3)]
+        stacked = stack_states(models)
+        step = make_fold_parallel_step(models, stacked, cross_entropy, 1024)
+        fns = FOLD_FNS[:9]
+        for f in fns:
+            f.launches = 0
+        losses = step(x.to(dev), mask.to(dev), labels.to(dev),
+                      [torch.Generator(device=dev) for _ in range(3)])
+        if dev == "cuda":
+            assert [f.launches for f in fns] == [1] * 9
+        grads[dev] = (losses.cpu(), [[p.grad.detach().cpu()
+                                      for p in m.parameters()]
+                                     for m in models])
+    (lc, gc), (lp, gp) = grads["cuda"], grads["cpu"]
+    np.testing.assert_allclose(lc.numpy(), lp.numpy(), rtol=1e-4, atol=1e-5)
+    names = [n for n, _ in build_model(cfg, device="cpu").named_parameters()]
+    for f in range(3):
+        for name, a, b in zip(names, gc[f], gp[f]):
+            if "pe_bias" in name or "qkv.bias" in name:
+                continue
+            scale = max(1.0, b.abs().max().item())
+            assert (a - b).abs().max().item() <= 1e-3 * scale, (f, name)

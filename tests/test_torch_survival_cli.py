@@ -190,8 +190,9 @@ def test_zoo_backbones_build_and_run_on_the_cpu(name, cls):
 def test_refusals_name_their_roadmap_items(tmp_path):
     """mhim is no zoo name (an unknown model there, as in the JAX
     registry); DTFD and MHIM-MIL get their own engines; --sp_shards > 1
-    and --fold_parallel raise naming the model that asked and item 9, and
-    tell a DTFD or MHIM-MIL user that the JAX package does not run it
+    raises naming the model that asked and item 9; --fold_parallel with a
+    model it does not take (item 9(a)) or with --sp_shards 2 raises, and
+    tells a DTFD or MHIM-MIL user that the JAX package does not run it
     there either."""
     with pytest.raises(ValueError, match="unknown model 'mhim'"):
         zoo.build_model("mhim", device="cpu")
@@ -208,17 +209,44 @@ def test_refusals_name_their_roadmap_items(tmp_path):
                                       SurvivalEngineConfig(), sp_shards=2,
                                       device="cpu")
     with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 9"):
-        cli.main(["--fold_parallel", "--results_dir", str(tmp_path)])
-    with pytest.raises(ValueError, match="--model MHIM-MIL.*item 9.*not "
-                                         "DTFD's or MHIM-MIL's"):
-        cli.main(["--fold_parallel", "--model", "MHIM-MIL",
+        cli.main(["--fold_parallel", "--model", "CLAM_SB", "--results_dir",
+                  str(tmp_path)])
+    with pytest.raises(ValueError, match="incompatible with --sp_shards 2.*"
+                                         "item 9"):
+        cli.main(["--fold_parallel", "--sp_shards", "2", "--model", "RRTMIL",
                   "--results_dir", str(tmp_path)])
+    for name in ("MHIM-MIL", "DTFD"):
+        with pytest.raises(ValueError, match=f"--model {name}.*item 9.*not "
+                                             f"DTFD's or MHIM-MIL's"):
+            cli.main(["--fold_parallel", "--model", name,
+                      "--results_dir", str(tmp_path)])
     with pytest.raises(ValueError, match="unknown model"):
         survival.build_survival_model("nope", D_IN, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["--excel_file", "x.csv", "--results_dir",
                       str(tmp_path)])
+
+
+def test_fold_parallel_cli_runs_an_epoch(tmp_path):
+    """`survival_main --fold_parallel` (the default MeanMIL) trains the five
+    folds at once for one CPU epoch and writes the results CSV."""
+    csv_file = _write_survival_csv(str(tmp_path / "data"))
+    out = str(tmp_path / "out")
+    # one intra-op thread: the fold-parallel CPU path is many small ops,
+    # whose thread pools oversubscribe the cores under parallel workers
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        meter = cli.main(["--fold_parallel", "--excel_file", csv_file,
+                          "--results_dir", out, "--input_dim", str(D_IN),
+                          "--num_epoch", "1", "--no_log", "--device",
+                          "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    assert len(meter.cindex) == 1 + 5 + 2 and meter.epochs == ["epoch"] + \
+        [0] * 5
+    assert os.path.exists(os.path.join(out, "results_MeanMIL.csv"))
 
 
 def test_cv_meter_writes_the_same_bytes(tmp_path):
