@@ -864,11 +864,13 @@ def work_from_args(name, args):
     raise ValueError(f"no work count for {name}")
 
 
-def work_of(name, b, stream_dtype, mm_dtype):
+def work_of(name, b, stream_dtype, mm_dtype, hd=64, kk=15, k=1):
     """(flops, bytes) the function needs at the main-path shape for batch b:
     each input read once, each output written once; the products the
-    algorithm needs (the EPEG pass as its 15 taps)."""
-    G, RS, C, H, HD, KK = 96, 12, 512, 8, 64, 15
+    algorithm needs (the EPEG pass as its kk taps).  The R-MSA layer has
+    512 / hd heads of hd (c16_r50: 8 x 64, k = 15), the CR-MSA kernels k
+    representatives a region (c16_r50: 1)."""
+    G, RS, C, H, HD, KK = 96, 12, 512, 512 // hd, hd, kk
     n, p, nr = G * G, RS * RS, (G // RS) ** 2
     si, mi = torch.tensor([], dtype=stream_dtype).element_size(), \
         torch.tensor([], dtype=mm_dtype).element_size()
@@ -892,21 +894,22 @@ def work_of(name, b, stream_dtype, mm_dtype):
         byts = (3 * b * n * C * si + b * n + 4 * C * hh * mi
                 + 4 * C * hh * 4 + H * KK * 4 * 2 + 8 * C * 4)
     elif name.startswith("K4"):
-        # logits, d(combine), dz (two terms), dphi with k = 1
-        flops = b * nr * 5 * 2 * p * C
-        byts = (2 * b * n * C * si + b * n + b * nr * (C + p) * 4
-                + 3 * 4 * C + 4 * C * 4)
+        # logits, d(combine), dz (two terms), dphi for each of k
+        flops = b * nr * 5 * 2 * p * C * k
+        byts = (2 * b * n * C * si + b * n + k * b * nr * (C + p) * 4
+                + (20 + 8 * k) * C)
     elif name.startswith("K9"):
-        # the stream's w^T reps again, dw, dreps with k = 1
-        flops = b * nr * 6 * p * C
-        byts = (b * n * C * (3 * si + 4) + b * n + 2 * b * nr * (C + p) * 4
-                + 4 * C * 4)
+        # the stream's w^T reps again, dw, dreps for each of k
+        flops = b * nr * 6 * p * C * k
+        byts = (b * n * C * (3 * si + 4) + b * n
+                + 2 * k * b * nr * (C + p) * 4 + 4 * C * 4)
     elif name.startswith("K3"):
-        flops = b * nr * 2 * (2 * p * C)
-        byts = b * n * C * si + b * n + 3 * 4 * C + b * nr * (C + p) * 4
+        flops = b * nr * 2 * (2 * p * C) * k
+        byts = (b * n * C * si + b * n + (2 + k) * 4 * C
+                + k * b * nr * (C + p) * 4)
     elif name.startswith("K8"):
-        flops = b * nr * 2 * p * C
-        byts = (2 * b * n * C * si + b * n + b * nr * (C + p) * 4
+        flops = b * nr * 2 * p * C * k
+        byts = (2 * b * n * C * si + b * n + k * b * nr * (C + p) * 4
                 + b * n * C * 4 + 2 * 4 * C)
     else:
         raise ValueError(f"no work count for {name}")
@@ -5144,16 +5147,25 @@ def _fold_bags(cfg, length, dev, seed, dtype=torch.float32):
     return x.to(dtype).to(dev), mask.to(dev), spec
 
 
-def _fold_engines(cfg, dev, surv=False, lrs=None):
+def _fold_engines(cfg, dev, surv=False, lrs=None, name=None):
     """FOLDS engines of `cfg` (seeds 0 ..), each fold its own weights and
-    optimizer; survival ones with the per-fold lrs `lrs`."""
+    optimizer; survival ones with the per-fold lrs `lrs`; with `name`, the
+    zoo model of that name with cfg's encoder (--only_rrt_enc) and cfg's
+    dropout, its engine reading loss(logits) alone, as a fold step does."""
+    from rrtmil_tpu_torch.models import zoo
     from rrtmil_tpu_torch.models.rrt import build_model
     from rrtmil_tpu_torch.train.engine import Engine, EngineConfig
     from rrtmil_tpu_torch.train.surv_engine import (SurvivalEngine,
                                                     SurvivalEngineConfig)
     engines = []
     for f in range(FOLDS):
-        if surv:
+        if name:
+            eng = Engine(zoo.build_model(name, input_dim=cfg.input_dim,
+                                         dropout=cfg.dropout,
+                                         rrt_cfg=cfg.encoder, device=dev,
+                                         seed=f),
+                         EngineConfig(), cfg.encoder, device=dev)
+        elif surv:
             eng = SurvivalEngine(_surv_model(cfg, dev, seed=f),
                                  SurvivalEngineConfig(), cfg.encoder,
                                  device=dev)
@@ -5222,13 +5234,13 @@ def _fold_inputs(cfg, length, dev, surv, seed):
     return x, mask, y, cens, spec
 
 
-def _fold_steps(cfg, dev, surv, lrs, inputs, kind, expect=None):
+def _fold_steps(cfg, dev, surv, lrs, inputs, kind, expect=None, name=None):
     """FOLD_STEPS steps of fresh engines (seeds 0 ..) on `inputs`: the
     fold-parallel step (`par`, each step required to launch each kernel of
     `expect` once and no other, when given) or the folds' own batch-1 steps
     (`seq`); returns (losses (FOLD_STEPS, FOLDS), the parameters, the
     launches of all the steps)."""
-    engines = _fold_engines(cfg, dev, surv, lrs)
+    engines = _fold_engines(cfg, dev, surv, lrs, name)
     par, seq = _fold_runner(engines, *inputs, surv)
     losses = []
     reset_counters()
@@ -5242,58 +5254,67 @@ def _fold_steps(cfg, dev, surv, lrs, inputs, kind, expect=None):
     return torch.stack(losses), _fold_states(engines), launches_now()
 
 
-def _fold_close(tag, got, want, lr_max, ref):
+def _fold_close(tag, got, want, lr_max, ref, ph="15", name=None):
+    """Per-step losses within 1e-4 and each fold's parameters within Adam's
+    drift bound; a zoo model's (`name`) through _zoo_params_close."""
     (lg, sg), (lw, sw) = got, want
     loss_err = ((lg - lw).abs() / lw.abs().clamp_min(1.0)).max().item()
-    drift = [_adam_params_close(a, b, lr_max, FOLD_STEPS, 1e-3)
-             for a, b in zip(sg, sw)]
+    close = _zoo_params_close if name else _adam_params_close
+    drift = [close(a, b, lr_max, FOLD_STEPS, 1e-3) for a, b in zip(sg, sw)]
     ok = loss_err <= 1e-4 and all(d[0] for d in drift)
     out = {"loss_err": loss_err, "param_err": max(d[1] for d in drift),
            "param_frac": max(d[2] for d in drift)}
-    log(f"[15] {tag}: fold-parallel on the card vs {ref}: losses "
+    log(f"[{ph}] {tag}: fold-parallel on the card vs {ref}: losses "
         f"{loss_err:.2e}, parameters {out['param_err']:.2e} (bound "
         f"{2 * FOLD_STEPS * lr_max * ADAM_STEP:.2e}, frac "
         f"{out['param_frac']:.1e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"[15] {tag} vs {ref}: {out}")
+        raise AssertionError(f"[{ph}] {tag} vs {ref}: {out}")
     return out
 
 
-def _fold_check(tag, dev, cfg, length, cpu_length, surv, expect, lrs=None):
+def _fold_check(tag, dev, cfg, length, cpu_length, surv, expect, lrs=None,
+                name=None, ph="15"):
     """(dropout off, f32 products, TF32 off) FOLD_STEPS fold-parallel steps
     on the card against the folds' own batch-1 steps on the card at
-    `length`, and against the same fold-parallel steps on the CPU at
-    `cpu_length`: per-step losses within 1e-4, parameters within Adam's
-    drift bound; every parallel step on the card launches each kernel of
-    `expect` once, none other."""
+    `length`, and (unless `cpu_length` is None) against the same
+    fold-parallel steps on the CPU at `cpu_length`: per-step losses within
+    1e-4, parameters within Adam's drift bound; every parallel step on the
+    card launches each kernel of `expect` once, none other.  `name`: the
+    zoo model (_fold_engines)."""
     cfg = dataclasses.replace(cfg, dropout=0.0, encoder=dataclasses.replace(
         cfg.encoder, dropout=0.0, mm_dtype="float32"))
     lr_max = max(lrs) if lrs else 2e-4
     out = {}
-    for ref, n in (("sequential", length), ("cpu", cpu_length)):
+    refs = (("sequential", length),) + (
+        (("cpu", cpu_length),) if cpu_length else ())
+    for ref, n in refs:
         inputs = _fold_inputs(cfg, n, "cpu", surv, 900 + n)
         card = tuple(t.to(dev) if torch.is_tensor(t) else t for t in inputs)
-        got = _fold_steps(cfg, dev, surv, lrs, card, "par", expect)
-        want = (_fold_steps(cfg, dev, surv, lrs, card, "seq")
+        got = _fold_steps(cfg, dev, surv, lrs, card, "par", expect, name)
+        want = (_fold_steps(cfg, dev, surv, lrs, card, "seq", name=name)
                 if ref == "sequential"
                 else _fold_steps(cfg, torch.device("cpu"), surv, lrs, inputs,
-                                 "par"))
+                                 "par", name=name))
         out[ref] = _fold_close(f"{tag} L={n}", got[:2], want[:2], lr_max,
-                               ref)
+                               ref, ph, name)
         out[ref]["launches"] = got[2]
         torch.cuda.empty_cache()
     return out
 
 
-def _fold_times(tag, dev, cfg, length, surv, expect, lrs=None):
+def _fold_times(tag, dev, cfg, length, surv, expect, lrs=None, name=None,
+                ph="15"):
     """A fold-parallel step (FOLDS bags, each engine's update) against the
     FOLDS folds' batch-1 steps in the default config (dropout on), host
     clock around synchronised steps, rounds (par, seq, seq, par); the
     parallel step's launches (each kernel of `expect` once) and peak
     memory."""
     inputs = _fold_inputs(cfg, length, dev, surv, 950 + length)
-    par, _ = _fold_runner(_fold_engines(cfg, dev, surv, lrs), *inputs, surv)
-    _, seq = _fold_runner(_fold_engines(cfg, dev, surv, lrs), *inputs, surv)
+    par, _ = _fold_runner(_fold_engines(cfg, dev, surv, lrs, name), *inputs,
+                          surv)
+    _, seq = _fold_runner(_fold_engines(cfg, dev, surv, lrs, name), *inputs,
+                          surv)
 
     def clock(fn):
         torch.cuda.synchronize()
@@ -5316,7 +5337,7 @@ def _fold_times(tag, dev, cfg, length, surv, expect, lrs=None):
     _exactly_once(launches, expect, 1, f"{tag} step")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     pm, sm = float(np.median(times["par"])), float(np.median(times["seq"]))
-    log(f"[15] {tag}: fold-parallel step {pm:.3f} ms ({pm / FOLDS:.3f} ms a "
+    log(f"[{ph}] {tag}: fold-parallel step {pm:.3f} ms ({pm / FOLDS:.3f} ms a "
         f"bag) against {FOLDS} batch-1 steps {sm:.3f} ms ({sm / FOLDS:.3f} ms "
         f"a bag): {sm / pm:.2f}x; peak {peak:.2f} GiB; rounds par "
         f"{[round(t, 3) for t in times['par']]} seq "
@@ -5423,6 +5444,280 @@ def phase_slice15(dev):
     log(f"[15] phase 15: {report['seconds']:.1f} s")
     return report
 
+# ---------------------------------------------------------------------------
+# phase 16: the head widths 32 and 128 and k up to 16 in the kernels, and
+# the rest of the zoo under --fold_parallel
+# ---------------------------------------------------------------------------
+
+# (a) the new geometries at the main path's shape (a 9000-patch bag, G = 96,
+# C = 512, B = 8): R-MSA head widths 32 (--n_heads 16) and 128 (--n_heads 4)
+# with EPEG k = 15 and without it; K5-K7 at --crmsa_heads 16's 32; the CR-MSA
+# kernels at k = 16 (timed) and 12 (checked)
+GEOM_HEADS = ((16, 32), (4, 128))
+GEOM_K = (16, 12)
+# (b) the zoo models --fold_parallel admits, each with --only_rrt_enc
+FOLD_ZOO = ("attmil", "gattmil", "clam_sb", "clam_mb", "dsmil", "transmil",
+            "ibmil", "meanmil", "maxmil")
+# the one of them also checked against its fold-parallel steps on the CPU
+# (at FOLD_CPU_BAG patches a fold, as phase 15's c16_r50)
+FOLD_ZOO_CPU = "clam_mb"
+FOLD_ZOO_CLI = ("clam_mb", "dsmil", "transmil")      # (c) classification
+FOLD_ZOO_SURV_CLI = ("CLAM_SB", "AttMIL")            # (c) survival
+# DSMIL's bag stream reads the encoder's output only through the critical
+# instances' argmax, so a fold step's loss (the bag logits alone) sends no
+# gradient into the encoder: its forward kernels run, no backward
+DSMIL_FOLD = (K[0], K[2], K[4], K[7])
+
+
+def fold_zoo_kernels(name):
+    """The kernels a fold step of zoo model `name` with --only_rrt_enc
+    launches (TransMIL takes no encoder)."""
+    return {"transmil": (), "dsmil": DSMIL_FOLD}.get(name, C16_TRAIN)
+
+
+def geometry_cases(dev, sdt):
+    """{label: (kernel, wrapper, plain version, args, (hd, kk, k))} at the
+    main path's shape, B = 8 (G = 96: a 9000-patch bag)."""
+    from rrtmil_tpu_torch.ops.kernels import crmsa_kernels as ck
+    from rrtmil_tpu_torch.ops.kernels import region_attn as ra
+    from rrtmil_tpu_torch.ops.kernels import region_attn_bwd as rab
+    from rrtmil_tpu_torch.ops.kernels import region_block as rb
+    from rrtmil_tpu_torch.ops.kernels import region_layer as rl
+    from rrtmil_tpu_torch.ops.regions import region_partition
+    b, G, RS, C = 8, 96, 12, 512
+    nr, p = (G // RS) ** 2, RS * RS
+    x, mask, g = stream_inputs(b, G, C, 9000, 1600, dev)
+    x = x.to(sdt)
+    ls, lb = ln_params(C, g, dev)
+    gx = _randn((b, G * G, C), g, 0.1).to(dev).to(sdt)
+    g32 = _randn((b, G * G, C), g, 0.1).to(dev)
+    cases = {}
+    for h, hd in GEOM_HEADS:
+        for kk in (15, 0):
+            w = layer_weights(C, h, hd, kk, g, dev)
+            tag = f"hd={hd}" + (f" k={kk}" if kk else "")
+            cases[f"K1 {tag}"] = ("K1", rl.region_layer_fused,
+                                  rl.region_layer_plain,
+                                  (x, mask, ls, lb, *w, G, RS, True),
+                                  (hd, kk, 0))
+            cases[f"K2 {tag}"] = ("K2", rl.region_layer_bwd,
+                                  rl.region_layer_bwd_plain,
+                                  (x, mask, ls, lb, *w, gx, G, RS, True),
+                                  (hd, kk, 0))
+    h, hd = 16, 32
+    w5 = layer_weights(C, h, hd, 0, g, dev)
+    x5 = _randn((b, nr, C), g).to(dev).to(sdt)
+    q, k_, v, ga = (_randn((b, h, nr, hd), g).to(dev).to(sdt)
+                    for _ in range(4))
+    cases["K5 hd=32"] = ("K5", rb.region_block_fused, rb.region_block_plain,
+                         (x5, *w5), (hd, 0, 0))
+    cases["K6 hd=32"] = ("K6", ra.region_attention_fused,
+                         ra.region_attention_plain,
+                         (q, k_, v, None, None, 1.0), (hd, 0, 0))
+    cases["K7 hd=32"] = ("K7", rab.region_attention_bwd,
+                         rab.region_attention_bwd_plain,
+                         (q, k_, v, None, None, ga, 1.0), (hd, 0, 0))
+    regions = region_partition(x.reshape(b, G, G, C), RS).reshape(
+        b * nr, p, C).contiguous()
+    for k in GEOM_K:
+        phi = (_randn((C, k), g, 0.05)).to(dev)
+        reps = _randn((b, nr, k, C), g).to(dev)
+        wgt = torch.rand((b, nr, k, p), generator=g).to(dev)
+        dreps = _randn((b, nr, k, C), g, 0.1).to(dev)
+        dwg = _randn((b, nr, k, p), g, 0.1).to(dev)
+        sc = (_randn((b, G * G, C), g) * mask.cpu()[..., None]).to(dev) \
+            .to(sdt)
+        dims = (0, 0, k)
+        for name, fn, plain, args in (
+                ("K3", ck.crmsa_compress_grid, ck.compress_grid_plain,
+                 (x, mask, ls, lb, phi, G, RS)),
+                ("K4", ck.crmsa_compress_grid_bwd, ck.compress_grid_bwd_plain,
+                 (x, mask, ls, lb, phi, dreps, dwg, G, RS)),
+                ("K8", ck.crmsa_redistribute_grid_ln,
+                 ck.redistribute_grid_ln_plain,
+                 (x, mask, wgt, reps, ls, lb, sc, G, RS)),
+                ("K9", ck.crmsa_redistribute_grid_ln_bwd,
+                 ck.redistribute_grid_ln_bwd_plain,
+                 (x, mask, wgt, reps, ls, lb, sc, g32, G, RS)),
+                ("K10", ck.crmsa_redistribute_grid,
+                 ck.redistribute_grid_plain,
+                 (x, mask, wgt, reps, G, RS, True)),
+                ("K11", ck.crmsa_redistribute_grid_bwd,
+                 ck.redistribute_grid_bwd_plain,
+                 (mask, wgt, reps, gx, G, RS)),
+                ("K12", ck.crmsa_compress, ck.compress_plain,
+                 (regions, phi)),
+                ("K13", ck.crmsa_redistribute, ck.redistribute_plain,
+                 (wgt.reshape(b * nr, k, p), reps.reshape(b * nr, k, C)))):
+            cases[f"{name} k={k}"] = (name, fn, plain, args, dims)
+    return cases
+
+
+def phase_geometry_kernels(dev):
+    """(a) Each kernel at the geometries this slice opened, against its
+    plain version in two dtype pairs (f32 stream with bf16 and with f32
+    products): TOL of max(1, max|plain|), the same bits on a second call,
+    its counter up by one a call; in the main path's pair (f32 / bf16) the
+    kernel's ms (CUDA events), its plain version's and the bound."""
+    fns = all_counters()
+    report = {}
+    for mdt in (torch.bfloat16, torch.float32):
+        cases = geometry_cases(dev, torch.float32)
+        for label, (name, fn, plain, args, (hd, kk, k)) in cases.items():
+            key = next(n for n in fns if n.startswith(name + " "))
+            reset_counters()
+            got = _as_tuple(fn(*args, mm_dtype=mdt))
+            again = _as_tuple(fn(*args, mm_dtype=mdt))
+            torch.cuda.synchronize()
+            if fns[key].launches != 2:
+                raise AssertionError(f"[16] {label}: {fns[key].launches} "
+                                     f"launches for two calls")
+            want = _as_tuple(plain(*args, mm_dtype=mdt))
+            err = 0.0
+            for i, (a, a2, w) in enumerate(zip(got, again, want)):
+                if (a is None) != (w is None):
+                    raise AssertionError(f"[16] {label} output {i}: None on "
+                                         f"one side")
+                if a is None:
+                    continue
+                if not torch.equal(a, a2):
+                    raise AssertionError(f"[16] {label} output {i}: two "
+                                         f"calls differ")
+                if name == "K2" and i in (7, 10):   # zero in exact arithmetic
+                    e = (a.float() - w.float()).abs().max().item()
+                    if e > max(NOISE_ABS, TOL[mdt]):
+                        raise AssertionError(f"[16] {label} noise gradient "
+                                             f"{i}: {e:.3e}")
+                    continue
+                e = (a.float() - w.float()).abs().max().item() / max(
+                    1.0, w.float().abs().max().item())
+                err = max(err, e)
+            ok = err <= TOL[mdt]
+            rec = report.setdefault(label, {"kernel": key})
+            rec[f"max_err_{dname(mdt)}"] = err
+            line = (f"[16] (a) {label:14s} f32/{dname(mdt):9s} vs plain "
+                    f"{err:.3e} (tol {TOL[mdt]:.0e}) "
+                    f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                log(line)
+                raise AssertionError(f"[16] {label} {dname(mdt)}: {err:.3e}")
+            if mdt == torch.bfloat16 and not (k and k != GEOM_K[0]):
+                ms = time_ms(lambda: fn(*args, mm_dtype=mdt), iters=10)
+                plain_ms = time_ms(lambda: plain(*args, mm_dtype=mdt),
+                                   iters=2, warmup=1)
+                work = (work_of(name, 8, torch.float32, mdt, hd or 64, kk,
+                                max(k, 1))
+                        if name in ("K1", "K2", "K3", "K4", "K8", "K9")
+                        else work_from_args(name, args))
+                bms, by = bound_ms(*work, mdt)
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by)
+                line += (f"; {ms:.3f} ms, plain {plain_ms:.3f}, bound "
+                         f"{bms:.4f} ({by})")
+            log(line)
+            del got, again, want
+        del cases
+        torch.cuda.empty_cache()
+    for f in fns.values():
+        f.launches = 0
+    return report
+
+
+def _zoo_cli(module, argv, what, need, allowed):
+    """`module`'s main(argv) in this process (the kernels already built):
+    its result and seconds; every kernel of `need` launched, none past
+    `allowed`."""
+    import importlib
+    reset_counters()
+    t0 = time.perf_counter()
+    out = importlib.import_module(module).main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = {n: v for n, v in launches_now().items() if v}
+    if not set(need) <= set(launched) <= set(allowed):
+        raise AssertionError(f"[16] {what}: launched {launched}, expected "
+                             f"{list(need)} and at most {list(allowed)}")
+    return out, secs, launched
+
+
+def phase_fold_zoo_cli(dev):
+    """(c) python -m rrtmil_tpu_torch.main --fold_parallel for clam_mb and
+    dsmil with --only_rrt_enc (K1-K9; DSMIL's fold steps its forward
+    kernels, its ragged tails' aux loss the backward ones too) and
+    transmil (no kernel), python -m rrtmil_tpu_torch.survival_main
+    --fold_parallel for CLAM_SB and AttMIL (no kernel), on phases 9 / 10's
+    bag sets, 5 folds; (d) c16_r50's flags with --fold_parallel --amp
+    (K1-K9 in bf16)."""
+    import tempfile
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "c16")
+        write_cli_data(root, False, 1024, 0)
+        csv_file, _ = write_survival_data(os.path.join(tmp, "surv"))
+        base = CLI_FOLD_RUN + CLI_C16 + ["--dataset_root", root,
+                                         "--model_path",
+                                         os.path.join(tmp, "out"),
+                                         "--fold_parallel"]
+        runs = [(f"cli_{m}", "rrtmil_tpu_torch.main",
+                 base + ["--model", m, "--title", m]
+                 + ([] if m == "transmil" else ["--only_rrt_enc"]),
+                 fold_zoo_kernels(m),
+                 () if m == "transmil" else C16_TRAIN)
+                for m in FOLD_ZOO_CLI]
+        runs.append(("cli_c16_r50_amp", "rrtmil_tpu_torch.main",
+                     base + ["--amp", "--title", "amp"], C16_TRAIN,
+                     C16_TRAIN))
+        runs += [(f"cli_survival_{m}", "rrtmil_tpu_torch.survival_main",
+                  ["--num_epoch", "2", "--seed", "1", "--model", m,
+                   "--input_dim", "1024", "--excel_file", csv_file,
+                   "--fold_parallel", "--results_dir",
+                   os.path.join(tmp, m)], (), ())
+                 for m in FOLD_ZOO_SURV_CLI]
+        for tag, module, argv, need, allowed in runs:
+            out, secs, launched = _zoo_cli(module, argv, tag, need, allowed)
+            if module.endswith(".main"):
+                vals = np.array(out["auc"], dtype=float)
+                what = f"test AUC by fold {np.round(vals, 3).tolist()}"
+            else:
+                vals = np.array(out.cindex[1:6], dtype=float)
+                what = f"best c-index by fold {vals.tolist()}"
+            if len(vals) != FOLDS or not np.isfinite(vals).all():
+                raise AssertionError(f"[16] {tag}: {what}")
+            report[tag] = {"seconds": secs, "launches": launched,
+                           "metrics": vals.tolist()}
+            log(f"[16] ({'d' if 'amp' in tag else 'c'}) {tag}: {secs:.1f} s, "
+                f"{what}, launches {launched}")
+            torch.cuda.empty_cache()
+    return report
+
+
+def phase_slice16(dev):
+    """Phase 16: (a) the kernels at --n_heads 16 / 4, --crmsa_heads 16 and
+    --crmsa_k 16 / 12; (b) a 5-fold step of each zoo model
+    with --only_rrt_enc (9000 patches a fold; K1-K9 once a step for every
+    fold) against five batch-1 steps, FOLD_ZOO_CPU's also against the CPU:
+    losses, parameters, ms, peak memory;
+    (c) both CLIs with --fold_parallel for the new models; (d)
+    --fold_parallel --amp."""
+    from rrtmil_tpu_torch.config import c16_r50
+    t0 = time.perf_counter()
+    report = {"geometry": phase_geometry_kernels(dev), "zoo": {}}
+    for name in FOLD_ZOO:
+        tag = f"(b) {name}"
+        expect = fold_zoo_kernels(name)
+        cpu_length = FOLD_CPU_BAG if name == FOLD_ZOO_CPU else None
+        report["zoo"][name] = {
+            "check": _fold_check(tag, dev, c16_r50(), FOLD_BAG, cpu_length,
+                                 False, expect, name=name, ph="16"),
+            "times": _fold_times(f"{tag} L={FOLD_BAG}", dev, c16_r50(),
+                                 FOLD_BAG, False, expect, name=name,
+                                 ph="16")}
+    report["cli"] = phase_fold_zoo_cli(dev)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[16] phase 16: {report['seconds']:.1f} s")
+    return report
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -5456,6 +5751,7 @@ def main():
         report["slice13"] = phase_slice13(dev)
         report["slice14"] = phase_slice14(dev)
         report["slice15"] = phase_slice15(dev)
+        report["slice16"] = phase_slice16(dev)
         report["times"] = phase_times_products(dev, phase_times_pairs(
             dev, phase_times_slice3(dev, phase_times(dev))))
         report["throughput"] = phase_throughput(dev)
@@ -5567,10 +5863,18 @@ def main():
         for ref in ("sequential", "cpu"):
             paths[f"fold_parallel_{tag}_steps_vs_{ref}"] = rec.get(
                 "check", {}).get(ref, {})
-    # this slice's main path: one fold-parallel step of 5 folds, c16_r50
-    # (K1-K9) and survival_default's RRTMIL on a mismatched bucket (K12,
-    # K13); K10 / K11 from the FFN train epoch
-    own = {n: "fold_parallel_c16_r50_step" for n in C16_TRAIN}
+    s16 = report.get("slice16", {})
+    for name, rec in s16.get("zoo", {}).items():
+        paths[f"fold_parallel_zoo_{name}_step"] = rec.get("times", {})
+        paths[f"fold_parallel_zoo_{name}_steps_vs_sequential"] = rec.get(
+            "check", {}).get("sequential", {})
+    for tag, rec in s16.get("cli", {}).items():
+        paths[f"fold_parallel_{tag}"] = rec
+    # this slice's main path: one fold-parallel step of 5 folds of a zoo
+    # model with --only_rrt_enc (CLAM-MB: K1-K9), and of survival_default's
+    # RRTMIL on a mismatched bucket (K12, K13); K10 / K11 from the FFN train
+    # epoch
+    own = {n: "fold_parallel_zoo_clam_mb_step" for n in C16_TRAIN}
     own.update({K[9]: "ffn_train_epoch", K[10]: "ffn_train_epoch",
                 K[11]: "fold_parallel_survival_step",
                 K[12]: "fold_parallel_survival_step"})
@@ -5600,6 +5904,11 @@ def main():
                                for b, rec in t.items()}
         if name in fold_times:
             row["fold_parallel"] = {"folds": FOLDS, **fold_times[name]}
+        geom = {label: {k: v for k, v in rec.items() if k != "kernel"}
+                for label, rec in s16.get("geometry", {}).items()
+                if rec["kernel"] == name}
+        if geom:   # this slice's head widths and k, B = 8
+            row["geometry"] = geom
         kernels.append(row)
     os.makedirs("chiprun_out", exist_ok=True)
     with open("chiprun_out/chip_smoke.json", "w") as f:

@@ -447,9 +447,14 @@ __device__ __forceinline__ long long row_of(const TokenMap& tm, const Opnd& o, i
 //   A   = round_TM(exp(L - max) / sum)                (row softmax)
 //   o   = A v, stored as TO (the TM rounding when TO = TM)
 //
-// The logits sum over the whole head width hd (a multiple of 64, <= 512)
+// The logits sum over the whole head width hd (a multiple of 32, <= 512)
 // chunk by chunk; each block (blockIdx.z = output chunk) accumulates only
-// its own 64 columns of o.  Pass 1 walks the key tiles for the row max and
+// its own 64 columns of o.  A width that is not a multiple of 64 (32, 96,
+// ...) is held as the next multiple of 64 (head_chunks), the columns past
+// hd read as zeros and never written: a zero column adds exact zeros to
+// every fp32 sum, so the logits and outputs are those of the hd columns.
+// With EPEG the k-tap pass runs a 64-wide column chunk at a time through
+// the halo buffer (any hd up to 128).  Pass 1 walks the key tiles for the row max and
 // sum (online), pass 2 recomputes each logit tile and accumulates A v, so
 // no P x P tile is ever held and the probabilities are normalised before
 // the TM rounding, as in the TPU kernel.  Key columns past P (tile padding)
@@ -457,16 +462,20 @@ __device__ __forceinline__ long long row_of(const TokenMap& tm, const Opnd& o, i
 // ---------------------------------------------------------------------------
 constexpr int AQT = 64, AKT = 64, ADC = 64;
 constexpr int MAX_KK = 128, MAX_HD = 512;
+constexpr int MAX_EPEG_HD = 128;  // widest head the cores take with EPEG
+
+// 64-wide column chunks of a head of hd columns (hd a multiple of 32)
+__host__ __device__ __forceinline__ int head_chunks(int hd) { return (hd + 63) / 64; }
 
 inline int attn_smem_bytes(int hd) {
-  return (AQT * (hd + 4) + ADC * AKT + AKT * ADC + AQT * (AKT + 4)) * 4;
+  return (AQT * (64 * head_chunks(hd) + 4) + ADC * AKT + AKT * ADC + AQT * (AKT + 4)) * 4;
 }
 
 template <typename TI, typename TM, typename TO>
 __global__ void __launch_bounds__(256)
 attn_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float scale,
             const float* __restrict__ pw, int kk, const float* __restrict__ pb) {
-  const int QS = hd + 4, PS = AKT + 4;
+  const int nch = head_chunks(hd), QS = nch * ADC + 4, PS = AKT + 4;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;              // [AQT][QS]  the whole head width
   float* Kt = Qs + AQT * QS;     // [ADC][AKT]  one chunk of k, transposed
@@ -476,36 +485,44 @@ attn_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float sc
 
   const int P = tm.P;
   const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
-  const int q0 = blockIdx.y * AQT, oc = blockIdx.z * ADC, nch = hd / ADC;
+  const int q0 = blockIdx.y * AQT, oc = blockIdx.z * ADC, ow = min(ADC, hd - oc);
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const TI* qp = (const TI*)q.p + (long long)h * q.sh;
   const TI* kp = (const TI*)k.p + (long long)h * k.sh;
   const TI* vp = (const TI*)v.p + (long long)h * v.sh + oc;
 
-  if (kk > 0) {  // hd == 64
+  if (kk > 0) {  // hd <= 128: the k-tap pass a 64-wide chunk at a time
     const int pad = kk / 2;
     for (int t = tid; t < kk; t += blockDim.x)
       coef[t] = round_to<TM>(pw[hw * kk + t] + (t == pad ? 1.f : 0.f));
     float* Hs = Kt;  // halo rows q0-pad .. q0+AQT-1+(kk-1-pad), reuses Kt..Ps
     const int nh = AQT + kk - 1;
-    for (int idx = tid; idx < nh * ADC; idx += blockDim.x) {
-      const int row = idx / ADC, d = idx % ADC;
-      const int p = q0 - pad + row;
-      Hs[idx] = (p >= 0 && p < P) ? round_to<TM>(to_f(qp[row_of(tm, q, r, p) + d]) * scale)
-                                  : 0.f;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < AQT * ADC; idx += blockDim.x) {
-      const int i = idx / ADC, d = idx % ADC;
-      float acc = 0.f;
-      for (int t = 0; t < kk; ++t) acc = fmaf(coef[t], Hs[(i + t) * ADC + d], acc);
-      Qs[i * QS + d] = round_to<TM>(acc);
+    for (int c = 0; c < nch; ++c) {
+      const int cw = min(ADC, hd - c * ADC);
+      if (c > 0) __syncthreads();  // every thread done with chunk c - 1's halo
+      for (int idx = tid; idx < nh * ADC; idx += blockDim.x) {
+        const int row = idx / ADC, d = idx % ADC;
+        const int p = q0 - pad + row;
+        Hs[idx] = (p >= 0 && p < P && d < cw)
+                      ? round_to<TM>(to_f(qp[row_of(tm, q, r, p) + c * ADC + d]) * scale)
+                      : 0.f;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < AQT * ADC; idx += blockDim.x) {
+        const int i = idx / ADC, d = idx % ADC;
+        float acc = 0.f;
+        for (int t = 0; t < kk; ++t) acc = fmaf(coef[t], Hs[(i + t) * ADC + d], acc);
+        Qs[i * QS + c * ADC + d] = round_to<TM>(acc);
+      }
     }
   } else {
-    for (int idx = tid; idx < AQT * hd; idx += blockDim.x) {
-      const int i = idx / hd, d = idx % hd;
+    const int hp = nch * ADC;
+    for (int idx = tid; idx < AQT * hp; idx += blockDim.x) {
+      const int i = idx / hp, d = idx % hp;
       const int p = q0 + i;
-      Qs[i * QS + d] = p < P ? round_to<TM>(to_f(qp[row_of(tm, q, r, p) + d]) * scale) : 0.f;
+      Qs[i * QS + d] = (p < P && d < hd)
+                           ? round_to<TM>(to_f(qp[row_of(tm, q, r, p) + d]) * scale)
+                           : 0.f;
     }
   }
   __syncthreads();
@@ -532,8 +549,10 @@ attn_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float sc
           const int p = k0 + j;
           float kv = 0.f, vv = 0.f;
           if (p < P) {
-            kv = round_to<TM>(to_f(kp[row_of(tm, k, r, p) + c * ADC + d]));
-            if (pass == 1 && c == 0) vv = round_to<TM>(to_f(vp[row_of(tm, v, r, p) + d]));
+            if (c * ADC + d < hd)
+              kv = round_to<TM>(to_f(kp[row_of(tm, k, r, p) + c * ADC + d]));
+            if (pass == 1 && c == 0 && d < ow)
+              vv = round_to<TM>(to_f(vp[row_of(tm, v, r, p) + d]));
           }
           Kt[d * AKT + j] = kv;
           if (pass == 1 && c == 0) Vs[j * ADC + d] = vv;
@@ -607,7 +626,8 @@ attn_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float sc
     if (p >= P) continue;
     TO* orow = op + row_of(tm, o, r, p);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) orow[c] = from_f<TO>(oacc[i][c]);
+    for (int c = 0; c < 4; ++c)
+      if (tx * 4 + c < ow) orow[c] = from_f<TO>(oacc[i][c]);
   }
 }
 

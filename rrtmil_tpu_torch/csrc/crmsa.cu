@@ -55,7 +55,7 @@
 // (R, P, C) regions, fp32.  Bound for both: bytes (K10 at c16_r50 + FFN,
 // L = 9000, B = 8: ~302 MB, ~0.090 ms; K13 at the 45000-patch survival bag:
 // ~96 MB written, ~0.029 ms).  Design: each token row is a rank-k update
-// (k <= 8), so the work tiles freely: one block per (region, 32 token rows),
+// (k <= 16), so the work tiles freely: one block per (region, 32 token rows),
 // the region's k reps rows rounded once into shared memory, one warp per
 // token row writing four channels per lane per step; x, the mask and the
 // output cross device memory once, and a B = 1 survival bag still gives
@@ -185,7 +185,7 @@ compress_reps_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
 // shortcut loads are all issued before any is used; stream_ln forms the
 // stream value and its statistics (as K9 recomputes them), and the masked
 // LayerNorm goes out as fp32 with 16-byte stores.
-template <typename TS, typename TM, int NC>
+template <typename TS, typename TM, int NC, int KW>
 __global__ void __launch_bounds__(CR_THREADS, NC <= 16 ? 2 : 1)
 redistribute_ln_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
                        const float* __restrict__ w, const float* __restrict__ reps,
@@ -227,11 +227,11 @@ redistribute_ln_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mas
 #pragma unroll
       for (int n = 0; n < NC; ++n) s[n] = 0.f;
     }
-    float wr[KMAX];
+    float wr[KW];
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) wr[j] = j < k ? ws[j * chunk + i] : 0.f;
+    for (int j = 0; j < KW; ++j) wr[j] = j < k ? ws[j * chunk + i] : 0.f;
     float mu, rstd;
-    stream_ln<NC>(v, s, m, wr, repm, k, C, lane, eps, mu, rstd);
+    stream_ln<NC, KW>(v, s, m, wr, repm, k, C, lane, eps, mu, rstd);
 #pragma unroll
     for (int g = 0; g < NQ; ++g) {
       const int q = lane + 32 * g;
@@ -254,7 +254,7 @@ redistribute_ln_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mas
 // row, four channels per lane per step (C % 4 == 0).
 constexpr int RT = 32;
 
-template <typename TS, typename TM>
+template <typename TS, typename TM, int KW>
 __global__ void __launch_bounds__(256)
 redistribute_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
                     const float* __restrict__ w, const float* __restrict__ reps,
@@ -276,13 +276,13 @@ redistribute_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
   for (int row = warp; row < RT && p0 + row < P; row += nwarps) {
     const long long t = token_of(map, r, p0 + row);
     const float m = mask ? (mask[t] ? 1.f : 0.f) : 1.f;
-    float wj[KMAX];
+    float wj[KW];
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) wj[j] = j < k ? ws[j * RT + row] : 0.f;
+    for (int j = 0; j < KW; ++j) wj[j] = j < k ? ws[j * RT + row] : 0.f;
     for (int c = 4 * lane; c < C; c += 128) {
       float y[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < KMAX; ++j) {
+      for (int j = 0; j < KW; ++j) {
         if (j < k) {
           const float4 rv = *reinterpret_cast<const float4*>(&rs_[j * C + c]);
           y[0] = fmaf(wj[j], rv.x, y[0]);
@@ -303,6 +303,19 @@ redistribute_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
       store4(out + t * C + c, make_float4(y[0], y[1], y[2], y[3]));
     }
   }
+}
+
+// K10 / K13's launch, its k x C staging of round(reps) opted in past 48 KB
+template <typename TS, typename TM, int KW>
+cudaError_t launch_redistribute(dim3 grid, size_t smem, cudaStream_t s, const void* x,
+                                const void* mask, const void* w, const void* reps, void* out,
+                                TokenMap map, int C, int k) {
+  cudaError_t err = cr_smem(redistribute_kernel<TS, TM, KW>, smem);
+  if (err != cudaSuccess) return err;
+  redistribute_kernel<TS, TM, KW><<<grid, 256, smem, s>>>(
+      (const TS*)x, (const uint8_t*)mask, (const float*)w, (const float*)reps, (TS*)out, map, C,
+      k);
+  return cudaGetLastError();
 }
 
 template <typename TS, typename TM, int KB>
@@ -347,7 +360,8 @@ int compress(const void* x, const void* mask, const float* ls, const float* lb,
   switch (k_bound(k)) {
     case 1: RRT_REPS(1); break;
     case 4: RRT_REPS(4); break;
-    default: RRT_REPS(8); break;
+    case 8: RRT_REPS(8); break;
+    default: RRT_REPS(16); break;
   }
 #undef RRT_REPS
   if (err == cudaSuccess && parts > 1)
@@ -403,11 +417,28 @@ extern "C" int cr_redistribute(int ts, int tm, const void* x, const void* mask,
   const TokenMap map = G > 0 ? TokenMap{G, rs, G / rs, P} : TokenMap{0, 1, 1, P};
   const size_t smem = (size_t)(k * C + k * RT) * 4;
   const dim3 grid(R, (P + RT - 1) / RT);
+  cudaError_t err = cudaErrorInvalidValue;
   RRT_DISPATCH(ts, TS, RRT_DISPATCH(tm, TM,
-      redistribute_kernel<TS, TM><<<grid, 256, smem, (cudaStream_t)stream>>>(
-          (const TS*)x, (const uint8_t*)mask, (const float*)w, (const float*)reps,
-          (TS*)out, map, C, k)));
-  return (int)cudaGetLastError();
+      err = k_width(k) == 8
+                ? launch_redistribute<TS, TM, 8>(grid, smem, (cudaStream_t)stream, x, mask, w,
+                                                 reps, out, map, C, k)
+                : launch_redistribute<TS, TM, 16>(grid, smem, (cudaStream_t)stream, x, mask, w,
+                                                  reps, out, map, C, k)));
+  return (int)err;
+}
+
+template <typename TS, typename TM, int NC, int KW>
+cudaError_t launch_redistribute_ln_kw(dim3 grid, size_t smem, cudaStream_t s, const void* x,
+                                      const void* mask, const float* w, const float* reps,
+                                      const float* ls, const float* lb, const void* sc,
+                                      float* out, TokenMap map, int C, int k, int chunk,
+                                      float eps) {
+  cudaError_t err = cr_smem(redistribute_ln_kernel<TS, TM, NC, KW>, smem);
+  if (err != cudaSuccess) return err;
+  redistribute_ln_kernel<TS, TM, NC, KW><<<grid, CR_THREADS, smem, s>>>(
+      (const TS*)x, (const uint8_t*)mask, w, reps, ls, lb, (const TS*)sc, out, map, C, k, chunk,
+      eps);
+  return cudaGetLastError();
 }
 
 template <typename TS, typename TM, int NC>
@@ -415,12 +446,11 @@ cudaError_t launch_redistribute_ln(dim3 grid, size_t smem, cudaStream_t s, const
                                    const void* mask, const float* w, const float* reps,
                                    const float* ls, const float* lb, const void* sc, float* out,
                                    TokenMap map, int C, int k, int chunk, float eps) {
-  cudaError_t err = cr_smem(redistribute_ln_kernel<TS, TM, NC>, smem);
-  if (err != cudaSuccess) return err;
-  redistribute_ln_kernel<TS, TM, NC><<<grid, CR_THREADS, smem, s>>>(
-      (const TS*)x, (const uint8_t*)mask, w, reps, ls, lb, (const TS*)sc, out, map, C, k, chunk,
-      eps);
-  return cudaGetLastError();
+  return k_width(k) == 8
+             ? launch_redistribute_ln_kw<TS, TM, NC, 8>(grid, smem, s, x, mask, w, reps, ls, lb,
+                                                        sc, out, map, C, k, chunk, eps)
+             : launch_redistribute_ln_kw<TS, TM, NC, 16>(grid, smem, s, x, mask, w, reps, ls,
+                                                         lb, sc, out, map, C, k, chunk, eps);
 }
 
 // K8: x (B, G*G, C) (+ shortcut, or null) -> out (B, G*G, C) fp32, one block

@@ -33,7 +33,7 @@
 
 namespace rrt {
 
-constexpr int KMAX = 8;                     // CR-MSA representatives per region (crmsa_k)
+constexpr int KMAX = 16;                    // CR-MSA representatives per region (crmsa_k)
 constexpr int CR_THREADS = 256;             // threads of a block (pass 2: at most)
 constexpr int CR_SMEM_MAX = 227 * 1024;
 
@@ -196,11 +196,11 @@ __device__ __forceinline__ void load_row4(const T* __restrict__ row, int lane, i
 // E[v^2] - mu^2)).  K8 computes its output and K9 its backward from this one
 // function, rounded op by op, so K9 recomputes K8's values bit for bit.  v:
 // the row's x on entry (load_row4), the stream value on exit, zero past C;
-// s: the shortcut's row (zeros without one); wr[j] = round(w)[j, p]; repm:
-// round(reps_r) [k][C] in shared memory.
-template <int NC>
+// s: the shortcut's row (zeros without one); wr[j] = round(w)[j, p] (KW =
+// k_width(k) >= k entries); repm: round(reps_r) [k][C] in shared memory.
+template <int NC, int KW>
 __device__ __forceinline__ void stream_ln(float (&v)[NC], const float (&s)[NC], float m,
-                                          const float (&wr)[KMAX], const float* repm, int k,
+                                          const float (&wr)[KW], const float* repm, int k,
                                           int C, int lane, float eps, float& mu, float& rstd) {
   const int nq = C / 4;
   float s1 = 0.f, s2 = 0.f;
@@ -209,7 +209,7 @@ __device__ __forceinline__ void stream_ln(float (&v)[NC], const float (&s)[NC], 
     const int q = lane + 32 * i, c0 = 4 * min(q, nq - 1);
     float y[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
+    for (int j = 0; j < KW; ++j) {
       if (j < k) {
         const float4 r = *reinterpret_cast<const float4*>(repm + j * C + c0);
         y[0] = fmaf(wr[j], r.x, y[0]);
@@ -417,8 +417,13 @@ compress_rows_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
   }
 }
 
-// k rounded up to the accumulator width the kernels are built for: 1, 4 or 8
-inline int k_bound(int k) { return k == 1 ? 1 : k <= 4 ? 4 : 8; }
+// k rounded up to the accumulator width the compression kernels are built
+// for: 1, 4, 8 or 16
+inline int k_bound(int k) { return k == 1 ? 1 : k <= 4 ? 4 : k <= 8 ? 8 : 16; }
+
+// the redistribution kernels' per-row weight registers for k: 8 or 16 (k
+// <= 8, the main path's, keeps eight registers)
+inline int k_width(int k) { return k <= 8 ? 8 : 16; }
 
 // Channels a lane of pass 1 holds for C channels of TS: 8, 16 or 32
 template <typename TS> inline int lane_channels(int C) {
@@ -438,10 +443,13 @@ template <typename TS> inline StreamShape stream_shape(int C) {
   return {ng, slots, (slots * ng + 31) / 32 * 32};  // whole warps; the rest idle
 }
 
-// Allow a launch of `kernel` with `smem` bytes of dynamic shared memory
+// Allow a launch of `kernel` with `smem` bytes of dynamic shared memory.
+// The 48 KB a launch gets without the opt-in hold the kernels' static
+// arrays too (KMAX-wide region sums, at most CR_STATIC_SMEM bytes).
+constexpr size_t CR_STATIC_SMEM = 1024;
 template <typename F> inline cudaError_t cr_smem(F* kernel, size_t smem) {
   if (smem > (size_t)CR_SMEM_MAX) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
+  if (smem + CR_STATIC_SMEM <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
@@ -473,9 +481,12 @@ cudaError_t launch_rows_k(dim3 grid, cudaStream_t s, const void* x, const void* 
     case 4:
       return launch_rows<TS, TM, NC, 4, DC>(grid, s, x, mask, ls, lb, phi, dreps, logits, stats,
                                             dcomb, su, sv, map, C, k, chunk, vec, eps);
-    default:
+    case 8:
       return launch_rows<TS, TM, NC, 8, DC>(grid, s, x, mask, ls, lb, phi, dreps, logits, stats,
                                             dcomb, su, sv, map, C, k, chunk, vec, eps);
+    default:
+      return launch_rows<TS, TM, NC, 16, DC>(grid, s, x, mask, ls, lb, phi, dreps, logits,
+                                             stats, dcomb, su, sv, map, C, k, chunk, vec, eps);
   }
 }
 

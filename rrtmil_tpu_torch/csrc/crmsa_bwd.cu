@@ -322,7 +322,7 @@ size_t rgrid_smem_bytes(int C, int k, int warps, bool ln) {
 // and, K9, part_ln[part * R + region, 2 C] = (dls | dlb); launch_reduce_rows
 // sums them over the blocks in a fixed order.  C is a multiple of 4, C <= 32
 // NC.
-template <typename TS, typename TG, typename TM, int NC, bool LN>
+template <typename TS, typename TG, typename TM, int NC, bool LN, int KW>
 __global__ void __launch_bounds__(32 * K9_MAX_WARPS, NC <= 16 ? 2 : 1)
 redistribute_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ mask,
                         const float* __restrict__ w, const float* __restrict__ reps,
@@ -355,9 +355,9 @@ redistribute_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ ma
   for (int p = p0 + warp; p < p1; p += W) {
     const long long t = row_token(map, base, p);
     const float m = mask[t] ? 1.f : 0.f;
-    float wr[KMAX];
+    float wr[KW];
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j)
+    for (int j = 0; j < KW; ++j)
       wr[j] = j < k ? round_to<TM>(w[((long long)region * k + j) * P + p]) : 0.f;
     float gv[NC], xv[NC];
     load_row4<TG, NC>(g + t * C, lane, nq, gv);
@@ -371,7 +371,7 @@ redistribute_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ ma
 #pragma unroll
         for (int n = 0; n < NC; ++n) s[n] = 0.f;
       }
-      stream_ln<NC>(xv, s, m, wr, repm, k, C, lane, eps, mu, rstd);
+      stream_ln<NC, KW>(xv, s, m, wr, repm, k, C, lane, eps, mu, rstd);
       // zhat into xv, gym = g * mask (zero past C) into gv, the backward's
       // two row means
       float a = 0.f, b = 0.f;
@@ -396,9 +396,9 @@ redistribute_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ ma
     }
     // a group at a time: gm (K9: from dx, written here), the row's dw sums
     // and the warp's dreps partials
-    float acc[KMAX];
+    float acc[KW];
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) acc[j] = 0.f;
+    for (int j = 0; j < KW; ++j) acc[j] = 0.f;
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
       const int q = lane + 32 * i;
@@ -423,7 +423,7 @@ redistribute_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ ma
           for (int e = 0; e < 4; ++e) gm[e] = round_to<TM>(gv[4 * i + e] * m);
         }
 #pragma unroll
-        for (int j = 0; j < KMAX; ++j) {
+        for (int j = 0; j < KW; ++j) {
           if (j < k) {
             const float4 rv = *reinterpret_cast<const float4*>(&repm[j * C + c0]);
             acc[j] = fmaf(rv.x, gm[0], fmaf(rv.y, gm[1], fmaf(rv.z, gm[2],
@@ -440,7 +440,7 @@ redistribute_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ ma
       }
     }
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
+    for (int j = 0; j < KW; ++j) {
       if (j < k) {
         const float s = warp_sum(acc[j]);
         if (lane == 0) dw[((long long)region * k + j) * P + p] = s;
@@ -479,6 +479,23 @@ redistribute_bwd_kernel(const TS* __restrict__ x, const uint8_t* __restrict__ ma
   }
 }
 
+template <typename TS, typename TG, typename TM, int NC, bool LN, int KW>
+cudaError_t launch_redistribute_bwd_kw(dim3 grid, int warps, size_t smem, cudaStream_t stream,
+                                       const void* x, const void* mask, const void* w,
+                                       const void* reps, const void* ls, const void* sc,
+                                       const void* g, void* dx, void* dw, float* part_reps,
+                                       float* part_ln, TokenMap map, int C, int k, int chunk,
+                                       float eps) {
+  cudaError_t err = cr_smem(redistribute_bwd_kernel<TS, TG, TM, NC, LN, KW>, smem);
+  if (err != cudaSuccess) return err;
+  redistribute_bwd_kernel<TS, TG, TM, NC, LN, KW><<<grid, 32 * warps, smem, stream>>>(
+      (const TS*)x, (const uint8_t*)mask, (const float*)w, (const float*)reps,
+      (const float*)ls, (const TS*)sc, (const TG*)g, (TS*)dx, (float*)dw, part_reps, part_ln,
+      map, C, k, chunk, eps);
+  return cudaGetLastError();
+}
+
+// the instance for k's weight registers (k_width)
 template <typename TS, typename TG, typename TM, int NC, bool LN>
 cudaError_t launch_redistribute_bwd(dim3 grid, int warps, size_t smem, cudaStream_t stream,
                                     const void* x, const void* mask, const void* w,
@@ -486,13 +503,13 @@ cudaError_t launch_redistribute_bwd(dim3 grid, int warps, size_t smem, cudaStrea
                                     const void* g, void* dx, void* dw, float* part_reps,
                                     float* part_ln, TokenMap map, int C, int k, int chunk,
                                     float eps) {
-  cudaError_t err = cr_smem(redistribute_bwd_kernel<TS, TG, TM, NC, LN>, smem);
-  if (err != cudaSuccess) return err;
-  redistribute_bwd_kernel<TS, TG, TM, NC, LN><<<grid, 32 * warps, smem, stream>>>(
-      (const TS*)x, (const uint8_t*)mask, (const float*)w, (const float*)reps,
-      (const float*)ls, (const TS*)sc, (const TG*)g, (TS*)dx, (float*)dw, part_reps, part_ln,
-      map, C, k, chunk, eps);
-  return cudaGetLastError();
+  if (k_width(k) == 8)
+    return launch_redistribute_bwd_kw<TS, TG, TM, NC, LN, 8>(
+        grid, warps, smem, stream, x, mask, w, reps, ls, sc, g, dx, dw, part_reps, part_ln, map,
+        C, k, chunk, eps);
+  return launch_redistribute_bwd_kw<TS, TG, TM, NC, LN, 16>(
+      grid, warps, smem, stream, x, mask, w, reps, ls, sc, g, dx, dw, part_reps, part_ln, map, C,
+      k, chunk, eps);
 }
 
 template <typename TS, typename TM, int KB>
@@ -539,7 +556,8 @@ int compress_bwd(const void* x, const void* mask, const float* ls, const float* 
   switch (k_bound(k)) {
     case 1: RRT_COMPRESS_BWD(1); break;
     case 4: RRT_COMPRESS_BWD(4); break;
-    default: RRT_COMPRESS_BWD(8); break;
+    case 8: RRT_COMPRESS_BWD(8); break;
+    default: RRT_COMPRESS_BWD(16); break;
   }
 #undef RRT_COMPRESS_BWD
   const int F = map.rf > 0 ? R / map.rf : 1;

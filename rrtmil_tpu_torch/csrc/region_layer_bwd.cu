@@ -51,6 +51,14 @@
 // f32 products (strict parity; TF32 would break it) keep the SIMT kernels
 // below the tensor-core ones, on the same operand descriptions, with a
 // three-pass query side.
+// Head widths: multiples of 32 up to 512, EPEG up to 128.  A width that is
+// not a multiple of 64 is held as head_chunks(hd) 64-wide chunks, the
+// columns past hd zero-filled by every load and never stored (zero columns
+// add exact zeros to every sum), so hd = 64 keeps its code and its bits.
+// With EPEG at hd = 128 the query side holds the halo rows for the whole
+// head width, and the tap sums' halo logits round(q s) k^T, which need the
+// whole key tile, read a copy of it loaded beside the ring (the SIMT kernel
+// sums them chunk by chunk); dY goes to scratch at the head's width.
 //
 // K2 replaces rrtmil_tpu/ops/pallas/region_layer.py::_layer_bwd_pallas
 // (kernel body _layer_bwd_kernel): dx, d(LN scale, bias), dWq/dWk/dWv,
@@ -88,11 +96,11 @@ constexpr int QS = HD + 4, PS = BK + 4;
 template <typename TI>
 __device__ __forceinline__ void load_keys(const TI* kp, const Opnd& k, const TI* vp,
                                           const Opnd& v, const TokenMap& tm, int r, int k0,
-                                          float* Kt, float* Ks, float* Vt) {
+                                          float* Kt, float* Ks, float* Vt, int cw) {
   for (int idx = threadIdx.x; idx < BK * HD; idx += blockDim.x) {
     const int j = idx / HD, d = idx % HD, p = k0 + j;
     float kv = 0.f, vv = 0.f;
-    if (p < tm.P) {
+    if (p < tm.P && d < cw) {
       kv = to_f(kp[row_of(tm, k, r, p) + d]);
       if (Vt) vv = to_f(vp[row_of(tm, v, r, p) + d]);
     }
@@ -105,18 +113,18 @@ __device__ __forceinline__ void load_keys(const TI* kp, const Opnd& k, const TI*
 // Ys = the query tile as the forward's core forms it: M_h (q s) with the
 // k-tap pass (Hs holds the halo rows q0 - k//2 .. q0 + 63 + k - 1 - k//2 of
 // q s), or q s itself; Gs = the incoming gradient's rows (qp, gp: the
-// head's chunk)
+// head's chunk, of which the first cw columns exist; the rest load as zeros)
 template <typename TI>
 __device__ __forceinline__ void load_queries(const TI* qp, const Opnd& q, const TI* gp,
                                              const Opnd& g, const TokenMap& tm, int r,
                                              int q0, float scale, const float* coef, int kk,
-                                             float* Hs, float* Ys, float* Gs) {
+                                             float* Hs, float* Ys, float* Gs, int cw) {
   const int P = tm.P, tid = threadIdx.x;
   if (kk > 0) {
     const int pad = kk / 2, nh = BQ + kk - 1;
     for (int idx = tid; idx < nh * HD; idx += blockDim.x) {
       const int row = idx / HD, d = idx % HD, p = q0 - pad + row;
-      Hs[idx] = (p >= 0 && p < P) ? to_f(qp[row_of(tm, q, r, p) + d]) * scale : 0.f;
+      Hs[idx] = (p >= 0 && p < P && d < cw) ? to_f(qp[row_of(tm, q, r, p) + d]) * scale : 0.f;
     }
     __syncthreads();
     for (int idx = tid; idx < BQ * HD; idx += blockDim.x) {
@@ -128,12 +136,12 @@ __device__ __forceinline__ void load_queries(const TI* qp, const Opnd& q, const 
   } else {
     for (int idx = tid; idx < BQ * HD; idx += blockDim.x) {
       const int i = idx / HD, d = idx % HD, p = q0 + i;
-      Ys[i * QS + d] = p < P ? to_f(qp[row_of(tm, q, r, p) + d]) * scale : 0.f;
+      Ys[i * QS + d] = p < P && d < cw ? to_f(qp[row_of(tm, q, r, p) + d]) * scale : 0.f;
     }
   }
   for (int idx = tid; idx < BQ * HD; idx += blockDim.x) {
     const int i = idx / HD, d = idx % HD, p = q0 + i;
-    Gs[i * QS + d] = p < P ? to_f(gp[row_of(tm, g, r, p) + d]) : 0.f;
+    Gs[i * QS + d] = p < P && d < cw ? to_f(gp[row_of(tm, g, r, p) + d]) : 0.f;
   }
 }
 
@@ -220,7 +228,8 @@ attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenM
   const int P = tm.P;
   const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
   const int qt = blockIdx.y, q0 = qt * BQ;
-  const int oc = blockIdx.z, nch = hd / HD;   // this block's 64 columns of dq
+  const int oc = blockIdx.z, nch = head_chunks(hd);   // this block's 64 columns of dq
+  const int ow = min(HD, hd - oc * HD);                // of which exist
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
   const TI* qp = (const TI*)q.p + (long long)h * q.sh;
@@ -233,24 +242,35 @@ attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenM
     for (int t = tid; t < kk; t += blockDim.x) dwacc[t] = 0.f;
   }
   __syncthreads();
-  if (nch == 1) load_queries<TI>(qp, q, gp, g, tm, r, q0, scale, coef, kk, Hs, Ys, Gs);
+  if (nch == 1) load_queries<TI>(qp, q, gp, g, tm, r, q0, scale, coef, kk, Hs, Ys, Gs, hd);
 
   // s = y k^T (and da = g v^T) of key tile k0 over the whole head width,
   // chunk by chunk (the queries are reloaded per chunk when hd > 64); Ks
-  // receives this block's chunk of k
+  // receives this block's chunk of k; with the EPEG tap sums (with_ks),
+  // Ls = the halo rows' (q s) k^T, summed over the chunks in column order
   auto logits = [&](int k0, float (&s)[4][4], float (*da)[4][4], bool with_ks) {
     zero44(s);
     if (da) zero44(*da);
     for (int c = 0; c < nch; ++c) {
+      const int cw = min(HD, hd - c * HD);
       __syncthreads();
       if (nch > 1)
-        load_queries<TI>(qp + c * HD, q, gp + c * HD, g, tm, r, q0, scale, coef, 0, Hs, Ys,
-                         Gs);
+        load_queries<TI>(qp + c * HD, q, gp + c * HD, g, tm, r, q0, scale, coef, kk, Hs, Ys,
+                         Gs, cw);
       load_keys<TI>(kp + c * HD, k, vp + c * HD, v, tm, r, k0, Kt,
-                    with_ks && c == oc ? Ks : nullptr, da ? Vt : nullptr);
+                    with_ks && c == oc ? Ks : nullptr, da ? Vt : nullptr, cw);
       __syncthreads();
       tile_logits(Ys, Kt, tx, ty, s);
       if (da) tile_da(Gs, Vt, tx, ty, *da);
+      if (with_ks && kk > 0) {
+        for (int idx = tid; idx < nh * BK; idx += blockDim.x) {
+          const int hr = idx / BK, j = idx % BK;
+          float acc = c == 0 ? 0.f : Ls[hr * PS + j];
+#pragma unroll 8
+          for (int d = 0; d < HD; ++d) acc = fmaf(Hs[hr * HD + d], Kt[d * BK + j], acc);
+          Ls[hr * PS + j] = acc;
+        }
+      }
     }
   };
 
@@ -305,7 +325,8 @@ attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenM
 #pragma unroll
   for (int i = 0; i < 4; ++i) drow[i] = warp_sum(drow[i], 16);
 
-  // pass 2: dLc, dY, the tap and bias sums (EPEG: hd = 64, one chunk)
+  // pass 2: dLc, dY, the tap and bias sums (the halo logits Ls formed with
+  // the logits, chunk by chunk)
   for (int k0 = 0; k0 < P; k0 += BK) {
     logits(k0, s, &da, true);
 #pragma unroll
@@ -320,15 +341,6 @@ attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenM
         }
         dbrow[i] += dl;
         Ps[(ty * 4 + i) * PS + tx * 4 + j] = dl;
-      }
-    }
-    if (kk > 0) {
-      for (int idx = tid; idx < nh * BK; idx += blockDim.x) {
-        const int hr = idx / BK, j = idx % BK;
-        float acc = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) acc = fmaf(Hs[hr * HD + d], Kt[d * BK + j], acc);
-        Ls[hr * PS + j] = acc;
       }
     }
     __syncthreads();
@@ -366,13 +378,15 @@ attn_bwd_q_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenM
     const int p = q0 + ty * 4 + i;
     if (p >= P) continue;
     if (kk > 0) {
-      float* o = dy + (rh * P + p) * HD + tx * 4;
+      float* o = dy + (rh * P + p) * hd + oc * HD + tx * 4;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) o[c] = dyacc[i][c];
+      for (int c = 0; c < 4; ++c)
+        if (tx * 4 + c < ow) o[c] = dyacc[i][c];
     } else {
       TO* o = (TO*)dq.p + row_of(tm, dq, r, p) + (long long)h * dq.sh + oc * HD + tx * 4;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) o[c] = from_f<TO>(scale * dyacc[i][c]);
+      for (int c = 0; c < 4; ++c)
+        if (tx * 4 + c < ow) o[c] = from_f<TO>(scale * dyacc[i][c]);
     }
     if (tx == 0 && oc == 0) {
       stats[rh * P + p] = mrow[i];
@@ -420,7 +434,8 @@ attn_bwd_kv_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, int H, int 
   const int P = tm.P;
   const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
   const int k0 = blockIdx.y * BK;
-  const int oc = blockIdx.z, nch = hd / HD;   // this block's 64 columns of dk, dv
+  const int oc = blockIdx.z, nch = head_chunks(hd);   // this block's 64 columns of dk, dv
+  const int ow = min(HD, hd - oc * HD);                // of which exist
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const long long rh = (long long)r * H + h;
   const long long rhp = (long long)gridDim.x * P;
@@ -430,7 +445,7 @@ attn_bwd_kv_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, int H, int 
   const TI* gp = (const TI*)g.p + (long long)h * g.sh;
 
   if (kk > 0) epeg_coef<float>(pw, hw, kk, coef);
-  if (nch == 1) load_keys<TI>(kp, k, vp, v, tm, r, k0, Kt, nullptr, Vt);
+  if (nch == 1) load_keys<TI>(kp, k, vp, v, tm, r, k0, Kt, nullptr, Vt, hd);
   const float bias = (kk > 0 && pb != nullptr) ? pb[hw] : 0.f;
 
   float s[4][4], da[4][4], dkacc[4][4], dvacc[4][4];
@@ -443,10 +458,12 @@ attn_bwd_kv_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, int H, int 
     zero44(s);
     zero44(da);
     for (int c = 0; c < nch; ++c) {
+      const int cw = min(HD, hd - c * HD);
       __syncthreads();
       load_queries<TI>(qp + c * HD, q, gp + c * HD, g, tm, r, q0, scale, coef, kk, Hs, Ys,
-                       Gs);
-      if (nch > 1) load_keys<TI>(kp + c * HD, k, vp + c * HD, v, tm, r, k0, Kt, nullptr, Vt);
+                       Gs, cw);
+      if (nch > 1)
+        load_keys<TI>(kp + c * HD, k, vp + c * HD, v, tm, r, k0, Kt, nullptr, Vt, cw);
       __syncthreads();
       tile_logits(Ys, Kt, tx, ty, s);
       tile_da(Gs, Vt, tx, ty, da);
@@ -454,7 +471,7 @@ attn_bwd_kv_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, int H, int 
     if (oc != nch - 1) {
       __syncthreads();
       load_queries<TI>(qp + oc * HD, q, gp + oc * HD, g, tm, r, q0, scale, coef, kk, Hs, Ys,
-                       Gs);
+                       Gs, ow);
       __syncthreads();
     }
 #pragma unroll
@@ -503,6 +520,7 @@ attn_bwd_kv_kernel(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, int H, int 
     TO* vo = (TO*)dv.p + row_of(tm, dv, r, p) + (long long)h * dv.sh + oc * HD + tx * 4;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
+      if (tx * 4 + c >= ow) continue;
       ko[c] = from_f<TO>(dkacc[a][c]);
       vo[c] = from_f<TO>(dvacc[a][c]);
     }
@@ -524,34 +542,44 @@ __host__ __device__ inline int halo_rows(int kk) {
   const int hr = ((TQ + kk - 1 + 15) / 16) * 16, win = 48 + 32 * ((kk + 15 + 31) / 32);
   return hr > win ? hr : win;
 }
+// the query side's shared memory: y and round(g) at the padded head width,
+// the ring, with EPEG the halo rows (at the padded head width), their
+// logits, round(dLc), and the taps by row, whose space also takes the whole
+// key tile when the head has more than one chunk
 int q_tc_smem_bytes(int hd, int kk) {
-  return (2 * TQ * (hd + 8) + BST * PAIR + 2 * halo_rows(kk) * TRS + (kk > 0 ? TQ * TRS : 0)) *
-             2 +
-         TQ * kk * 4;
+  const int hs = TD * head_chunks(hd) + 8, hr = halo_rows(kk);
+  const int dg = TQ * kk * 4, kf = head_chunks(hd) > 1 ? TK * hs * 2 : 0;
+  return (2 * TQ * hs + BST * PAIR + (kk > 0 ? hr * hs + hr * TRS + TQ * TRS : 0)) * 2 +
+         (kk > 0 ? (dg > kf ? dg : kf) : 0);
 }
-int kv_tc_smem_bytes(int hd) { return (2 * TK * (hd + 8) + BST * PAIR) * 2; }
+int kv_tc_smem_bytes(int hd) { return (2 * TK * (TD * head_chunks(hd) + 8) + BST * PAIR) * 2; }
 
-// (1) query side on the tensor cores; a block owns NC chunks of dq (oc0 ..)
-template <typename TI, typename TO, int NC>
+// (1) query side on the tensor cores; a block owns NC chunks of dq (oc0 ..).
+// ONE: the head is one 64-wide chunk (hd <= 64), its strides and loops
+// compile-time constants (hd = 64 is the main path's K2: the EPEG tap pass
+// and the halo logits are in its inner loops)
+template <typename TI, typename TO, int NC, bool ONE>
 __global__ void __launch_bounds__(128)
 attn_bwd_q_tc(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenMap tm,
               const float* __restrict__ pw, int kk, const float* __restrict__ pb, float scale,
               float* __restrict__ stats, bf16* __restrict__ ys, bf16* __restrict__ dy,
               float* __restrict__ part) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int QST = hd + 8, HR = halo_rows(kk);
+  const int nch = ONE ? 1 : head_chunks(hd), QST = ONE ? TRS : nch * TD + 8;
+  const int HR = halo_rows(kk);
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [TQ][QST]  y
   bf16* Gs = Qs + TQ * QST;                       // [TQ][QST]  round(g)
   bf16* ring = Gs + TQ * QST;                     // BST x (k tile, v tile)
-  bf16* Hs = ring + BST * PAIR;                    // [HR][TRS]  round(q s), rows q0 - k//2 ..
-  bf16* Ls = Hs + HR * TRS;                       // [HR][TRS]  round(Hs k^T) of one key tile
-  bf16* Ps = Ls + HR * TRS;                       // [TQ][TRS]  round(dLc) of one key tile
+  bf16* Hs = ring + BST * PAIR;                   // [HR][QST]  round(q s), rows q0 - k//2 ..
+  bf16* Ls = Hs + (kk > 0 ? HR * QST : 0);        // [HR][TRS]  round(Hs k^T) of one key tile
+  bf16* Ps = Ls + (kk > 0 ? HR * TRS : 0);        // [TQ][TRS]  round(dLc) of one key tile
   float* Dg = reinterpret_cast<float*>(Ps + (kk > 0 ? TQ * TRS : 0));  // [TQ][kk] taps by row
+  bf16* Kf = reinterpret_cast<bf16*>(Dg);         // [TK][QST]  the key tile (nch > 1), Dg's space
   __shared__ float coef[MAX_KK], dwacc[MAX_KK], red[4];
 
   const int P = tm.P;
   const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
-  const int qt = blockIdx.y, q0 = qt * TQ, oc0 = blockIdx.z * NC, nch = hd / TD;
+  const int qt = blockIdx.y, q0 = qt * TQ, oc0 = blockIdx.z * NC;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, cq = (lane & 3) * 2;
   const TI* qp = (const TI*)q.p + (long long)h * q.sh;
@@ -566,32 +594,32 @@ attn_bwd_q_tc(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenMap t
       coef[t] = round_to<bf16>(pw[hw * kk + t] + (t == pad ? 1.f : 0.f));
       dwacc[t] = 0.f;
     }
-    load_tile<TI>(Hs, TRS, qp, q, tm, r, q0 - pad, HR, TD, scale);
+    load_tile<TI>(Hs, QST, qp, q, tm, r, q0 - pad, HR, nch * TD, scale, hd);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
     // the forward's k-tap sums, each in tap order; 4 independent chains a
-    // thread
-    for (int i0 = tid; i0 < TQ * TD; i0 += 4 * 128) {
+    // thread (element idx of the tile at row idx / hp, column idx % hp of
+    // both Hs and Qs, whose rows have one stride)
+    const int hp = nch * TD;
+    for (int i0 = tid; i0 < TQ * hp; i0 += 4 * 128) {
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      int at[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) at[u] = ((i0 + u * 128) / hp) * QST + (i0 + u * 128) % hp;
       for (int t = 0; t < kk; ++t) {
         const float c = coef[t];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int idx = i0 + u * 128;
-          acc[u] = fmaf(c, __bfloat162float(Hs[(idx / TD + t) * TRS + idx % TD]), acc[u]);
-        }
+        for (int u = 0; u < 4; ++u)
+          acc[u] = fmaf(c, __bfloat162float(Hs[at[u] + t * QST]), acc[u]);
       }
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int idx = i0 + u * 128;
-        Qs[(idx / TD) * QST + idx % TD] = __float2bfloat16(acc[u]);
-      }
+      for (int u = 0; u < 4; ++u) Qs[at[u]] = __float2bfloat16(acc[u]);
     }
   } else {
-    load_tile<TI>(Qs, QST, qp, q, tm, r, q0, TQ, hd, scale);
+    load_tile<TI>(Qs, QST, qp, q, tm, r, q0, TQ, nch * TD, scale, hd);
   }
-  load_tile<TI>(Gs, QST, gp, g, tm, r, q0, TQ, hd, 1.f);
+  load_tile<TI>(Gs, QST, gp, g, tm, r, q0, TQ, nch * TD, 1.f, hd);
 
   // items: pass 1 (several key tiles only) = (k, v) chunk c of each key
   // tile; pass 2 = the same, then (c = nch + x) k chunk oc0 + x again for
@@ -614,7 +642,7 @@ attn_bwd_q_tc(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenMap t
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const int idx = tid + (u & 3) * 128, j = idx >> 3, s8 = idx & 7, p = kt * TK + j;
-      const bool isv = u >= 4, ok = p < P && !(isv && c >= nch);
+      const bool isv = u >= 4, ok = p < P && !(isv && c >= nch) && cc * TD + s8 * 8 < hd;
       const long long row = !ok ? 0 : isv ? row_of(tm, v, r, p) : row_of(tm, k, r, p);
       sg[u].fetch(&T[(isv ? TK * TRS : 0) + j * TRS + s8 * 8],
                   (isv ? vp : kp) + (ok ? row + cc * TD + s8 * 8 : 0), ok);
@@ -688,17 +716,30 @@ attn_bwd_q_tc(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenMap t
           }
         pack_frags(Pd, S);
         if (kk > 0) {
-          // the tap sums of this key tile (hd = 64: Kt is the whole k tile)
+          // the tap sums of this key tile: with one chunk Kt is the whole k
+          // tile, else the whole tile is loaded into Kf (Dg's space, free
+          // until the taps by row are formed below)
 #pragma unroll
           for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
             for (int hr = 0; hr < 2; ++hr)
               store2(&Ps[(warp * 16 + g8 + hr * 8) * TRS + nt * 8 + cq], S[nt][2 * hr],
                      S[nt][2 * hr + 1]);
+          const bf16* Kl = Kt;
+          int kls = TRS;
+          if (!ONE && nch > 1) {
+            load_tile<TI>(Kf, QST, kp, k, tm, r, kt * TK, TK, nch * TD, 1.f, hd);
+            cp_async_commit();
+            cp_async_wait<0>();
+            __syncthreads();
+            Kl = Kf;
+            kls = QST;
+          }
           for (int mt = warp; mt < HR / 16; mt += 4) {
             float L[8][4];
             zero_acc(L);
-            mma_abt(L, Hs + mt * 16 * TRS, TRS, Kt, TRS);
+            for (int cc = 0; cc < nch; ++cc)
+              mma_abt(L, Hs + mt * 16 * QST + cc * TD, QST, Kl + cc * TD, kls);
 #pragma unroll
             for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -751,23 +792,28 @@ attn_bwd_q_tc(Opnd q, Opnd k, Opnd v, Opnd g, Opnd dq, int H, int hd, TokenMap t
       stats[2 * rhp + rh * P + p] = u[hr] / l[hr];
     }
     if (kk > 0) {
-      bf16* o = dy + (rh * P + p) * TD + cq;
+      bf16* o = dy + (rh * P + p) * hd + oc0 * TD + cq;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        store2(o + nt * 8, dY[0][nt][2 * hr], dY[0][nt][2 * hr + 1]);
+      for (int x = 0; x < NC; ++x)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          if ((oc0 + x) * TD + nt * 8 + cq < hd)
+            store2(o + x * TD + nt * 8, dY[x][nt][2 * hr], dY[x][nt][2 * hr + 1]);
     } else {
       TO* o = (TO*)dq.p + row_of(tm, dq, r, p) + (long long)h * dq.sh + oc0 * TD + cq;
 #pragma unroll
       for (int x = 0; x < NC; ++x)
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
-          store2(o + x * TD + nt * 8, scale * dY[x][nt][2 * hr], scale * dY[x][nt][2 * hr + 1]);
+          if ((oc0 + x) * TD + nt * 8 + cq < hd)
+            store2(o + x * TD + nt * 8, scale * dY[x][nt][2 * hr],
+                   scale * dY[x][nt][2 * hr + 1]);
     }
   }
   // y, this block's chunks, for the key side
   for (int idx = tid; idx < TQ * NC * (TD / 8); idx += 128) {
     const int i = idx / (NC * TD / 8), s8 = idx % (NC * TD / 8), p = q0 + i;
-    if (p < P)
+    if (p < P && oc0 * TD + s8 * 8 < hd)
       *reinterpret_cast<uint4*>(&ys[(rh * P + p) * hd + oc0 * TD + s8 * 8]) =
           *reinterpret_cast<const uint4*>(&Qs[i * QST + oc0 * TD + s8 * 8]);
   }
@@ -789,14 +835,14 @@ attn_bwd_kv_tc(Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, const bf16* __restrict_
                int hd, TokenMap tm, int kk, const float* __restrict__ pb,
                const float* __restrict__ stats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int QST = hd + 8;
+  const int nch = head_chunks(hd), QST = nch * TD + 8;
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [TK][QST]  round(k)
   bf16* Vs = Ks + TK * QST;                       // [TK][QST]  round(v)
   bf16* ring = Vs + TK * QST;                     // BST x (y tile, g tile)
 
   const int P = tm.P;
   const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
-  const int k0 = blockIdx.y * TK, oc = blockIdx.z, nch = hd / TD;
+  const int k0 = blockIdx.y * TK, oc = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, cq = (lane & 3) * 2;
   const long long rh = (long long)r * H + h, rhp = (long long)gridDim.x * P;
@@ -804,8 +850,8 @@ attn_bwd_kv_tc(Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, const bf16* __restrict_
   const TI* vp = (const TI*)v.p + (long long)h * v.sh;
   const TI* gp = (const TI*)g.p + (long long)h * g.sh;
   const bf16* yp = ys + rh * P * hd;
-  load_tile<TI>(Ks, QST, kp, k, tm, r, k0, TK, hd, 1.f);
-  load_tile<TI>(Vs, QST, vp, v, tm, r, k0, TK, hd, 1.f);
+  load_tile<TI>(Ks, QST, kp, k, tm, r, k0, TK, nch * TD, 1.f, hd);
+  load_tile<TI>(Vs, QST, vp, v, tm, r, k0, TK, nch * TD, 1.f, hd);
 
   // items: (y, g) chunk c of each query tile, then chunk oc again (c ==
   // nch) when chunk nch - 1 is not the block's own
@@ -818,7 +864,7 @@ attn_bwd_kv_tc(Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, const bf16* __restrict_
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int idx = tid + u * 128, j = idx >> 3, s8 = idx & 7, p = qt * TQ + j;
-      const bool ok = p < P;
+      const bool ok = p < P && cc * TD + s8 * 8 < hd;
       sy[u].fetch(&T[j * TRS + s8 * 8], yp + (ok ? (long long)p * hd + cc * TD + s8 * 8 : 0),
                   ok);
       sg[u].fetch(&T[TK * TRS + j * TRS + s8 * 8],
@@ -913,36 +959,38 @@ attn_bwd_kv_tc(Opnd k, Opnd v, Opnd g, Opnd dk, Opnd dv, const bf16* __restrict_
     TO* vo = (TO*)dv.p + row_of(tm, dv, r, p) + (long long)h * dv.sh + oc * TD + cq;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
+      if (oc * TD + nt * 8 + cq >= hd) continue;
       store2(ko + nt * 8, dK[nt][2 * hr], dK[nt][2 * hr + 1]);
       store2(vo + nt * 8, dV[nt][2 * hr], dV[nt][2 * hr + 1]);
     }
   }
 }
 
-// (3) dq = scale * M_h^T round(dY): tap t of row i reads dY row i - t + k//2
+// (3) dq = scale * M_h^T round(dY): tap t of row i reads dY row i - t + k//2;
+// dY (R*H*P, hd), a block per (region, head, 64 queries, 64-wide chunk)
 template <typename TM, typename TO>
 __global__ void __launch_bounds__(256)
-attn_bwd_dq_kernel(const TM* __restrict__ dy, Opnd dq, int H, TokenMap tm,
+attn_bwd_dq_kernel(const TM* __restrict__ dy, Opnd dq, int H, int hd, TokenMap tm,
                    const float* __restrict__ pw, int kk, float scale) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float coef[MAX_KK];
   const int P = tm.P;
   const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
-  const int q0 = blockIdx.y * BQ;
+  const int q0 = blockIdx.y * BQ, oc = blockIdx.z * HD, cw = min(HD, hd - oc);
   const int pad = kk / 2, nh = BQ + kk - 1, h0 = q0 - (kk - 1 - pad);
   const long long rh = (long long)r * H + h;
   epeg_coef<TM>(pw, hw, kk, coef);
   for (int idx = threadIdx.x; idx < nh * HD; idx += blockDim.x) {
     const int row = idx / HD, d = idx % HD, p = h0 + row;
-    smem[idx] = (p >= 0 && p < P) ? to_f(dy[(rh * P + p) * HD + d]) : 0.f;
+    smem[idx] = (p >= 0 && p < P && d < cw) ? to_f(dy[(rh * P + p) * hd + oc + d]) : 0.f;
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < BQ * HD; idx += blockDim.x) {
     const int i = idx / HD, d = idx % HD, p = q0 + i;
-    if (p >= P) continue;
+    if (p >= P || d >= cw) continue;
     float acc = 0.f;
     for (int t = 0; t < kk; ++t) acc = fmaf(coef[t], smem[(i + kk - 1 - t) * HD + d], acc);
-    ((TO*)dq.p)[row_of(tm, dq, r, p) + (long long)h * dq.sh + d] = from_f<TO>(scale * acc);
+    ((TO*)dq.p)[row_of(tm, dq, r, p) + (long long)h * dq.sh + oc + d] = from_f<TO>(scale * acc);
   }
 }
 
@@ -979,14 +1027,14 @@ struct BwdArgs {
   int qcols;  // dq chunks a query-side block owns (tensor cores): 1 or 2
 };
 
-template <typename TI, typename TO, int NC>
+template <typename TI, typename TO, int NC, bool ONE>
 cudaError_t launch_bwd_tc(const BwdArgs& a, dim3 grid, cudaStream_t stream) {
   static int done_q = 0, done_kv = 0;
   const int sq = q_tc_smem_bytes(a.hd, a.kk), skv = kv_tc_smem_bytes(a.hd);
   cudaError_t err;
-  if ((err = smem_optin(attn_bwd_q_tc<TI, TO, NC>, sq, done_q)) != cudaSuccess) return err;
+  if ((err = smem_optin(attn_bwd_q_tc<TI, TO, NC, ONE>, sq, done_q)) != cudaSuccess) return err;
   if ((err = smem_optin(attn_bwd_kv_tc<TI, TO>, skv, done_kv)) != cudaSuccess) return err;
-  attn_bwd_q_tc<TI, TO, NC><<<dim3(grid.x, grid.y, grid.z / NC), 128, sq, stream>>>(
+  attn_bwd_q_tc<TI, TO, NC, ONE><<<dim3(grid.x, grid.y, grid.z / NC), 128, sq, stream>>>(
       a.q, a.k, a.v, a.g, a.dq, a.H, a.hd, a.tm, a.pw, a.kk, a.pb, a.scale, a.stats,
       (bf16*)a.ys, (bf16*)a.dy, a.part);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -1000,11 +1048,12 @@ cudaError_t launch_bwd_tc(const BwdArgs& a, dim3 grid, cudaStream_t stream) {
 template <typename TI, typename TM, typename TO>
 cudaError_t launch_attention_bwd(const BwdArgs& a, cudaStream_t stream) {
   const int nqt = (a.tm.P + BQ - 1) / BQ;
-  const dim3 grid(a.R * a.H, nqt, a.hd / HD);
+  const dim3 grid(a.R * a.H, nqt, head_chunks(a.hd));
   cudaError_t err;
   if (sizeof(TM) == 2) {
-    err = a.qcols == 2 ? launch_bwd_tc<TI, TO, 2>(a, grid, stream)
-                       : launch_bwd_tc<TI, TO, 1>(a, grid, stream);
+    err = a.qcols == 2                 ? launch_bwd_tc<TI, TO, 2, false>(a, grid, stream)
+          : head_chunks(a.hd) == 1 ? launch_bwd_tc<TI, TO, 1, true>(a, grid, stream)
+                                   : launch_bwd_tc<TI, TO, 1, false>(a, grid, stream);
     if (err != cudaSuccess) return err;
   } else {
     static int done_q = 0, done_kv = 0;
@@ -1021,9 +1070,9 @@ cudaError_t launch_attention_bwd(const BwdArgs& a, cudaStream_t stream) {
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (a.kk > 0) {
-    attn_bwd_dq_kernel<TM, TO><<<dim3(a.R * a.H, nqt), 256,
+    attn_bwd_dq_kernel<TM, TO><<<dim3(a.R * a.H, nqt, head_chunks(a.hd)), 256,
                                  (size_t)(BQ + a.kk - 1) * HD * 4, stream>>>(
-        (const TM*)a.dy, a.dq, a.H, a.tm, a.pw, a.kk, a.scale);
+        (const TM*)a.dy, a.dq, a.H, a.hd, a.tm, a.pw, a.kk, a.scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     const int F = a.tm.rf > 0 ? a.R / a.tm.rf : 1, n = F * a.H * (a.kk + 1);
     attn_bwd_dw_kernel<<<(n + 255) / 256, 256, 0, stream>>>(a.part, a.R * nqt, a.R / F * nqt,
@@ -1239,10 +1288,11 @@ extern "C" int rb_ln_bwd(int ts, const void* x, const void* mask, const void* ls
 // the attention core's backward on q, k, v, g (dtype ti) and into dq, dk,
 // dv (dtype to), each described by (base, region stride, head stride,
 // token-row stride); grid > 0 maps region r, token p to row token_of(r, p)
-// of K2's (B, G*G) stream; qcols = the 64-wide dq chunks one query-side
-// block owns with bf16 products (1, or 2 when hd / 64 is even).  Scratch:
+// of K2's (B, G*G) stream; hd a multiple of 32 (up to 128 with EPEG);
+// qcols = the 64-wide dq chunks one query-side block owns with bf16
+// products (1, or 2 when head_chunks(hd) is even).  Scratch:
 // stats (3, R*H*P) f32; ys (R*H*P, hd) bf16 (tm = 1); with EPEG dy
-// (R*H*P, 64) in the mm dtype and part (H, R*ceil(P/64), kk+1) f32, and the
+// (R*H*P, hd) in the mm dtype and part (H, R*ceil(P/64), kk+1) f32, and the
 // outputs dw (H, kk), db (H,) or null.  rf > 0: folds of rf regions, region
 // r reading fold r / rf's taps pw (F, H, kk) and bias pb (F, H), and dw
 // (F, H, kk), db (F, H) each fold's own sums.
@@ -1257,9 +1307,9 @@ extern "C" int rb_attention_bwd(int tm, int ti, int to, const void* q, long long
                                 int grid, int rs, int qcols, const void* pw, int kk,
                                 const void* pb, float scale, void* stats, void* ys, void* dy,
                                 void* part, void* dw, void* db, int rf, void* stream) {
-  if (hd <= 0 || hd % HD != 0 || hd > MAX_HD || kk < 0 || kk > MAX_KK || (kk > 0 && hd != HD) ||
-      P <= 0 || stats == nullptr || (tm == 1 && ys == nullptr) || qcols < 1 || qcols > 2 ||
-      (hd / HD) % qcols != 0)
+  if (hd <= 0 || hd % 32 != 0 || hd > MAX_HD || kk < 0 || kk > MAX_KK ||
+      (kk > 0 && hd > MAX_EPEG_HD) || P <= 0 || stats == nullptr || (tm == 1 && ys == nullptr) ||
+      qcols < 1 || qcols > 2 || head_chunks(hd) % qcols != 0)
     return (int)cudaErrorInvalidValue;
   if (kk > 0 && (pw == nullptr || dy == nullptr || part == nullptr || dw == nullptr))
     return (int)cudaErrorInvalidValue;

@@ -226,7 +226,14 @@ __device__ __forceinline__ void zero_acc(float (&X)[8][4]) {
 // single key tile (P <= 64) at hd > 64 (brca_r50's CR-MSA), pass 1 is
 // dropped (9 ring items at hd = 512, not 17): the max, the sum and the
 // probabilities come from the one logit tile in registers, the values the
-// two passes give.
+// two passes give.  A head width that is a multiple of 32 but not of 64
+// (--n_heads / --crmsa_heads 16: hd = 32) is held as head_chunks(hd)
+// 64-wide chunks whose columns past hd are zero-filled by the loads and
+// never stored; zero columns add exact zeros to the logits, so the one
+// code path gives every width its own function (at hd = 64 every guard
+// holds).
+// With EPEG (hd <= 128) the k-tap pass runs a 64-wide chunk at a time
+// through the halo buffer.
 // ---------------------------------------------------------------------------
 constexpr int TQ = 64, TK = 64, TD = 64, TRS = TD + 8;  // ring rows: 144 bytes
 constexpr int TST = 4;                                    // ring stages
@@ -235,23 +242,23 @@ constexpr int TC_RING = TST * TK * TRS;                   // bf16 elements
 inline int attn_tc_smem_bytes(int hd, int kk) {
   const int ring = TC_RING * 2;
   const int halo = kk > 0 ? (TQ + kk - 1) * TD * 2 : 0;
-  return TQ * (hd + 8) * 2 + (ring > halo ? ring : halo);
+  return TQ * (TD * head_chunks(hd) + 8) * 2 + (ring > halo ? ring : halo);
 }
 
 // rows p0 .. p0 + rows - 1 of a token-row operand (width elements from
-// base, p outside [0, P) as zeros), times s and rounded to bf16, into dst
-// (row stride ld), by a 128-thread block.  bf16 at s = 1 goes by cp.async
-// (uncommitted: the caller's next commit and wait cover it); otherwise 4
-// loads in flight per thread, rounded in registers.
+// base, p outside [0, P) and columns from `valid` on as zeros), times s and
+// rounded to bf16, into dst (row stride ld), by a 128-thread block.  bf16
+// at s = 1 goes by cp.async (uncommitted: the caller's next commit and wait
+// cover it); otherwise 4 loads in flight per thread, rounded in registers.
 template <typename TI>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld, const TI* base, const Opnd& o,
                                           const TokenMap& tm, int r, int p0, int rows,
-                                          int width, float s) {
+                                          int width, float s, int valid = 1 << 30) {
   const int segs = width / 8, n = rows * segs;
   if (std::is_same<TI, bf16>::value && s == 1.f) {
     for (int idx = threadIdx.x; idx < n; idx += 128) {
       const int i = idx / segs, sg = idx % segs, p = p0 + i;
-      const bool ok = p >= 0 && p < tm.P;
+      const bool ok = p >= 0 && p < tm.P && sg * 8 < valid;
       cp_async16(&dst[i * ld + sg * 8], ok ? base + row_of(tm, o, r, p) + sg * 8 : base, ok);
     }
     return;
@@ -261,8 +268,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const TI* base, con
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int idx = i0 + u * 128 + threadIdx.x, i = idx / segs, sg = idx % segs, p = p0 + i;
-      val[u] = (idx < n && p >= 0 && p < tm.P) ? load8(base + row_of(tm, o, r, p) + sg * 8, s)
-                                                : make_uint4(0, 0, 0, 0);
+      val[u] = (idx < n && p >= 0 && p < tm.P && sg * 8 < valid)
+                   ? load8(base + row_of(tm, o, r, p) + sg * 8, s)
+                   : make_uint4(0, 0, 0, 0);
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -277,64 +285,73 @@ __global__ void __launch_bounds__(128)
 attn_tc_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float scale,
                const float* __restrict__ pw, int kk, const float* __restrict__ pb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int QST = hd + 8;
+  const int nch = head_chunks(hd), QST = nch * TD + 8;
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [TQ][QST]
   bf16* ring = Qs + TQ * QST;                     // TST x [TK][TRS]
   __shared__ float coef[MAX_KK];
 
   const int P = tm.P;
   const int r = blockIdx.x / H, h = blockIdx.x % H, hw = fold_of(tm, r) * H + h;
-  const int q0 = blockIdx.y * TQ, oc = blockIdx.z, nch = hd / TD;
+  const int q0 = blockIdx.y * TQ, oc = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const TI* qp = (const TI*)q.p + (long long)h * q.sh;
   const TI* kp = (const TI*)k.p + (long long)h * k.sh;
   const TI* vp = (const TI*)v.p + (long long)h * v.sh + oc * TD;
 
-  // the query tile: round(q s), or round(M_h round(q s)) with EPEG (hd = 64)
+  // the query tile: round(q s), or round(M_h round(q s)) with EPEG (hd <=
+  // 128, a 64-wide chunk at a time through the halo buffer)
   if (kk > 0) {
     const int pad = kk / 2, nh = TQ + kk - 1;
     bf16* Hs = ring;  // [nh][TD]
     for (int t = tid; t < kk; t += blockDim.x)
       coef[t] = round_to<bf16>(pw[hw * kk + t] + (t == pad ? 1.f : 0.f));
-    for (int i0 = 0; i0 < nh * (TD / 8); i0 += 4 * 128) {  // 4 loads in flight
-      uint4 val[4];
+    for (int c = 0; c < nch; ++c) {
+      const TI* qc = qp + c * TD;
+      const int cw = hd - c * TD;  // columns of the chunk that exist
+      for (int i0 = 0; i0 < nh * (TD / 8); i0 += 4 * 128) {  // 4 loads in flight
+        uint4 val[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int idx = i0 + u * 128 + tid, row = idx / (TD / 8), sg = idx % (TD / 8);
-        const int p = q0 - pad + row;
-        val[u] = (row < nh && p >= 0 && p < P) ? load8(qp + row_of(tm, q, r, p) + sg * 8, scale)
-                                               : make_uint4(0, 0, 0, 0);
-      }
+        for (int u = 0; u < 4; ++u) {
+          const int idx = i0 + u * 128 + tid, row = idx / (TD / 8), sg = idx % (TD / 8);
+          const int p = q0 - pad + row;
+          val[u] = (row < nh && p >= 0 && p < P && sg * 8 < cw)
+                       ? load8(qc + row_of(tm, q, r, p) + sg * 8, scale)
+                       : make_uint4(0, 0, 0, 0);
+        }
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int idx = i0 + u * 128 + tid;
-        if (idx < nh * (TD / 8)) *reinterpret_cast<uint4*>(&Hs[idx * 8]) = val[u];
+        for (int u = 0; u < 4; ++u) {
+          const int idx = i0 + u * 128 + tid;
+          if (idx < nh * (TD / 8)) *reinterpret_cast<uint4*>(&Hs[idx * 8]) = val[u];
+        }
       }
+      __syncthreads();
+      for (int idx = tid; idx < TQ * TD; idx += blockDim.x) {
+        const int i = idx / TD, d = idx % TD;
+        float acc = 0.f;
+        for (int t = 0; t < kk; ++t)
+          acc = fmaf(coef[t], __bfloat162float(Hs[(i + t) * TD + d]), acc);
+        Qs[i * QST + c * TD + d] = __float2bfloat16(acc);
+      }
+      __syncthreads();  // the halo (and the ring after the last chunk) is reused
     }
-    __syncthreads();
-    for (int idx = tid; idx < TQ * TD; idx += blockDim.x) {
-      const int i = idx / TD, d = idx % TD;
-      float acc = 0.f;
-      for (int t = 0; t < kk; ++t) acc = fmaf(coef[t], __bfloat162float(Hs[(i + t) * TD + d]), acc);
-      Qs[i * QST + d] = __float2bfloat16(acc);
-    }
-    __syncthreads();  // the ring is reused below
   } else if (std::is_same<TI, bf16>::value && scale == 1.f) {
     // already rounded (K5's backward hands K6 bf16 at scale 1): by cp.async,
     // in the ring's first group, so item 0's wait covers it
-    const int segs = hd / 8;
+    const int segs = nch * TD / 8;
     for (int idx = tid; idx < TQ * segs; idx += blockDim.x) {
       const int i = idx / segs, sg = idx % segs, p = q0 + i;
-      cp_async16(&Qs[i * QST + sg * 8], p < P ? qp + row_of(tm, q, r, p) + sg * 8 : qp, p < P);
+      const bool ok = p < P && sg * 8 < hd;
+      cp_async16(&Qs[i * QST + sg * 8], ok ? qp + row_of(tm, q, r, p) + sg * 8 : qp, ok);
     }
   } else {
-    const int segs = hd / 8;
+    const int segs = nch * TD / 8;
     for (int i0 = 0; i0 < TQ * segs; i0 += 4 * 128) {  // 4 loads in flight
       uint4 val[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int idx = i0 + u * 128 + tid, i = idx / segs, sg = idx % segs, p = q0 + i;
-        val[u] = p < P ? load8(qp + row_of(tm, q, r, p) + sg * 8, scale) : make_uint4(0, 0, 0, 0);
+        val[u] = p < P && sg * 8 < hd ? load8(qp + row_of(tm, q, r, p) + sg * 8, scale)
+                                      : make_uint4(0, 0, 0, 0);
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -368,7 +385,7 @@ attn_tc_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int idx = tid + u * 128, j = idx >> 3, s8 = idx & 7, p = kt * TK + j;
-      const bool ok = p < P;
+      const bool ok = p < P && (isv ? oc : c) * TD + s8 * 8 < hd;
       const long long row = !ok ? 0 : isv ? row_of(tm, v, r, p) : row_of(tm, k, r, p);
       sg[u].fetch(&T[j * TRS + s8 * 8], base + row + (ok ? s8 * 8 : 0), ok);
     }
@@ -439,7 +456,8 @@ attn_tc_kernel(Opnd q, Opnd k, Opnd v, Opnd o, int H, int hd, TokenMap tm, float
     if (p >= P) continue;
     TO* orow = op + row_of(tm, o, r, p);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) store2(orow + nt * 8, O[nt][2 * hr], O[nt][2 * hr + 1]);
+    for (int nt = 0; nt < 8; ++nt)
+      if (oc * TD + nt * 8 + cq < hd) store2(orow + nt * 8, O[nt][2 * hr], O[nt][2 * hr + 1]);
   }
 }
 
@@ -608,10 +626,10 @@ template <typename TI, typename TM, typename TO>
 cudaError_t launch_attention(Opnd q, Opnd k, Opnd v, Opnd o, int R, int H, int hd,
                              TokenMap tm, float scale, const void* pw, int kk, const void* pb,
                              cudaStream_t stream) {
-  if (hd <= 0 || hd % 64 != 0 || hd > MAX_HD || kk < 0 || kk > MAX_KK ||
-      (kk > 0 && hd != 64) || tm.P <= 0)
+  if (hd <= 0 || hd % 32 != 0 || hd > MAX_HD || kk < 0 || kk > MAX_KK ||
+      (kk > 0 && hd > MAX_EPEG_HD) || tm.P <= 0)
     return cudaErrorInvalidValue;
-  dim3 grid(R * H, (tm.P + 63) / 64, hd / 64);
+  dim3 grid(R * H, (tm.P + 63) / 64, head_chunks(hd));
   static int done = 0;
   cudaError_t err;
   if (sizeof(TM) == 2) {

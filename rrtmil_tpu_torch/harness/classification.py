@@ -44,7 +44,7 @@ from ..data.datasets import (C16Dataset, TCGADataset, get_kfold,
 from ..models import zoo
 from ..models.dsmil import load_warm_start
 from ..models.dtfd import DTFD
-from ..models.rrt import build_model
+from ..models.rrt import build_model, check_kernel_geometry
 from ..train.checkpoint import FoldCheckpointer, load_host_state
 from ..train.earlystop import EarlyStopping
 from ..train.engine import Engine, EngineConfig
@@ -62,10 +62,15 @@ def model_names() -> List[str]:
 
 def check_args(args) -> None:
     """Refuse an unknown model and what the port does not run yet, before
-    any work (--fold_parallel's own refusals: harness/fold_parallel.py)."""
+    any work: an encoder geometry the card's kernels do not take
+    (`models.rrt.check_kernel_geometry`; --fold_parallel's own refusals:
+    harness/fold_parallel.py)."""
     if args.model.lower() not in model_names():
         raise ValueError(f"--model {args.model}: unknown model; choose from "
                          f"{model_names()}")
+    if args.model == "rrtmil" or (args.only_rrt_enc and args.model not in
+                                  ("transmil", "dtfd")):
+        check_kernel_geometry(encoder_config_from_args(args), args.device)
     resolve_device(args.device)
 
 

@@ -17,10 +17,17 @@ Semantics, as in the JAX package:
 * Early stopping is per fold; a stopped fold keeps stepping with the others,
   but its best weights and scores stay those of its stop.
 * The step's loss is loss(logits) alone (folds.py:53-55), whatever
-  --cls_alpha says; one device bag cache serves every fold's engine.
-* Refused (ValueError): --accumulation_steps > 1, --lr_supi, --auto_resume,
-  and models other than `FOLD_PARALLEL_MODELS` (ROADMAP.md queue 1 item
-  9(a)).
+  --cls_alpha says: no label reaches the model, so CLAM's instance branch
+  and DSMIL's max-instance stream do not enter a fold step.  The ragged
+  tails' own engine steps keep the aux losses, CLAM's and DSMIL's batch 1
+  and TransMIL's exact mode; inside a fold step TransMIL sees its bag
+  zero-extended to the step's bucket, as in JAX.  One device bag cache
+  serves every fold's engine.
+* IBMIL is built without confounders (the JAX harness passes none).
+* Refused (ValueError), before any work: --accumulation_steps > 1,
+  --lr_supi, --auto_resume, and --model dtfd, which the JAX package's
+  fold-parallel path refuses as an unknown zoo name (DTFD trains on an
+  engine of its own, harness/dtfd_cls.py).
 
 Each fold keeps its engine, optimizer, generator (its dropout masks, seeded
 as the sequential harness seeds it), early stopper and checkpoints; the
@@ -46,17 +53,14 @@ from ..utils.logger import Logger
 from .classification import (_make_datasets, build_model_from_args,
                              check_args, engine_config_from_args, make_splits)
 
-PARALLEL_ITEM = "ROADMAP.md queue 1 item 9(a)"
-# the models whose every module the fold axis has been taken through
-FOLD_PARALLEL_MODELS = ("rrtmil",)
-
-
 def check_fold_parallel(args) -> None:
-    """Refuse what --fold_parallel does not run, before any work."""
-    if args.model not in FOLD_PARALLEL_MODELS:
-        raise ValueError(f"--fold_parallel --model {args.model}: only "
-                         f"{', '.join(FOLD_PARALLEL_MODELS)} is ported to "
-                         f"fold-parallel training; see {PARALLEL_ITEM}")
+    """Refuse what --fold_parallel does not run, before any work (every
+    zoo model runs; check_args refuses a name it does not know)."""
+    if args.model == "dtfd":
+        raise ValueError("--fold_parallel --model dtfd: unknown model 'dtfd' "
+                         "for the fold-parallel step, as in the JAX package "
+                         "(its zoo has no dtfd; DTFD trains on an engine of "
+                         "its own)")
     if args.accumulation_steps > 1:
         raise ValueError("--fold_parallel does not support "
                          "--accumulation_steps > 1")
@@ -155,12 +159,15 @@ def run_cv_fold_parallel(args) -> Dict[str, List[float]]:
             for e in engines:
                 e._apply_grads(lr)
                 e.global_iter += 1
-        # ragged tails: each fold's own engine, one bag a step
+        # ragged tails: each fold's own engine, one bag a step, with its
+        # aux losses (CLAM's instance branch reads the bag's host label)
         for k, e in enumerate(engines):
             for t in range(t_par, len(orders[k])):
-                x, mask, labels, spec = e._make_batch(
-                    fold_sets[k][0], [orders[k][t]], True)
-                e._train_step(x, mask, labels, spec.repr_length)
+                bag = [orders[k][t]]
+                x, mask, labels, spec = e._make_batch(fold_sets[k][0], bag,
+                                                      True)
+                e._train_step(x, mask, labels, spec.repr_length,
+                              label=e._host_label(fold_sets[k][0], bag))
                 e._apply_grads(lr)
                 e.global_iter += 1
         train_time = time.time() - t0

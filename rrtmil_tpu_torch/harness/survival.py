@@ -33,9 +33,9 @@ trains the 5 folds at once through parallel/folds.py's step: one bag a
 fold a step, zero-extended on the device to the step's largest bucket;
 ragged epoch tails through each fold's engine; each fold's lr from its own
 schedule (the plateau on its own validation loss) and its own best-c-index
-saves.  It takes `SURV_FOLD_MODELS`; DTFD, MHIM-MIL and `--sp_shards > 1`
-are refused as in the JAX package, the other models naming ROADMAP.md
-queue 1 item 9(a).
+saves.  It takes every `SurvivalHead` model (`SURV_FOLD_MODELS`); DTFD,
+MHIM-MIL and `--sp_shards > 1` are refused before any work, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -52,6 +52,7 @@ from ..config import PoolConfig, RRTEncoderConfig, RRTMILConfig
 from ..data.survival import SurvivalDataset
 from ..models import mhim, zoo
 from ..models.dtfd import DTFD
+from ..models.rrt import check_kernel_geometry
 from ..models.survival import SurvivalHead, risk_score
 from ..train.checkpoint import load_params, save_params
 from ..train.metrics import concordance_index_censored
@@ -62,9 +63,10 @@ from ..utils.logger import Logger
 from .dtfd_cls import EVAL_PERM_SEED, eval_permutation
 
 PARALLEL_ITEM = "ROADMAP.md queue 1 item 9"
-# the survival models fold-parallel training takes (RRTMIL on the kernels,
-# the others no kernel at all)
-SURV_FOLD_MODELS = ("rrtmil", "meanmil", "maxmil", "attmil")
+# the survival models fold-parallel training takes: every SurvivalHead
+# model (RRTMIL on the kernels, the others no kernel at all)
+SURV_FOLD_MODELS = ("rrtmil", "meanmil", "maxmil", "attmil", "clam_sb",
+                    "clam_mb", "dsmil", "transmil", "ibmil")
 
 
 class CVMeter:
@@ -313,10 +315,20 @@ def engine_config_from_args(args) -> SurvivalEngineConfig:
                                * (1 << 30)))
 
 
+def check_survival_geometry(args) -> None:
+    """Refuse, before any work, an RRTMIL geometry (--epeg_k, --crmsa_k)
+    the card's kernels do not take (`models.rrt.check_kernel_geometry`)."""
+    if model_key(args.model) == "rrtmil":
+        check_kernel_geometry(survival_rrtmil_config(
+            1, epeg_k=args.epeg_k, crmsa_k=args.crmsa_k).encoder,
+            getattr(args, "device", "cuda"))
+
+
 def run_survival_cv(args) -> CVMeter:
     """5-fold survival CV (reference Survival/main.py:16-166) on
     `args.device` (the card unless 'cpu')."""
     device = getattr(args, "device", "cuda")
+    check_survival_geometry(args)
     resolve_device(device)
     sp_shards = int(getattr(args, "sp_shards", 1) or 1)
     n_features = getattr(args, "input_dim", None) or \
@@ -386,13 +398,12 @@ def check_survival_fold_parallel(args) -> None:
                          f"({PARALLEL_ITEM})")
     if name_l in ("dtfd", "mhim"):
         raise ValueError(
-            f"--fold_parallel (--model {args.model}) is not ported yet: see "
-            f"{PARALLEL_ITEM}; it trains the SurvivalEngine zoo alone, not "
-            f"DTFD's or MHIM-MIL's engines, as in the JAX package")
+            f"--fold_parallel (--model {args.model}): --fold_parallel "
+            f"supports the SurvivalEngine zoo only, as in the JAX package; "
+            f"DTFD and MHIM-MIL train on engines of their own")
     if name_l not in SURV_FOLD_MODELS:
-        raise ValueError(f"--fold_parallel --model {args.model}: only RRTMIL, "
-                         f"MeanMIL, MaxMIL and AttMIL are ported to "
-                         f"fold-parallel training; see {PARALLEL_ITEM}(a)")
+        raise ValueError(f"--fold_parallel --model {args.model}: unknown "
+                         f"model; choose from {', '.join(SURV_FOLD_MODELS)}")
 
 
 def _update(engine: SurvivalEngine) -> None:
@@ -411,6 +422,7 @@ def run_survival_fold_parallel(args, folds=None) -> CVMeter:
     from .fold_parallel import pad_stack
 
     check_survival_fold_parallel(args)
+    check_survival_geometry(args)
     device = getattr(args, "device", "cuda")
     resolve_device(device)
     folds = list(folds if folds is not None else range(5))

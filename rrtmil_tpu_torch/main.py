@@ -14,8 +14,10 @@ the prototypes `python -m rrtmil_tpu_torch.build_confounders` writes; dtfd
 reads `--numGroup`, `--total_instance`, `--distill_type` and
 `--grad_clipping`).  Any other name fails as an unknown model (mhim is a
 survival model alone, as in the JAX package).  `--fold_parallel` trains
-the CV folds at once (harness/fold_parallel.py, rrtmil alone; another model
-raises, naming it and its ROADMAP.md item).
+the CV folds at once (harness/fold_parallel.py: every model but dtfd, which
+raises as in the JAX package).  An encoder geometry the card's kernels do
+not take (`--n_heads`, `--crmsa_heads`, `--epeg_k`, `--crmsa_k`) raises
+before any work on the card, naming ROADMAP.md queue 3 item 1.
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--persistence", action="store_true")
     parser.add_argument("--fold_parallel", action="store_true",
                         help="train all cv folds at once, each kernel "
-                             "launched once a step for every fold (--model "
-                             "rrtmil)")
+                             "launched once a step for every fold (every "
+                             "--model but dtfd)")
     parser.add_argument("--same_psize", default=0, type=int)
     parser.add_argument("--tcga_sub", default="nsclc", type=str)
 

@@ -162,6 +162,53 @@ def fusable(cfg: InnerAttentionConfig) -> bool:
             and cfg.attn_dropout == 0.0)
 
 
+GEOMETRY_ITEM = "ROADMAP.md queue 3 item 1"
+
+
+def kernel_geometry_error(enc: RRTEncoderConfig) -> Optional[str]:
+    """Why the card's kernels cannot run this encoder's attention geometry
+    (the head widths of R-MSA and CR-MSA, the EPEG taps, crmsa_k), or None:
+    the kernels' own checks (`region_attn.check_geometry`,
+    `crmsa_kernels.check_k`) on its flags.  The JAX package runs every
+    geometry, falling back to XLA where its kernels refuse one; the port
+    runs nothing eager on the card, so the CLIs refuse these before any
+    work."""
+    from ..ops.kernels.crmsa_kernels import check_k
+    from ..ops.kernels.region_attn import check_geometry
+    layers = []
+    if enc.n_layers > 1 and enc.attn_mode == "rmsa" and \
+            enc.region_attn == "native":
+        layers.append(("R-MSA", f"--n_heads {enc.n_heads}",
+                       enc.rmsa_layer().rmsa.attn))
+    if enc.cr_msa:
+        layers.append(("CR-MSA", f"--crmsa_heads {enc.crmsa_heads}",
+                       enc.crmsa_layer().crmsa.attn))
+    try:
+        if enc.cr_msa:
+            what = f"--crmsa_k {enc.crmsa_k}: CR-MSA"
+            check_k(enc.crmsa_k)
+        for name, flag, a in layers:
+            if not fusable(a):
+                continue      # torch ops on either device (ops/epeg.py)
+            what = f"{flag}: {name}"
+            check_geometry(a.resolved_head_dim,
+                           a.epeg.k if a.epeg.enabled else 0)
+    except ValueError as err:
+        return f"{what}: {err}; see {GEOMETRY_ITEM}"
+    return None
+
+
+def check_kernel_geometry(enc: RRTEncoderConfig, device) -> None:
+    """Raise ValueError, before any work, when `device` is not the CPU
+    and its kernels cannot run the encoder's geometry
+    (`kernel_geometry_error`); the CPU's plain versions run every one."""
+    if str(device) == "cpu":
+        return
+    err = kernel_geometry_error(enc)
+    if err is not None:
+        raise ValueError(f"not on the card: {err}")
+
+
 class InnerAttention(nn.Module):
     """Scaled-dot-product MHSA over one region's tokens, with EPEG
     (reference modules/rmsa.py:56-134).  Input (B_, N, C).

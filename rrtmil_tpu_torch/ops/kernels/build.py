@@ -4,12 +4,14 @@ Each `rrtmil_tpu_torch/csrc/<name>.cu` is compiled on its own, at first
 use, by
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC --split-compile=0 -o build/lib<name>-<hash>.so
+         csrc/<name>.cu
 
 into `rrtmil_tpu_torch/build/` (listed in .gitignore).  The file name
 carries a hash of the sources, so an edited kernel is rebuilt and a stale
 library is never loaded.  `build_all` starts one nvcc per source, all at
-once.  The libraries have a plain C interface: pointers and the stream are
+once, each splitting its device code's optimisation over the host's cores
+(`--split-compile=0`: a file holds many template instances).  The libraries have a plain C interface: pointers and the stream are
 passed as c_void_p, and every entry returns cudaGetLastError(), which
 `check` turns into an exception.
 """
@@ -32,7 +34,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("region_layer", "region_layer_bwd", "crmsa", "crmsa_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "--split-compile=0"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # argtypes of every C entry; each returns an int error code

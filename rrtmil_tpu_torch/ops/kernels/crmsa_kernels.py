@@ -79,7 +79,7 @@ from .folds import (ROWS, WEIGHT, FoldFunction, fold_plain, folds,
                     vmap_rule)
 from .region_layer import SMS, check_grid
 
-MAX_K = 8   # representatives per region the kernels take
+MAX_K = 16  # representatives per region the kernels take (crmsa_k)
 SPLIT_ROWS = 8           # rows a round of a split block takes (a warp each)
 SPLIT_BLOCKS_PER_SM = 2  # blocks the row split gives every SM at least
 K8_ROWS = 64             # token rows a K8 block takes at most (8 a warp)
@@ -221,7 +221,7 @@ def redistribute_grid_ln_bwd_plain(x, mask, w, reps, ln_s, ln_b, shortcut, g,
     return dx, dw, dreps, dls, dlb, (None if shortcut is None else dx)
 
 
-def _check_k(k: int) -> None:
+def check_k(k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"the CR-MSA kernels take 1..{MAX_K} "
                          f"representatives, not {k}")
@@ -273,7 +273,7 @@ def _launch_compress(x, mask, ln_s, ln_b, phi, g, rs, mmd):
     k = phi.shape[-1]
     bf = _fold_split(b, folds(phi, 2))
     check_grid(x, mask, g, rs)
-    _check_k(k)
+    check_k(k)
     build.require_cuda({"x": x, "mask": mask},
                        dict(ln_s=ln_s, ln_b=ln_b, phi=phi))
     lib = build.load("crmsa")
@@ -296,7 +296,7 @@ def _check_redistribute(x, mask, w, reps, shortcut, g, rs):
     b, n, c = x.shape
     nr, k = w.shape[1], w.shape[2]
     check_grid(x, mask, g, rs)
-    _check_k(k)
+    check_k(k)
     if (w.shape != (b, (g // rs) ** 2, k, rs * rs)
             or reps.shape != (b, nr, k, c)):
         raise ValueError(f"w {tuple(w.shape)} / reps {tuple(reps.shape)} do "
@@ -335,7 +335,7 @@ def _launch_compress_bwd(x, mask, ln_s, ln_b, phi, dreps, dw, g, rs, mmd):
     nf = folds(phi, 2)
     bf = _fold_split(b, nf)
     check_grid(x, mask, g, rs)
-    _check_k(k)
+    check_k(k)
     nr, p = (g // rs) ** 2, rs * rs
     if dreps.shape != (b, nr, k, c) or dw.shape != (b, nr, k, p):
         raise ValueError(f"dreps {tuple(dreps.shape)} / dw {tuple(dw.shape)} "
@@ -609,14 +609,14 @@ def _check_regions(w, reps):
                          f"not (R, k, P) / (R, k, C)")
     if w.dtype != torch.float32 or reps.dtype != torch.float32:
         raise TypeError("w and reps must be float32")
-    _check_k(w.shape[1])
+    check_k(w.shape[1])
 
 
 def _launch_compress_regions(x, phi, mmd):
     r, p, c = x.shape
     k = phi.shape[-1]
     rf = _fold_split(r, folds(phi, 2))
-    _check_k(k)
+    check_k(k)
     if c > MAX_C or phi.shape[-2] != c:
         raise ValueError(f"K12 takes phi (C, k) with C <= {MAX_C}, not "
                          f"{tuple(phi.shape)} for x {tuple(x.shape)}")

@@ -13,8 +13,9 @@ K6 is an entry point on K1's attention core (`rl_attention` in
 (region, head, token) strides, scales and rounds q as it loads it, and
 writes the head outputs straight into an (R, H, P, hd) tensor in q's dtype;
 the wrapper runs no torch op but that allocation.  Head widths: any
-multiple of 64 up to 512 without EPEG (the CR-MSA of `crmsa_heads=1`
-configs: one 512-wide head), 64 with it.  `region_attention_fused` is a
+multiple of 32 up to 512 without EPEG (the CR-MSA of `crmsa_heads=1`
+configs: one 512-wide head; `--crmsa_heads 16`: 32), up to 128 with it
+(`--n_heads` 16, 8, 4).  `region_attention_fused` is a
 `torch.autograd.Function` whose backward is K7 (`region_attn_bwd.py`); on a
 CPU tensor both directions run the plain versions, on a CUDA tensor the
 kernels.  Folds (`folds.py`): q, k, v hold each fold's regions in turn; the
@@ -32,24 +33,54 @@ from .common import epeg_toeplitz, mm_round
 from .folds import (ROWS, WEIGHT, FoldFunction, fold_plain, folds,
                     vmap_rule)
 
-HEAD_DIM = 64      # head width with EPEG, and the cores' column chunk
+HEAD_STEP = 32      # the cores take head widths that are multiples of it
 MAX_HEAD_DIM = 512  # widest head the cores take (without EPEG)
+MAX_EPEG_HEAD_DIM = 128  # widest head the cores take with EPEG
 MAX_KK = 128       # EPEG taps the core takes
+BLOCK_SMEM = 232448  # bytes of shared memory an H100 block may take
 
 
-def check_heads(wq, pw, max_hd: int = MAX_HEAD_DIM) -> int:
-    """The EPEG tap count, after checking the head width (wq: (H, C, hd) or
-    any tensor whose last axis is hd): a multiple of 64 up to `max_hd`
-    without EPEG, 64 with it."""
-    hd = wq.shape[-1]
-    kk = 0 if pw is None else pw.shape[1]
-    top = HEAD_DIM if kk else max_hd
-    if hd % HEAD_DIM or not HEAD_DIM <= hd <= top:
+def bwd_query_smem(hd: int, kk: int) -> int:
+    """Bytes of shared memory the attention backward's query-side block (K2,
+    K7) takes with bf16 products at head width hd and kk EPEG taps
+    (csrc/region_layer_bwd.cu q_tc_smem_bytes, its tiles TQ = TK = TD = 64,
+    TRS = 72, a 3-stage ring of PAIR = 2 * 64 * 72)."""
+    chunks = -(-hd // 64)
+    hs = 64 * chunks + 8
+    ring = 3 * 2 * 64 * 72
+    if not kk:
+        return (2 * 64 * hs + ring) * 2
+    hr = max((64 + kk - 1 + 15) // 16 * 16, 48 + 32 * ((kk + 15 + 31) // 32))
+    taps = max(64 * kk * 4, 64 * hs * 2 if chunks > 1 else 0)
+    return (2 * 64 * hs + ring + hr * hs + hr * 72 + 64 * 72) * 2 + taps
+
+
+def check_geometry(hd: int, kk: int) -> None:
+    """Raise ValueError unless the attention cores (K1, K2, K5-K7) take head
+    width hd with kk EPEG taps: a multiple of 32 up to 512 without EPEG, up
+    to 128 with it, at most MAX_KK taps.  A wider EPEG head names the shared
+    memory the backward would need where that is past a block's."""
+    top = MAX_EPEG_HEAD_DIM if kk else MAX_HEAD_DIM
+    if hd % HEAD_STEP or not HEAD_STEP <= hd <= top:
+        why = ""
+        if kk and not hd % HEAD_STEP and hd <= MAX_HEAD_DIM:
+            smem = bwd_query_smem(hd, kk)
+            why = (f" (the backward's query-side block would need {smem} "
+                   f"bytes of shared memory, past the {BLOCK_SMEM} an H100 "
+                   f"block takes)" if smem > BLOCK_SMEM else
+                   " (no kernel instance is built for it)")
         raise ValueError(f"the attention core takes head_dim a multiple of "
-                         f"{HEAD_DIM} up to {top}"
-                         f"{' with EPEG' if kk else ''}, not {hd}")
+                         f"{HEAD_STEP} up to {top}"
+                         f"{' with EPEG' if kk else ''}, not {hd}{why}")
     if kk > MAX_KK:
         raise ValueError(f"EPEG k={kk} exceeds the core's {MAX_KK} taps")
+
+
+def check_heads(wq, pw) -> int:
+    """The EPEG tap count, after `check_geometry` of the head width (wq:
+    (H, C, hd) or any tensor whose last axis is hd) and the taps."""
+    kk = 0 if pw is None else pw.shape[1]
+    check_geometry(wq.shape[-1], kk)
     return kk
 
 

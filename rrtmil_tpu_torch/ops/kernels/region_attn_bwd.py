@@ -14,7 +14,7 @@ and g = d(out):
 
 dq, dk, dv come back in the primals' dtype, dw and db in float32; dw and db
 are None without EPEG (db also without a bias).  Head widths as K6's: a
-multiple of 64 up to 512 without EPEG, 64 with it.  The CUDA source is
+multiple of 32 up to 512 without EPEG, up to 128 with it.  The CUDA source is
 `csrc/region_layer_bwd.cu` (`rb_attention_bwd`: with bf16 products on the
 tensor cores, with f32 products on the CUDA cores), whose note says what
 bounds it on an H100 and what the design does about it.  The kernels read
@@ -35,6 +35,7 @@ from .folds import ROWS, WEIGHT, fold_plain, folds
 from .region_attn import check_heads, check_qkv
 
 QUERY_TILE = 64    # rows of one block of the query-side kernel
+CHUNK = 64         # the cores' column chunk: a head is ceil(hd / 64) of them
 # 64-wide dq chunks one query-side block owns with bf16 products when the
 # head has an even number of them: half the blocks, each logit tile formed
 # once for two chunks (at hd = 512, B = 8 one wave of blocks, not two);
@@ -107,14 +108,14 @@ def attention_bwd_launch(lib, tm, ti, to, ops, r, h, hd, p, grid, rs, w, b,
     dy = part = dw = db = None
     if kk:
         nqt = -(-p // QUERY_TILE)
-        dy = torch.empty((n, 64), device=dev,
+        dy = torch.empty((n, hd), device=dev,
                          dtype=torch.bfloat16 if tm else torch.float32)
         part = torch.empty((h, r * nqt, kk + 1), dtype=torch.float32,
                            device=dev)
         dw = torch.empty((*lead, h, kk), dtype=torch.float32, device=dev)
         if pb is not None:
             db = torch.empty((*lead, h), dtype=torch.float32, device=dev)
-    qcols = DQ_CHUNKS if tm and (hd // 64) % DQ_CHUNKS == 0 else 1
+    qcols = DQ_CHUNKS if tm and -(-hd // CHUNK) % DQ_CHUNKS == 0 else 1
     build.check(lib.rb_attention_bwd(
         tm, ti, to, *[x for op in ops for x in op], r, h, hd, p, grid, rs,
         qcols, pw, kk, pb, scale, stats.data_ptr(), build.ptr(ys),

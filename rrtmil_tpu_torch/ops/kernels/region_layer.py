@@ -12,7 +12,9 @@ on the (B, G*G, C) stream, in x's dtype.  The CUDA source is
 `csrc/region_layer.cu` (a three-step pipeline: LN + qkv product, attention
 core, projection + residual; with bf16 products the product and the core
 run on the tensor cores, `csrc/tc.cuh`), reading the weights where they lie.
-Head width 64 (no canonical config uses another in the R-MSA layer).
+Head widths: 64 in every canonical config; `--n_heads` 16 and 4 give 32 and
+128, which the cores take with EPEG as without (any multiple of 32 up to 512
+without it).
 
 K2 replaces `region_layer.py::_layer_bwd_pallas` (kernel body
 `_layer_bwd_kernel`, pallas_call at region_layer.py:554): from x, the
@@ -48,7 +50,7 @@ from . import build, layout
 from .common import LN_EPS, ln_bwd_plain, ln_mask_plain, ln_stats, mm_round
 from .folds import (ROWS, WEIGHT, FoldFunction, fold_plain, folds,
                     vmap_rule)
-from .region_attn import HEAD_DIM, attention_core_plain, check_heads
+from .region_attn import attention_core_plain, check_heads
 from .region_attn_bwd import attention_bwd_core_plain, attention_bwd_launch
 from .region_block import block_core_plain, qkv_args, qkv_weights
 
@@ -158,7 +160,7 @@ def _recompute(lib, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, gs,
     each fold's rows read its own weights."""
     b, n, c = x.shape
     h, _, hd = wq.shape[-3:]
-    kk = check_heads(wq, _fold0(pw, nf), HEAD_DIM)
+    kk = check_heads(wq, _fold0(pw, nf))
     ts, tm = build.dtype_code(x.dtype), build.dtype_code(mmd)
     m, nq, hh = b * n, 3 * h * hd, h * hd
     rows_f, regions = (m // nf if nf else 0), b * (gs // rs) ** 2
@@ -379,7 +381,7 @@ def _launch_bwd(x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw, pb, wp, bp,
     s = build.stream_of(x)
     tm = build.dtype_code(mmd)
     m, nq, hh = b * n, 3 * h * hd, h * hd
-    kk = check_heads(wq, _fold0(pw, nf), HEAD_DIM)
+    kk = check_heads(wq, _fold0(pw, nf))
     f32 = dict(dtype=torch.float32, device=x.device)
     z, y, o = _recompute(rl, x, mask, ln_s, ln_b, wq, wk, wv, bq, bk, bv, pw,
                          pb, gs, rs, mmd, s, nf)

@@ -9,8 +9,10 @@ Survival/main.py + Survival/utils/options.py), defaults included, plus
 MaxMIL, AttMIL, CLAM_SB, CLAM_MB, DSMIL, TransMIL, IBMIL, DTFD and
 MHIM-MIL (the last two through engines of their own).  `--fold_parallel`
 trains the 5 folds at once (`harness/survival.run_survival_fold_parallel`:
-RRTMIL, MeanMIL, MaxMIL, AttMIL; the others raise, naming the model and
-ROADMAP.md queue 1 item 9); `--sp_shards > 1` raises (item 9(b)).
+every model but DTFD and MHIM-MIL, which raise as in the JAX package);
+`--sp_shards > 1` raises (ROADMAP.md queue 1 item 9(b)).  An RRTMIL
+`--epeg_k` / `--crmsa_k` the card's kernels do not take raises before any
+work on the card (`models.rrt.check_kernel_geometry`).
 """
 from __future__ import annotations
 
@@ -64,8 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device_cache_gb", default=6.0, type=float)
     parser.add_argument("--fold_parallel", action="store_true",
                         help="train all 5 folds at once, each kernel "
-                             "launched once a step for every fold (RRTMIL, "
-                             "MeanMIL, MaxMIL, AttMIL)")
+                             "launched once a step for every fold (every "
+                             "model but DTFD and MHIM-MIL)")
     parser.add_argument("--results_dir", type=str, default=None)
     parser.add_argument("--sp_shards", type=int, default=1,
                         help="sequence-parallel shards for long bags: only 1 "

@@ -221,16 +221,20 @@ def test_cuda_k10_to_k13_match_plain(sdt, mm, rs):
 
 @pytest.mark.gpu
 def test_cuda_wrappers_raise_on_geometry_they_cannot_take():
+    """Head width 256 with EPEG (past the cores' 128), a head width that
+    is no multiple of 32, a grid the regions do not tile, and k = 17
+    representatives (past the CR-MSA kernels' 16) raise before a launch."""
     dev = _cuda()
-    x, mask, (ls, lb), weights, phi, regions = _case(dev, torch.float32,
-                                                     hd=32, h=4)
-    with pytest.raises(ValueError, match="head_dim"):
-        rl.region_layer_fused(x, mask, ls, lb, *weights(15), 24, 12, True)
+    for h, hd in ((1, 256), (2, 80)):
+        x, mask, (ls, lb), weights, phi, regions = _case(dev, torch.float32,
+                                                         hd=hd, h=h)
+        with pytest.raises(ValueError, match="head_dim"):
+            rl.region_layer_fused(x, mask, ls, lb, *weights(15), 24, 12, True)
     x, mask, (ls, lb), weights, phi, regions = _case(dev, torch.float32)
     with pytest.raises(ValueError, match="grid"):
         rl.region_layer_fused(x, mask, ls, lb, *weights(15), 24, 7, True)
     with pytest.raises(ValueError, match="representatives"):
-        ck.crmsa_compress_grid(x, mask, ls, lb, phi.repeat(1, 9), 24, 12)
+        ck.crmsa_compress_grid(x, mask, ls, lb, phi.repeat(1, 17), 24, 12)
 
 
 @pytest.mark.gpu
@@ -387,7 +391,8 @@ def test_cuda_k5_k6_k7_at_ragged_region_sizes(sdt, mm, p):
 def test_cuda_k5_k6_k7_at_head_width_512(sdt, mm, hd):
     """brca_r50's CR-MSA shape: one 512-wide head over 64 regions, R = 6,
     and the other head widths the cores take (128, 256) at the same shape;
-    every other head width raises, as does hd = 128 with EPEG."""
+    a head width that is no multiple of 32 or past 512 raises, as does hd
+    = 256 with EPEG."""
     dev = _cuda()
     gen = torch.Generator().manual_seed(hd)
     r = lambda *s, sc=1.0: (torch.randn(s, generator=gen) * sc).to(dev)
@@ -399,7 +404,7 @@ def test_cuda_k5_k6_k7_at_head_width_512(sdt, mm, hd):
     q, k, v, g = (r(6, 1, 64, hd).to(sdt) for _ in range(4))
     _k567((r(6, 64, c).to(sdt), *w), (q, k, v, None, None, hd ** -0.5),
           (q, k, v, None, None, g, hd ** -0.5), mm, f"hd={hd}")
-    for bad, pw in ((576, None), (96, None), (128, r(1, 15))):
+    for bad, pw in ((576, None), (80, None), (256, r(1, 15))):
         x = r(2, 1, 16, bad)
         with pytest.raises(ValueError, match="head_dim"):
             ra.region_attention_fused(x, x, x, pw, None, 1.0, mm)
@@ -1484,36 +1489,45 @@ def test_fold_kernels_match_per_fold_launches(sdt, mm):
     same bits on a second call."""
     dev, nf = _cuda(), 3
     for name, fn, per_fold in _fold_cases(dev, sdt, mm, nf):
-        gen = torch.Generator(device=dev).manual_seed(3)
-        probe = fn(*per_fold[0])
-        probe = probe if isinstance(probe, tuple) else (probe,)
-        cots = [torch.randn((nf, *o.shape), generator=gen, device=dev)
-                for o in probe]
-        for f in FOLD_FNS:
-            f.launches = 0
-        out, grads = _fold_run(fn, per_fold, cots)
-        launched = [f.launches for f in FOLD_FNS if f.launches]
-        assert launched and all(n == 1 for n in launched), (name, launched)
-        out2, grads2 = _fold_run(fn, per_fold, cots)
-        for a, b in zip(out + list(grads), out2 + list(grads2)):
-            assert torch.equal(a, b), f"{name}: not the same bits twice"
-        for f in range(nf):
-            leaves = [None if a is None else
-                      a.clone().requires_grad_(a.is_floating_point())
-                      for a in per_fold[f]]
-            want = fn(*leaves)
-            want = want if isinstance(want, tuple) else (want,)
-            loss = sum((o.float() * c[f]).sum() for o, c in zip(want, cots))
-            wgrads = torch.autograd.grad(
-                loss, [a for a in leaves if a is not None and a.requires_grad])
-            for i, (a, b) in enumerate(zip(out, want)):
-                _close(a[f], b.detach(), mm, f"{name} fold {f} output {i}")
-            for i, (a, b) in enumerate(zip(grads, wgrads)):
-                if name == "K1/K2" and i in (7, 10):   # K2_NOISE_GRADS
-                    err = (a[f] - b).abs().max().item()
-                    assert err <= max(NOISE_ABS, TOL[mm]), (name, i, err)
-                    continue
-                _close(a[f], b, mm, f"{name} fold {f} gradient {i}")
+        _fold_form_matches(dev, mm, name, fn, per_fold)
+
+
+def _fold_form_matches(dev, mm, name, fn, per_fold):
+    """fn under vmap over len(per_fold) folds: one launch of each kernel
+    for all folds, the same bits on a second call, and each fold's outputs
+    and gradients within TOL of the fold's own launches (K1/K2's
+    K2_NOISE_GRADS within NOISE_ABS)."""
+    nf = len(per_fold)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    probe = fn(*per_fold[0])
+    probe = probe if isinstance(probe, tuple) else (probe,)
+    cots = [torch.randn((nf, *o.shape), generator=gen, device=dev)
+            for o in probe]
+    for f in FOLD_FNS:
+        f.launches = 0
+    out, grads = _fold_run(fn, per_fold, cots)
+    launched = [f.launches for f in FOLD_FNS if f.launches]
+    assert launched and all(n == 1 for n in launched), (name, launched)
+    out2, grads2 = _fold_run(fn, per_fold, cots)
+    for a, b in zip(out + list(grads), out2 + list(grads2)):
+        assert torch.equal(a, b), f"{name}: not the same bits twice"
+    for f in range(nf):
+        leaves = [None if a is None else
+                  a.clone().requires_grad_(a.is_floating_point())
+                  for a in per_fold[f]]
+        want = fn(*leaves)
+        want = want if isinstance(want, tuple) else (want,)
+        loss = sum((o.float() * c[f]).sum() for o, c in zip(want, cots))
+        wgrads = torch.autograd.grad(
+            loss, [a for a in leaves if a is not None and a.requires_grad])
+        for i, (a, b) in enumerate(zip(out, want)):
+            _close(a[f], b.detach(), mm, f"{name} fold {f} output {i}")
+        for i, (a, b) in enumerate(zip(grads, wgrads)):
+            if name.startswith("K1/K2") and i in (7, 10):  # K2_NOISE_GRADS
+                err = (a[f] - b).abs().max().item()
+                assert err <= max(NOISE_ABS, TOL[mm]), (name, i, err)
+                continue
+            _close(a[f], b, mm, f"{name} fold {f} gradient {i}")
 
 
 @pytest.mark.gpu
@@ -1559,3 +1573,161 @@ def test_fold_parallel_step_on_card_matches_cpu():
                 continue
             scale = max(1.0, b.abs().max().item())
             assert (a - b).abs().max().item() <= 1e-3 * scale, (f, name)
+
+
+# -- the geometries of --n_heads 16 / 4, --crmsa_heads 16, --crmsa_k 12 ------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", PAIRS)
+@pytest.mark.parametrize("h,hd", [(4, 32), (2, 128)])
+@pytest.mark.parametrize("kk", [0, 15])
+def test_cuda_k1_k2_at_head_widths_32_and_128(sdt, mm, h, hd, kk):
+    """K1's forward and K2's gradients at head width 32 (--n_heads 16) and
+    128 (--n_heads 4), with EPEG k = 15 and without it, against their plain
+    versions, the same bits on a second call, and in their 5-fold form (each
+    fold's weights its own) against each fold's own launches."""
+    dev = _cuda()
+    x, mask, (ls, lb), weights, _, _ = _case(dev, sdt, h=h, hd=hd, seed=hd)
+    w = weights(kk)
+    gx = torch.randn(x.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(hd), device=dev).to(sdt)
+    args = (x, mask, ls, lb, *w, 24, 12, True)
+    (out,) = _twice(rl.region_layer_fused, args, mm)
+    _close(out, rl.region_layer_plain(*args, mm_dtype=mm), mm, f"K1 hd={hd}")
+    args = (x, mask, ls, lb, *w, gx, 24, 12, True)
+    got = _twice(rl.region_layer_bwd, args, mm)
+    want = rl.region_layer_bwd_plain(*args, mm_dtype=mm)
+    exact = rl.region_layer_bwd_plain(*args, mm_dtype=torch.float32)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None or b is None:
+            assert a is None and b is None
+            continue
+        if i in K2_NOISE_GRADS:
+            own = (b.float() - exact[i].float()).abs().max().item()
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= max(NOISE_ABS, 2 * own), (hd, kk, i, err, own)
+            continue
+        _close(a, b, mm, f"K2 hd={hd} k={kk} output {i}")
+    per = [_case(dev, sdt, h=h, hd=hd, seed=f) for f in range(5)]
+    _fold_form_matches(
+        dev, mm, f"K1/K2 hd={hd} k={kk}",
+        lambda *a: rl.region_layer_fused(*a, 24, 12, True, mm),
+        [[c[0], c[1], *c[2], *c[3](kk)] for c in per])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", PAIRS)
+@pytest.mark.parametrize("kk", [0, 15])
+def test_cuda_k5_k6_k7_at_head_width_32(sdt, mm, kk):
+    """--crmsa_heads 16: K5 over (B k, 64, 512) with 16 heads of 32, K6 and
+    K7 on (R, 16, 64, 32) (with EPEG k = 15 too, as K1 / K2 reach them at
+    --n_heads 16), and K6 / K7 at hd = 96 (three 32-wide thirds of two
+    chunks), against their plain versions; the same bits on a second call;
+    K5 and K6 / K7 in their 5-fold form."""
+    dev = _cuda()
+    gen = torch.Generator().manual_seed(32 + kk)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=gen) * sc).to(dev)
+    h, hd, c = 16, 32, 512
+    s = (2.0 / (c + h * hd)) ** 0.5
+
+    def wts(kk):
+        return (r(h, c, hd, sc=s / 6), r(h, c, hd, sc=s), r(h, c, hd, sc=s),
+                r(h, hd, sc=0.05), r(h, hd, sc=0.05), r(h, hd, sc=0.05),
+                r(h, kk, sc=0.3) if kk else None,
+                r(h, sc=0.1) if kk else None, r(h, hd, c, sc=s),
+                r(c, sc=0.05))
+    w = wts(kk)
+    q, k, v, g = (r(6, h, 64, hd).to(sdt) for _ in range(4))
+    x5 = r(6, 64, c).to(sdt)
+    _k567((x5, *w), (q, k, v, w[6], w[7], hd ** -0.5),
+          (q, k, v, w[6], w[7], g, hd ** -0.5), mm, f"hd=32 k={kk}")
+    _twice(rb.region_block_fused, (x5, *w), mm)
+    _twice(ra.region_attention_fused, (q, k, v, w[6], w[7], hd ** -0.5), mm)
+    _twice(rab.region_attention_bwd,
+           (q, k, v, w[6], w[7], g, hd ** -0.5), mm)
+    q3, k3, v3, g3 = (r(3, 2, 40, 96).to(sdt) for _ in range(4))
+    pw3 = r(2, kk, sc=0.3) if kk else None
+    pb3 = r(2, sc=0.1) if kk else None
+    if not kk:
+        _k567(None, (q3, k3, v3, pw3, pb3, 96 ** -0.5),
+              (q3, k3, v3, pw3, pb3, g3, 96 ** -0.5), mm, "hd=96")
+    _fold_form_matches(dev, mm, f"K5 hd=32 k={kk}",
+                       lambda *a: rb.region_block_fused(*a, mm),
+                       [[r(6, 64, c).to(sdt), *wts(kk)] for _ in range(5)])
+    _fold_form_matches(
+        dev, mm, f"K6/K7 hd=32 k={kk}",
+        lambda *a: ra.region_attention_fused(*a, hd ** -0.5, mm),
+        [[r(6, h, 64, hd).to(sdt) for _ in range(3)] + list(wts(kk)[6:8])
+         for _ in range(5)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sdt,mm", PAIRS)
+@pytest.mark.parametrize("k", [12, 16])
+def test_cuda_crmsa_kernels_at_k_12_and_16(sdt, mm, k):
+    """--crmsa_k 12 and the kernels' new bound 16: K3 / K4 and K8 / K9 on
+    the grid (P = 144), K10 (both residual modes) / K11, K12 (zero rows) and
+    K13 against their plain versions, the same bits on a second call, and
+    K3/K4, K8/K9, K10/K11, K12 and K13 in their 5-fold form."""
+    dev = _cuda()
+    g, rs, c = 24, 12, 128
+    nr, p = (g // rs) ** 2, rs * rs
+    gen = torch.Generator().manual_seed(k)
+    r = lambda *s: torch.randn(s, generator=gen).to(dev)
+
+    def fold(f):
+        x, mask, (ls, lb), _, _, regions = _case(dev, sdt, seed=f)
+        phi = ((torch.rand((c, k), generator=gen) - 0.5) * 0.2).to(dev)
+        w = torch.rand((2, nr, k, p), generator=gen).to(dev)
+        return x, mask, ls, lb, phi, w, r(2, nr, k, c), regions
+    x, mask, ls, lb, phi, w, reps, regions = fold(0)
+    regions = regions.clone()
+    regions[1, 32:] = 0
+    gx = r(2, g * g, c).to(sdt)
+    reps_c, w_c = ck.compress_grid_plain(x, mask, ls, lb, phi, g, rs, mm)
+    cases = [
+        ("K3", ck.crmsa_compress_grid, ck.compress_grid_plain,
+         (x, mask, ls, lb, phi, g, rs)),
+        ("K4", ck.crmsa_compress_grid_bwd, ck.compress_grid_bwd_plain,
+         (x, mask, ls, lb, phi, reps_c * 0.1, w_c * 0.1, g, rs)),
+        ("K8", ck.crmsa_redistribute_grid_ln, ck.redistribute_grid_ln_plain,
+         (x, mask, w, reps, ls, lb, x, g, rs)),
+        ("K9", ck.crmsa_redistribute_grid_ln_bwd,
+         ck.redistribute_grid_ln_bwd_plain,
+         (x, mask, w, reps, ls, lb, x, gx.float(), g, rs)),
+        ("K10", ck.crmsa_redistribute_grid, ck.redistribute_grid_plain,
+         (x, mask, w, reps, g, rs, True)),
+        ("K10 branch", ck.crmsa_redistribute_grid, ck.redistribute_grid_plain,
+         (x, mask, w, reps, g, rs, False)),
+        ("K11", ck.crmsa_redistribute_grid_bwd,
+         ck.redistribute_grid_bwd_plain, (mask, w, reps, gx, g, rs)),
+        ("K12", ck.crmsa_compress, ck.compress_plain, (regions, phi)),
+        ("K13", ck.crmsa_redistribute, ck.redistribute_plain,
+         (w.reshape(2 * nr, k, p), reps.reshape(2 * nr, k, c))),
+    ]
+    for what, fn, plain, args in cases:
+        got = _twice(fn, args, mm)
+        want = plain(*args, mm_dtype=mm)
+        for a, b in zip(got, want if isinstance(want, tuple) else (want,)):
+            if a is None or b is None:
+                assert a is None and b is None, what
+                continue
+            assert a.is_cuda
+            _close(a, b, mm, f"{what} k={k}")
+    per = [fold(f) for f in range(5)]
+    for name, fn, args in (
+            ("K3/K4", lambda *a: ck.crmsa_compress_grid(*a, g, rs, mm),
+             [[f[0], f[1], f[2], f[3], f[4]] for f in per]),
+            ("K8/K9", lambda x, m, w, reps, ls, lb, sc:
+             ck.crmsa_redistribute_grid_ln(x, m, w, reps, ls, lb, sc, g, rs,
+                                           mm),
+             [[f[0], f[1], f[5], f[6], f[2], f[3], f[0]] for f in per]),
+            ("K10/K11", lambda x, m, w, reps: ck.crmsa_redistribute_grid(
+                x, m, w, reps, g, rs, True, mm),
+             [[f[0], f[1], f[5], f[6]] for f in per]),
+            ("K12", lambda x, phi: ck.crmsa_compress(x, phi, mm),
+             [[f[7], f[4]] for f in per]),
+            ("K13", lambda w, reps: ck.crmsa_redistribute(w, reps, mm),
+             [[f[5].reshape(2 * nr, k, p), f[6].reshape(2 * nr, k, c)]
+              for f in per])):
+        _fold_form_matches(dev, mm, f"{name} k={k}", fn, args)

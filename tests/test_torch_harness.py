@@ -128,7 +128,8 @@ def test_amp_maps_to_bf16_compute_and_transfer():
 @pytest.mark.parametrize("argv,err,match", [
     (["--model", "mhim"], ValueError, "unknown model"),
     (["--model", "dtfd"], None, None),
-    (["--fold_parallel", "--model", "attmil"], ValueError, "queue 1 item 9"),
+    (["--fold_parallel", "--model", "dtfd"], ValueError,
+     "unknown model 'dtfd'"),
     (["--device", "cuda"], RuntimeError, "no CUDA device"),
     (["--fold_parallel"], None, None),
     (["--fold_parallel", "--accumulation_steps", "2"], ValueError,
@@ -137,8 +138,8 @@ def test_amp_maps_to_bf16_compute_and_transfer():
     (["--fold_parallel", "--auto_resume"], ValueError, "auto_resume")])
 def test_refusals(tmp_path, monkeypatch, argv, err, match):
     """mhim (a survival model alone, as in the JAX registry) fails as an
-    unknown model; --fold_parallel with a model it does not take (naming
-    ROADMAP.md queue 1 item 9(a)), with accumulation, a per-iteration
+    unknown model; --fold_parallel with dtfd (an unknown zoo name on the
+    JAX package's fold-parallel path), with accumulation, a per-iteration
     schedule or --auto_resume, and the card when there is none raise, each
     before any work; dtfd runs one fold on the CPU, and --fold_parallel (the
     default rrtmil) both folds at once, one epoch."""

@@ -179,12 +179,17 @@ def test_k6_k7_plain_at_head_width_512_match_pallas(mm):
 
 
 @pytest.mark.parametrize("hd,kk,ok", [(64, 15, True), (128, 0, True),
-                                      (512, 0, True), (128, 15, False),
-                                      (32, 0, False), (96, 0, False),
+                                      (512, 0, True), (128, 15, True),
+                                      (32, 0, True), (32, 15, True),
+                                      (96, 0, True), (96, 15, True),
+                                      (256, 15, False), (512, 15, False),
+                                      (80, 0, False), (16, 0, False),
                                       (576, 0, False)])
 def test_head_widths_the_cores_take(hd, kk, ok):
-    """Any multiple of 64 up to 512 without EPEG, 64 with it; K1 / K2 keep
-    64 (their callers pass max_hd=64)."""
+    """Any multiple of 32 up to 512 without EPEG, up to 128 with it, for
+    every caller (K1 / K2 included: --n_heads 16, 8 and 4 give 32, 64 and
+    128); a width that is no multiple of 32, past 512, or past 128 with
+    EPEG raises.  Past 128 taps raises too."""
     w = torch.zeros(1, 8, hd)
     pw = torch.zeros(1, kk) if kk else None
     if ok:
@@ -192,9 +197,8 @@ def test_head_widths_the_cores_take(hd, kk, ok):
     else:
         with pytest.raises(ValueError, match="head_dim"):
             ra.check_heads(w, pw)
-    if hd > 64:
-        with pytest.raises(ValueError, match="head_dim"):
-            ra.check_heads(w, pw, ra.HEAD_DIM)
+    with pytest.raises(ValueError, match="taps"):
+        ra.check_heads(torch.zeros(1, 8, 64), torch.zeros(1, ra.MAX_KK + 1))
 
 
 # ---------------------------------------------------------------------------

@@ -191,9 +191,8 @@ def test_refusals_name_their_roadmap_items(tmp_path):
     """mhim is no zoo name (an unknown model there, as in the JAX
     registry); DTFD and MHIM-MIL get their own engines; --sp_shards > 1
     raises naming the model that asked and item 9; --fold_parallel with a
-    model it does not take (item 9(a)) or with --sp_shards 2 raises, and
-    tells a DTFD or MHIM-MIL user that the JAX package does not run it
-    there either."""
+    model it does not know or with --sp_shards 2 raises, and tells a DTFD
+    or MHIM-MIL user that the JAX package does not run it there either."""
     with pytest.raises(ValueError, match="unknown model 'mhim'"):
         zoo.build_model("mhim", device="cpu")
     assert isinstance(survival.make_survival_engine(
@@ -208,16 +207,16 @@ def test_refusals_name_their_roadmap_items(tmp_path):
         survival.make_survival_engine("DTFD", torch.nn.Linear(2, 2),
                                       SurvivalEngineConfig(), sp_shards=2,
                                       device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 9"):
-        cli.main(["--fold_parallel", "--model", "CLAM_SB", "--results_dir",
+    with pytest.raises(ValueError, match="--model nope: unknown model"):
+        cli.main(["--fold_parallel", "--model", "nope", "--results_dir",
                   str(tmp_path)])
     with pytest.raises(ValueError, match="incompatible with --sp_shards 2.*"
                                          "item 9"):
         cli.main(["--fold_parallel", "--sp_shards", "2", "--model", "RRTMIL",
                   "--results_dir", str(tmp_path)])
     for name in ("MHIM-MIL", "DTFD"):
-        with pytest.raises(ValueError, match=f"--model {name}.*item 9.*not "
-                                             f"DTFD's or MHIM-MIL's"):
+        with pytest.raises(ValueError, match=f"--model {name}.*SurvivalEngine "
+                                             f"zoo only.*as in the JAX"):
             cli.main(["--fold_parallel", "--model", name,
                       "--results_dir", str(tmp_path)])
     with pytest.raises(ValueError, match="unknown model"):
