@@ -193,6 +193,23 @@ phase 9's own interruption):
    10's cases, 5 folds x 2 epochs), each a process that exits 0, beside
    the same commands without the flag: each epoch's train rate from the
    logs;
+16. the head widths and k the kernels refused, and the zoo under
+   `--fold_parallel` (`phase_slice16`);
+17. sequence sharding and the dp step over SEQ_SP = 2 ranks sharing the
+   card (gloo; the backend rule printed): (a) survival_default at full
+   width (f32 stream, dropout off, TF32 off) on bags of 50000 and 45000
+   patches (sharded bucket 224 x 224), f32 and bf16 products: each rank's
+   sharded forward and value_and_grad launch K5, K6, K7, K12 and K13 and
+   none of K1-K4 / K8-K11, and agree with the unsharded port on the same
+   card and weights (TOL; the gradients that are zero in exact arithmetic
+   within NOISE_ABS in f32); per-rank peak memory, the sharded and
+   unsharded value_and_grad ms; (b) `python -m
+   rrtmil_tpu_torch.survival_main --model RRTMIL --sp_shards 2` as a
+   process on phase 10's set, 5 folds x 1 epoch: a finite c-index in every
+   fold, one CSV; (c) `make_sharded_train_step` at dp = 2, c16_r50 at full
+   width (f32 products), one 9000-patch bag a rank, against one process at
+   B = 2: two steps' losses within 1e-4, parameters within Adam's drift
+   bound, K1-K9 every step on each rank; a failing rank fails the phase;
 6. survival: `SurvivalEngine.train_epoch` (dropout on) and `validate` on
    survival_default() at full width, bags of {937, 1500, 10000, 30000,
    45000, 50000} patches: each bag whose R-MSA grid exceeds its CR-MSA grid
@@ -236,10 +253,12 @@ phase 9's own interruption):
 
 Every counter is set to 0 just before each path and read just after.
 Prints the `{"kernels": [...]}` line (each kernel's launches from its own
-path: K1-K9 phase 15's fold-parallel c16_r50 step, K10 / K11 the FFN train
-epoch, K12 / K13 phase 15's fold-parallel survival step; `launches_by_path`
-adds every other path, phase 3's to 14's among them; `fold_parallel` each
-kernel's phase 15 (a) times), the card's name and power limit,
+path: K5-K7, K12 and K13 rank 0's sharded forward and value_and_grad at
+L = 50000 (phase 17 (a), bf16 products), K1-K4, K8 and K9 rank 0's two
+dp = 2 steps (phase 17 (c)), K10 / K11 the FFN train epoch;
+`launches_by_path` adds every other path, phase 3's to 17's among them;
+`fold_parallel` each kernel's phase 15 (a) times), the card's name and
+power limit,
 and as
 its last line
 `{"ok": true, "device": {...}}`.  Writes the full report to
@@ -249,6 +268,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import itertools
 import json
 import os
@@ -5690,6 +5710,280 @@ def phase_fold_zoo_cli(dev):
             torch.cuda.empty_cache()
     return report
 
+SEQ_SP = 2                          # phase 17: two ranks on the one card
+SEQ_BAGS = (50000, 45000)           # (a): sharded grids 224 (rows 112 a rank)
+SEQ_MAIN = (50000, "bfloat16")      # the kernels line's sharded step
+SEQ_TIME_STEPS = 3
+# with f32 products, the pool scorer's ReLU inputs that may change sign
+# between the sharded and unsharded runs: at most this many units, each
+# within this of zero (rounding of O(1) values); on an H100 80GB HBM3
+# (700 W) one unit flipped at L = 45000, at 4e-8
+RELU_FLIPS_MAX, RELU_FLIP_ABS = 4, 1e-5
+SEQ_KERNELS = [K[4], K[5], K[6], K[11], K[12]]     # K5-K7, K12, K13
+DP_BAG, DP_STEPS, DP_LR = 9000, 2, 2e-4            # (c)
+# a rank waits this long in a collective before it raises (rank 0's
+# one-process references run while the others wait)
+SEQ_TIMEOUT = datetime.timedelta(seconds=180)
+
+
+def _noise_leaf(name):
+    """Parameters whose gradient is zero in exact arithmetic (a
+    key-constant logit shift cancels in the softmax): rounding noise on
+    both sides."""
+    return "pe_bias" in name
+
+
+def _grad_errors(got, want, skip_rows=None):
+    """(max over parameters of |got - want| / max(1, max|want|), the
+    parameter it is at, the max over the noise leaves and the key third of
+    each qkv bias of |got - want|); `skip_rows` {name: rows} leaves those
+    rows of a parameter out."""
+    worst, worst_name, noise = 0.0, None, 0.0
+    for name, b in want.items():
+        a = got[name]
+        rows = (skip_rows or {}).get(name)
+        if rows:
+            keep = torch.ones(b.shape[0], dtype=torch.bool, device=b.device)
+            keep[rows] = False
+            a, b = a[keep], b[keep]
+        if _noise_leaf(name):
+            noise = max(noise, (a - b).abs().max().item())
+            continue
+        if name.endswith("qkv.bias"):
+            t = b.shape[0] // 3
+            noise = max(noise, (a[t:2 * t] - b[t:2 * t]).abs().max().item())
+            a, b = torch.cat([a[:t], a[2 * t:]]), torch.cat([b[:t], b[2 * t:]])
+        err = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        if err >= worst:
+            worst, worst_name = err, name
+    return worst, worst_name, noise
+
+
+def _seq_value_and_grad(model, x, mask, length, world):
+    """Loss and every gradient (the loss seeded at 1 / world, the
+    gradients summed over the ranks when world > 1)."""
+    from rrtmil_tpu_torch.parallel import collectives
+    from rrtmil_tpu_torch.train.losses import nll_surv_loss
+    model.train()
+    model.zero_grad(set_to_none=True)
+    h, s = model(x, mask=mask, length=length)
+    label = torch.tensor([1], device=x.device)
+    cens = torch.tensor([0.0], device=x.device)
+    loss = nll_surv_loss(h, s, label, cens, alpha=0.0)
+    collectives.scaled_loss(loss, world).backward()
+    if world > 1:
+        collectives.all_reduce_grads(model.parameters())
+    return loss.detach(), {n: p.grad.detach().clone()
+                           for n, p in model.named_parameters()}
+
+
+def _capture(module):
+    """(store, handle): store["out"] holds `module`'s last output."""
+    store = {}
+    handle = module.register_forward_hook(
+        lambda m, i, o: store.__setitem__("out", o.detach()))
+    return store, handle
+
+
+def _relu_flips(pre_a, pre_b, mask):
+    """The units whose ReLU input changed sign between two runs at a true
+    token, and the largest |input| among those changes."""
+    flips = ((pre_a > 0) != (pre_b > 0)) & mask[..., None]
+    units = sorted(set(flips.nonzero()[:, -1].tolist()))
+    size = torch.minimum(pre_a.abs(), pre_b.abs())[flips]
+    return units, size.max().item() if size.numel() else 0.0
+
+
+def _step_ms(fn, steps=SEQ_TIME_STEPS):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _seq_library(rank, mesh, dev):
+    """(a) on this rank: for each products dtype and bag, the sharded
+    forward hazards and value_and_grad (counters set to 0 just before and
+    read just after), rank 0 against the unsharded port on the same card
+    and weights; the sharded and unsharded steps' ms and peak memory."""
+    import torch.distributed as dist
+    from rrtmil_tpu_torch.config import survival_default
+    from rrtmil_tpu_torch.models.rrt import RRTMIL, init_parameters
+    from rrtmil_tpu_torch.models.survival import SurvivalHead
+    from rrtmil_tpu_torch.parallel.collectives import all_gather
+    from rrtmil_tpu_torch.parallel.seqshard import (sharded_bucket_for,
+                                                    sharded_config)
+    out = {}
+    for mmd in ("float32", "bfloat16"):
+        base = survival_default()
+        cfg = dataclasses.replace(base, dropout=0.0, encoder=dataclasses.replace(
+            base.encoder, dropout=0.0, mm_dtype=mmd))
+        sharded = SurvivalHead(RRTMIL(sharded_config(cfg, mesh.sp),
+                                      mesh.sp_group))
+        init_parameters(sharded, torch.Generator().manual_seed(0))
+        sharded = sharded.to(dev)
+        for length in SEQ_BAGS:
+            tag = f"L={length} {mmd} products"
+            repr_len, n_pad = sharded_bucket_for(length, cfg.encoder,
+                                                 mesh.sp)
+            g = torch.Generator(device=dev).manual_seed(length)
+            x = torch.zeros(1, n_pad, cfg.input_dim, device=dev)
+            x[0, :length] = torch.randn(length, cfg.input_dim, generator=g,
+                                        device=dev)
+            mask = (torch.arange(n_pad, device=dev) < length)[None]
+            n = n_pad // mesh.sp
+            lo = mesh.sp_index * n
+            xs, ms = x[:, lo:lo + n].contiguous(), mask[:, lo:lo + n]
+            reset_counters()
+            torch.cuda.synchronize()
+            with torch.no_grad():
+                sharded.eval()
+                hz = sharded(xs, mask=ms, length=repr_len)[0]
+            torch.cuda.reset_peak_memory_stats(dev)
+            pre, hook = _capture(sharded.backbone.pool_fn.attention.fc1)
+            loss, grads = _seq_value_and_grad(sharded, xs, ms, repr_len,
+                                              mesh.world)
+            hook.remove()
+            torch.cuda.synchronize()
+            rec = {"launches": launches_now(), "n_pad": n_pad,
+                   "repr_length": repr_len, "slab": n,
+                   "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+            rec["step_ms"] = _step_ms(lambda: _seq_value_and_grad(
+                sharded, xs, ms, repr_len, mesh.world)) if mmd == \
+                SEQ_MAIN[1] else None
+            pre_sh = all_gather(pre["out"], 1, mesh.sp_group)
+            if rank == 0:
+                ref = SurvivalHead(RRTMIL(cfg))
+                init_parameters(ref, torch.Generator().manual_seed(0))
+                ref = ref.to(dev)
+                with torch.no_grad():
+                    ref.eval()
+                    hz_ref = ref(x, mask=mask, length=repr_len)[0]
+                torch.cuda.reset_peak_memory_stats(dev)
+                pre_ref, hook = _capture(ref.backbone.pool_fn.attention.fc1)
+                loss_ref, grads_ref = _seq_value_and_grad(ref, x, mask,
+                                                          repr_len, 1)
+                hook.remove()
+                torch.cuda.synchronize()
+                rec["unsharded_peak_gb"] = \
+                    torch.cuda.max_memory_allocated(dev) / 1e9
+                rec["unsharded_step_ms"] = _step_ms(
+                    lambda: _seq_value_and_grad(ref, x, mask, repr_len, 1)) \
+                    if mmd == SEQ_MAIN[1] else None
+                scale = max(1.0, hz_ref.abs().max().item())
+                rec["hazards_err"] = (hz - hz_ref).abs().max().item() / scale
+                rec["loss_err"] = abs(loss.item() - loss_ref.item()) / max(
+                    1.0, abs(loss_ref.item()))
+                # the pool scorer's ReLU on ~6 M pre-activations: with f32
+                # products one within rounding of 0 can take the other side
+                # in the other run, which moves its unit's row of fc1's
+                # gradient by the token's whole share (a difference of the
+                # two runs' rounding, not of the collectives); with bf16
+                # products TOL covers the flips
+                rec["relu_flips"], rec["relu_flip_abs"] = _relu_flips(
+                    pre_sh, pre_ref["out"], mask)
+                skip = {"backbone.pool_fn.attention.fc1.weight":
+                        rec["relu_flips"]} if mmd == "float32" else None
+                rec["grad_err"], rec["grad_worst"], rec["grad_noise"] = \
+                    _grad_errors(grads, grads_ref, skip)
+                del ref, grads_ref
+            dist.barrier()
+            out[tag] = rec
+            del grads
+            torch.cuda.empty_cache()
+        del sharded
+    return out
+
+
+def _dp_batch(cfg, dev):
+    from rrtmil_tpu_torch.data.bucketing import bucket_for
+    spec = bucket_for(DP_BAG, cfg.encoder)
+    g = torch.Generator(device=dev).manual_seed(DP_BAG)
+    x = torch.zeros(2, spec.data_length, cfg.input_dim, device=dev)
+    x[:, :DP_BAG] = torch.randn(2, DP_BAG, cfg.input_dim, generator=g,
+                                device=dev)
+    mask = (torch.arange(spec.data_length, device=dev) < DP_BAG)[None] \
+        .expand(2, -1).contiguous()
+    return x, mask, torch.tensor([0, 1], device=dev), spec
+
+
+def _dp_model(cfg, dev):
+    from rrtmil_tpu_torch.models.rrt import build_model
+    from rrtmil_tpu_torch.train.optim import make_optimizer
+    model = build_model(cfg, device=dev, seed=0)
+    return model, make_optimizer("adam", model.parameters(), DP_LR, 1e-5)
+
+
+def _dp_step(rank, dev):
+    """(c) on this rank: make_sharded_train_step at dp = 2, one bag a rank,
+    counters set to 0 just before the steps and read just after; rank 0
+    against one process at B = 2 on the same card."""
+    import torch.distributed as dist
+    from rrtmil_tpu_torch.config import c16_r50
+    from rrtmil_tpu_torch.parallel.mesh import (global_array, local_mesh,
+                                                make_mesh)
+    from rrtmil_tpu_torch.parallel.train import make_sharded_train_step
+    from rrtmil_tpu_torch.train.losses import cross_entropy
+    mesh = make_mesh(dp=2, sp=1)
+    base = c16_r50()
+    cfg = dataclasses.replace(base, dropout=0.0, encoder=dataclasses.replace(
+        base.encoder, dropout=0.0, mm_dtype="float32"))
+    x, mask, y, spec = _dp_batch(cfg, dev)
+    model, opt = _dp_model(cfg, dev)
+    step = make_sharded_train_step(model, opt, cross_entropy, mesh,
+                                   spec.repr_length)
+    xs, ms, ys = (global_array(t, mesh, ("dp",)) for t in (x, mask, y))
+    reset_counters()
+    torch.cuda.synchronize()
+    losses = torch.stack([step(xs, ms, ys) for _ in range(DP_STEPS)])
+    torch.cuda.synchronize()
+    rec = {"launches": launches_now(), "losses": losses.tolist()}
+    got = {n: p.detach().clone() for n, p in model.named_parameters()}
+    rec["step_ms"] = _step_ms(lambda: step(xs, ms, ys))
+    if rank == 0:
+        ref, ref_opt = _dp_model(cfg, dev)
+        ref_step = make_sharded_train_step(ref, ref_opt, cross_entropy,
+                                           local_mesh(dev),
+                                           spec.repr_length)
+        ref_losses = torch.stack([ref_step(x, mask, y)
+                                  for _ in range(DP_STEPS)])
+        rec["ref_losses"] = ref_losses.tolist()
+        rec["loss_err"] = ((losses - ref_losses).abs() /
+                           ref_losses.abs().clamp_min(1.0)).max().item()
+        want = {n: p.detach().clone() for n, p in ref.named_parameters()}
+        rec["_params"] = (got, want)
+        rec["one_process_step_ms"] = _step_ms(lambda: ref_step(x, mask, y))
+    dist.barrier()
+    return rec
+
+
+def _slice17_rank(rank, out_path):
+    """Phase 17 (a) and (c) on rank `rank` of SEQ_SP ranks sharing the card;
+    rank 0 writes every rank's results to `out_path`."""
+    import torch.distributed as dist
+    from rrtmil_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(dp=1, sp=SEQ_SP)
+    dev = mesh.device
+    rec = {"device": str(dev), "backend": dist.get_backend(),
+           "library": _seq_library(rank, mesh, dev)}
+    rec["dp"] = _dp_step(rank, dev)
+    params = rec["dp"].pop("_params", None)
+    if params is not None:
+        ok, worst, frac = _adam_params_close(*params, DP_LR, DP_STEPS, 1e-3)
+        rec["dp"].update(param_ok=ok, param_err=worst, param_frac=frac)
+    recs = [None] * dist.get_world_size()
+    dist.all_gather_object(recs, rec)
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(recs, f)
+
 
 def phase_slice16(dev):
     """Phase 16: (a) the kernels at --n_heads 16 / 4, --crmsa_heads 16 and
@@ -5715,6 +6009,151 @@ def phase_slice16(dev):
     report["cli"] = phase_fold_zoo_cli(dev)
     report["seconds"] = time.perf_counter() - t0
     log(f"[16] phase 16: {report['seconds']:.1f} s")
+    return report
+
+
+def _seq_checks(ranks):
+    """(a)'s checks over every rank's records: the launches on each rank,
+    and rank 0's comparison with the unsharded port."""
+    for r, rec in enumerate(ranks):
+        for tag, got in rec["library"].items():
+            counts = got["launches"]
+            missed = [n for n in SEQ_KERNELS if counts[n] < 1]
+            extra = [n for n, v in counts.items()
+                     if v and n not in SEQ_KERNELS]
+            if missed or extra:
+                raise AssertionError(f"[17] (a) rank {r} {tag}: the sharded "
+                                     f"forward and value_and_grad missed "
+                                     f"{missed} or ran {extra}")
+    smi = nvidia_smi_line()
+    failed = []
+    for tag, got in ranks[0]["library"].items():
+        mmd = getattr(torch, tag.split()[1])
+        limit = TOL[mmd]
+        noise_limit = NOISE_ABS if mmd == torch.float32 else TOL[mmd]
+        f32 = mmd == torch.float32
+        ok = max(got["hazards_err"], got["loss_err"], got["grad_err"]) \
+            <= limit and got["grad_noise"] <= noise_limit and not (f32 and (
+                len(got["relu_flips"]) > RELU_FLIPS_MAX
+                or got["relu_flip_abs"] > RELU_FLIP_ABS))
+        peaks = ", ".join(f"rank {r} {rec['library'][tag]['peak_gb']:.2f} GB"
+                          for r, rec in enumerate(ranks))
+        log(f"[17] (a) {tag}: bucket {got['n_pad']} tokens, "
+            f"{got['slab']} a rank; sharded vs unsharded on the card: "
+            f"hazards {got['hazards_err']:.2e}, loss {got['loss_err']:.2e}, "
+            f"gradients {got['grad_err']:.2e} at {got['grad_worst']} "
+            f"(scaled, tol {limit:.0e}), "
+            f"noise leaves {got['grad_noise']:.2e} (abs, tol "
+            f"{noise_limit:.0e}); the pool's ReLU flipped at "
+            f"{len(got['relu_flips'])} units (|pre-activation| <= "
+            f"{got['relu_flip_abs']:.1e}{'; their rows of fc1' + chr(39) + 's gradient left out' if f32 else ''}) "
+            f"{'ok' if ok else 'FAIL'}; peak memory "
+            f"of the value_and_grad: {peaks}, unsharded "
+            f"{got['unsharded_peak_gb']:.2f} GB")
+        if got["step_ms"] is not None:
+            log(f"[17] (a) {tag}: value_and_grad {got['step_ms']:.2f} ms "
+                f"sharded over {SEQ_SP} ranks sharing the card (rank 0), "
+                f"{got['unsharded_step_ms']:.2f} ms unsharded; {smi}")
+        if not ok:
+            failed.append(f"{tag}: sharded and unsharded disagree: {got}")
+    if failed:
+        raise AssertionError(f"[17] (a) {failed}")
+
+
+def _dp_checks(ranks):
+    for r, rec in enumerate(ranks):
+        counts = rec["dp"]["launches"]
+        short = [n for n in C16_TRAIN if counts[n] < DP_STEPS]
+        extra = [n for n, v in counts.items() if v and n not in C16_TRAIN]
+        if short or extra:
+            raise AssertionError(f"[17] (c) rank {r}: {DP_STEPS} dp steps "
+                                 f"launched {short} fewer times or ran "
+                                 f"{extra}: {counts}")
+    got = ranks[0]["dp"]
+    ok = got["loss_err"] <= 1e-4 and got["param_ok"]
+    log(f"[17] (c) dp = 2 step (one {DP_BAG}-patch bag a rank, c16_r50, f32 "
+        f"products) vs one process at B = 2: losses {got['losses']} vs "
+        f"{got['ref_losses']} ({got['loss_err']:.2e}, tol 1e-4), parameters "
+        f"{got['param_err']:.2e} (bound {2 * DP_STEPS * DP_LR * ADAM_STEP:.2e}"
+        f", frac {got['param_frac']:.1e}) {'ok' if ok else 'FAIL'}; step "
+        f"{got['step_ms']:.2f} ms on 2 ranks sharing the card, "
+        f"{got['one_process_step_ms']:.2f} ms in one process; "
+        f"{nvidia_smi_line()}")
+    if not ok:
+        raise AssertionError(f"[17] (c) the dp step disagrees: {got}")
+
+
+def _seq_cli(tmp):
+    """(b) the survival CLI with --sp_shards as a process of its own on
+    phase 10's set, 5 folds x 1 epoch."""
+    root = os.path.join(tmp, "surv")
+    csv_file, patches = write_survival_data(root)
+    out_dir = os.path.join(tmp, "out")
+    stdout, secs = cli_process(
+        "rrtmil_tpu_torch.survival_main",
+        ["--excel_file", csv_file, "--model", "RRTMIL", "--input_dim",
+         "1024", "--sp_shards", str(SEQ_SP), "--num_epoch", "1", "--seed",
+         "1", "--results_dir", out_dir], f"survival_main --sp_shards {SEQ_SP}")
+    csvs = [f for f in os.listdir(out_dir) if f.endswith(".csv")]
+    with open(os.path.join(out_dir, "results_RRTMIL.csv")) as f:
+        rows = f.read().splitlines()
+    cindex = [float(v) for v in rows[2].split(",")[1:6]]
+    rules = [ln for ln in stdout.splitlines() if "] backend " in ln]
+    log(f"[17] (b) survival_main --model RRTMIL --sp_shards {SEQ_SP} on "
+        f"{patches} patches, 5 folds x 1 epoch: {secs:.1f} s, c-index by "
+        f"fold {cindex}; {rules}")
+    if csvs != ["results_RRTMIL.csv"] or not np.isfinite(cindex).all() \
+            or len(rules) != SEQ_SP:
+        raise AssertionError(f"[17] (b) the CLI wrote {csvs}, c-index "
+                             f"{cindex}, rules {rules}")
+    return {"seconds": secs, "cindex": cindex, "patches": patches,
+            "backend_lines": rules}
+
+
+def phase_slice17(dev):
+    """Phase 17: sequence-sharded survival training and the dp step over
+    SEQ_SP ranks on the one card (gloo: NCCL takes one rank a device):
+    (a) survival_default at full width, f32 stream, dropout off, on bags of
+    SEQ_BAGS patches in f32 and bf16 products: each rank's sharded forward
+    and value_and_grad through K5-K7, K12 and K13 and no other kernel
+    (counters set to 0 just before, read just after), against the unsharded
+    port on the same card and weights (TOL), per-rank peak memory, both
+    steps' ms; (b) `survival_main --sp_shards 2` as a process; (c)
+    `make_sharded_train_step` at dp = 2 (c16_r50, one DP_BAG-patch bag a
+    rank, f32 products) against one process at B = 2: losses 1e-4,
+    parameters within Adam's drift bound, K1-K9 on each rank."""
+    import tempfile
+    from rrtmil_tpu_torch.parallel.mesh import choose_backend, launch
+    t0 = time.perf_counter()
+    backend, why = choose_backend(SEQ_SP, dev)
+    log(f"[17] {SEQ_SP} ranks, {torch.cuda.device_count()} card(s): "
+        f"backend {backend} ({why})")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ranks.json")
+        launch(_slice17_rank, SEQ_SP, device=dev.type, args=(out,),
+               timeout=SEQ_TIMEOUT)
+        with open(out) as f:
+            ranks = json.load(f)
+        t_lib = time.perf_counter() - t0
+        report = {"backend": backend, "ranks": ranks}
+        failed = []      # every part runs; the phase fails after them
+        for part, check in (("(a)", lambda: _seq_checks(ranks)),
+                            ("(c)", lambda: _dp_checks(ranks)),
+                            ("(b)", lambda: report.update(cli=_seq_cli(tmp)))):
+            try:
+                check()
+            except AssertionError as err:
+                log(f"[17] {part} FAILED: {err}")
+                failed.append(f"{part}: {err}")
+        if failed:
+            raise AssertionError("[17] " + " | ".join(failed))
+    main_tag = f"L={SEQ_MAIN[0]} {SEQ_MAIN[1]} products"
+    report["seq_step"] = {"launches": ranks[0]["library"][main_tag][
+        "launches"]}
+    report["dp_step"] = {"launches": ranks[0]["dp"]["launches"]}
+    report["seconds"] = time.perf_counter() - t0
+    log(f"[17] phase 17: {report['seconds']:.1f} s ((a) and (c) with the "
+        f"ranks' start {t_lib:.1f} s)")
     return report
 
 
@@ -5752,6 +6191,7 @@ def main():
         report["slice14"] = phase_slice14(dev)
         report["slice15"] = phase_slice15(dev)
         report["slice16"] = phase_slice16(dev)
+        report["slice17"] = phase_slice17(dev)
         report["times"] = phase_times_products(dev, phase_times_pairs(
             dev, phase_times_slice3(dev, phase_times(dev))))
         report["throughput"] = phase_throughput(dev)
@@ -5870,14 +6310,19 @@ def main():
             "check", {}).get("sequential", {})
     for tag, rec in s16.get("cli", {}).items():
         paths[f"fold_parallel_{tag}"] = rec
-    # this slice's main path: one fold-parallel step of 5 folds of a zoo
-    # model with --only_rrt_enc (CLAM-MB: K1-K9), and of survival_default's
-    # RRTMIL on a mismatched bucket (K12, K13); K10 / K11 from the FFN train
-    # epoch
-    own = {n: "fold_parallel_zoo_clam_mb_step" for n in C16_TRAIN}
-    own.update({K[9]: "ffn_train_epoch", K[10]: "ffn_train_epoch",
-                K[11]: "fold_parallel_survival_step",
-                K[12]: "fold_parallel_survival_step"})
+    s17 = report.get("slice17", {})
+    for r, rec in enumerate(s17.get("ranks", [])):
+        for tag, lib in rec["library"].items():
+            paths[f"seqshard_rank{r}_{tag}"] = lib
+        paths[f"dp_step_rank{r}"] = rec["dp"]
+    paths["seqshard_step"] = s17.get("seq_step", {})
+    paths["dp_step"] = s17.get("dp_step", {})
+    # this slice's main path: rank 0's sharded forward and value_and_grad
+    # of survival_default at L = 50000 (K5-K7, K12, K13) and its dp = 2
+    # train steps (K1-K4, K8, K9); K10 / K11 from the FFN train epoch
+    own = {n: "dp_step" for n in C16_TRAIN}
+    own.update({n: "seqshard_step" for n in SEQ_KERNELS})
+    own.update({K[9]: "ffn_train_epoch", K[10]: "ffn_train_epoch"})
     fold_times = s15.get("kernels", {}).get("times", {})
     kernels = []
     for name, (replaces, jax_fn, source) in TPU_KERNELS.items():

@@ -28,6 +28,13 @@ DTFD cuts its pseudo-bags over it, MHIM counts its keep-mask over it.
 `--resume` loads MHIM's student alone, its teacher staying the initial
 copy, and only the student is saved, as in the JAX package.
 
+`--sp_shards N` (survival.py:295-311,331-355) trains RRTMIL alone, at
+`survival_rrtmil_config`, on `SeqShardSurvivalEngine`: `run_survival_cv`
+then runs on each of N ranks of a process group (survival_main.py spawns
+them), every bag's grid rows split over the ranks.  Rank 0 alone writes the
+results CSV, the checkpoints and the log; every rank takes the best-epoch
+decisions from the validation numbers, which are rank 0's on every rank.
+
 `run_survival_fold_parallel` (`--fold_parallel`, survival.py:404-559)
 trains the 5 folds at once through parallel/folds.py's step: one bag a
 fold a step, zero-extended on the device to the step's largest bucket;
@@ -57,12 +64,13 @@ from ..models.survival import SurvivalHead, risk_score
 from ..train.checkpoint import load_params, save_params
 from ..train.metrics import concordance_index_censored
 from ..train.optim import fill_unreached_grads
-from ..train.surv_engine import SurvivalEngine, SurvivalEngineConfig
+from ..train.surv_engine import (SeqShardSurvivalEngine, SurvivalEngine,
+                                 SurvivalEngineConfig)
 from ..utils.device import resolve_device
 from ..utils.logger import Logger
 from .dtfd_cls import EVAL_PERM_SEED, eval_permutation
 
-PARALLEL_ITEM = "ROADMAP.md queue 1 item 9"
+PARALLEL_ITEM = "ROADMAP.md queue 1 item 9(d)"
 # the survival models fold-parallel training takes: every SurvivalHead
 # model (RRTMIL on the kernels, the others no kernel at all)
 SURV_FOLD_MODELS = ("rrtmil", "meanmil", "maxmil", "attmil", "clam_sb",
@@ -267,17 +275,26 @@ class MHIMSurvivalEngine(SurvivalEngine):
 
 def make_survival_engine(name: str, model, cfg: SurvivalEngineConfig,
                          encoder_cfg=None, sp_shards: int = 1,
-                         device="cuda", niter_per_ep: int = 100
-                         ) -> SurvivalEngine:
+                         device="cuda", niter_per_ep: int = 100,
+                         mesh=None, seed: int = 0) -> SurvivalEngine:
     """The model's engine (survival.py:293-316): DTFD's and MHIM's own, the
-    SurvivalEngine otherwise; `niter_per_ep` sizes MHIM's schedules."""
+    SurvivalEngine otherwise; `niter_per_ep` sizes MHIM's schedules.  With
+    `sp_shards > 1`, `model` is RRTMIL's RRTMILConfig
+    (`survival_rrtmil_config`), `mesh` this rank's (1, sp_shards) mesh and
+    `seed` the weights' seed: the SeqShardSurvivalEngine."""
     name_l = model_key(name)
     if sp_shards > 1:
-        only = "" if name_l == "rrtmil" else \
-            ", and it takes RRTMIL alone, as in the JAX package"
-        raise ValueError(f"--sp_shards {sp_shards} (--model {name}): the "
-                         f"sequence-sharded survival engine is not ported "
-                         f"yet ({PARALLEL_ITEM}){only}")
+        if name_l != "rrtmil":
+            raise ValueError(f"--sp_shards {sp_shards} (--model {name}): the "
+                             f"sequence-sharded survival engine takes RRTMIL "
+                             f"alone, as in the JAX package")
+        if not isinstance(model, RRTMILConfig):
+            raise TypeError("the sp_shards path takes the RRTMILConfig "
+                            "(survival_rrtmil_config), not a model instance")
+        if mesh is None or mesh.sp != sp_shards:
+            raise ValueError(f"--sp_shards {sp_shards} runs on a mesh of "
+                             f"{sp_shards} sp ranks (parallel/mesh.make_mesh)")
+        return SeqShardSurvivalEngine(model, cfg, mesh, seed=seed)
     if name_l == "dtfd":
         return DTFDSurvivalEngine(model, cfg, encoder_cfg, device=device)
     if name_l == "mhim":
@@ -324,33 +341,59 @@ def check_survival_geometry(args) -> None:
             getattr(args, "device", "cuda"))
 
 
+def check_sp_shards(args) -> int:
+    """--sp_shards N, refused before any work for a model but RRTMIL."""
+    sp_shards = int(getattr(args, "sp_shards", 1) or 1)
+    if sp_shards > 1 and model_key(args.model) != "rrtmil":
+        raise ValueError(f"--sp_shards {sp_shards} (--model {args.model}): "
+                         f"the sequence-sharded survival engine takes RRTMIL "
+                         f"alone, as in the JAX package")
+    return sp_shards
+
+
 def run_survival_cv(args) -> CVMeter:
     """5-fold survival CV (reference Survival/main.py:16-166) on
-    `args.device` (the card unless 'cpu')."""
+    `args.device` (the card unless 'cpu').  With `args.sp_shards` > 1 it
+    runs on each rank of a process group of that many ranks
+    (parallel/mesh.launch), on the rank's device."""
     device = getattr(args, "device", "cuda")
     check_survival_geometry(args)
+    sp_shards = check_sp_shards(args)
+    mesh = None
+    if sp_shards > 1:
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh(dp=1, sp=sp_shards)
+        device = mesh.device
     resolve_device(device)
-    sp_shards = int(getattr(args, "sp_shards", 1) or 1)
+    lead = mesh is None or mesh.rank == 0       # writes files and logs
     n_features = getattr(args, "input_dim", None) or \
         (512 if args.folder == "plip" else 1024)
     dataset = SurvivalDataset(args.excel_file, folder=args.folder,
                               root=getattr(args, "dataset_root", None))
     meter = CVMeter(fold=5)
     results_dir = args.results_dir
-    os.makedirs(results_dir, exist_ok=True)
-    logger = Logger(quiet=getattr(args, "no_log", False))
+    if lead:
+        os.makedirs(results_dir, exist_ok=True)
+    logger = Logger(quiet=getattr(args, "no_log", False) or not lead)
     resume = getattr(args, "resume", "") or ""
 
     for fold in range(5):
         train_idx, val_idx = dataset.get_split(fold)
-        model, enc = build_survival_model(
-            args.model, n_features, n_classes=4, epeg_k=args.epeg_k,
-            crmsa_k=args.crmsa_k, amp=getattr(args, "amp", False),
-            device=device, seed=args.seed)
+        if mesh is not None:
+            model = survival_rrtmil_config(
+                n_features, n_classes=4, epeg_k=args.epeg_k,
+                crmsa_k=args.crmsa_k, amp=getattr(args, "amp", False))
+            enc = model.encoder
+        else:
+            model, enc = build_survival_model(
+                args.model, n_features, n_classes=4, epeg_k=args.epeg_k,
+                crmsa_k=args.crmsa_k, amp=getattr(args, "amp", False),
+                device=device, seed=args.seed)
         engine = make_survival_engine(args.model, model,
                                       engine_config_from_args(args), enc,
                                       sp_shards=sp_shards, device=device,
-                                      niter_per_ep=len(train_idx))
+                                      niter_per_ep=len(train_idx), mesh=mesh,
+                                      seed=args.seed)
 
         # --resume: the best-checkpoint weights (reference Survival/models/
         # RRTMIL/engine.py:27-35)
@@ -372,11 +415,13 @@ def run_survival_cv(args) -> CVMeter:
             continue
 
         fold_dir = os.path.join(results_dir, f"fold_{fold}")
-        os.makedirs(fold_dir, exist_ok=True)
+        if lead:
+            os.makedirs(fold_dir, exist_ok=True)
 
         def save_best(epoch, score, state, fold_dir=fold_dir):
-            save_params(os.path.join(
-                fold_dir, f"model_best_{score:.4f}_{epoch}.pt"), state)
+            if lead:
+                save_params(os.path.join(
+                    fold_dir, f"model_best_{score:.4f}_{epoch}.pt"), state)
 
         score, epoch, _ = engine.learning(dataset, train_idx, val_idx,
                                           logger=logger,
@@ -385,7 +430,8 @@ def run_survival_cv(args) -> CVMeter:
         engine.close()     # free the fold's device bag cache
         meter.update(score, epoch)
 
-    meter.save(os.path.join(results_dir, f"results_{args.model}.csv"))
+    if lead:
+        meter.save(os.path.join(results_dir, f"results_{args.model}.csv"))
     return meter
 
 

@@ -1,6 +1,6 @@
-"""MIL aggregation heads: AB-MIL attention pooling (ungated and gated) and
-masked mean; flax's dropout, which every model of the port draws from its
-caller's `torch.Generator`.
+"""MIL aggregation heads: AB-MIL attention pooling (ungated and gated),
+masked mean and masked max; flax's dropout, which every model of the port
+draws from its caller's `torch.Generator`.
 
 Counterpart of `rrtmil_tpu/models/pool.py` (reference modules/datten.py:
 5-101).  Bags arrive padded to a bucket length, so the softmax over
@@ -14,6 +14,13 @@ Fold-parallel training (parallel/folds.py) runs a model under
 fold, as the generator: each dropout then draws fold f's mask from
 generator f, of that fold's own shape (`keep_mask`), so every fold draws
 what its own sequential run draws.
+
+Under sequence sharding (`sp_group`, a parallel.collectives.ShardGroup of
+more than one rank) each rank holds a slab of the bag's tokens, and every
+pool equals the unsharded one on the whole bag: the attention pools take a
+stable global softmax (`sharded_attention_pool`), the mean sums its
+numerator and count over the group, and the max gathers the ranks' local
+maxima (pool.py:33-50,143-182).
 """
 from __future__ import annotations
 
@@ -22,6 +29,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.collectives import (ShardGroup, all_gather, all_reduce_sum,
+                                    pmax_nograd)
 
 _ACTS = {"relu": F.relu, "gelu": lambda x: F.gelu(x, approximate="none"),
          "tanh": torch.tanh}
@@ -34,6 +44,34 @@ def masked_softmax(logits: torch.Tensor, mask: Optional[torch.Tensor],
         logits = torch.where(mask, logits,
                              torch.finfo(logits.dtype).min)
     return torch.softmax(logits, dim=dim)
+
+
+def sharded_attention_pool(scores: torch.Tensor, x: torch.Tensor,
+                           mask: Optional[torch.Tensor],
+                           sg: ShardGroup) -> torch.Tensor:
+    """Attention pooling of (B, 1, N_local) scores over (B, N_local, C)
+    tokens sharded over `sg` (pool.py:33-50): the global max without a
+    gradient (softmax is shift-invariant, so it only stabilises), then the
+    psum of e @ x and of sum(e) -> (B, 1, C), the single-rank softmax
+    pooling of the whole bag."""
+    if mask is not None:
+        scores = torch.where(mask[:, None, :], scores,
+                             torch.finfo(scores.dtype).min)
+    m = pmax_nograd(scores.amax(dim=-1, keepdim=True), sg)
+    e = torch.exp(scores - m)
+    if mask is not None:
+        e = e * mask[:, None, :].to(e.dtype)
+    num = all_reduce_sum(e @ x, sg)
+    den = all_reduce_sum(e.sum(-1, keepdim=True), sg)
+    return num / den
+
+
+def _pool_scores(a, x, mask, sg):
+    """softmax(a) @ x over the bag, on one rank or sharded over `sg`."""
+    if sg is not None and sg.size > 1:
+        return sharded_attention_pool(a, x, mask, sg)
+    a = masked_softmax(a, None if mask is None else mask[:, None, :])
+    return a @ x                                                 # (B, 1, C)
 
 
 class FoldGenerators(tuple):
@@ -107,19 +145,20 @@ class Attention(nn.Module):
     """2-layer attention scorer L=512 -> D=128 -> K=1 (datten.py:5-38)."""
 
     def __init__(self, input_dim: int = 512, act: str = "relu",
-                 bias: bool = False, dropout: bool = False):
+                 bias: bool = False, dropout: bool = False,
+                 sp_group: Optional[ShardGroup] = None):
         super().__init__()
         self.fc1 = nn.Linear(input_dim, 128, bias=bias)
         self.fc2 = nn.Linear(128, 1, bias=bias)
         self.act = _ACTS[act]
         self.dropout = dropout
+        self.sp_group = sp_group
 
     def forward(self, x, mask=None, generator=None):
         a = _dropout(self.act(self.fc1(x)), self.dropout, generator,
                      self.training)
         a = self.fc2(a).transpose(-1, -2)                        # (B, 1, N)
-        a = masked_softmax(a, None if mask is None else mask[:, None, :])
-        return a @ x                                             # (B, 1, C)
+        return _pool_scores(a, x, mask, self.sp_group)           # (B, 1, C)
 
 
 class AttentionGated(nn.Module):
@@ -127,13 +166,15 @@ class AttentionGated(nn.Module):
     -> c."""
 
     def __init__(self, input_dim: int = 512, act: str = "relu",
-                 bias: bool = False, dropout: bool = False):
+                 bias: bool = False, dropout: bool = False,
+                 sp_group: Optional[ShardGroup] = None):
         super().__init__()
         self.attention_a = nn.Linear(input_dim, 128, bias=bias)
         self.attention_b = nn.Linear(input_dim, 128, bias=bias)
         self.attention_c = nn.Linear(128, 1, bias=bias)
         self.act = _ACTS[act]
         self.dropout = dropout
+        self.sp_group = sp_group
 
     def forward(self, x, mask=None, generator=None):
         a = self.act(self.attention_a(x))
@@ -141,8 +182,7 @@ class AttentionGated(nn.Module):
         a = _dropout(a, self.dropout, generator, self.training)
         b = _dropout(b, self.dropout, generator, self.training)
         g = self.attention_c(a * b).transpose(-1, -2)            # (B, 1, N)
-        g = masked_softmax(g, None if mask is None else mask[:, None, :])
-        return g @ x                                             # (B, 1, C)
+        return _pool_scores(g, x, mask, self.sp_group)           # (B, 1, C)
 
 
 class DAttention(nn.Module):
@@ -150,20 +190,48 @@ class DAttention(nn.Module):
 
     def __init__(self, input_dim: int = 512, act: str = "relu",
                  gated: bool = False, bias: bool = False,
-                 dropout: bool = False):
+                 dropout: bool = False,
+                 sp_group: Optional[ShardGroup] = None):
         super().__init__()
         cls = AttentionGated if gated else Attention
-        self.attention = cls(input_dim, act, bias, dropout)
+        self.attention = cls(input_dim, act, bias, dropout, sp_group)
 
     def forward(self, x, mask=None, generator=None):
         return self.attention(x, mask, generator).squeeze(1)
 
 
 class MeanPool(nn.Module):
-    """Masked mean over instances (reference modules/rrt.py:221)."""
+    """Masked mean over instances (reference modules/rrt.py:221); sharded
+    over `sp_group`, the numerator and the count are summed over it."""
+
+    def __init__(self, sp_group: Optional[ShardGroup] = None):
+        super().__init__()
+        self.sp_group = sp_group
 
     def forward(self, x, mask=None, **_):
         if mask is None:
             mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
         m = mask[..., None].to(x.dtype)
-        return (x * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+        num, den = (x * m).sum(1), m.sum(1)
+        if self.sp_group is not None and self.sp_group.size > 1:
+            num = all_reduce_sum(num, self.sp_group)
+            den = all_reduce_sum(den, self.sp_group)
+        return num / torch.clamp(den, min=1.0)
+
+
+class MaxPool(nn.Module):
+    """Masked max over instances (pool.py:164-182); sharded over `sp_group`,
+    the ranks' (B, C) local maxima are gathered and reduced, which keeps the
+    max differentiable (the winner's rank gets the gradient)."""
+
+    def __init__(self, sp_group: Optional[ShardGroup] = None):
+        super().__init__()
+        self.sp_group = sp_group
+
+    def forward(self, x, mask=None, **_):
+        if mask is not None:
+            x = torch.where(mask[..., None], x, torch.finfo(x.dtype).min)
+        local = x.amax(dim=1)
+        if self.sp_group is None or self.sp_group.size == 1:
+            return local
+        return all_gather(local[None], 0, self.sp_group).amax(dim=0)

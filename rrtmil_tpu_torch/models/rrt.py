@@ -50,8 +50,22 @@ only under the same EPEG condition (`fused_layer_ok`); the other EPEG
 variants and attention dropout run the JAX package's XLA formulation as
 torch ops on either device, as JAX runs XLA there (rrt.py:218-273).  An
 `epeg.kind` outside 'attn', 'value_bf', 'value_af' adds no positional term
-and has no taps, as in JAX.  Sequence sharding raises NotImplementedError
-pointing at ROADMAP.md.
+and has no taps, as in JAX.
+
+Sequence sharding (`sp_shards > 1` in the config, the sp group's
+`parallel.collectives.ShardGroup` handed to the modules as `sp_group`; the
+JAX package's `shard_map` branches, rrt.py:294-325,350-440,868-882): each
+rank holds `grid // sp` whole grid rows of the bag.  The R-MSA layer
+partitions its slab and reverses it with `grid // sp` rows, LayerNorm ->
+K5 a region -> residual; the CR-MSA layer compresses its own `nR // sp`
+regions (K12), all-gathers the (B, k, nR_local, C) representatives along
+the region axis, runs the cross-region InnerAttention (K5) replicated,
+keeps its own slice and redistributes it (K13), K12 and K13 with float32
+products, as JAX's float32 einsums there (its fused kernels need sp = 1,
+rrt.py:366-369).  `fused_layer_ok` and `fused_crmsa_ok` are False under
+sp, so K1-K4 and K8-K11 never see a slab; the pool takes the sp group
+(models/pool.py).  Position embeddings and the stream-wide Nystrom
+attention would read across the slabs' edges and raise under sp.
 
 `model.train()` plays the role of the JAX package's `deterministic=False`:
 dropout and stochastic depth go where the JAX model puts them (after
@@ -82,6 +96,7 @@ from ..ops.kernels.crmsa_kernels import (crmsa_compress, crmsa_compress_grid,
 from ..ops.kernels.region_block import region_block_fused
 from ..ops.kernels.region_layer import region_layer_fused
 from ..ops.regions import grid_geometry, region_partition, region_reverse
+from ..parallel.collectives import ShardGroup, all_gather
 from ..utils.device import resolve_device
 from ..utils.inits import crmsa_phi_init_, xavier_normal_
 from .nystrom import NystromAttention
@@ -95,11 +110,6 @@ def _dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md "
-                               f"queue 1 item {item}")
-
-
 def drop_path(x: torch.Tensor, rate: float,
               generator: Optional[torch.Generator],
               training: bool) -> torch.Tensor:
@@ -111,6 +121,22 @@ def drop_path(x: torch.Tensor, rate: float,
     keep = 1.0 - rate
     m = keep_mask(x, keep, generator, per_sample=True)
     return torch.where(m.bool(), x / keep, torch.zeros_like(x))
+
+
+def _slab_rows(geom, sp: int) -> int:
+    """The grid rows of one rank's slab; raises unless the grid splits into
+    whole region-rows over `sp` ranks (rrt.py:300-304)."""
+    if geom.grid % (sp * geom.region_size) != 0:
+        raise ValueError(
+            f"seqshard: grid {geom.grid} must split into whole region-rows "
+            f"across sp={sp} (region_size={geom.region_size})")
+    return geom.grid // sp
+
+
+def _check_group(sp: int, sp_group: Optional[ShardGroup]) -> None:
+    if sp > 1 and (sp_group is None or sp_group.size != sp):
+        raise ValueError(f"sp_shards={sp} needs the sp group of {sp} ranks "
+                         f"(sp_group=, parallel/mesh.make_mesh)")
 
 
 def _fit_length(x: torch.Tensor, target: int) -> torch.Tensor:
@@ -302,15 +328,15 @@ class RegionAttention(nn.Module):
     """R-MSA: square-grid partition -> per-region MHSA (or Nystrom
     attention, `region_attn='ntrans'`) -> merge (reference
     modules/rmsa.py:152-230).  `length` is the true bag length; the output
-    has the input's length."""
+    has the input's length.  Under sequence sharding the input is this
+    rank's slab of `grid // sp` whole grid rows (no collective: regions
+    never cross a slab's edge)."""
 
     def __init__(self, cfg: RMSAConfig):
         super().__init__()
         if cfg.region_attn not in ("native", "ntrans"):
             raise ValueError(f"region_attn={cfg.region_attn!r} is not one of "
                              f"'native', 'ntrans'")
-        if cfg.region.sp_shards > 1:
-            raise _todo("sequence sharding (sp_shards > 1)", "9(b)")
         self.cfg = cfg
         # 'ntrans': Nystrom attention inside each region (rrt.py:314-316),
         # torch ops on either device as the JAX package's XLA
@@ -324,9 +350,11 @@ class RegionAttention(nn.Module):
         length = n_in if length is None else length
         geom = grid_geometry(length, self.cfg.region)
         rs = geom.region_size
-        x = _fit_length(x, geom.padded_length).reshape(b, geom.grid, geom.grid, c)
+        sp = self.cfg.region.sp_shards
+        rows = _slab_rows(geom, sp) if sp > 1 else geom.grid
+        x = _fit_length(x, rows * geom.grid).reshape(b, rows, geom.grid, c)
         regions = self.attn(region_partition(x, rs), generator)
-        out = region_reverse(regions, rs, geom.grid, geom.grid)
+        out = region_reverse(regions, rs, rows, geom.grid)
         return _fit_length(out, n_in)
 
 
@@ -345,13 +373,19 @@ class CrossRegionAttention(nn.Module):
     softmax, the min-max and the compress / redistribute einsums run as
     torch ops in float32 (flax's Dense and einsum promote a bf16 stream
     against float32 weights to float32), around the cross-region
-    InnerAttention (K5 on the card)."""
+    InnerAttention (K5 on the card).
 
-    def __init__(self, cfg: CRMSAConfig):
+    Under sequence sharding (`sp_group`) the input is this rank's slab: it
+    compresses its own regions, and the cross-region attention runs on the
+    representatives of every rank's regions (`_cross_region`); K12 and K13
+    run with float32 products."""
+
+    def __init__(self, cfg: CRMSAConfig,
+                 sp_group: Optional[ShardGroup] = None):
         super().__init__()
-        if cfg.region.sp_shards > 1:
-            raise _todo("sequence sharding (sp_shards > 1)", "9(b)")
+        _check_group(cfg.region.sp_shards, sp_group)
         self.cfg = cfg
+        self.sp_group = sp_group
         c, kk = cfg.attn.dim, cfg.crmsa_k
         if cfg.crmsa_mlp:
             self.phi = None
@@ -361,10 +395,26 @@ class CrossRegionAttention(nn.Module):
             self.phi = nn.Parameter(torch.zeros(c, kk))
         self.attn = InnerAttention(cfg.attn)
 
+    def _cross_region(self, reps, generator):
+        """The cross-region InnerAttention on (B, k, nR, C) representatives
+        of this rank's regions -> (B, k, nR, C).  Sharded, the group's
+        representatives are gathered along the region axis (the attention
+        runs replicated on every rank, rrt.py:413-428) and this rank's
+        regions' slice is kept."""
+        b, kk, nr, c = reps.shape
+        sg = self.sp_group
+        if sg is not None and sg.size > 1:
+            full = all_gather(reps, 2, sg)
+            out = self.attn(full.reshape(b * kk, nr * sg.size, c), generator)
+            return out.reshape(b, kk, nr * sg.size, c).narrow(
+                2, sg.index * nr, nr)
+        # a view when B = 1, and K5 reads its input in place
+        return self.attn(reps.reshape(b * kk, nr, c),
+                         generator).reshape(b, kk, nr, c)
+
     def _forward_mlp(self, regions, generator):
         """The XLA route on (B, nR, P, C) regions -> (B * nR, P, C) float32."""
         b, nr, p, c = regions.shape
-        kk = self.cfg.crmsa_k
         regions = regions.float()
         t = torch.tanh(F.linear(regions, self.phi_fc1.weight))
         logits = F.linear(t, self.phi_fc2.weight).transpose(-1, -2)
@@ -374,9 +424,9 @@ class CrossRegionAttention(nn.Module):
         lmax = logits.amax(dim=-1, keepdim=True)
         dispatch_mm = (logits - lmin) / (lmax - lmin + 1e-8)
         reps = torch.einsum("brpc,brkp->bkrc", regions, combine)
-        reps = self.attn(reps.reshape(b * kk, nr, c), generator)
-        out = torch.einsum("bkrc,brkp->brpc", reps.reshape(b, kk, nr, c)
-                           .float(), dispatch_mm * dispatch)
+        reps = self._cross_region(reps, generator)
+        out = torch.einsum("bkrc,brkp->brpc", reps.float(),
+                           dispatch_mm * dispatch)
         return out.reshape(b * nr, p, c)
 
     def forward(self, x, length: Optional[int] = None,
@@ -385,25 +435,25 @@ class CrossRegionAttention(nn.Module):
         b, n_in, c = x.shape
         length = n_in if length is None else length
         geom = grid_geometry(length, cfg.region)
-        rs, nr, kk = geom.region_size, geom.num_regions, cfg.crmsa_k
-        x = _fit_length(x, geom.padded_length).reshape(b, geom.grid, geom.grid, c)
+        rs, kk = geom.region_size, cfg.crmsa_k
+        sp = cfg.region.sp_shards
+        rows = _slab_rows(geom, sp) if sp > 1 else geom.grid
+        nr = geom.num_regions // sp
+        x = _fit_length(x, rows * geom.grid).reshape(b, rows, geom.grid, c)
         if cfg.crmsa_mlp:
             regions = region_partition(x, rs).reshape(b, nr, -1, c)
             out = self._forward_mlp(regions, generator)
-            return _fit_length(region_reverse(out, rs, geom.grid, geom.grid),
-                               n_in)
+            return _fit_length(region_reverse(out, rs, rows, geom.grid), n_in)
         # the XLA einsums (rrt.py:392-440) round nothing: K12/K13 at float32
-        # products are that formulation
-        mmd = products_dtype(cfg.attn)
+        # products are that formulation, as is the sharded path's
+        mmd = torch.float32 if sp > 1 else products_dtype(cfg.attn)
         reps, w = crmsa_compress(region_partition(x, rs), self.phi, mmd)
-        # (B*nR, k, C) -> (B*k, nR, C); a view when B = 1, and K5 reads its
-        # input in place
-        reps = reps.reshape(b, nr, kk, c).transpose(1, 2)
-        reps = self.attn(reps.reshape(b * kk, nr, c), generator)
-        reps = reps.reshape(b, kk, nr, c).transpose(1, 2)
+        # (B*nR, k, C) -> (B, k, nR, C) and back
+        reps = self._cross_region(reps.reshape(b, nr, kk, c).transpose(1, 2),
+                                  generator).transpose(1, 2)
         out = crmsa_redistribute(w, reps.reshape(b * nr, kk, c).float()
                                  .contiguous(), mmd)
-        out = region_reverse(out, rs, geom.grid, geom.grid)
+        out = region_reverse(out, rs, rows, geom.grid)
         return _fit_length(out, n_in)
 
     def fused(self, x, mask, ln_s, ln_b, length: int, add_residual: bool,
@@ -440,7 +490,7 @@ def fused_layer_ok(cfg: TransLayerConfig, x, mask, length: int) -> bool:
     the R-MSA layer runs as one K1 call (never with Nystrom regions)."""
     if cfg.attn_mode != "rmsa" or mask is None:
         return False
-    if cfg.rmsa.region_attn == "ntrans":
+    if cfg.rmsa.region_attn == "ntrans" or cfg.rmsa.region.sp_shards != 1:
         return False
     a = cfg.rmsa.attn
     ep = a.epeg
@@ -469,8 +519,10 @@ def crmsa_branch_outside(cfg: TransLayerConfig, training: bool) -> bool:
 
 def fused_crmsa_ok(cfg: TransLayerConfig, x, mask, length: int) -> bool:
     """Counterpart of fused_crmsa_ok (rrt.py:491-513): True when the CR-MSA
-    layer runs as K3 -> K5 -> K8."""
+    layer runs as K3 -> K5 -> K8 (never on a slab, rrt.py:499)."""
     if cfg.attn_mode != "crmsa" or mask is None or cfg.crmsa.crmsa_mlp:
+        return False
+    if cfg.crmsa.region.sp_shards != 1:
         return False
     if not _fused_backend(cfg.crmsa.attn):
         return False
@@ -490,14 +542,15 @@ class TransLayer(nn.Module):
     the stream stays zero on them (reference modules/rrt.py:43-131, JAX
     rrt.py:682-754)."""
 
-    def __init__(self, cfg: TransLayerConfig):
+    def __init__(self, cfg: TransLayerConfig,
+                 sp_group: Optional[ShardGroup] = None):
         super().__init__()
         self.cfg = cfg
         self.norm = LayerNorm(cfg.dim)
         if cfg.attn_mode == "rmsa":
             self.attn = RegionAttention(cfg.rmsa)
         elif cfg.attn_mode == "crmsa":
-            self.attn = CrossRegionAttention(cfg.crmsa)
+            self.attn = CrossRegionAttention(cfg.crmsa, sp_group)
         elif cfg.attn_mode == "ntrans":
             # Nystrom attention over the whole stream (rrt.py:732-734)
             self.attn = NystromAttention(cfg.nystrom)
@@ -605,9 +658,11 @@ class RRTEncoder(nn.Module):
     and before layer 1 at `pos_pos = 0` (rrt.py:776-786), the rows masked
     after it.  Where it applies nowhere (`pos_pos = 0` with n_layers = 2,
     the default depth) the module is not built, as flax makes no params
-    for a module never called."""
+    for a module never called.  Under sequence sharding (`sp_group`) it takes
+    this rank's slab of the bag."""
 
-    def __init__(self, cfg: RRTEncoderConfig):
+    def __init__(self, cfg: RRTEncoderConfig,
+                 sp_group: Optional[ShardGroup] = None):
         super().__init__()
         if cfg.attn_mode not in ("rmsa", "ntrans"):
             raise ValueError(f"attn_mode={cfg.attn_mode!r} is not one of "
@@ -618,9 +673,16 @@ class RRTEncoder(nn.Module):
         applies = p.pos_pos == -1 or (p.pos_pos == 0 and self.n_rmsa > 1)
         self.pos_embedding = build_pos_embedding(
             p.kind, cfg.dim, p.k, p.bias, p.conv_1d) if applies else None
+        if cfg.sp_shards > 1 and (self.pos_embedding is not None or
+                                  cfg.attn_mode == "ntrans"):
+            raise ValueError(f"sp_shards={cfg.sp_shards}: the position "
+                             f"embedding and attn_mode 'ntrans' read across "
+                             f"the slabs' edges; they run unsharded only")
+        _check_group(cfg.sp_shards, sp_group)
         for i in range(self.n_rmsa):
             self.add_module(f"layer{i}", TransLayer(cfg.rmsa_layer()))
-        self.cr_msa = TransLayer(cfg.crmsa_layer()) if cfg.cr_msa else None
+        self.cr_msa = (TransLayer(cfg.crmsa_layer(), sp_group)
+                       if cfg.cr_msa else None)
         self.norm = LayerNorm(cfg.dim)
 
     def _pos(self, x, mask, length: int):
@@ -664,18 +726,22 @@ class RRTEncoder(nn.Module):
 
 class RRTMIL(nn.Module):
     """Linear(input_dim -> 512) + act -> RRTEncoder -> attention pooling ->
-    classifier (reference modules/rrt.py:204-246)."""
+    classifier (reference modules/rrt.py:204-246).  With
+    `cfg.encoder.sp_shards > 1` it runs on this rank's slab of each bag,
+    `sp_group` its sp group, and returns the whole bag's logits on every
+    rank; `length` (the bag's bucket length) is then required."""
 
-    def __init__(self, cfg: RRTMILConfig):
+    def __init__(self, cfg: RRTMILConfig,
+                 sp_group: Optional[ShardGroup] = None):
         super().__init__()
         self.cfg = cfg
         self.patch_to_emb = nn.Linear(cfg.input_dim, 512)
-        self.online_encoder = RRTEncoder(cfg.encoder)
+        self.online_encoder = RRTEncoder(cfg.encoder, sp_group)
         p = cfg.pool
         # any kind but 'attn' is the masked mean, as in JAX (rrt.py:867-879)
         self.pool_fn = (DAttention(cfg.encoder.dim, p.act, p.gated, p.bias,
-                                   p.dropout)
-                        if p.kind == "attn" else MeanPool())
+                                   p.dropout, sp_group)
+                        if p.kind == "attn" else MeanPool(sp_group))
         self.predictor = nn.Linear(cfg.encoder.dim, cfg.n_classes)
 
     def forward(self, x, mask=None, length: Optional[int] = None,
@@ -684,6 +750,9 @@ class RRTMIL(nn.Module):
         cfg = self.cfg
         if x.dim() == 2:
             x = x[None]
+        if length is None and cfg.encoder.sp_shards > 1:
+            raise ValueError("a sequence-sharded RRTMIL takes the bag's "
+                             "length: its input is one rank's slab")
         length = x.shape[1] if length is None else length
         cdt = _dtype(cfg.encoder.compute_dtype)
         w = self.patch_to_emb
@@ -731,11 +800,13 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
                 mod.init_own_parameters(generator)
 
 
-def build_model(cfg: RRTMILConfig, device="cuda", seed: int = 0) -> RRTMIL:
+def build_model(cfg: RRTMILConfig, device="cuda", seed: int = 0,
+                sp_group: Optional[ShardGroup] = None) -> RRTMIL:
     """An RRTMIL in eval mode with seeded weights, on `device` (the card by
     default; raises when there is none unless device='cpu'); `.train()`
-    switches dropout on."""
+    switches dropout on.  A sequence-sharded config (`sp_group`) draws the
+    same weights as its unsharded twin: the modules are the same."""
     dev = resolve_device(device)
-    model = RRTMIL(cfg)
+    model = RRTMIL(cfg, sp_group)
     init_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

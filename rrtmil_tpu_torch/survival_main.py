@@ -10,7 +10,14 @@ MaxMIL, AttMIL, CLAM_SB, CLAM_MB, DSMIL, TransMIL, IBMIL, DTFD and
 MHIM-MIL (the last two through engines of their own).  `--fold_parallel`
 trains the 5 folds at once (`harness/survival.run_survival_fold_parallel`:
 every model but DTFD and MHIM-MIL, which raise as in the JAX package);
-`--sp_shards > 1` raises (ROADMAP.md queue 1 item 9(b)).  An RRTMIL
+`--sp_shards N` trains RRTMIL with each bag's grid rows split over N ranks,
+as one command: it spawns N processes (torch.multiprocessing, start method
+'spawn', a free localhost port), rank r on `cuda:(r % device_count)` (or
+the CPU with `--device cpu`), each running `run_survival_cv` on its slab
+(NCCL with a card a rank, else gloo: parallel/mesh.py).  The parent builds
+the kernel libraries before it spawns, so no two ranks race on the build
+directory; if a rank fails, the others are stopped and the command exits
+non-zero.  `--fold_parallel` with `--sp_shards` raises.  An RRTMIL
 `--epeg_k` / `--crmsa_k` the card's kernels do not take raises before any
 work on the card (`models.rrt.check_kernel_geometry`).
 """
@@ -20,8 +27,8 @@ import argparse
 import os
 import time
 
-from .harness.survival import (PARALLEL_ITEM, run_survival_cv,
-                               run_survival_fold_parallel)
+from .harness.survival import (check_sp_shards, check_survival_geometry,
+                               run_survival_cv, run_survival_fold_parallel)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,8 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "model but DTFD and MHIM-MIL)")
     parser.add_argument("--results_dir", type=str, default=None)
     parser.add_argument("--sp_shards", type=int, default=1,
-                        help="sequence-parallel shards for long bags: only 1 "
-                             f"is ported ({PARALLEL_ITEM})")
+                        help="sequence-parallel ranks for long bags: each "
+                             "bag's grid rows split over this many processes "
+                             "(RRTMIL only)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (the card; raises when there is none) or "
                              "'cpu' (the kernels' plain PyTorch versions)")
@@ -90,11 +98,31 @@ def parse_args(argv=None):
     return args
 
 
+def _rank_main(rank: int, args) -> None:
+    run_survival_cv(args)
+
+
+def run_sharded(args) -> None:
+    """`run_survival_cv` on `args.sp_shards` spawned ranks."""
+    from .parallel.mesh import launch
+    from .utils.device import resolve_device
+    check_survival_geometry(args)
+    check_sp_shards(args)
+    if resolve_device(args.device).type == "cuda":
+        from .ops.kernels import build
+        build.build_all()
+    launch(_rank_main, args.sp_shards, device=args.device, args=(args,))
+
+
 def main(argv=None):
     args = parse_args(argv)
     print(args)
-    meter = (run_survival_fold_parallel(args) if args.fold_parallel
-             else run_survival_cv(args))
+    if args.fold_parallel:
+        meter = run_survival_fold_parallel(args)
+    elif args.sp_shards > 1:
+        meter = run_sharded(args)
+    else:
+        meter = run_survival_cv(args)
     print("finished!")
     return meter
 

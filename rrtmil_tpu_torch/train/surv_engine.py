@@ -11,8 +11,12 @@ epoch.  Dropout masks come from the engine's `torch.Generator` (seeded with
 `cfg.seed`, on the engine's device).  Bags stay on the card after their
 first transfer (`data/device_cache.py`, keyed by the bag's file path), so
 later epochs skip the disk read, the pad and the copy; each epoch's
-targets go to the device in one copy.  The sequence-sharded engine is a
-later slice (ROADMAP.md queue 1 item 9).
+targets go to the device in one copy.
+
+`SeqShardSurvivalEngine` (surv_engine.py:244-355) trains the long-bag
+config with each bag's grid rows split over the ranks of an sp group
+(parallel/seqshard.py): one engine a rank, each holding its slab of every
+bag and a replica of the weights.
 """
 from __future__ import annotations
 
@@ -25,9 +29,13 @@ import numpy as np
 import torch
 
 from ..config import RRTEncoderConfig
-from ..data.bucketing import bucket_for, pad_bag
+from ..data.bucketing import BucketSpec, bucket_for, pad_bag
 from ..data.device_cache import DeviceBagCache, cacheable
-from ..models.survival import risk_score
+from ..models.rrt import RRTMIL, init_parameters
+from ..models.survival import SurvivalHead, risk_score
+from ..parallel.collectives import (all_reduce_grads, broadcast_floats,
+                                    broadcast_module, scaled_loss)
+from ..parallel.seqshard import sharded_bucket_for, sharded_config
 from ..utils.device import resolve_device
 from .losses import ce_surv_loss, nll_surv_loss
 from .metrics import concordance_index_censored
@@ -235,3 +243,81 @@ class SurvivalEngine:
                 if checkpoint_fn:
                     checkpoint_fn(epoch, val_ci, best_state)
         return best_score, best_epoch, best_state
+
+
+class SeqShardSurvivalEngine(SurvivalEngine):
+    """Sequence-sharded survival training (surv_engine.py:244-355): the
+    SurvivalEngine's train_epoch / validate / learning with each bag split
+    into whole region-rows over the ranks of `mesh`'s sp group, one engine
+    a rank.
+
+    The model is `SurvivalHead(RRTMIL)` of `model_cfg` made sharded, its
+    weights those its unsharded twin draws from `seed` (the same modules),
+    then rank 0's broadcast to every rank, so every replica holds the same
+    bits.  `_prep` pads a bag to its sharded bucket (`sharded_bucket_for`)
+    and keeps this rank's slab; the device cache holds slabs.  Each rank
+    seeds its backward with loss / sp and sums the gradients over the group
+    (parallel/collectives.py), so every replica takes the same update.
+    Dropout masks come from a generator of rank r's own (JAX folds the axis
+    index into the key, surv_engine.py:324-327); the bag order is the same
+    on every rank.  `validate` runs on every rank (the forward needs the
+    collectives), and its loss and c-index are rank 0's on every rank, so
+    that every rank takes the same best-epoch and plateau decisions."""
+
+    def __init__(self, model_cfg, cfg: SurvivalEngineConfig, mesh,
+                 seed: int = 0):
+        if mesh.dp != 1:
+            raise ValueError(f"the sequence-sharded survival engine runs on "
+                             f"a (1, sp) mesh, not ({mesh.dp}, {mesh.sp})")
+        self.mesh = mesh
+        self.sp = mesh.sp
+        model = SurvivalHead(RRTMIL(sharded_config(model_cfg, self.sp),
+                                    mesh.sp_group))
+        init_parameters(model, torch.Generator().manual_seed(seed))
+        super().__init__(model, cfg, model_cfg.encoder, device=mesh.device)
+        if self.sp > 1:
+            broadcast_module(self.model)
+        rank_seed = np.random.SeedSequence([cfg.seed, mesh.sp_index])
+        self.generator.manual_seed(int(rank_seed.generate_state(1)[0]))
+
+    def load_state_dict(self, state) -> None:
+        super().load_state_dict(state)
+        if self.sp > 1:
+            broadcast_module(self.model)
+
+    def _prep(self, bag: np.ndarray):
+        """One bag padded to its sharded bucket: this rank's slab (x (1,
+        N / sp, D), mask (1, N / sp)) on the engine's device, and the
+        bucket (`repr_length` the model's length)."""
+        repr_length, data_length = sharded_bucket_for(
+            bag.shape[0], self.encoder_cfg, self.sp)
+        n = data_length // self.sp
+        lo = self.mesh.sp_index * n
+        slab = bag[lo:lo + n].astype(np.float32)
+        x, mask = pad_bag(slab, n)
+        x = torch.from_numpy(x[None])
+        if self.cfg.transfer_dtype != "float32":
+            x = x.to(getattr(torch, self.cfg.transfer_dtype))
+        spec = BucketSpec(key=(int(np.sqrt(data_length)),),
+                          repr_length=repr_length, data_length=data_length)
+        return (x.to(self.device),
+                torch.from_numpy(mask[None]).to(self.device), spec)
+
+    def _train_step(self, x, mask, label, censorship, length: int):
+        hazards, survival = self.model(x, mask=mask, length=length,
+                                       generator=self.generator)
+        loss = self._loss(hazards, survival, label, censorship)
+        scaled_loss(loss, self.sp).backward()
+        fill_unreached_grads(self.model)
+        if self.sp > 1:
+            all_reduce_grads(self.model.parameters(),
+                             self.mesh.sp_group.group)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        return loss.detach(), risk_score(survival).detach()
+
+    def validate(self, dataset, indices: Sequence[int]):
+        loss, c_index = super().validate(dataset, indices)
+        if self.sp > 1:
+            loss, c_index = broadcast_floats([loss, c_index], self.device)
+        return loss, c_index

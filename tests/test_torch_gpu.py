@@ -1731,3 +1731,103 @@ def test_cuda_crmsa_kernels_at_k_12_and_16(sdt, mm, k):
              [[f[5].reshape(2 * nr, k, p), f[6].reshape(2 * nr, k, c)]
               for f in per])):
         _fold_form_matches(dev, mm, f"{name} k={k}", fn, args)
+
+
+# -- sequence sharding and the dp step over 2 ranks sharing the card ---------
+
+SEQ_KERNELS = ("K5", "K6", "K7", "K12", "K13")
+SEQ_BAG = 9000        # sharded bucket 96 x 96, 4608 tokens a rank
+
+
+@pytest.fixture(scope="module")
+def seqshard_card(tmp_path_factory):
+    """tests/_torch_seqshard_ranks.card_seqshard on 2 ranks of the card
+    (gloo: NCCL takes one rank a device): every rank's records."""
+    _cuda()
+    import sys
+    from rrtmil_tpu_torch.parallel.mesh import launch
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import _torch_seqshard_ranks as ranks
+    build.build_all()
+    out = str(tmp_path_factory.mktemp("seqshard") / "ranks.pt")
+    launch(ranks.card_seqshard, 2, device="cuda", args=(out, SEQ_BAG))
+    return torch.load(out, weights_only=False)
+
+
+@pytest.mark.gpu
+def test_seqshard_on_card_matches_unsharded(seqshard_card):
+    """survival_default (f32 products, dropout off) at 9000 patches over 2
+    ranks: the hazards, loss and every gradient within 1e-4 (scaled) of the
+    unsharded model on the same card and weights; pe_bias and the key third
+    of each qkv bias (zero in exact arithmetic) within NOISE_ABS."""
+    rec = seqshard_card[0]
+    _close(rec["hazards"], rec["ref_hazards"], torch.float32, "hazards")
+    assert abs(rec["loss"] - rec["ref_loss"]) <= 1e-4 * max(
+        1.0, abs(rec["ref_loss"]))
+    for name, want in rec["ref_grads"].items():
+        got = rec["grads"][name]
+        if "pe_bias" in name:
+            assert (got - want).abs().max().item() <= NOISE_ABS, name
+            continue
+        if name.endswith("qkv.bias"):
+            t = want.shape[0] // 3
+            assert (got[t:2 * t] - want[t:2 * t]).abs().max().item() <= \
+                NOISE_ABS, name
+            got, want = (torch.cat([v[:t], v[2 * t:]]) for v in (got, want))
+        _close(got, want, torch.float32, name)
+
+
+@pytest.mark.gpu
+def test_seqshard_on_card_launches_k5_k7_k12_k13(seqshard_card):
+    """Each rank's sharded forward and value_and_grad: K5 (R-MSA regions
+    and the cross-region attention, forward and train), K6 / K7 (K5's
+    backward), K12 / K13, and none of K1-K4 or K8-K11."""
+    for rank, rec in enumerate(seqshard_card):
+        counts = rec["launches"]
+        assert all(counts[k] >= 1 for k in SEQ_KERNELS), (rank, counts)
+        assert not any(v for k, v in counts.items()
+                       if k not in SEQ_KERNELS), (rank, counts)
+
+
+@pytest.mark.gpu
+def test_dp_step_on_card_matches_one_process(seqshard_card):
+    """make_sharded_train_step at dp = 2 (c16_r50, f32 products, one
+    2213-patch bag a rank) against one process at B = 2: two steps' losses
+    within 1e-4, parameters within Adam's drift bound (2 x 2 steps x lr x
+    1.01); each rank launches K1-K9 every step and nothing else."""
+    for rank, rec in enumerate(seqshard_card):
+        counts = rec["dp_launches"]
+        assert all(counts[f"K{i}"] >= 2 for i in range(1, 10)), counts
+        assert not any(counts[f"K{i}"] for i in range(10, 14)), counts
+    (got, params), (want, ref) = seqshard_card[0]["dp"], \
+        seqshard_card[0]["dp_ref"]
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert seqshard_card[1]["dp"][0] == got
+    for name, p in params.items():
+        assert (p - ref[name]).abs().max().item() <= 2 * 2 * 2e-4 * 1.01, \
+            name
+
+
+@pytest.mark.gpu
+def test_survival_cli_sp_shards_on_card(tmp_path):
+    """`python -m rrtmil_tpu_torch.survival_main --model RRTMIL --sp_shards
+    2` as a process on the card (input 64, 5 folds x 1 epoch): it prints
+    the backend rule on each rank, exits 0, and writes one results CSV with
+    a finite c-index in every fold."""
+    import subprocess
+    import sys
+    _cuda()
+    csv_file = _write_survival_set(str(tmp_path / "data"), 64)
+    out = str(tmp_path / "out")
+    proc = subprocess.run(
+        [sys.executable, "-m", "rrtmil_tpu_torch.survival_main", "--model",
+         "RRTMIL", "--sp_shards", "2", "--input_dim", "64", "--num_epoch",
+         "1", "--excel_file", csv_file, "--results_dir", out],
+        capture_output=True, text=True, timeout=600, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.count("] backend gloo") == 2, proc.stdout[-2000:]
+    assert [f for f in os.listdir(out) if f.endswith(".csv")] == \
+        ["results_RRTMIL.csv"]
+    with open(os.path.join(out, "results_RRTMIL.csv")) as f:
+        cindex = [float(v) for v in f.read().splitlines()[2].split(",")[1:6]]
+    assert np.isfinite(cindex).all()

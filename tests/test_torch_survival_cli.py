@@ -190,20 +190,20 @@ def test_zoo_backbones_build_and_run_on_the_cpu(name, cls):
 def test_refusals_name_their_roadmap_items(tmp_path):
     """mhim is no zoo name (an unknown model there, as in the JAX
     registry); DTFD and MHIM-MIL get their own engines; --sp_shards > 1
-    raises naming the model that asked and item 9; --fold_parallel with a
-    model it does not know or with --sp_shards 2 raises, and tells a DTFD
-    or MHIM-MIL user that the JAX package does not run it there either."""
+    takes RRTMIL's config alone, as in the JAX package; --fold_parallel
+    with a model it does not know or with --sp_shards 2 raises naming item
+    9, and tells a DTFD or MHIM-MIL user that the JAX package does not run
+    it there either."""
     with pytest.raises(ValueError, match="unknown model 'mhim'"):
         zoo.build_model("mhim", device="cpu")
     assert isinstance(survival.make_survival_engine(
         "DTFD", torch.nn.Linear(2, 2), SurvivalEngineConfig(),
         device="cpu"), survival.DTFDSurvivalEngine)
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 9"):
+    with pytest.raises(TypeError, match="takes the RRTMILConfig"):
         survival.make_survival_engine("RRTMIL", torch.nn.Linear(2, 2),
                                       SurvivalEngineConfig(), sp_shards=2,
                                       device="cpu")
-    with pytest.raises(ValueError, match="--model DTFD.*item 9.*RRTMIL "
-                                         "alone"):
+    with pytest.raises(ValueError, match="--model DTFD.*RRTMIL alone"):
         survival.make_survival_engine("DTFD", torch.nn.Linear(2, 2),
                                       SurvivalEngineConfig(), sp_shards=2,
                                       device="cpu")
